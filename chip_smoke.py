@@ -1,0 +1,550 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Builds the hand-written CUDA kernels from ``src/repro_torch/kernels/csrc``
+with ``nvcc`` (into the git-ignored ``build/``), then runs these phases on
+the card, raising on any mismatch:
+
+1. Kernel checks: each kernel against its plain PyTorch version on the
+   same inputs on the card, at the serving path's shapes.
+2. Serving: ``PreferenceServer`` at ``ServeConfig()`` defaults over a
+   64-request trace, with f32 and with int8 weights, at ``GPOConfig()``
+   width with random weights from a seed; cache hit == miss bit for bit,
+   served rows against the monolithic ``predict_preferences`` and against
+   the port's CPU path, p50/p99 latency and QPS; then both engines once
+   more under ``torch.profiler``: device kernel time against wall time.
+3. The quickstart's serve step: ``predict_preferences`` with the
+   attention kernel for every held-out group, against the dense branch.
+4. Timing: each kernel, its plain version and one PyTorch library call
+   at the main path's shapes (CUDA events, median of repeats; replayed
+   from a CUDA graph for the device time, and launched eagerly),
+   beside the card's least time for the same work.
+
+Launch counters are set to 0 right before each main-path phase and read
+right after it. The last four lines of standard output are the
+``engine`` JSON line (steps, launches, latency summaries, profiles), the
+``kernels`` JSON line, the card's ``nvidia-smi`` name and power limit,
+and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
+a checkout of the repository, the script exits non-zero and prints no
+result. Full float32 throughout: TF32 is off for matmuls and cuDNN.
+"""
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from dataclasses import replace
+from pathlib import Path
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+ROOT = Path(__file__).resolve().parent
+sys.path.insert(0, str(ROOT / "src"))
+
+from repro_torch.configs import GPOConfig, ServeConfig  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    PreferenceServer,
+    gpo_apply,
+    init_gpo_params,
+    latency_summary,
+    make_request_trace,
+    predict_preferences,
+    quantize_gpo_params,
+)
+from repro_torch.core.fairness import alignment_score  # noqa: E402
+from repro_torch.core.gpo import map_params  # noqa: E402
+from repro_torch.data import (  # noqa: E402
+    SurveyConfig,
+    make_survey_data,
+    sample_icl_batch,
+    split_groups,
+)
+from repro_torch.kernels import backend, quantize_linear  # noqa: E402
+from repro_torch.kernels.gpo_attention import gpo_attention_fwd  # noqa: E402
+from repro_torch.kernels.quant_matmul import int8_matmul_flat  # noqa: E402
+from repro_torch.kernels.ref import (  # noqa: E402
+    ref_gpo_attention,
+    ref_int8_matmul,
+)
+
+# weights, survey data, trace and kernel inputs. With seed 0 the random
+# predictor's mu stays well above the 1e-4 clip on the served groups, so
+# clip-and-normalized rows are well conditioned and the row tolerances
+# below test the kernels, not the clip.
+SEED = 0
+# NVIDIA data sheet rows: (f32 CUDA-core FLOP/s, memory bytes/s), dense
+_PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12),
+          "NVL": (60e12, 3.9e12)}
+INT8_SHAPES = [(66, 128), (128, 128), (128, 256), (256, 128), (128, 1),
+               (4098, 128)]  # (K, N): in_proj, wq..wo, w1, w2, head, paper
+ATTN_SHAPES = [(7 * 4, 160, 80), (4, 80, 60), (4, 85, 37)]  # (BH, S, ctx)
+HEAD_DIM = 32
+
+
+def _card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60)
+    return out.stdout.strip().splitlines()[0]
+
+
+def _peaks(name: str):
+    for key, val in _PEAKS.items():
+        if key != "SXM" and key in name:
+            return val
+    return _PEAKS["SXM"]
+
+
+def _bound_ms(nbytes: float, flops: float, peaks):
+    t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
+                                 else "bytes")
+
+
+def _time_ms(fn, iters: int = 50, reps: int = 7) -> tuple:
+    """(device, eager) milliseconds per call of ``fn``, each the median
+    over ``reps`` of CUDA-event times over ``iters`` calls, after a
+    warm-up. Device: the calls captured once in a CUDA graph and
+    replayed, so the host's launch cost is out of the reading and the
+    card's own time for the work remains (inputs stay in the 50 MB L2,
+    as the serving path's weights do). Eager: the same calls launched
+    one by one from Python, host overhead included."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+
+    def median_ms(run):
+        run()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            run()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b) / iters)
+        return float(np.median(times))
+
+    def eager():
+        for _ in range(iters):
+            fn()
+
+    return median_ms(graph.replay), median_ms(eager)
+
+
+def _timed(kernel_fn, plain_fn, library_fn) -> dict:
+    """Device and eager times of a kernel, its plain version and the
+    library call that computes the same function."""
+    (ms, eager), (plain, plain_eager), (lib, lib_eager) = (
+        _time_ms(f) for f in (kernel_fn, plain_fn, library_fn))
+    return {"ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
+            "eager_ms": {"kernel": eager, "plain": plain_eager,
+                         "library": lib_eager}}
+
+
+def _profile(fn) -> dict:
+    """Wall time of ``fn()`` under ``torch.profiler``, and the device
+    time of every kernel it ran, read from the exported trace (kept in
+    the git-ignored ``build/``). ``busy_share`` is kernel time over
+    wall time; the profiler's own host overhead is in the wall time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    path = ROOT / "build" / "engine_trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    by_name: dict = {}
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            n, ms = by_name.get(e["name"], (0, 0.0))
+            by_name[e["name"]] = (n + 1, ms + e["dur"] * 1e-3)
+    kernel_ms = sum(ms for _, ms in by_name.values())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    return {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
+            "kernels": sum(n for n, _ in by_name.values()),
+            "busy_share": kernel_ms / wall_ms,
+            "top": [{"name": k[:60], "launches": n, "ms": ms}
+                    for k, (n, ms) in top]}
+
+
+def _gen(seed: int) -> torch.Generator:
+    return torch.Generator().manual_seed(seed)
+
+
+def _int8_inputs(m, k, n, g, dev):
+    x = torch.randn((m, k), generator=g).to(dev)
+    ql = quantize_linear(torch.randn((k, n), generator=g) / k ** 0.5)
+    return x, ql.q.to(dev), ql.scale.to(dev)
+
+
+def _attn_inputs(bh, s, g, dev):
+    return tuple(torch.randn((bh, s, HEAD_DIM), generator=g).to(dev)
+                 for _ in range(3))
+
+
+def check_kernels(dev) -> dict:
+    """Phase 1: every kernel against its plain version on the card."""
+    g = _gen(SEED)
+    worst = {"int8_matmul": 0.0, "gpo_attention_fwd": 0.0}
+    for k, n in INT8_SHAPES:
+        tol = 1e-4 if k > 256 else 1e-5
+        for m in (1, 37, 1280):
+            x, q, s = _int8_inputs(m, k, n, g, dev)
+            out = int8_matmul_flat(x, q, s)
+            plain = ref_int8_matmul(x, q, s)
+            torch.cuda.synchronize()
+            err = (out - plain).abs()
+            ok = bool((err <= tol * (1 + plain.abs())).all())
+            one = int8_matmul_flat(x[-1:].contiguous(), q, s)
+            rows_independent = torch.equal(one[0], out[-1])
+            print(f"  int8_matmul M={m:5d} K={k:5d} N={n:4d}  max_abs_err="
+                  f"{err.max().item():.3e}  tol={tol:g}*(1+|plain|)  "
+                  f"last row alone bit-equal: {rows_independent}")
+            if not ok or not rows_independent:
+                raise AssertionError(f"int8_matmul mismatch at {(m, k, n)}")
+            worst["int8_matmul"] = max(worst["int8_matmul"],
+                                       err.max().item())
+    for bh, s, nc in ATTN_SHAPES:
+        q, k, v = _attn_inputs(bh, s, g, dev)
+        o, lse = gpo_attention_fwd(q, k, v, num_ctx=nc)
+        po, plse = ref_gpo_attention(q, k, v, num_ctx=nc)
+        torch.cuda.synchronize()
+        eo = (o - po).abs().max().item()
+        el = (lse - plse).abs().max().item()
+        print(f"  gpo_attention_fwd BH={bh:3d} S={s:4d} num_ctx={nc:3d} "
+              f"hd={HEAD_DIM}  o max_abs_err={eo:.3e}  lse max_abs_err="
+              f"{el:.3e}  tol=1e-05")
+        if not (eo <= 1e-5 and el <= 1e-5
+                and torch.isfinite(o).all() and torch.isfinite(lse).all()):
+            raise AssertionError(f"gpo_attention_fwd mismatch at "
+                                 f"{(bh, s, nc)}")
+        worst["gpo_attention_fwd"] = max(worst["gpo_attention_fwd"], eo, el)
+    return worst
+
+
+def _rows(results) -> dict:
+    return {c.rid: c.pred for c in results}
+
+
+def _max_diff(a: dict, b: dict) -> float:
+    if a.keys() != b.keys():
+        raise AssertionError("completed request sets differ")
+    return max(float(np.abs(a[r] - b[r]).max()) for r in a)
+
+
+def serve(dev, data, groups, gcfg, params) -> dict:
+    """Phase 2: the serving engine, f32 and int8."""
+    trace = make_request_trace(data, groups, num_requests=64,
+                               hit_ratio=0.5, seed=SEED)
+    servers = {w: PreferenceServer(params, gcfg,
+                                   ServeConfig(int8_weights=w),
+                                   num_options=data.num_options, device=dev)
+               for w in (False, True)}
+    for srv in servers.values():  # first launches load the kernels
+        srv.run_trace(trace[:8], clear_cache=True)
+    torch.cuda.synchronize()
+
+    # the main path: the int8 engine over the whole trace, cold cache
+    int8_matmul_flat.launches = 0
+    gpo_attention_fwd.launches = 0
+    t0 = time.perf_counter()
+    cold8 = servers[True].run_trace(trace, clear_cache=True)
+    wall8 = time.perf_counter() - t0
+    launches = int8_matmul_flat.launches
+    steps = len(servers[True].batches)
+    if len(cold8) != len(trace):
+        raise AssertionError(f"served {len(cold8)} of {len(trace)} requests")
+    if launches == 0 or gpo_attention_fwd.launches != 0:
+        raise AssertionError("the int8 engine did not run on the int8 "
+                             "kernel alone")
+    record = {"launches": launches, "steps": steps,
+              "prefill_requests": servers[True].stats.prefills,
+              "max_decode_rows": max(b.batch_pad * b.tgt_bucket
+                                     for b in servers[True].batches),
+              # a full batch of prefills at the largest ctx bucket used
+              "max_prefill_rows": ServeConfig().max_batch * max(
+                  b.ctx_bucket for b in servers[True].batches)}
+    print(f"  int8 engine: {launches} int8_matmul launches over {steps} "
+          f"steps ({servers[True].stats})")
+
+    t0 = time.perf_counter()
+    cold32 = servers[False].run_trace(trace, clear_cache=True)
+    wall32 = time.perf_counter() - t0
+    summaries = {"int8 cold": latency_summary(cold8, wall8),
+                 "f32 cold": latency_summary(cold32, wall32)}
+    for w, cold in ((True, cold8), (False, cold32)):
+        name = "int8" if w else "f32"
+        t0 = time.perf_counter()
+        warm = servers[w].run_trace(trace, clear_cache=False)
+        summaries[f"{name} warm"] = latency_summary(
+            warm, time.perf_counter() - t0)
+        if not all(c.cache_hit for c in warm):
+            raise AssertionError(f"{name}: warm trace missed the cache")
+        if _max_diff(_rows(cold), _rows(warm)) != 0.0:
+            raise AssertionError(f"{name}: cache hit != miss")
+    for name, s in summaries.items():
+        print(f"  {name:9s}: p50={s['p50_ms']:.3f}ms p99={s['p99_ms']:.3f}"
+              f"ms qps={s['qps']:.1f} hit_rate={s['hit_rate']:.2f} "
+              f"completed={s['completed']}")
+    print("  cache hit == miss: bit-equal (f32 and int8)")
+
+    rows8, rows32 = _rows(cold8), _rows(cold32)
+    d = _max_diff(rows8, rows32)
+    sums = max(abs(float(p.sum(-1).max()) - 1) for p in rows8.values())
+    sums = max(sums, max(abs(float(p.sum(-1).min()) - 1)
+                         for p in rows8.values()))
+    print(f"  int8 vs f32 rows: max_abs={d:.3e} (tol 0.05); rows sum to 1 "
+          f"within {sums:.1e}")
+    if not (d <= 0.05 and sums <= 1e-5):
+        raise AssertionError("int8 rows off the f32 rows or the simplex")
+
+    # served rows against the monolithic forward, on the card and on
+    # the CPU, and alone against batched (batch-composition)
+    qparams = quantize_gpo_params(params)
+    cpu_params = map_params(lambda a: a.cpu(), params)
+    cpu = {False: cpu_params, True: quantize_gpo_params(cpu_params)}
+    mono = {False: params, True: qparams}
+    alone_srv = {w: PreferenceServer(params, gcfg,
+                                     ServeConfig(int8_weights=w),
+                                     num_options=data.num_options,
+                                     device=dev) for w in (False, True)}
+    worst = {"monolithic": 0.0, "cpu": 0.0, "alone": 0.0}
+    for w, rows in ((False, rows32), (True, rows8)):
+        for r in trace[:8]:
+            ins = [torch.from_numpy(a) for a in (r.ctx_x, r.ctx_y, r.tgt_x)]
+            ref = predict_preferences(mono[w], gcfg, *ins, data.num_options,
+                                      device=dev).cpu().numpy()
+            ref_cpu = predict_preferences(cpu[w], gcfg, *ins,
+                                          data.num_options,
+                                          device="cpu").numpy()
+            alone_srv[w].submit(r)
+            alone = alone_srv[w].step()[0].pred
+            for key, other in (("monolithic", ref), ("cpu", ref_cpu),
+                               ("alone", alone)):
+                worst[key] = max(worst[key],
+                                 float(np.abs(rows[r.rid] - other).max()))
+    print(f"  served rows vs monolithic predict_preferences on the card: "
+          f"max_abs={worst['monolithic']:.3e} (tol 1e-05)")
+    print(f"  served rows vs the port's CPU path: max_abs="
+          f"{worst['cpu']:.3e} (tol 1e-05)")
+    print(f"  batch-composition independence (served alone vs in the "
+          f"batch): max_abs={worst['alone']:.3e} (tol 1e-05; not bit-"
+          f"exact where cuBLAS picks per-shape algorithms)")
+    if max(worst.values()) > 1e-5:
+        raise AssertionError(f"served rows off their references: {worst}")
+
+    # where an engine step's time goes: device kernel time against wall
+    # time, over the same cold trace under the profiler
+    for w in (True, False):
+        name = "int8" if w else "f32"
+        prof = _profile(lambda: servers[w].run_trace(trace, clear_cache=True))
+        prof["steps"] = len(servers[w].batches)
+        record[f"profile_{name}"] = prof
+        print(f"  {name} engine under the profiler: wall "
+              f"{prof['wall_ms']:.3f}ms over {prof['steps']} steps, "
+              f"{prof['kernels']} kernels, device busy "
+              f"{prof['kernel_ms']:.3f}ms ({100 * prof['busy_share']:.2f}%)")
+        for t in prof["top"]:
+            print(f"    {t['ms']:.4f}ms  {t['launches']:5d}x  {t['name']}")
+    record.update(summaries=summaries, wall_int8_s=wall8,
+                  wall_f32_s=wall32)
+    return record
+
+
+def predict(dev, data, groups, gcfg, params) -> dict:
+    """Phase 3: the quickstart's serve step through the attention
+    kernel, per held-out group and batched over all of them."""
+    kcfg = replace(gcfg, use_pallas_attention=True)
+    g = _gen(SEED + 1)
+    quick = [sample_icl_batch(g, data, int(gr), 12, 4) for gr in groups]
+    evals = [sample_icl_batch(g, data, int(gr), 16, 16) for gr in groups]
+    stacked = [torch.stack([getattr(b, f) for b in evals]).to(dev)
+               for f in ("ctx_x", "ctx_y", "tgt_x")]
+
+    gpo_attention_fwd.launches = 0
+    int8_matmul_flat.launches = 0
+    preds = [predict_preferences(params, kcfg, b.ctx_x, b.ctx_y, b.tgt_x,
+                                 data.num_options, device=dev)
+             for b in quick]
+    batched = predict_preferences(params, kcfg, *stacked, data.num_options,
+                                  device=dev)
+    torch.cuda.synchronize()
+    launches = gpo_attention_fwd.launches
+    calls = len(quick) + 1
+    if launches == 0 or int8_matmul_flat.launches != 0:
+        raise AssertionError("predict_preferences did not run on the "
+                             "attention kernel")
+
+    err, scores = 0.0, []
+    for b, p in zip(quick, preds):
+        dense = predict_preferences(params, gcfg, b.ctx_x, b.ctx_y, b.tgt_x,
+                                    data.num_options, device=dev)
+        err = max(err, (p - dense).abs().max().item())
+        truth = b.tgt_y.reshape(-1, data.num_options).to(dev)
+        scores.append(alignment_score(p, truth).item())
+    dense = predict_preferences(params, gcfg, *stacked, data.num_options,
+                                device=dev)
+    err = max(err, (batched - dense).abs().max().item())
+    print(f"  {launches} gpo_attention_fwd launches over {calls} "
+          f"predict_preferences calls ({len(quick)} groups of 12+4 "
+          f"questions, then all {len(evals)} groups batched at 16+16)")
+    print(f"  kernel branch vs dense branch: max_abs={err:.3e} (tol 1e-05)"
+          f"; alignment score per group (random weights): "
+          f"{np.round(scores, 4).tolist()}")
+    if not err <= 1e-5:
+        raise AssertionError("attention kernel rows off the dense rows")
+
+    mu32, _ = gpo_apply(params, gcfg, *stacked)
+    mu8, _ = gpo_apply(quantize_gpo_params(params), gcfg, *stacked)
+    mu_err = (mu8 - mu32).abs().max().item()
+    print(f"  int8 vs f32 predicted preference mu: max_abs={mu_err:.3e} "
+          f"(tol 0.05; |mu| max {mu32.abs().max().item():.3f})")
+    if not mu_err <= 0.05:
+        raise AssertionError("int8 mu off the f32 mu")
+    return {"launches": launches, "calls": calls}
+
+
+def timing(dev, serve_rec, pred_rec, card_name, worst) -> list:
+    """Phase 4: kernel, plain and library times at main-path shapes."""
+    peaks = _peaks(card_name)
+    g = _gen(SEED + 2)
+    out = []
+
+    # every layer's shape at the largest decode and prefill of the run:
+    # device time of the kernel and of cuBLAS on the dequantized weight
+    by_shape = []
+    for m in (serve_rec["max_decode_rows"], serve_rec["max_prefill_rows"]):
+        for k, n in INT8_SHAPES[:5]:
+            x, q, s = _int8_inputs(m, k, n, g, dev)
+            w = q.float() * s[None, :]
+            by_shape.append({
+                "shape": [m, k, n],
+                "ms": _time_ms(lambda: int8_matmul_flat(x, q, s))[0],
+                "library_ms": _time_ms(lambda: torch.matmul(x, w))[0]})
+            print(f"  int8_matmul {by_shape[-1]['shape']}: kernel "
+                  f"{by_shape[-1]['ms'] * 1e3:.2f}us  library "
+                  f"{by_shape[-1]['library_ms'] * 1e3:.2f}us (device)")
+
+    m, k, n = serve_rec["max_decode_rows"], 128, 256  # decode's w1
+    x, q, s = _int8_inputs(m, k, n, g, dev)
+    w = q.float() * s[None, :]
+    times = _timed(lambda: int8_matmul_flat(x, q, s),
+                   lambda: ref_int8_matmul(x, q, s),
+                   lambda: torch.matmul(x, w))
+    bound, by = _bound_ms(4 * m * k + k * n + 4 * n + 4 * m * n,
+                          2 * m * k * n, peaks)
+    out.append({
+        "name": "int8_matmul", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/int8_matmul.cu",
+        "replaces": "src/repro/kernels/quant_matmul.py:68",
+        "tpu_kernel": "src/repro/kernels/quant_matmul.py::"
+                      "_int8_matmul_kernel (int8_matmul_flat)",
+        "launches": serve_rec["launches"],
+        "launches_per_step": serve_rec["launches"] / serve_rec["steps"],
+        "max_abs_err": worst["int8_matmul"],
+        "shape": [m, k, n], **times, "bound_ms": bound, "bound_by": by,
+        "library_call": "torch.matmul(x, dequantize_linear(w))",
+        "by_shape": by_shape})
+
+    bh, s_len, nc = ATTN_SHAPES[0]
+    q, k, v = _attn_inputs(bh, s_len, g, dev)
+    pos = torch.arange(s_len, device=dev)
+    mask = (pos[None, :] < nc) | (pos[None, :] == pos[:, None])
+    times = _timed(lambda: gpo_attention_fwd(q, k, v, num_ctx=nc),
+                   lambda: ref_gpo_attention(q, k, v, num_ctx=nc),
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=mask))
+    keys = s_len * nc + (s_len - nc)  # the band: context keys + self
+    bound, by = _bound_ms(4 * bh * (4 * s_len * HEAD_DIM + s_len),
+                          4 * bh * keys * HEAD_DIM, peaks)
+    out.append({
+        "name": "gpo_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/gpo_attention_fwd.cu",
+        "replaces": "src/repro/kernels/gpo_attention.py:117",
+        "tpu_kernel": "src/repro/kernels/gpo_attention.py::"
+                      "_gpo_fwd_kernel (_gpo_forward)",
+        "launches": pred_rec["launches"],
+        "launches_per_call": pred_rec["launches"] / pred_rec["calls"],
+        "max_abs_err": worst["gpo_attention_fwd"],
+        "shape": [bh, s_len, nc, HEAD_DIM], **times, "bound_ms": bound,
+        "bound_by": by, "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                        "attn_mask=boolean NP mask)"})
+    for r in out:
+        e = r["eager_ms"]
+        print(f"  {r['name']} at {r['shape']}, device (CUDA graph): kernel "
+              f"{r['ms'] * 1e3:.2f}us  plain {r['plain_ms'] * 1e3:.2f}us  "
+              f"library {r['library_ms'] * 1e3:.2f}us  bound "
+              f"{r['bound_ms'] * 1e3:.3f}us ({r['bound_by']}); eager: "
+              f"kernel {e['kernel'] * 1e3:.2f}us  plain "
+              f"{e['plain'] * 1e3:.2f}us  library {e['library'] * 1e3:.2f}us")
+    return out
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
+        return 1
+    dev = backend.resolve_device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False  # full f32, stated
+    torch.backends.cudnn.allow_tf32 = False
+    card = _card_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"device: {name} ({card}); torch {torch.__version__}, CUDA "
+          f"{torch.version.cuda}; TF32 off")
+
+    t0 = time.perf_counter()
+    paths = backend.build()
+    print(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
+    for src, log in backend.BUILD_LOG.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "error" in line:
+                print(f"  {src}: {line.strip()}")
+
+    print("[1] kernels against their plain versions on the card")
+    worst = check_kernels(dev)
+
+    data = make_survey_data(SurveyConfig(), _gen(SEED))
+    _, held_out = split_groups(data, seed=SEED)
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    params = init_gpo_params(gcfg, _gen(SEED), device=dev)
+    print("[2] PreferenceServer, ServeConfig() defaults, GPOConfig() width")
+    serve_rec = serve(dev, data, list(held_out), gcfg, params)
+    print("[3] predict_preferences through the attention kernel")
+    pred_rec = predict(dev, data, held_out, gcfg, params)
+    print("[4] timing at the main path's shapes (CUDA events, median)")
+    kernels = timing(dev, serve_rec, pred_rec, name, worst)
+
+    print(json.dumps({"engine": {
+        k: serve_rec[k] for k in ("steps", "launches", "prefill_requests",
+                                  "summaries", "profile_int8",
+                                  "profile_f32")}}))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

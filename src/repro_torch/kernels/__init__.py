@@ -1,0 +1,11 @@
+# Hand-written CUDA kernels for Hopper (sm_90a) on the serving path: the
+# GPO neural-process attention forward and the int8 weight-only inference
+# matmul (DESIGN.md §12). Each wrapper runs its plain PyTorch version
+# (kernels/ref.py) on CPU tensors and its kernel on CUDA tensors.
+from repro_torch.kernels.ops import gpo_attention, int8_matmul  # noqa: F401
+from repro_torch.kernels.quant_matmul import (  # noqa: F401
+    QuantizedLinear,
+    dequantize_linear,
+    quantize_linear,
+)
+from repro_torch.kernels import ref  # noqa: F401

@@ -1,0 +1,194 @@
+"""The port's rules: it imports neither JAX nor the JAX package, its
+configs copy the reference's field for field, its entry points run on
+CUDA unless told otherwise, and a kernel wrapper handed CUDA tensors
+launches its kernel or raises, never falling back to the plain version.
+"""
+import dataclasses
+import importlib
+import os
+import pkgutil
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+import repro.configs as jax_configs
+import repro_torch
+from repro_torch.configs import GPOConfig, ServeConfig
+from repro_torch.kernels import backend
+
+ROOT = Path(__file__).resolve().parents[1]
+qm = importlib.import_module("repro_torch.kernels.quant_matmul")
+ga = importlib.import_module("repro_torch.kernels.gpo_attention")
+
+
+def _port_modules():
+    return sorted(m.name for m in pkgutil.walk_packages(
+        repro_torch.__path__, "repro_torch."))
+
+
+def test_importing_the_port_pulls_in_no_jax_and_builds_nothing():
+    """Every module of the port, and chip_smoke.py's imports, in a fresh
+    interpreter that refuses to start a process (no nvcc at import)."""
+    code = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a process was started at import')\n"
+        "subprocess.Popen = refuse\n"
+        f"sys.path[:0] = [{str(ROOT)!r}, {str(ROOT / 'src')!r}]\n"
+        "import importlib\n"
+        f"for m in {_port_modules()!r}:\n"
+        "    importlib.import_module(m)\n"
+        "import chip_smoke\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or\n"
+        "             m.startswith(('jax.', 'jaxlib')) or m == 'repro' or\n"
+        "             m.startswith('repro.'))\n"
+        "assert not bad, bad\n"
+        "print('clean', len(sys.modules))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=ROOT, env=env)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert out.stdout.startswith("clean")
+    assert len(_port_modules()) >= 20
+
+
+def test_no_jax_or_reference_import_in_the_port_sources():
+    pat = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)"
+                     r"|from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
+    files = list((ROOT / "src/repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    hits = [str(f) for f in files if pat.search(f.read_text())]
+    assert not hits, hits
+
+
+@pytest.mark.parametrize("name", ["GPOConfig", "ServeConfig"])
+def test_configs_copy_the_reference_field_for_field(name):
+    port, ref = getattr(repro_torch.configs, name), getattr(jax_configs, name)
+
+    def spec(cls):
+        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+
+    assert spec(port) == spec(ref)
+    if name == "GPOConfig":
+        assert port(d_model=96, num_heads=3).head_dim == 32
+
+
+@pytest.mark.parametrize("kw", [
+    dict(ctx_buckets=()), dict(ctx_buckets=(40, 40)),
+    dict(max_batch=16, batch_buckets=(1, 8)), dict(max_batch=0),
+    dict(max_queue=-1), dict(cache_entries=-1)])
+def test_serve_config_validation_matches_reference(kw):
+    with pytest.raises(ValueError):
+        jax_configs.ServeConfig(**kw).validate()
+    with pytest.raises(ValueError):
+        ServeConfig(**kw).validate()
+
+
+def _no_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present, so the default device "
+                    "is usable")
+
+
+def test_entry_points_refuse_to_run_on_the_cpu_unasked():
+    _no_card()
+    from repro_torch.core import (
+        PreferenceServer,
+        init_gpo_params,
+        params_from_numpy,
+        predict_preferences,
+    )
+    from repro_torch.launch import serve
+
+    cfg = GPOConfig(d_embed=8, d_model=16, num_layers=1, num_heads=2,
+                    d_ff=16)
+    gen = torch.Generator().manual_seed(0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_gpo_params(cfg, gen)
+    params = init_gpo_params(cfg, gen, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PreferenceServer(params, cfg, num_options=5)
+    x = np.zeros((5, 8), np.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        predict_preferences(params, cfg, x, np.zeros(5, np.float32), x, 5)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        params_from_numpy({k: v.numpy() if isinstance(v, torch.Tensor)
+                           else v for k, v in params.items()}, None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--gpo", "--restore"])
+    # and on the CPU when asked
+    rows = predict_preferences(params, cfg, x, np.zeros(5, np.float32), x,
+                               5, device="cpu")
+    assert rows.shape == (1, 5)
+
+
+def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
+    _no_card()
+    before = (qm.int8_matmul_flat.launches, ga.gpo_attention_fwd.launches)
+    with FakeTensorMode():
+        x = torch.empty((4, 8), device="cuda")
+        q = torch.empty((8, 3), dtype=torch.int8, device="cuda")
+        s = torch.empty((3,), device="cuda")
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            qm.int8_matmul_flat(x, q, s)
+        a = torch.empty((2, 10, 32), device="cuda")
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ga.gpo_attention_fwd(a, a, a, num_ctx=4)
+        with pytest.raises(ValueError, match="head_dim"):
+            ga.gpo_attention_fwd(*(torch.empty((2, 10, 24), device="cuda")
+                                   for _ in range(3)), num_ctx=4)
+        g = torch.empty((2, 10, 32), device="cuda", requires_grad=True)
+        with pytest.raises(NotImplementedError, match="training slice"):
+            ga.gpo_attention_fwd(g, a, a, num_ctx=4)
+        with pytest.raises(ValueError, match="different devices"):
+            qm.int8_matmul_flat(x, q.cpu(), s)
+    assert (qm.int8_matmul_flat.launches,
+            ga.gpo_attention_fwd.launches) == before
+
+
+def test_operand_contract_is_held_on_the_cpu_too():
+    x = torch.zeros((4, 8))
+    q = torch.zeros((8, 3), dtype=torch.int8)
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.int8_matmul_flat(torch.zeros((8, 4)).T, q, torch.ones(3))
+    with pytest.raises(ValueError, match="expected torch.int8"):
+        qm.int8_matmul_flat(x, q.float(), torch.ones(3))
+    a = torch.zeros((3, 10, 2))
+    with pytest.raises(ValueError, match="contiguous"):
+        ga.gpo_attention_fwd(a.transpose(1, 2).contiguous().transpose(1, 2),
+                             a, a, num_ctx=2)
+
+
+def test_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setattr(shutil, "which", lambda _: None)
+    monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
+    monkeypatch.setattr(backend, "BUILD_DIR", tmp_path / "build")
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        backend.build()
+
+
+def _run_chip_smoke(cwd):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""  # hide any card: the script must fail
+    return subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=300)
+
+
+def test_chip_smoke_fails_without_a_card_and_prints_no_result():
+    out = _run_chip_smoke(ROOT)
+    assert out.returncode != 0 and out.stdout == ""
+    assert "no CUDA device" in out.stderr
+
+
+def test_chip_smoke_fails_outside_a_checkout(tmp_path):
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    out = _run_chip_smoke(tmp_path)
+    assert out.returncode != 0 and out.stdout == ""
