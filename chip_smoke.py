@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -8,7 +8,10 @@ with ``nvcc`` (into the git-ignored ``build/``), then runs these phases on
 the card, raising on any mismatch:
 
 1. Kernel checks: each kernel against its plain PyTorch version on the
-   same inputs on the card, at the serving path's shapes.
+   same inputs on the card, at the serving and training paths' shapes:
+   the int8 matmul, the attention forward and backward (dq, dk/dv; head
+   widths 32 and 24), the ``GPOAttention`` Function's gradients, and
+   the FedAvg reduce (and its run-to-run bit-equality).
 2. Serving: ``PreferenceServer`` at ``ServeConfig()`` defaults over a
    64-request trace, with f32 and with int8 weights, at ``GPOConfig()``
    width with random weights from a seed; cache hit == miss bit for bit,
@@ -17,14 +20,22 @@ the card, raising on any mismatch:
    more under ``torch.profiler``: device kernel time against wall time.
 3. The quickstart's serve step: ``predict_preferences`` with the
    attention kernel for every held-out group, against the dense branch.
-4. Timing: each kernel, its plain version and one PyTorch library call
-   at the main path's shapes (CUDA events, median of repeats; replayed
+4. Training: ``FederatedGPO`` at ``GPOConfig()`` width with the
+   quickstart's ``FedConfig`` (10 clients, 6 local Adam epochs at 3e-4,
+   16+16 questions) through the attention and FedAvg kernels: 3 rounds
+   with the launch counts asserted, against the same trainer on the CPU
+   and against the card's dense path; 20 more rounds, over which the
+   loss must fall; a checkpoint saved, restored into a
+   ``PreferenceServer`` and served; one round under ``torch.profiler``.
+5. Timing: each kernel, its plain version and one PyTorch library call
+   at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
    beside the card's least time for the same work.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last four lines of standard output are the
+right after it. The last five lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
+``train`` JSON line (launches, agreement, losses, profile), the
 ``kernels`` JSON line, the card's ``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
@@ -33,6 +44,7 @@ result. Full float32 throughout: TF32 is off for matmuls and cuDNN.
 from __future__ import annotations
 
 import json
+import shutil
 import subprocess
 import sys
 import time
@@ -46,8 +58,14 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
-from repro_torch.configs import GPOConfig, ServeConfig  # noqa: E402
+from repro_torch.checkpoint import (  # noqa: E402
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
+from repro_torch.configs import FedConfig, GPOConfig, ServeConfig  # noqa: E402
 from repro_torch.core import (  # noqa: E402
+    FederatedGPO,
     PreferenceServer,
     gpo_apply,
     init_gpo_params,
@@ -65,12 +83,23 @@ from repro_torch.data import (  # noqa: E402
     split_groups,
 )
 from repro_torch.kernels import backend, quantize_linear  # noqa: E402
-from repro_torch.kernels.gpo_attention import gpo_attention_fwd  # noqa: E402
+from repro_torch.kernels.agg_reduce import fedavg_reduce_flat  # noqa: E402
+from repro_torch.kernels.gpo_attention import (  # noqa: E402
+    GPOAttention,
+    gpo_attention_bwd_dkdv,
+    gpo_attention_bwd_dq,
+    gpo_attention_fwd,
+)
 from repro_torch.kernels.quant_matmul import int8_matmul_flat  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
+    ref_fedavg_flat,
     ref_gpo_attention,
+    ref_gpo_attention_bwd,
+    ref_gpo_attention_bwd_dkdv,
+    ref_gpo_attention_bwd_dq,
     ref_int8_matmul,
 )
+from repro_torch.utils.pytree import tree_leaves  # noqa: E402
 
 # weights, survey data, trace and kernel inputs. With seed 0 the random
 # predictor's mu stays well above the 1e-4 clip on the served groups, so
@@ -82,8 +111,23 @@ _PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12),
           "NVL": (60e12, 3.9e12)}
 INT8_SHAPES = [(66, 128), (128, 128), (128, 256), (256, 128), (128, 1),
                (4098, 128)]  # (K, N): in_proj, wq..wo, w1, w2, head, paper
-ATTN_SHAPES = [(7 * 4, 160, 80), (4, 80, 60), (4, 85, 37)]  # (BH, S, ctx)
+# (BH, S, ctx): training's 10 clients x 4 heads, predict's 7 held-out
+# groups x 4 heads, then ragged S and num_ctx
+ATTN_SHAPES = [(10 * 4, 160, 80), (7 * 4, 160, 80), (4, 80, 60),
+               (4, 85, 37)]
+# the backward's: 10 clients x 4 heads at the quickstart's 16+16
+# questions of 5 options, then ragged S and num_ctx at both ends
+BWD_SHAPES = [(10 * 4, 160, 80), (4, 80, 60), (4, 85, 37), (4, 64, 0),
+              (4, 64, 64)]
 HEAD_DIM = 32
+HEAD_DIMS = (32, 24)  # GPOConfig() and benchmarks/paper_experiment.py
+# (C, P): the quickstart's 10 clients x 534,016 GPOConfig() params, then
+# ragged P through the kernel's scalar path
+FEDAVG_SHAPES = [(10, 534016), (3, 2049), (1, 7)]
+# FederatedGPO against its CPU run and its dense run after 3 rounds
+TRAIN_ROUNDS, MORE_ROUNDS = 3, 20
+TRAIN_TOL = {"round_loss_rtol": 1e-4, "eval_atol": 1e-4,
+             "params_max_abs": 1e-4}
 
 
 def _card_line() -> str:
@@ -149,19 +193,22 @@ def _time_ms(fn, iters: int = 50, reps: int = 7) -> tuple:
 
 def _timed(kernel_fn, plain_fn, library_fn) -> dict:
     """Device and eager times of a kernel, its plain version and the
-    library call that computes the same function."""
-    (ms, eager), (plain, plain_eager), (lib, lib_eager) = (
-        _time_ms(f) for f in (kernel_fn, plain_fn, library_fn))
+    library call that computes the same function (None: no such call)."""
+    (ms, eager), (plain, plain_eager) = (_time_ms(f)
+                                         for f in (kernel_fn, plain_fn))
+    lib, lib_eager = (None, None) if library_fn is None else _time_ms(
+        library_fn)
     return {"ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
             "eager_ms": {"kernel": eager, "plain": plain_eager,
                          "library": lib_eager}}
 
 
-def _profile(fn) -> dict:
+def _profile(fn, trace: str = "engine_trace.json") -> dict:
     """Wall time of ``fn()`` under ``torch.profiler``, and the device
-    time of every kernel it ran, read from the exported trace (kept in
-    the git-ignored ``build/``). ``busy_share`` is kernel time over
-    wall time; the profiler's own host overhead is in the wall time."""
+    time of every kernel it ran, read from the exported trace (kept as
+    ``trace`` in the git-ignored ``build/``). ``busy_share`` is kernel
+    time over wall time; the profiler's own host overhead is in the wall
+    time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -170,7 +217,7 @@ def _profile(fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    path = ROOT / "build" / "engine_trace.json"
+    path = ROOT / "build" / trace
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
     by_name: dict = {}
@@ -197,15 +244,89 @@ def _int8_inputs(m, k, n, g, dev):
     return x, ql.q.to(dev), ql.scale.to(dev)
 
 
-def _attn_inputs(bh, s, g, dev):
-    return tuple(torch.randn((bh, s, HEAD_DIM), generator=g).to(dev)
-                 for _ in range(3))
+def _attn_inputs(bh, s, g, dev, hd=HEAD_DIM, n=3):
+    return tuple(torch.randn((bh, s, hd), generator=g).to(dev)
+                 for _ in range(n))
+
+
+def _close(got, plain, tol: float) -> tuple:
+    """(max abs error, all within tol*(1+|plain|) and finite)."""
+    err = (got - plain).abs()
+    ok = bool((err <= tol * (1 + plain.abs())).all()
+              and torch.isfinite(got).all())
+    return err.max().item(), ok
+
+
+def _check_attention_bwd(g, dev, worst) -> None:
+    """dq and dk/dv against the closed-form plain backward, at every
+    backward shape and head width; then the GPOAttention Function's
+    gradients against autograd through the plain forward."""
+    for hd in HEAD_DIMS:
+        for bh, s, nc in BWD_SHAPES:
+            q, k, v, do = _attn_inputs(bh, s, g, dev, hd, n=4)
+            o, lse = ref_gpo_attention(q, k, v, num_ctx=nc)
+            plain = ref_gpo_attention_bwd(q, k, v, o, lse, do, num_ctx=nc)
+            delta = (do * o).sum(-1)
+            dq = gpo_attention_bwd_dq(q, k, v, do, lse, delta, num_ctx=nc)
+            dk, dv = gpo_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                            num_ctx=nc)
+            torch.cuda.synchronize()
+            errs = [_close(got, want, 1e-5)
+                    for got, want in zip((dq, dk, dv), plain)]
+            print(f"  gpo_attention_bwd BH={bh:3d} S={s:4d} num_ctx={nc:3d} "
+                  f"hd={hd}  max_abs_err dq={errs[0][0]:.3e} dk="
+                  f"{errs[1][0]:.3e} dv={errs[2][0]:.3e}  "
+                  f"tol=1e-5*(1+|plain|)")
+            if not all(ok for _, ok in errs):
+                raise AssertionError(f"gpo_attention_bwd mismatch at "
+                                     f"{(bh, s, nc, hd)}")
+            worst["gpo_attention_bwd_dq"] = max(
+                worst["gpo_attention_bwd_dq"], errs[0][0])
+            worst["gpo_attention_bwd_dkdv"] = max(
+                worst["gpo_attention_bwd_dkdv"], errs[1][0], errs[2][0])
+
+    bh, s, nc = BWD_SHAPES[0]
+    q, k, v, do = _attn_inputs(bh, s, g, dev, n=4)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    got = torch.autograd.grad(GPOAttention.apply(*ins, nc), ins, do)
+    ins = [t.clone().requires_grad_() for t in (q, k, v)]
+    want = torch.autograd.grad(ref_gpo_attention(*ins, num_ctx=nc)[0], ins,
+                               do)
+    torch.cuda.synchronize()
+    errs = [_close(a, b, 1e-5) for a, b in zip(got, want)]
+    print(f"  GPOAttention Function grads BH={bh} S={s} num_ctx={nc}: "
+          f"max_abs_err {max(e for e, _ in errs):.3e} against autograd "
+          f"through the plain forward (tol 1e-5*(1+|plain|))")
+    if not all(ok for _, ok in errs):
+        raise AssertionError("GPOAttention gradients off autograd")
+
+
+def _check_fedavg(g, dev, worst) -> None:
+    """fedavg_reduce against the plain weighted sum, and two calls on
+    the same input bit-equal (a fixed client order, no atomics)."""
+    for c, p in FEDAVG_SHAPES:
+        x = torch.randn((c, p), generator=g).to(dev)
+        w = torch.rand((c,), generator=g) + 0.1
+        w = (w / w.sum()).to(dev)
+        out = fedavg_reduce_flat(x, w)
+        again = fedavg_reduce_flat(x, w)
+        plain = ref_fedavg_flat(x, w)
+        torch.cuda.synchronize()
+        err, ok = _close(out, plain, 1e-6)
+        same = torch.equal(out, again)
+        print(f"  fedavg_reduce C={c:2d} P={p:7d}  max_abs_err={err:.3e}  "
+              f"tol=1e-6*(1+|plain|)  repeat bit-equal: {same}")
+        if not (ok and same):
+            raise AssertionError(f"fedavg_reduce mismatch at {(c, p)}")
+        worst["fedavg_reduce"] = max(worst["fedavg_reduce"], err)
 
 
 def check_kernels(dev) -> dict:
     """Phase 1: every kernel against its plain version on the card."""
     g = _gen(SEED)
-    worst = {"int8_matmul": 0.0, "gpo_attention_fwd": 0.0}
+    worst = {"int8_matmul": 0.0, "gpo_attention_fwd": 0.0,
+             "gpo_attention_bwd_dq": 0.0, "gpo_attention_bwd_dkdv": 0.0,
+             "fedavg_reduce": 0.0}
     for k, n in INT8_SHAPES:
         tol = 1e-4 if k > 256 else 1e-5
         for m in (1, 37, 1280):
@@ -224,21 +345,25 @@ def check_kernels(dev) -> dict:
                 raise AssertionError(f"int8_matmul mismatch at {(m, k, n)}")
             worst["int8_matmul"] = max(worst["int8_matmul"],
                                        err.max().item())
-    for bh, s, nc in ATTN_SHAPES:
-        q, k, v = _attn_inputs(bh, s, g, dev)
-        o, lse = gpo_attention_fwd(q, k, v, num_ctx=nc)
-        po, plse = ref_gpo_attention(q, k, v, num_ctx=nc)
-        torch.cuda.synchronize()
-        eo = (o - po).abs().max().item()
-        el = (lse - plse).abs().max().item()
-        print(f"  gpo_attention_fwd BH={bh:3d} S={s:4d} num_ctx={nc:3d} "
-              f"hd={HEAD_DIM}  o max_abs_err={eo:.3e}  lse max_abs_err="
-              f"{el:.3e}  tol=1e-05")
-        if not (eo <= 1e-5 and el <= 1e-5
-                and torch.isfinite(o).all() and torch.isfinite(lse).all()):
-            raise AssertionError(f"gpo_attention_fwd mismatch at "
-                                 f"{(bh, s, nc)}")
-        worst["gpo_attention_fwd"] = max(worst["gpo_attention_fwd"], eo, el)
+    for hd in HEAD_DIMS:
+        for bh, s, nc in ATTN_SHAPES:
+            q, k, v = _attn_inputs(bh, s, g, dev, hd)
+            o, lse = gpo_attention_fwd(q, k, v, num_ctx=nc)
+            po, plse = ref_gpo_attention(q, k, v, num_ctx=nc)
+            torch.cuda.synchronize()
+            eo = (o - po).abs().max().item()
+            el = (lse - plse).abs().max().item()
+            print(f"  gpo_attention_fwd BH={bh:3d} S={s:4d} num_ctx={nc:3d} "
+                  f"hd={hd}  o max_abs_err={eo:.3e}  lse max_abs_err="
+                  f"{el:.3e}  tol=1e-05")
+            if not (eo <= 1e-5 and el <= 1e-5 and torch.isfinite(o).all()
+                    and torch.isfinite(lse).all()):
+                raise AssertionError(f"gpo_attention_fwd mismatch at "
+                                     f"{(bh, s, nc, hd)}")
+            worst["gpo_attention_fwd"] = max(worst["gpo_attention_fwd"], eo,
+                                             el)
+    _check_attention_bwd(g, dev, worst)
+    _check_fedavg(g, dev, worst)
     return worst
 
 
@@ -424,11 +549,159 @@ def predict(dev, data, groups, gcfg, params) -> dict:
     return {"launches": launches, "calls": calls}
 
 
-def timing(dev, serve_rec, pred_rec, card_name, worst) -> list:
-    """Phase 4: kernel, plain and library times at main-path shapes."""
+def _counts() -> dict:
+    return {"gpo_attention_fwd": gpo_attention_fwd.launches,
+            "gpo_attention_bwd_dq": gpo_attention_bwd_dq.launches,
+            "gpo_attention_bwd_dkdv": gpo_attention_bwd_dkdv.launches,
+            "fedavg_reduce": fedavg_reduce_flat.launches,
+            "int8_matmul": int8_matmul_flat.launches}
+
+
+def _zero_counts() -> None:
+    for fn in (gpo_attention_fwd, gpo_attention_bwd_dq,
+               gpo_attention_bwd_dkdv, fedavg_reduce_flat, int8_matmul_flat):
+        fn.launches = 0
+
+
+def _agreement(hist, params, other, other_params) -> dict:
+    """How far two 3-round runs are apart: round losses (relative),
+    eval AS / FI / CoV (absolute), final global params (max abs)."""
+    loss = np.abs(np.asarray(hist.round_loss) - other.round_loss) / np.abs(
+        other.round_loss)
+    ev = max(float(np.abs(np.asarray(getattr(hist, k))
+                          - getattr(other, k)).max())
+             for k in ("eval_mean_as", "eval_fi", "eval_cov"))
+    par = max((a.cpu() - b.cpu()).abs().max().item()
+              for a, b in zip(tree_leaves(params), tree_leaves(other_params)))
+    return {"round_loss_rel": float(loss.max()), "eval_abs": ev,
+            "params_max_abs": par}
+
+
+def train(dev, data, tr, ev) -> dict:
+    """Phase 4: federated training at full width through the kernels,
+    then its checkpoint served."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    # examples/quickstart.py:55-57, with eval every round
+    dense = FedConfig(num_clients=len(tr), local_epochs=6, lr=3e-4,
+                      eval_every=1)
+    kern = replace(dense, use_pallas_attention=True,
+                   use_pallas_aggregation=True)
+    fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev)
+
+    # the main path: 3 rounds through the kernels, eval every round
+    _zero_counts()
+    t0 = time.perf_counter()
+    hist = fed.run(rounds=TRAIN_ROUNDS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    layers, epochs = gcfg.num_layers, kern.local_epochs
+    steps = layers * epochs * TRAIN_ROUNDS
+    want = {"gpo_attention_fwd": steps + layers * TRAIN_ROUNDS,
+            "gpo_attention_bwd_dq": steps, "gpo_attention_bwd_dkdv": steps,
+            "fedavg_reduce": TRAIN_ROUNDS, "int8_matmul": 0}
+    print(f"  {TRAIN_ROUNDS} rounds of {len(tr)} clients x {epochs} local "
+          f"epochs in {wall:.3f}s; launches {launches}")
+    if launches != want:
+        raise AssertionError(f"training launches {launches}, want {want}")
+    print(f"  round_loss {hist.round_loss}  eval AS {hist.eval_mean_as}")
+
+    # the same trainer on the CPU (plain versions) and on the card's
+    # dense path: same init and batches, drawn from the same seeds
+    cpu = FederatedGPO(gcfg, kern, data, tr, ev, device="cpu")
+    cpu_hist = cpu.run(rounds=TRAIN_ROUNDS)
+    den = FederatedGPO(gcfg, dense, data, tr, ev, device=dev)
+    den_hist = den.run(rounds=TRAIN_ROUNDS)
+    agree = {"cpu": _agreement(hist, fed.global_params, cpu_hist,
+                               cpu.global_params),
+             "dense": _agreement(hist, fed.global_params, den_hist,
+                                 den.global_params)}
+    for name, a in agree.items():
+        print(f"  vs the {name} run: round_loss rel {a['round_loss_rel']:.3e}"
+              f" (tol {TRAIN_TOL['round_loss_rtol']:g}); eval AS/FI/CoV abs "
+              f"{a['eval_abs']:.3e} (tol {TRAIN_TOL['eval_atol']:g}); params "
+              f"max_abs {a['params_max_abs']:.3e} (tol "
+              f"{TRAIN_TOL['params_max_abs']:g})")
+        if not (a["round_loss_rel"] <= TRAIN_TOL["round_loss_rtol"]
+                and a["eval_abs"] <= TRAIN_TOL["eval_atol"]
+                and a["params_max_abs"] <= TRAIN_TOL["params_max_abs"]):
+            raise AssertionError(f"the kernel run is off the {name} run")
+
+    # training goes on: the loss falls
+    t0 = time.perf_counter()
+    more = fed.run(rounds=MORE_ROUNDS, log_every=5)
+    more_wall = time.perf_counter() - t0
+    first, last = float(np.mean(hist.round_loss)), float(
+        np.mean(more.round_loss[-5:]))
+    print(f"  {MORE_ROUNDS} more rounds in {more_wall:.3f}s: mean loss of "
+          f"the first {TRAIN_ROUNDS} rounds {first:.5f}, of the last 5 "
+          f"{last:.5f}")
+    if not last < first:
+        raise AssertionError("the round loss did not fall")
+
+    # train -> checkpoint -> serve
+    ckpt_dir = ROOT / "build" / "train_ckpt"
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    path = save_checkpoint(str(ckpt_dir), TRAIN_ROUNDS + MORE_ROUNDS,
+                           fed.global_params)
+    like = init_gpo_params(gcfg, _gen(SEED + 7), device=dev)
+    restored = restore_checkpoint(latest_checkpoint(str(ckpt_dir)), like)
+    if not all(torch.equal(a, b) for a, b in zip(
+            tree_leaves(restored), tree_leaves(fed.global_params))):
+        raise AssertionError("the restored checkpoint differs")
+    srv = PreferenceServer(restored, gcfg, ServeConfig(),
+                           num_options=data.num_options, device=dev)
+    trace = make_request_trace(data, list(ev), num_requests=8,
+                               hit_ratio=0.5, seed=SEED + 3)
+    done = srv.run_trace(trace, clear_cache=True)
+    prefs = data.prefs.numpy()
+    err, served_as = 0.0, []
+    for c in sorted(done, key=lambda c: c.rid):
+        r = trace[c.rid]
+        ins = [torch.from_numpy(a) for a in (r.ctx_x, r.ctx_y, r.tgt_x)]
+        mono = predict_preferences(restored, gcfg, *ins, data.num_options,
+                                   device=dev).cpu().numpy()
+        err = max(err, float(np.abs(c.pred - mono).max()))
+        truth = torch.from_numpy(prefs[r.meta["group"], r.meta["tgt_q"]])
+        served_as.append(alignment_score(torch.from_numpy(c.pred),
+                                         truth).item())
+    print(f"  checkpoint {Path(path).name} restored bit-equal and served: "
+          f"{len(done)}/{len(trace)} requests, rows vs monolithic "
+          f"predict_preferences max_abs={err:.3e} (tol 1e-05), AS per "
+          f"request {np.round(served_as, 4).tolist()}")
+    if len(done) != len(trace) or not err <= 1e-5:
+        raise AssertionError("the trained checkpoint was not served right")
+
+    # where a round's time goes (its eval included)
+    prof = _profile(lambda: fed.run(rounds=1), "train_trace.json")
+    print(f"  one round under the profiler: wall {prof['wall_ms']:.3f}ms, "
+          f"{prof['kernels']} kernels, device busy {prof['kernel_ms']:.3f}ms "
+          f"({100 * prof['busy_share']:.2f}%)")
+    for t in prof["top"]:
+        print(f"    {t['ms']:.4f}ms  {t['launches']:5d}x  {t['name']}")
+    return {"config": {"clients": len(tr), "local_epochs": epochs,
+                       "lr": kern.lr, "num_context": kern.num_context,
+                       "num_target": kern.num_target,
+                       "d_model": gcfg.d_model, "layers": layers,
+                       "heads": gcfg.num_heads, "d_ff": gcfg.d_ff},
+            "rounds": TRAIN_ROUNDS, "launches": launches,
+            "wall_ms_per_round": wall / TRAIN_ROUNDS * 1e3,
+            "round_loss": hist.round_loss, "eval_mean_as": hist.eval_mean_as,
+            "eval_fi": hist.eval_fi, "agreement": agree,
+            "tolerance": TRAIN_TOL, "more_rounds": MORE_ROUNDS,
+            "more_wall_ms_per_round": more_wall / MORE_ROUNDS * 1e3,
+            "loss_first_mean": first, "loss_last5_mean": last,
+            "more_eval_mean_as_last": more.eval_mean_as[-1],
+            "served": len(done), "served_as_mean": float(np.mean(served_as)),
+            "profile_round": prof}
+
+
+def timing(dev, serve_rec, pred_rec, train_rec, card_name, worst) -> list:
+    """Phase 5: kernel, plain and library times at main-path shapes."""
     peaks = _peaks(card_name)
     g = _gen(SEED + 2)
     out = []
+    train_launches, rounds = train_rec["launches"], train_rec["rounds"]
 
     # every layer's shape at the largest decode and prefill of the run:
     # device time of the kernel and of cuBLAS on the dequantized weight
@@ -466,37 +739,148 @@ def timing(dev, serve_rec, pred_rec, card_name, worst) -> list:
         "library_call": "torch.matmul(x, dequantize_linear(w))",
         "by_shape": by_shape})
 
-    bh, s_len, nc = ATTN_SHAPES[0]
-    q, k, v = _attn_inputs(bh, s_len, g, dev)
-    pos = torch.arange(s_len, device=dev)
-    mask = (pos[None, :] < nc) | (pos[None, :] == pos[:, None])
-    times = _timed(lambda: gpo_attention_fwd(q, k, v, num_ctx=nc),
-                   lambda: ref_gpo_attention(q, k, v, num_ctx=nc),
-                   lambda: F.scaled_dot_product_attention(
-                       q, k, v, attn_mask=mask))
-    keys = s_len * nc + (s_len - nc)  # the band: context keys + self
-    bound, by = _bound_ms(4 * bh * (4 * s_len * HEAD_DIM + s_len),
-                          4 * bh * keys * HEAD_DIM, peaks)
+    # the forward at training's shape, where its launches come from, and
+    # at predict's shape (7 held-out groups x 4 heads)
+    fwd_rows = []
+    for bh, s_len, nc in ATTN_SHAPES[:2]:
+        q, k, v = _attn_inputs(bh, s_len, g, dev)
+        pos = torch.arange(s_len, device=dev)
+        mask = (pos[None, :] < nc) | (pos[None, :] == pos[:, None])
+        times = _timed(lambda: gpo_attention_fwd(q, k, v, num_ctx=nc),
+                       lambda: ref_gpo_attention(q, k, v, num_ctx=nc),
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, attn_mask=mask))
+        keys = s_len * nc + (s_len - nc)  # the band: context keys + self
+        bound, by = _bound_ms(4 * bh * (4 * s_len * HEAD_DIM + s_len),
+                              4 * bh * keys * HEAD_DIM, peaks)
+        fwd_rows.append({"shape": [bh, s_len, nc, HEAD_DIM], **times,
+                         "bound_ms": bound, "bound_by": by})
+    train_row, predict_row = fwd_rows
     out.append({
         "name": "gpo_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/gpo_attention_fwd.cu",
         "replaces": "src/repro/kernels/gpo_attention.py:117",
         "tpu_kernel": "src/repro/kernels/gpo_attention.py::"
                       "_gpo_fwd_kernel (_gpo_forward)",
-        "launches": pred_rec["launches"],
+        "launches": train_launches["gpo_attention_fwd"],
+        "launches_from": "train (shape, times and bound are training's)",
+        "launches_per_round": train_launches["gpo_attention_fwd"] / rounds,
+        "launches_by_path": {"predict": pred_rec["launches"],
+                             "train": train_launches["gpo_attention_fwd"]},
         "launches_per_call": pred_rec["launches"] / pred_rec["calls"],
         "max_abs_err": worst["gpo_attention_fwd"],
-        "shape": [bh, s_len, nc, HEAD_DIM], **times, "bound_ms": bound,
-        "bound_by": by, "library_call": "F.scaled_dot_product_attention(q, k, v, "
-                        "attn_mask=boolean NP mask)"})
+        **train_row,
+        "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                        "attn_mask=boolean NP mask)",
+        "predict_path": predict_row})
+
+    # the backward at the training shape: 10 clients x 4 heads. No single
+    # library call computes dq or dk/dv alone, so those rows have no
+    # library time; SDPA's forward and backward together stand in
+    # ``fwd_bwd`` beside the forward kernel and both backward kernels
+    # through the GPOAttention Function (and the plain forward under
+    # autograd).
+    bh, s_len, nc = BWD_SHAPES[0]
+    q, k, v, do = _attn_inputs(bh, s_len, g, dev, n=4)
+    o, lse = gpo_attention_fwd(q, k, v, num_ctx=nc)
+    delta = (do * o).sum(-1)
+    pos = torch.arange(s_len, device=dev)
+    mask = (pos[None, :] < nc) | (pos[None, :] == pos[:, None])
+    leaf = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def fwd_bwd(forward):
+        return lambda: torch.autograd.grad(forward(*leaf), leaf, do)
+
+    chain = {
+        "kernels_ms": _time_ms(fwd_bwd(
+            lambda *a: GPOAttention.apply(*a, nc)))[0],
+        "plain_ms": _time_ms(fwd_bwd(
+            lambda *a: ref_gpo_attention(*a, num_ctx=nc)[0]))[0],
+        "library_ms": _time_ms(fwd_bwd(
+            lambda *a: F.scaled_dot_product_attention(*a,
+                                                      attn_mask=mask)))[0]}
+    band = s_len * nc + (s_len - nc)  # allowed (query, key) pairs
+    for name, kfn, pfn, n_out, per_pair, src_key in (
+            ("gpo_attention_bwd_dq", gpo_attention_bwd_dq,
+             ref_gpo_attention_bwd_dq, 1, 6, "223"),
+            ("gpo_attention_bwd_dkdv", gpo_attention_bwd_dkdv,
+             ref_gpo_attention_bwd_dkdv, 2, 8, "261")):
+        ops = (q, k, v, do, lse, delta)
+        times = _timed(lambda: kfn(*ops, num_ctx=nc),
+                       lambda: pfn(*ops, num_ctx=nc), None)
+        # q, k, v, do, lse and delta read once; each output written once
+        bound, by = _bound_ms(4 * bh * ((4 + n_out) * s_len * HEAD_DIM
+                                        + 2 * s_len),
+                              per_pair * bh * band * HEAD_DIM, peaks)
+        out.append({
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/gpo_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/gpo_attention.py:{src_key}",
+            "tpu_kernel": "src/repro/kernels/gpo_attention.py::"
+                          f"_{name.replace('gpo_attention_', 'gpo_')}"
+                          "_kernel (_gpo_backward)",
+            "launches": train_launches[name],
+            "launches_per_round": train_launches[name] / rounds,
+            "max_abs_err": worst[name],
+            "shape": [bh, s_len, nc, HEAD_DIM], **times, "bound_ms": bound,
+            "bound_by": by, "library_call": None,
+            "fwd_bwd": {**chain, "library_call": (
+                "forward + backward of F.scaled_dot_product_attention("
+                "attn_mask=boolean NP mask) through torch.autograd.grad, "
+                "against kernels_ms")}})
+
+    # the Eq. 3 reduce at the quickstart's (C, P). Inputs rotate over 4
+    # copies (85 MB, beyond the 50 MB L2), so each call reads its deltas
+    # from device memory.
+    c, p = FEDAVG_SHAPES[0]
+    xs = [torch.randn((c, p), generator=g).to(dev) for _ in range(4)]
+    w = torch.rand((c,), generator=g) + 0.1
+    w = (w / w.sum()).to(dev)
+
+    def rotating(fn):
+        turn = [0]
+
+        def call():
+            turn[0] += 1
+            return fn(xs[turn[0] % len(xs)])
+
+        return call
+
+    times = _timed(rotating(lambda x: fedavg_reduce_flat(x, w)),
+                   rotating(lambda x: ref_fedavg_flat(x, w)),
+                   rotating(lambda x: w @ x))
+    bound, by = _bound_ms(4 * (c * p + p + c), 2 * c * p, peaks)
+    out.append({
+        "name": "fedavg_reduce", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/fedavg_reduce.cu",
+        "replaces": "src/repro/kernels/agg_reduce.py:100",
+        "tpu_kernel": "src/repro/kernels/agg_reduce.py::_fedavg_kernel "
+                      "(fedavg_reduce_flat)",
+        "launches": train_launches["fedavg_reduce"],
+        "launches_per_round": train_launches["fedavg_reduce"] / rounds,
+        "max_abs_err": worst["fedavg_reduce"],
+        "shape": [c, p], **times, "bound_ms": bound, "bound_by": by,
+        "library_call": "weights @ stacked (cuBLAS gemv)"})
+
     for r in out:
         e = r["eager_ms"]
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.2f}us")
         print(f"  {r['name']} at {r['shape']}, device (CUDA graph): kernel "
               f"{r['ms'] * 1e3:.2f}us  plain {r['plain_ms'] * 1e3:.2f}us  "
-              f"library {r['library_ms'] * 1e3:.2f}us  bound "
-              f"{r['bound_ms'] * 1e3:.3f}us ({r['bound_by']}); eager: "
-              f"kernel {e['kernel'] * 1e3:.2f}us  plain "
-              f"{e['plain'] * 1e3:.2f}us  library {e['library'] * 1e3:.2f}us")
+              f"library {lib}  bound {r['bound_ms'] * 1e3:.3f}us "
+              f"({r['bound_by']}); eager: kernel {e['kernel'] * 1e3:.2f}us  "
+              f"plain {e['plain'] * 1e3:.2f}us")
+    print(f"  gpo_attention_fwd at predict's {predict_row['shape']}, device: "
+          f"kernel {predict_row['ms'] * 1e3:.2f}us  plain "
+          f"{predict_row['plain_ms'] * 1e3:.2f}us  library "
+          f"{predict_row['library_ms'] * 1e3:.2f}us  bound "
+          f"{predict_row['bound_ms'] * 1e3:.3f}us")
+    print(f"  attention forward + backward at {[bh, s_len, nc, HEAD_DIM]}, "
+          f"device: kernels (fwd, dq, dk/dv through GPOAttention) "
+          f"{chain['kernels_ms'] * 1e3:.2f}us  plain under autograd "
+          f"{chain['plain_ms'] * 1e3:.2f}us  SDPA fwd+bwd "
+          f"{chain['library_ms'] * 1e3:.2f}us")
     return out
 
 
@@ -524,20 +908,24 @@ def main() -> int:
     worst = check_kernels(dev)
 
     data = make_survey_data(SurveyConfig(), _gen(SEED))
-    _, held_out = split_groups(data, seed=SEED)
+    tr, held_out = split_groups(data, seed=SEED)
     gcfg = GPOConfig(d_embed=data.phi.shape[-1])
     params = init_gpo_params(gcfg, _gen(SEED), device=dev)
     print("[2] PreferenceServer, ServeConfig() defaults, GPOConfig() width")
     serve_rec = serve(dev, data, list(held_out), gcfg, params)
     print("[3] predict_preferences through the attention kernel")
     pred_rec = predict(dev, data, held_out, gcfg, params)
-    print("[4] timing at the main path's shapes (CUDA events, median)")
-    kernels = timing(dev, serve_rec, pred_rec, name, worst)
+    print("[4] FederatedGPO at GPOConfig() width, the quickstart's "
+          "FedConfig, through the kernels")
+    train_rec = train(dev, data, tr, held_out)
+    print("[5] timing at the main paths' shapes (CUDA events, median)")
+    kernels = timing(dev, serve_rec, pred_rec, train_rec, name, worst)
 
     print(json.dumps({"engine": {
         k: serve_rec[k] for k in ("steps", "launches", "prefill_requests",
                                   "summaries", "profile_int8",
                                   "profile_f32")}}))
+    print(json.dumps({"train": train_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,12 @@
-"""Config classes of the PyTorch port (the serving slice so far)."""
-from repro_torch.configs.base import GPOConfig, ServeConfig  # noqa: F401
+"""Config classes of the PyTorch port."""
+from repro_torch.configs.base import (  # noqa: F401
+    AdversaryConfig,
+    AggConfig,
+    AvailabilityConfig,
+    CompressionConfig,
+    FedConfig,
+    GPOConfig,
+    HierarchyConfig,
+    PrivacyConfig,
+    ServeConfig,
+)

@@ -1,13 +1,18 @@
-"""Config classes of the serving slice.
+"""Config classes of the port: the GPO predictor, serving, and the
+federated runtime.
 
-``GPOConfig`` and ``ServeConfig`` copy the JAX package's classes field
-for field: same names, same defaults, same ``validate()``. Configs are
-frozen dataclasses so they hash and compare by value.
+Every class copies the JAX package's class of the same name field for
+field: same names, same defaults, same ``validate()`` (a test holds the
+two field lists equal). Configs are frozen dataclasses so they hash and
+compare by value. The federated runtime of the port runs the default
+round (full participation, FedAvg); the other stages' configs are
+carried so that a config moves between the packages unchanged, and the
+trainers refuse what they do not run yet.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Tuple
+from dataclasses import dataclass, replace
+from typing import Optional, Tuple
 
 
 @dataclass(frozen=True)
@@ -32,8 +37,9 @@ class GPOConfig:
     learn_sigma: bool = False
     param_dtype: str = "float32"
     # route the neural-process attention of gpo_apply through the
-    # hand-written CUDA kernel (kernels/gpo_attention.py) instead of the
-    # dense masked-softmax einsum. Forward only in this package so far.
+    # hand-written CUDA kernels (kernels/gpo_attention.py: the forward,
+    # and under autograd the dq and dk/dv backward kernels) instead of
+    # the dense masked-softmax einsum.
     use_pallas_attention: bool = False
     # kept for field parity with the JAX config; PyTorch runs the layer
     # loop eagerly, so there is nothing to unroll.
@@ -92,3 +98,219 @@ class ServeConfig:
                 f"bucket {self.batch_buckets[-1]}")
         if self.max_queue < 0 or self.cache_entries < 0:
             raise ValueError("max_queue and cache_entries must be >= 0")
+
+
+@dataclass(frozen=True)
+class PrivacyConfig:
+    """Differential privacy on the client→server delta path (DESIGN.md
+    §9): per-client L2 clip of the flat delta to ``clip_norm`` and
+    Gaussian noise of std ``noise_multiplier * clip_norm``, with Rényi-DP
+    accounting. ``clip_norm == 0`` disables it (the port runs only that
+    case so far)."""
+
+    clip_norm: float = 0.0
+    noise_multiplier: float = 0.0
+    target_delta: float = 1e-5
+    accountant_orders: Tuple[int, ...] = tuple(range(2, 33)) + (
+        48, 64, 128, 256)
+
+    @property
+    def enabled(self) -> bool:
+        return self.clip_norm > 0.0
+
+    def validate(self) -> None:
+        if self.clip_norm < 0.0 or self.noise_multiplier < 0.0:
+            raise ValueError("clip_norm and noise_multiplier must be >= 0")
+        if self.noise_multiplier > 0.0 and self.clip_norm == 0.0:
+            raise ValueError(
+                "noise_multiplier > 0 requires clip_norm > 0: the noise "
+                "scale is z * clip_norm, and unclipped deltas have "
+                "unbounded sensitivity (no finite-σ DP guarantee exists)")
+        if not 0.0 < self.target_delta < 1.0:
+            raise ValueError("target_delta must lie in (0, 1)")
+
+
+@dataclass(frozen=True)
+class AvailabilityConfig:
+    """Client availability / failure simulator (DESIGN.md §11): per-round
+    offline, crash-after-training and straggler draws. The benign default
+    disables it (the port runs only that case so far)."""
+
+    online_prob: float = 1.0
+    crash_prob: float = 0.0
+    straggler_prob: float = 0.0
+    max_staleness: int = 0
+    rejoin_rounds: int = 0
+
+    @property
+    def enabled(self) -> bool:
+        return (self.online_prob < 1.0 or self.crash_prob > 0.0
+                or self.straggler_prob > 0.0)
+
+    def validate(self) -> None:
+        if not 0.0 <= self.online_prob <= 1.0:
+            raise ValueError("online_prob must lie in [0, 1]")
+        if not 0.0 <= self.crash_prob <= 1.0:
+            raise ValueError("crash_prob must lie in [0, 1]")
+        if not 0.0 <= self.straggler_prob <= 1.0:
+            raise ValueError("straggler_prob must lie in [0, 1]")
+        if self.max_staleness < 0 or self.rejoin_rounds < 0:
+            raise ValueError(
+                "max_staleness and rejoin_rounds must be >= 0")
+        if self.straggler_prob > 0.0 and self.max_staleness < 1:
+            raise ValueError(
+                "straggler_prob > 0 requires max_staleness >= 1: a "
+                "straggler's delay is drawn from [1, max_staleness]")
+
+
+@dataclass(frozen=True)
+class AdversaryConfig:
+    """Byzantine adversarial-client simulator (DESIGN.md §13):
+    ``num_attackers`` clients per round corrupt their deltas (or, for
+    ``label_flip``, their training data). ``kind="none"`` disables it
+    (the port runs only that case so far)."""
+
+    # none | sign_flip | scaled | gaussian | alie | label_flip
+    kind: str = "none"
+    num_attackers: int = 0
+    scale: float = 10.0
+    noise_std: float = 1.0
+    alie_z: float = 1.0
+
+    @property
+    def enabled(self) -> bool:
+        return self.kind != "none" and self.num_attackers > 0
+
+    def validate(self) -> None:
+        kinds = ("none", "sign_flip", "scaled", "gaussian", "alie",
+                 "label_flip")
+        if self.kind not in kinds:
+            raise ValueError(
+                f"adversary kind {self.kind!r} must be one of {kinds}")
+        if self.num_attackers < 0:
+            raise ValueError("num_attackers must be >= 0")
+        if self.noise_std < 0.0:
+            raise ValueError("noise_std must be >= 0")
+
+
+@dataclass(frozen=True)
+class CompressionConfig:
+    """Client→server delta compression (DESIGN.md §10): int8 stochastic
+    quantization or top-k sparsification, with an EF21 error-feedback
+    residual. ``kind="none"`` disables it (the port runs only that case
+    so far)."""
+
+    kind: str = "none"  # none | int8 | topk
+    topk_frac: float = 0.01
+    error_feedback: bool = True
+    stochastic: bool = True
+
+    @property
+    def enabled(self) -> bool:
+        return self.kind != "none"
+
+    def validate(self) -> None:
+        if self.kind not in ("none", "int8", "topk"):
+            raise ValueError(
+                f"compression kind {self.kind!r} must be one of "
+                "'none' | 'int8' | 'topk'")
+        if self.kind == "topk" and not 0.0 < self.topk_frac <= 1.0:
+            raise ValueError(
+                f"topk_frac={self.topk_frac} must lie in (0, 1]")
+
+
+@dataclass(frozen=True)
+class AggConfig:
+    """Server-aggregation strategy (DESIGN.md §7). The paper's Eq. 2-3
+    FedAvg is ``name="fedavg"`` with the defaults below; it is the one
+    strategy the port runs so far (``core/aggregation.py``)."""
+
+    # registry name: fedavg | fedavgm | fedadam | fedyogi | fedprox |
+    # trimmed_mean | median | adaptive | fedbuff | krum | multi_krum |
+    # geomedian
+    name: str = "fedavg"
+    # server learning rate on the aggregated delta (1.0 == paper FedAvg)
+    server_lr: float = 1.0
+    momentum: float = 0.9
+    beta1: float = 0.9
+    beta2: float = 0.99
+    tau: float = 1e-3
+    # FedProx client-side proximal coefficient mu (0.0 == plain Adam)
+    prox_mu: float = 0.0
+    trim_frac: float = 0.1
+    fair_temp: float = 1.0
+    fair_decay: float = 0.9
+    buffer_k: int = 4
+    staleness_power: float = 0.5
+    num_malicious: int = 0
+    multi_krum_m: int = 3
+    geomedian_iters: int = 8
+    geomedian_eps: float = 1e-6
+    norm_bound: float = 0.0
+
+
+@dataclass(frozen=True)
+class HierarchyConfig:
+    """Two-level client→edge→server aggregation (DESIGN.md §14).
+    ``num_edges == 1`` disables it (the port runs only that case so
+    far)."""
+
+    num_edges: int = 1
+
+    @property
+    def enabled(self) -> bool:
+        return self.num_edges > 1
+
+    def validate(self, num_clients: Optional[int] = None) -> None:
+        if self.num_edges < 1:
+            raise ValueError("num_edges must be >= 1")
+        if (num_clients is not None and self.enabled
+                and num_clients % self.num_edges != 0):
+            raise ValueError(
+                f"hierarchy.num_edges={self.num_edges} must divide the "
+                f"round's participant count ({num_clients}): edges are "
+                "contiguous equal-size client shards")
+
+
+@dataclass(frozen=True)
+class FedConfig:
+    """PluralLLM federated runtime (paper §3.1–3.2, §4.3)."""
+
+    num_clients: int = 10  # |G_train|
+    num_eval_groups: int = 7  # |G_eval| (60/40 split in the paper)
+    rounds: int = 1300  # communication rounds (paper: 1300)
+    local_epochs: int = 6  # paper: 6 local epochs per round
+    lr: float = 3e-4  # paper: Adam 3e-4
+    eval_every: int = 10  # paper: every 10 rounds
+    num_context: int = 16  # m context questions per local epoch
+    num_target: int = 16  # target questions per local epoch
+    batch_groups: int = 0  # 0 => all clients participate each round
+    reset_opt_each_round: bool = False
+    # round driver: "scan" or "loop"; the port runs the per-round
+    # driver for both (core/federated.py)
+    engine: str = "scan"
+    scan_unroll: int = 1
+    # reduce the client deltas with the hand-written fedavg_reduce CUDA
+    # kernel on the raveled (C, P) matrix instead of per-leaf sums
+    use_pallas_aggregation: bool = False
+    agg: AggConfig = AggConfig()
+    privacy: PrivacyConfig = PrivacyConfig()
+    compression: CompressionConfig = CompressionConfig()
+    avail: AvailabilityConfig = AvailabilityConfig()
+    adversary: AdversaryConfig = AdversaryConfig()
+    hierarchy: HierarchyConfig = HierarchyConfig()
+    strict_privacy: bool = False
+    # runtime override of GPOConfig.use_pallas_attention: None defers to
+    # the model config; True/False forces the attention path for every
+    # trainer built from this FedConfig
+    use_pallas_attention: Optional[bool] = None
+    seed: int = 0
+
+    def resolve_gpo(self, gpo_cfg: GPOConfig) -> GPOConfig:
+        """GPOConfig with this runtime's overrides applied."""
+        if (self.use_pallas_attention is not None
+                and self.use_pallas_attention
+                != gpo_cfg.use_pallas_attention):
+            gpo_cfg = replace(
+                gpo_cfg, use_pallas_attention=self.use_pallas_attention)
+        return gpo_cfg

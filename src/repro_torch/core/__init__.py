@@ -1,10 +1,24 @@
-# The serving slice of the PyTorch port: the GPO preference predictor,
-# its multi-tenant serving engine, and the alignment metrics that score
-# served rows. Federated training comes with the next slice.
+# The PyTorch port's core: the GPO preference predictor, its federated
+# (FedAvg) and centralized trainers, the multi-tenant serving engine, and
+# the alignment and fairness metrics.
+from repro_torch.core.aggregation import (  # noqa: F401
+    AggState,
+    ServerAggregator,
+    make_aggregator,
+)
+from repro_torch.core.centralized import CentralizedGPO  # noqa: F401
+from repro_torch.core.fedavg import (  # noqa: F401
+    broadcast_to_clients,
+    fedavg_flat,
+    fedavg_stacked,
+    normalize_weights,
+)
+from repro_torch.core.federated import FederatedGPO, History  # noqa: F401
 from repro_torch.core.gpo import (  # noqa: F401
     GPOPrefix,
     gpo_apply,
     gpo_decode,
+    gpo_loss,
     gpo_prefill,
     init_gpo_params,
     params_from_numpy,

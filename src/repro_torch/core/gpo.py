@@ -1,6 +1,6 @@
 """GPO: the transformer-based group preference predictor (Zhao et al. 2023),
 the module PluralLLM trains federatedly; PyTorch port of
-``repro/core/gpo.py`` (all but ``gpo_loss``, which comes with training).
+``repro/core/gpo.py``.
 
 A transformer neural process (TNP-style):
 
@@ -15,7 +15,13 @@ A transformer neural process (TNP-style):
 
 Every function takes an optional leading batch axis written out (the JAX
 package vmaps instead): ctx_x (m, d_embed) or (B, m, d_embed), and so on.
-They run on the device of their inputs.
+``gpo_apply`` and ``gpo_loss`` also take *client-stacked* params, every
+leaf with a leading C axis (``core/fedavg.py::broadcast_to_clients``),
+against batched inputs with B = C: client c's batch meets client c's
+weights, ``x @ w`` broadcasts (C, S, d) @ (C, d, e), and one attention
+launch per layer covers every client and head. That is the reference's
+``jax.vmap(local_train)`` written out. They run on the device of their
+inputs.
 """
 from __future__ import annotations
 
@@ -66,9 +72,22 @@ def map_params(fn, tree):
     return fn(tree)
 
 
-def _layer(layers: GPOLayer, i: int) -> GPOLayer:
-    """Layer i of the stacked (L, ...) weights."""
-    return map_params(lambda a: a[i], layers)
+def _layer(layers: GPOLayer, i: int, clients: bool = False) -> GPOLayer:
+    """Layer i of the stacked (L, ...) weights, or (C, L, ...) for
+    client-stacked params."""
+    return map_params(lambda a: a[:, i] if clients else a[i], layers)
+
+
+def _client_stacked(params: dict, batched: bool, b: int) -> bool:
+    """Whether ``params`` carry a leading client axis (their norm scales
+    are (C, d) rather than (d,)); such params need a batch of B = C."""
+    if params["final_norm"].dim() == 1:
+        return False
+    c = params["final_norm"].shape[0]
+    if not batched or b != c:
+        raise ValueError(f"client-stacked params ({c} clients) need "
+                         f"inputs batched over the same {c} clients")
+    return True
 
 
 def init_gpo_params(cfg: GPOConfig, generator: torch.Generator, *,
@@ -161,17 +180,24 @@ def gpo_apply(params: dict, cfg: GPOConfig, ctx_x, ctx_y, tgt_x):
     tgt_tok = torch.cat([tgt_x, tgt_x.new_zeros(b, t, 2)], dim=-1)
     tokens = torch.cat([ctx_tok, tgt_tok], dim=1)  # (B, S, d_embed+2)
 
+    clients = _client_stacked(params, batched, b)
+
+    def norm(x, scale):  # client norm scales (C, d) broadcast as (C, 1, d)
+        return rms_norm(x, scale[:, None] if clients else scale,
+                        cfg.norm_eps)
+
     x = _mm(tokens, params["in_proj"])  # (B, S, d)
     h_dim, nh = cfg.head_dim, cfg.num_heads
     mask = None if cfg.use_pallas_attention else _np_mask(m, t, x.device)
     for i in range(cfg.num_layers):
-        layer = _layer(params["layers"], i)
-        h = rms_norm(x, layer.ln1, cfg.norm_eps)
+        layer = _layer(params["layers"], i, clients)
+        h = norm(x, layer.ln1)
         q = _mm(h, layer.wq).reshape(b, s, nh, h_dim)
         k = _mm(h, layer.wk).reshape(b, s, nh, h_dim)
         v = _mm(h, layer.wv).reshape(b, s, nh, h_dim)
         if cfg.use_pallas_attention:
-            # the banded CUDA kernel: no (heads, S, S) score tensor
+            # the banded CUDA kernels (forward, and dq and dk/dv under
+            # autograd): no (heads, S, S) score tensor
             att = gpo_attention(q, k, v, num_ctx=m).reshape(b, s, -1)
         else:
             scores = torch.einsum("bihd,bjhd->bhij", q, k) / math.sqrt(h_dim)
@@ -179,9 +205,9 @@ def gpo_apply(params: dict, cfg: GPOConfig, ctx_x, ctx_y, tgt_x):
             probs = torch.softmax(scores.float(), dim=-1).to(v.dtype)
             att = torch.einsum("bhij,bjhd->bihd", probs, v).reshape(b, s, -1)
         x = x + _mm(att, layer.wo)
-        h2 = rms_norm(x, layer.ln2, cfg.norm_eps)
+        h2 = norm(x, layer.ln2)
         x = x + _mm(F.gelu(_mm(h2, layer.w1), approximate="tanh"), layer.w2)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = norm(x, params["final_norm"])
     out = _mm(x[:, m:], params["head"])  # (B, t, 1 or 2)
     mu = out[..., 0]
     log_sigma = out[..., 1] if cfg.learn_sigma else None
@@ -309,6 +335,18 @@ def gpo_decode(params: dict, cfg: GPOConfig, prefix: GPOPrefix, tgt_x,
         mu = mu[0]
         log_sigma = None if log_sigma is None else log_sigma[0]
     return mu, log_sigma
+
+
+def gpo_loss(params: dict, cfg: GPOConfig, ctx_x, ctx_y, tgt_x, tgt_y):
+    """Eq. 1: NLL of target preferences given context (Gaussian p_theta),
+    the mean over target points. A scalar, or (B,) with a batch axis
+    (per client with client-stacked params): a trainer sums the clients'
+    losses, so that each client's gradient is its own loss's."""
+    mu, log_sigma = gpo_apply(params, cfg, ctx_x, ctx_y, tgt_x)
+    if log_sigma is None:
+        return (mu - tgt_y).square().mean(dim=-1)
+    inv_var = torch.exp(-2.0 * log_sigma)
+    return (0.5 * inv_var * (mu - tgt_y).square() + log_sigma).mean(dim=-1)
 
 
 def predict_preferences(params: dict, cfg: GPOConfig, ctx_x, ctx_y, tgt_x,

@@ -11,7 +11,8 @@ distribution over the question's options:
 * the group's answer distribution is softmax_a( phi(q,a) . w_g / temp ).
 
 The arrays are host-side data drawn from a CPU ``torch.Generator``; move
-batches to the device that serves them. The same seed gives other
+batches to the device that serves or trains on them (a seed then gives
+the same batches whatever that device is). The same seed gives other
 numbers than the JAX package's (threefry keys are not reproducible in
 torch): parity tests feed the JAX package's arrays instead.
 """
@@ -118,6 +119,17 @@ class ICLBatch(NamedTuple):
     tgt_q: torch.Tensor  # (t*A,) int64 question index of each target point
     num_options: int
 
+    def to(self, device) -> "ICLBatch":
+        """This batch on ``device``; array fields (numpy, or another
+        package's arrays) become tensors first."""
+        def move(f):
+            t = f if isinstance(f, torch.Tensor) else torch.from_numpy(
+                np.array(f))
+            return t.to(device)
+
+        return ICLBatch(*(move(f) for f in self[:-1]),
+                        num_options=self.num_options)
+
 
 def sample_icl_batch(generator: torch.Generator, data: SurveyData,
                      group: int, num_context: int,
@@ -138,4 +150,16 @@ def sample_icl_batch(generator: torch.Generator, data: SurveyData,
     tgt_x, tgt_y = gather(tgt_q)
     return ICLBatch(ctx_x=ctx_x, ctx_y=ctx_y, tgt_x=tgt_x, tgt_y=tgt_y,
                     tgt_q=tgt_q.repeat_interleave(data.num_options),
+                    num_options=data.num_options)
+
+
+def sample_icl_batches(generator: torch.Generator, data: SurveyData, groups,
+                       num_context: int, num_target: int) -> ICLBatch:
+    """One ICL batch per group of ``groups``, drawn from ``generator`` in
+    that order and stacked on a leading axis: the client-stacked batch
+    of one local epoch, or the held-out groups' batch of one eval."""
+    batches = [sample_icl_batch(generator, data, int(g), num_context,
+                                num_target) for g in groups]
+    return ICLBatch(*(torch.stack([getattr(b, f) for b in batches])
+                      for f in ICLBatch._fields[:-1]),
                     num_options=data.num_options)

@@ -1,8 +1,14 @@
-# Hand-written CUDA kernels for Hopper (sm_90a) on the serving path: the
-# GPO neural-process attention forward and the int8 weight-only inference
-# matmul (DESIGN.md §12). Each wrapper runs its plain PyTorch version
-# (kernels/ref.py) on CPU tensors and its kernel on CUDA tensors.
-from repro_torch.kernels.ops import gpo_attention, int8_matmul  # noqa: F401
+# Hand-written CUDA kernels for Hopper (sm_90a): the GPO neural-process
+# attention forward and backward (dq, dk/dv), the Eq. 3 FedAvg client
+# reduce, and the int8 weight-only inference matmul (DESIGN.md §12). Each
+# wrapper runs its plain PyTorch version (kernels/ref.py) on CPU tensors
+# and its kernel on CUDA tensors.
+from repro_torch.kernels.ops import (  # noqa: F401
+    fedavg_reduce,
+    fedavg_reduce_tree,
+    gpo_attention,
+    int8_matmul,
+)
 from repro_torch.kernels.quant_matmul import (  # noqa: F401
     QuantizedLinear,
     dequantize_linear,

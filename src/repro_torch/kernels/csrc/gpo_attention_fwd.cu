@@ -8,17 +8,17 @@
 // lse (BH, S) f32. Key j is allowed for query i iff j < num_ctx (a
 // context key) or j == i (a target's own key).
 //
-// Bound on the H100: at the served shapes (BH <= 28, S <= 160, HD = 32)
-// q/k/v are <= 1.7 MB and the band is ~30 MFLOP, both well under a
-// microsecond of bytes or f32 CUDA-core work, so a call is bound by its
-// launch. The simple design: one block per (bh, 64 query rows), one
-// thread per row. The block walks only the context keys [0, num_ctx) in
-// tiles of 32, staged in shared memory, and keeps the online softmax (m,
-// l, the HD-wide accumulator) in registers. After the walk each target
-// row (i >= num_ctx) adds its own key once; a context row's own key is
-// already one of the context keys. No S x S scores and no target x
-// target key are ever touched: the TPU kernel's band as a loop inside
-// the block, independent of grid order.
+// Bound on the H100: at the main path's shapes (BH <= 40, S <= 160,
+// HD = 24 or 32) q/k/v are <= 2.5 MB and the band is ~53 MFLOP, both
+// near a microsecond of bytes or f32 CUDA-core work, so a call is bound
+// by its launch and its per-row latency. The simple design: one block
+// per (bh, 64 query rows), one thread per row. The block walks only the
+// context keys [0, num_ctx) in tiles of 32, staged in shared memory, and
+// keeps the online softmax (m, l, the HD-wide accumulator) in registers.
+// After the walk each target row (i >= num_ctx) adds its own key once; a
+// context row's own key is already one of the context keys. No S x S
+// scores and no target x target key are ever touched: the TPU kernel's
+// band as a loop inside the block, independent of grid order.
 #include <cuda_runtime.h>
 
 #include <cmath>
@@ -127,6 +127,10 @@ extern "C" int gpo_attention_fwd_launch(const float* q, const float* k,
   const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (hd) {
+    case 24:
+      gpo_attention_fwd_kernel<24><<<grid, kRows, 0, st>>>(q, k, v, o, lse, S,
+                                                            num_ctx, scale);
+      break;
     case 32:
       gpo_attention_fwd_kernel<32><<<grid, kRows, 0, st>>>(q, k, v, o, lse, S,
                                                             num_ctx, scale);

@@ -1,18 +1,28 @@
 """Public wrappers around the kernels: the model's layouts in, the
 kernels' flat layouts out and back. The batch axis is written out (no
-vmap): one call is one launch however many groups it carries."""
+vmap): one call is one launch however many groups (or clients) it
+carries."""
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.gpo_attention import gpo_attention_fwd
+from repro_torch.kernels.agg_reduce import fedavg_reduce_flat
+from repro_torch.kernels.gpo_attention import GPOAttention
 from repro_torch.kernels.quant_matmul import int8_matmul_flat
+from repro_torch.utils.pytree import (
+    tree_index,
+    tree_ravel_clients,
+    tree_unflatten_from_vector,
+)
 
 
 def gpo_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   num_ctx: int) -> torch.Tensor:
     """GPO layout: q/k/v (S, H, hd) or (B, S, H, hd) -> the same shape;
-    neural-process mask with the first ``num_ctx`` tokens as context."""
+    neural-process mask with the first ``num_ctx`` tokens as context.
+    Differentiable: the ``GPOAttention`` Function runs the backward
+    kernels. S is not padded: a padded target row would attend only to
+    itself, so the band needs no padding to stay exact."""
     lead = q.shape[:-3]
     s, h, hd = q.shape[-3:]
 
@@ -20,7 +30,7 @@ def gpo_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return t.reshape(-1, s, h, hd).transpose(1, 2).reshape(
             -1, s, hd).contiguous()
 
-    o, _ = gpo_attention_fwd(flat(q), flat(k), flat(v), num_ctx=num_ctx)
+    o = GPOAttention.apply(flat(q), flat(k), flat(v), num_ctx)
     return o.reshape(-1, h, s, hd).transpose(1, 2).reshape(*lead, s, h, hd)
 
 
@@ -32,3 +42,20 @@ def int8_matmul(x: torch.Tensor, q: torch.Tensor,
     lead = x.shape[:-1]
     out = int8_matmul_flat(x.reshape(-1, x.shape[-1]).contiguous(), q, scale)
     return out.reshape(*lead, q.shape[-1])
+
+
+def fedavg_reduce(stacked: torch.Tensor,
+                  weights: torch.Tensor) -> torch.Tensor:
+    """stacked (C, P) raveled client params or deltas, weights (C,) ->
+    (P,) f32: Eq. 3 in one launch."""
+    return fedavg_reduce_flat(stacked.float().contiguous(),
+                              weights.float().contiguous())
+
+
+def fedavg_reduce_tree(stacked_tree, weights: torch.Tensor):
+    """Client-stacked params tree (leaves (C, ...)) -> the aggregated
+    tree through one ``fedavg_reduce`` launch on the raveled (C, P)
+    matrix, in the reference's leaf order."""
+    like = tree_index(stacked_tree, 0)
+    return tree_unflatten_from_vector(
+        fedavg_reduce(tree_ravel_clients(stacked_tree), weights), like)

@@ -1,8 +1,9 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each is the most obviously correct form of what its kernel computes
-(naive masked softmax; dequantize-then-matmul), written independently of
-the kernels' tiling. The kernel wrappers run these on CPU tensors, and
+(naive masked softmax and its closed-form gradient; dequantize-then-
+matmul; a weighted sum over clients), written independently of the
+kernels' tiling. The kernel wrappers run these on CPU tensors, and
 ``chip_smoke.py`` holds each kernel against its plain version on the
 card.
 """
@@ -23,12 +24,66 @@ def ref_gpo_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     scores."""
     s, hd = q.shape[-2:]
     scores = torch.einsum("...qd,...kd->...qk", q, k) / math.sqrt(hd)
-    pos = torch.arange(s, device=q.device)
-    mask = (pos[None, :] < num_ctx) | (pos[None, :] == pos[:, None])
-    scores = torch.where(mask, scores, NEG_INF).float()
+    scores = torch.where(_np_allowed(s, num_ctx, q.device), scores,
+                         NEG_INF).float()
     lse = torch.logsumexp(scores, dim=-1)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     return torch.einsum("...qk,...kd->...qd", probs, v), lse
+
+
+def _np_allowed(s: int, num_ctx: int, device) -> torch.Tensor:
+    """(S, S) bool: key j is allowed for query i iff j < num_ctx or
+    j == i."""
+    pos = torch.arange(s, device=device)
+    return (pos[None, :] < num_ctx) | (pos[None, :] == pos[:, None])
+
+
+def _bwd_terms(q, k, v, do, lse, delta, num_ctx):
+    """The backward's per-pair terms over the whole (S, S) plane: the
+    probabilities p = exp(s - lse) on the mask (0 off it) and
+    ds = p * (do v^T - delta) * scale."""
+    s, hd = q.shape[-2:]
+    scale = 1.0 / math.sqrt(hd)
+    scores = torch.einsum("...qd,...kd->...qk", q, k) * scale
+    p = torch.where(_np_allowed(s, num_ctx, q.device),
+                    torch.exp(scores - lse[..., None]), 0.0)
+    dp = torch.einsum("...qd,...kd->...qk", do, v)
+    return p, p * (dp - delta[..., None]) * scale
+
+
+def ref_gpo_attention_bwd_dq(q, k, v, do, lse, delta, *,
+                             num_ctx: int) -> torch.Tensor:
+    """dq (..., S, hd) = ds @ k, from the forward's lse and the
+    preprocessed delta = rowsum(do * o)."""
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, num_ctx)
+    return torch.einsum("...qk,...kd->...qd", ds, k)
+
+
+def ref_gpo_attention_bwd_dkdv(q, k, v, do, lse, delta, *, num_ctx: int):
+    """(dk = ds^T @ q, dv = p^T @ do), each (..., S, hd)."""
+    p, ds = _bwd_terms(q, k, v, do, lse, delta, num_ctx)
+    return (torch.einsum("...qk,...qd->...kd", ds, q),
+            torch.einsum("...qk,...qd->...kd", p, do))
+
+
+def ref_gpo_attention_bwd(q, k, v, o, lse, do, *, num_ctx: int):
+    """(dq, dk, dv) of the neural-process attention in closed form, from
+    the forward's output o and lse and the cotangent do:
+    delta = rowsum(do * o), p = exp(s - lse) on the mask,
+    ds = p * (do v^T - delta) * scale."""
+    delta = (do * o).sum(dim=-1)
+    dq = ref_gpo_attention_bwd_dq(q, k, v, do, lse, delta, num_ctx=num_ctx)
+    dk, dv = ref_gpo_attention_bwd_dkdv(q, k, v, do, lse, delta,
+                                        num_ctx=num_ctx)
+    return dq, dk, dv
+
+
+def ref_fedavg_flat(stacked: torch.Tensor,
+                    weights: torch.Tensor) -> torch.Tensor:
+    """Eq. 3 on raveled clients: stacked (C, P), weights (C,) -> (P,),
+    sum_c w_c x_c in float32, cast to the stacked dtype."""
+    return torch.einsum("c,cp->p", weights.float(),
+                        stacked.float()).to(stacked.dtype)
 
 
 def ref_int8_matmul(x: torch.Tensor, q: torch.Tensor,

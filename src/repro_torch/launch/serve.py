@@ -10,9 +10,10 @@ matmul kernel.
   PYTHONPATH=src python -m repro_torch.launch.serve --gpo --restore \
       --int8 --requests 64 --hit-ratio 0.75
 
-Training before serving is not ported yet (it comes with the training
-slice), so ``--restore`` is required: this launcher never serves random
-weights.
+``--restore`` is required: this launcher never serves random weights.
+Train and save a checkpoint first, with this package
+(``python -m repro_torch.launch.train --trainer gpo --ckpt-dir ...``) or
+the JAX package.
 """
 from __future__ import annotations
 
@@ -44,7 +45,8 @@ def _restore_params(ckpt_dir: str, gcfg: GPOConfig, seed: int,
     if path is None:
         raise SystemExit(
             f"--restore: no checkpoint under {ckpt_dir!r}; train and save "
-            "one with the JAX package (python -m repro.launch.serve --gpo)")
+            "one with python -m repro_torch.launch.train --trainer gpo "
+            f"--ckpt-dir {ckpt_dir}")
     like = init_gpo_params(gcfg, torch.Generator().manual_seed(seed),
                            device=device)
     try:
@@ -63,9 +65,10 @@ def serve_gpo(args) -> None:
     device = resolve_device(args.device)
     if not args.restore:
         raise SystemExit(
-            "serve --gpo needs --restore: federated training is not "
-            "ported to PyTorch yet (it comes with the training slice), "
-            "and this launcher does not serve random weights")
+            "serve --gpo needs --restore: this launcher does not serve "
+            "random weights; train a predictor first with python -m "
+            "repro_torch.launch.train --trainer gpo --ckpt-dir "
+            f"{args.ckpt_dir}")
     data = make_survey_data(SurveyConfig(seed=args.seed))
     _, ev = split_groups(data, seed=args.seed)
     gcfg = GPOConfig(d_embed=data.phi.shape[-1])

@@ -128,7 +128,7 @@ def test_latest_checkpoint(tmp_path):
 # the serve launcher
 # ---------------------------------------------------------------------------
 def test_serve_without_restore_names_the_training_slice():
-    with pytest.raises(SystemExit, match="training slice"):
+    with pytest.raises(SystemExit, match="launch.train --trainer gpo"):
         serve_cli.main(["--gpo", "--device", "cpu"])
     with pytest.raises(SystemExit, match="only --gpo"):
         serve_cli.main([])

@@ -26,6 +26,7 @@ from repro_torch.kernels import backend
 ROOT = Path(__file__).resolve().parents[1]
 qm = importlib.import_module("repro_torch.kernels.quant_matmul")
 ga = importlib.import_module("repro_torch.kernels.gpo_attention")
+ar = importlib.import_module("repro_torch.kernels.agg_reduce")
 
 
 def _port_modules():
@@ -68,12 +69,17 @@ def test_no_jax_or_reference_import_in_the_port_sources():
     assert not hits, hits
 
 
-@pytest.mark.parametrize("name", ["GPOConfig", "ServeConfig"])
+@pytest.mark.parametrize("name", [
+    "GPOConfig", "ServeConfig", "FedConfig", "AggConfig", "PrivacyConfig",
+    "AvailabilityConfig", "AdversaryConfig", "CompressionConfig",
+    "HierarchyConfig"])
 def test_configs_copy_the_reference_field_for_field(name):
     port, ref = getattr(repro_torch.configs, name), getattr(jax_configs, name)
 
-    def spec(cls):
-        return [(f.name, f.default) for f in dataclasses.fields(cls)]
+    def spec(cls):  # a sub-config default compares by its own fields
+        return [(f.name, (type(f.default).__name__, spec(f.default))
+                 if dataclasses.is_dataclass(f.default) else f.default)
+                for f in dataclasses.fields(cls)]
 
     assert spec(port) == spec(ref)
     if name == "GPOConfig":
@@ -89,6 +95,26 @@ def test_serve_config_validation_matches_reference(kw):
         jax_configs.ServeConfig(**kw).validate()
     with pytest.raises(ValueError):
         ServeConfig(**kw).validate()
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("PrivacyConfig", dict(clip_norm=-1.0)),
+    ("PrivacyConfig", dict(noise_multiplier=1.0)),
+    ("PrivacyConfig", dict(clip_norm=1.0, target_delta=1.0)),
+    ("AvailabilityConfig", dict(online_prob=1.5)),
+    ("AvailabilityConfig", dict(straggler_prob=0.5)),
+    ("AdversaryConfig", dict(kind="bogus")),
+    ("CompressionConfig", dict(kind="topk", topk_frac=0.0)),
+    ("HierarchyConfig", dict(num_edges=0))])
+def test_fed_subconfig_validation_matches_reference(name, kw):
+    for mod in (jax_configs, repro_torch.configs):
+        with pytest.raises(ValueError):
+            getattr(mod, name)(**kw).validate()
+    assert (jax_configs.FedConfig(use_pallas_attention=True).resolve_gpo(
+        jax_configs.GPOConfig()).use_pallas_attention
+        is repro_torch.configs.FedConfig(
+            use_pallas_attention=True).resolve_gpo(
+            GPOConfig()).use_pallas_attention is True)
 
 
 def _no_card():
@@ -129,9 +155,36 @@ def test_entry_points_refuse_to_run_on_the_cpu_unasked():
     assert rows.shape == (1, 5)
 
 
+def test_training_entry_points_refuse_to_run_on_the_cpu_unasked():
+    _no_card()
+    from repro_torch.configs import FedConfig
+    from repro_torch.core import CentralizedGPO, FederatedGPO
+    from repro_torch.data import SurveyConfig, make_survey_data
+    from repro_torch.launch import train
+
+    data = make_survey_data(SurveyConfig(num_groups=5, num_questions=20,
+                                         d_embed=8))
+    cfg = GPOConfig(d_embed=8, d_model=16, num_layers=1, num_heads=2,
+                    d_ff=16)
+    for trainer in (FederatedGPO, CentralizedGPO):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            trainer(cfg, FedConfig(num_clients=3), data, [0, 1, 2], [3, 4])
+        trainer(cfg, FedConfig(num_clients=3), data, [0, 1, 2], [3, 4],
+                device="cpu")  # and on the CPU when asked
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train.main(["--trainer", "gpo", "--rounds", "1"])
+
+
+def _counts():
+    return (qm.int8_matmul_flat.launches, ga.gpo_attention_fwd.launches,
+            ga.gpo_attention_bwd_dq.launches,
+            ga.gpo_attention_bwd_dkdv.launches,
+            ar.fedavg_reduce_flat.launches)
+
+
 def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
     _no_card()
-    before = (qm.int8_matmul_flat.launches, ga.gpo_attention_fwd.launches)
+    before = _counts()
     with FakeTensorMode():
         x = torch.empty((4, 8), device="cuda")
         q = torch.empty((8, 3), dtype=torch.int8, device="cuda")
@@ -142,15 +195,23 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             ga.gpo_attention_fwd(a, a, a, num_ctx=4)
         with pytest.raises(ValueError, match="head_dim"):
-            ga.gpo_attention_fwd(*(torch.empty((2, 10, 24), device="cuda")
+            ga.gpo_attention_fwd(*(torch.empty((2, 10, 16), device="cuda")
                                    for _ in range(3)), num_ctx=4)
+        # operands that need a gradient reach the same launch (the
+        # GPOAttention Function differentiates it)
         g = torch.empty((2, 10, 32), device="cuda", requires_grad=True)
-        with pytest.raises(NotImplementedError, match="training slice"):
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
             ga.gpo_attention_fwd(g, a, a, num_ctx=4)
+        r = torch.empty((2, 10), device="cuda")
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ga.gpo_attention_bwd_dq(a, a, a, a, r, r, num_ctx=4)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ga.gpo_attention_bwd_dkdv(a, a, a, a, r, r, num_ctx=4)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ar.fedavg_reduce_flat(x, torch.empty((4,), device="cuda"))
         with pytest.raises(ValueError, match="different devices"):
             qm.int8_matmul_flat(x, q.cpu(), s)
-    assert (qm.int8_matmul_flat.launches,
-            ga.gpo_attention_fwd.launches) == before
+    assert _counts() == before
 
 
 def test_operand_contract_is_held_on_the_cpu_too():
