@@ -11,7 +11,9 @@ the card, raising on any mismatch:
    same inputs on the card, at the serving and training paths' shapes:
    the int8 matmul, the attention forward and backward (dq, dk/dv; head
    widths 32 and 24), the ``GPOAttention`` Function's gradients, and
-   the FedAvg reduce (and its run-to-run bit-equality).
+   the aggregation kernels: the FedAvg reduce, the FedAvgM momentum
+   reduce, the rank-trimmed reduce (ties included) and the Krum pairwise
+   distances, each also bit-equal from one call to the next.
 2. Serving: ``PreferenceServer`` at ``ServeConfig()`` defaults over a
    64-request trace, with f32 and with int8 weights, at ``GPOConfig()``
    width with random weights from a seed; cache hit == miss bit for bit,
@@ -27,6 +29,13 @@ the card, raising on any mismatch:
    and against the card's dense path; 20 more rounds, over which the
    loss must fall; a checkpoint saved, restored into a
    ``PreferenceServer`` and served; one round under ``torch.profiler``.
+   Then every strategy of the aggregation registry that the reference's
+   sweeps run (``benchmarks/bench_round.py``'s ``AGG_SWEEP``, krum and
+   multi_krum as in ``BENCH_byz.json``, geomedian, fedbuff, and FedAvg
+   with a norm bound that clips in round 0): 3 rounds each through the
+   kernels with the launch counts asserted, against the same run with
+   the aggregation's plain versions on the card, and median and krum
+   against their CPU runs.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -36,7 +45,9 @@ Launch counters are set to 0 right before each main-path phase and read
 right after it. The last five lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
-``kernels`` JSON line, the card's ``nvidia-smi`` name and power limit,
+``strategies`` JSON line (per strategy: launches, agreement, wall per
+round), the ``kernels`` JSON line, the card's ``nvidia-smi`` name and
+power limit,
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
 result. Full float32 throughout: TF32 is off for matmuls and cuDNN.
@@ -44,6 +55,7 @@ result. Full float32 throughout: TF32 is off for matmuls and cuDNN.
 from __future__ import annotations
 
 import json
+import re
 import shutil
 import subprocess
 import sys
@@ -63,7 +75,13 @@ from repro_torch.checkpoint import (  # noqa: E402
     restore_checkpoint,
     save_checkpoint,
 )
-from repro_torch.configs import FedConfig, GPOConfig, ServeConfig  # noqa: E402
+from repro_torch.configs import (  # noqa: E402
+    AggConfig,
+    FedConfig,
+    GPOConfig,
+    ServeConfig,
+)
+from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     FederatedGPO,
     PreferenceServer,
@@ -83,7 +101,12 @@ from repro_torch.data import (  # noqa: E402
     split_groups,
 )
 from repro_torch.kernels import backend, quantize_linear  # noqa: E402
-from repro_torch.kernels.agg_reduce import fedavg_reduce_flat  # noqa: E402
+from repro_torch.kernels.agg_reduce import (  # noqa: E402
+    fedavg_reduce_flat,
+    momentum_reduce_flat,
+    pairwise_dists_flat,
+    trimmed_reduce_flat,
+)
 from repro_torch.kernels.gpo_attention import (  # noqa: E402
     GPOAttention,
     gpo_attention_bwd_dkdv,
@@ -93,6 +116,9 @@ from repro_torch.kernels.gpo_attention import (  # noqa: E402
 from repro_torch.kernels.quant_matmul import int8_matmul_flat  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
     ref_fedavg_flat,
+    ref_momentum_reduce_flat,
+    ref_pairwise_sq_dists,
+    ref_trimmed_flat,
     ref_gpo_attention,
     ref_gpo_attention_bwd,
     ref_gpo_attention_bwd_dkdv,
@@ -124,6 +150,40 @@ HEAD_DIMS = (32, 24)  # GPOConfig() and benchmarks/paper_experiment.py
 # (C, P): the quickstart's 10 clients x 534,016 GPOConfig() params, then
 # ragged P through the kernel's scalar path
 FEDAVG_SHAPES = [(10, 534016), (3, 2049), (1, 7)]
+# the other aggregation kernels: the quickstart's shape, ragged P, and
+# the kernels' cap of 32 clients (bench_round.py's aggregation section)
+AGG_SHAPES = [(10, 534016), (3, 2049), (1, 7), (32, 5001)]
+# the registry's strategies on the training path: AGG_SWEEP of
+# benchmarks/bench_round.py:217-228 (its hyperparameters), krum and
+# multi_krum with f = 3 and m = 3 as in BENCH_byz.json, geomedian,
+# fedbuff, and FedAvg with a server-side norm bound. Round 0's client
+# delta norms at this config lie in 0.457-0.483 (the port's CPU run), so
+# 0.475 clips about half of the rows there.
+NORM_BOUND = 0.475
+STRATEGIES = {
+    "fedavg": {},
+    "fedavgm": {"momentum": 0.9, "server_lr": 1.0},
+    "fedadam": {"beta1": 0.9, "beta2": 0.99, "tau": 1e-2,
+                "server_lr": 1e-2},
+    "fedyogi": {"beta1": 0.9, "beta2": 0.99, "tau": 1e-2,
+                "server_lr": 1e-2},
+    "fedprox": {"prox_mu": 0.01},
+    "trimmed_mean": {"trim_frac": 0.1},
+    "median": {},
+    "adaptive": {"fair_temp": 1.0, "fair_decay": 0.9},
+    "krum": {"num_malicious": 3},
+    "multi_krum": {"num_malicious": 3, "multi_krum_m": 3},
+    "geomedian": {},
+    "fedbuff": {},
+    "fedavg+norm_bound": {"name": "fedavg", "norm_bound": NORM_BOUND},
+}
+# the aggregation kernel each strategy launches once a round (none:
+# geomedian, which has no kernel in the reference either)
+STRATEGY_KERNEL = {"fedavgm": "momentum_reduce",
+                   "trimmed_mean": "trimmed_reduce",
+                   "median": "trimmed_reduce", "krum": "pairwise_dists",
+                   "multi_krum": "pairwise_dists", "geomedian": None}
+CPU_STRATEGIES = ("median", "krum")
 # FederatedGPO against its CPU run and its dense run after 3 rounds
 TRAIN_ROUNDS, MORE_ROUNDS = 3, 20
 TRAIN_TOL = {"round_loss_rtol": 1e-4, "eval_atol": 1e-4,
@@ -321,12 +381,79 @@ def _check_fedavg(g, dev, worst) -> None:
         worst["fedavg_reduce"] = max(worst["fedavg_reduce"], err)
 
 
+def _agg_inputs(c, p, g, dev, ties=False):
+    x = torch.randn((c, p), generator=g)
+    if ties:  # few distinct values: many ties across the clients
+        x = torch.round(2 * x) / 2
+    w = torch.rand((c,), generator=g) + 0.1
+    return x.to(dev), (w / w.sum()).to(dev)
+
+
+def _check_agg_kernels(g, dev, worst) -> None:
+    """momentum_reduce, trimmed_reduce and pairwise_dists against their
+    plain versions, and two calls on the same input bit-equal (clients
+    and column blocks summed in a fixed order, no atomics)."""
+    for c, p in AGG_SHAPES:
+        x, w = _agg_inputs(c, p, g, dev)
+        m = torch.randn((p,), generator=g).to(dev)
+        for beta in (0.0, 0.9):
+            d, nm = momentum_reduce_flat(x, w, m, beta=beta)
+            d2, nm2 = momentum_reduce_flat(x, w, m, beta=beta)
+            pd, pnm = ref_momentum_reduce_flat(x, w, m, beta=beta)
+            torch.cuda.synchronize()
+            (ed, okd), (en, okn) = _close(d, pd, 1e-6), _close(nm, pnm, 1e-6)
+            same = torch.equal(d, d2) and torch.equal(nm, nm2)
+            print(f"  momentum_reduce C={c:2d} P={p:7d} beta={beta}  "
+                  f"max_abs_err delta={ed:.3e} moment={en:.3e}  "
+                  f"tol=1e-6*(1+|plain|)  repeat bit-equal: {same}")
+            if not (okd and okn and same):
+                raise AssertionError(f"momentum_reduce mismatch at {(c, p)}")
+            worst["momentum_reduce"] = max(worst["momentum_reduce"], ed, en)
+
+        trims = sorted({min(int(0.1 * c), (c - 1) // 2), (c - 1) // 2})
+        for ties in (False, True):
+            x, w = _agg_inputs(c, p, g, dev, ties=ties)
+            for trim in trims:
+                out = trimmed_reduce_flat(x, w, trim=trim)
+                again = trimmed_reduce_flat(x, w, trim=trim)
+                plain = ref_trimmed_flat(x, w, trim=trim)
+                torch.cuda.synchronize()
+                err, ok = _close(out, plain, 1e-6)
+                same = torch.equal(out, again)
+                print(f"  trimmed_reduce C={c:2d} P={p:7d} trim={trim:2d} "
+                      f"ties={ties!s:5}  max_abs_err={err:.3e}  "
+                      f"tol=1e-6*(1+|plain|)  repeat bit-equal: {same}")
+                if not (ok and same):
+                    raise AssertionError(f"trimmed_reduce mismatch at "
+                                         f"{(c, p, trim, ties)}")
+                worst["trimmed_reduce"] = max(worst["trimmed_reduce"], err)
+
+        x, _ = _agg_inputs(c, p, g, dev)
+        out = pairwise_dists_flat(x)
+        again = pairwise_dists_flat(x)
+        plain = ref_pairwise_sq_dists(x)
+        torch.cuda.synchronize()
+        # the expansion form cancels: atol 1e-5 * max_i |x_i|^2
+        atol = 1e-5 * (x * x).sum(dim=1).max().item()
+        err = (out - plain).abs().max().item()
+        same = torch.equal(out, again)
+        exact_diag = bool((torch.diagonal(out) == 0).all())
+        print(f"  pairwise_dists C={c:2d} P={p:7d}  max_abs_err={err:.3e}  "
+              f"tol={atol:.3e} (1e-5*max|x_i|^2)  zero diagonal: "
+              f"{exact_diag}  repeat bit-equal: {same}")
+        if not (err <= atol and same and exact_diag
+                and torch.isfinite(out).all()):
+            raise AssertionError(f"pairwise_dists mismatch at {(c, p)}")
+        worst["pairwise_dists"] = max(worst["pairwise_dists"], err)
+
+
 def check_kernels(dev) -> dict:
     """Phase 1: every kernel against its plain version on the card."""
     g = _gen(SEED)
     worst = {"int8_matmul": 0.0, "gpo_attention_fwd": 0.0,
              "gpo_attention_bwd_dq": 0.0, "gpo_attention_bwd_dkdv": 0.0,
-             "fedavg_reduce": 0.0}
+             "fedavg_reduce": 0.0, "momentum_reduce": 0.0,
+             "trimmed_reduce": 0.0, "pairwise_dists": 0.0}
     for k, n in INT8_SHAPES:
         tol = 1e-4 if k > 256 else 1e-5
         for m in (1, 37, 1280):
@@ -364,6 +491,7 @@ def check_kernels(dev) -> dict:
                                              el)
     _check_attention_bwd(g, dev, worst)
     _check_fedavg(g, dev, worst)
+    _check_agg_kernels(g, dev, worst)
     return worst
 
 
@@ -549,18 +677,32 @@ def predict(dev, data, groups, gcfg, params) -> dict:
     return {"launches": launches, "calls": calls}
 
 
+_COUNTED = {"gpo_attention_fwd": gpo_attention_fwd,
+            "gpo_attention_bwd_dq": gpo_attention_bwd_dq,
+            "gpo_attention_bwd_dkdv": gpo_attention_bwd_dkdv,
+            "fedavg_reduce": fedavg_reduce_flat,
+            "momentum_reduce": momentum_reduce_flat,
+            "trimmed_reduce": trimmed_reduce_flat,
+            "pairwise_dists": pairwise_dists_flat,
+            "int8_matmul": int8_matmul_flat}
+
+
 def _counts() -> dict:
-    return {"gpo_attention_fwd": gpo_attention_fwd.launches,
-            "gpo_attention_bwd_dq": gpo_attention_bwd_dq.launches,
-            "gpo_attention_bwd_dkdv": gpo_attention_bwd_dkdv.launches,
-            "fedavg_reduce": fedavg_reduce_flat.launches,
-            "int8_matmul": int8_matmul_flat.launches}
+    return {name: fn.launches for name, fn in _COUNTED.items()}
 
 
 def _zero_counts() -> None:
-    for fn in (gpo_attention_fwd, gpo_attention_bwd_dq,
-               gpo_attention_bwd_dkdv, fedavg_reduce_flat, int8_matmul_flat):
+    for fn in _COUNTED.values():
         fn.launches = 0
+
+
+def _attention_launches(gcfg, fcfg, rounds) -> dict:
+    """The attention kernels' launches in ``rounds`` training rounds:
+    one forward and backward per layer and local epoch, and one forward
+    per layer for the round's eval."""
+    steps = gcfg.num_layers * fcfg.local_epochs * rounds
+    return {"gpo_attention_fwd": steps + gcfg.num_layers * rounds,
+            "gpo_attention_bwd_dq": steps, "gpo_attention_bwd_dkdv": steps}
 
 
 def _agreement(hist, params, other, other_params) -> dict:
@@ -575,6 +717,17 @@ def _agreement(hist, params, other, other_params) -> dict:
               for a, b in zip(tree_leaves(params), tree_leaves(other_params)))
     return {"round_loss_rel": float(loss.max()), "eval_abs": ev,
             "params_max_abs": par}
+
+
+def _strategy_cfg(base: FedConfig, label: str) -> FedConfig:
+    kw = dict(STRATEGIES[label])
+    return replace(base, agg=AggConfig(name=kw.pop("name", label), **kw))
+
+
+def _within(a: dict) -> bool:
+    return (a["round_loss_rel"] <= TRAIN_TOL["round_loss_rtol"]
+            and a["eval_abs"] <= TRAIN_TOL["eval_atol"]
+            and a["params_max_abs"] <= TRAIN_TOL["params_max_abs"])
 
 
 def train(dev, data, tr, ev) -> dict:
@@ -596,10 +749,9 @@ def train(dev, data, tr, ev) -> dict:
     wall = time.perf_counter() - t0
     launches = _counts()
     layers, epochs = gcfg.num_layers, kern.local_epochs
-    steps = layers * epochs * TRAIN_ROUNDS
-    want = {"gpo_attention_fwd": steps + layers * TRAIN_ROUNDS,
-            "gpo_attention_bwd_dq": steps, "gpo_attention_bwd_dkdv": steps,
-            "fedavg_reduce": TRAIN_ROUNDS, "int8_matmul": 0}
+    want = {**dict.fromkeys(_COUNTED, 0),
+            **_attention_launches(gcfg, kern, TRAIN_ROUNDS),
+            "fedavg_reduce": TRAIN_ROUNDS}
     print(f"  {TRAIN_ROUNDS} rounds of {len(tr)} clients x {epochs} local "
           f"epochs in {wall:.3f}s; launches {launches}")
     if launches != want:
@@ -622,9 +774,7 @@ def train(dev, data, tr, ev) -> dict:
               f"{a['eval_abs']:.3e} (tol {TRAIN_TOL['eval_atol']:g}); params "
               f"max_abs {a['params_max_abs']:.3e} (tol "
               f"{TRAIN_TOL['params_max_abs']:g})")
-        if not (a["round_loss_rel"] <= TRAIN_TOL["round_loss_rtol"]
-                and a["eval_abs"] <= TRAIN_TOL["eval_atol"]
-                and a["params_max_abs"] <= TRAIN_TOL["params_max_abs"]):
+        if not _within(a):
             raise AssertionError(f"the kernel run is off the {name} run")
 
     # training goes on: the loss falls
@@ -696,12 +846,104 @@ def train(dev, data, tr, ev) -> dict:
             "profile_round": prof}
 
 
-def timing(dev, serve_rec, pred_rec, train_rec, card_name, worst) -> list:
+def train_strategies(dev, data, tr, ev) -> dict:
+    """Phase 4, continued: every strategy of ``STRATEGIES`` for 3 rounds
+    through the kernels (launch counts asserted), against the same run
+    with the aggregation's plain versions on the card; median and krum
+    also against their CPU runs."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    base = FedConfig(num_clients=len(tr), local_epochs=6, lr=3e-4,
+                     eval_every=1, use_pallas_attention=True,
+                     use_pallas_aggregation=True)
+    out, real_clip = {}, pipeline.norm_clip_rows
+    for label in STRATEGIES:
+        kern = _strategy_cfg(base, label)
+        plain = replace(kern, use_pallas_aggregation=False)
+        row_norms = []
+        if kern.agg.norm_bound > 0:  # read the received rows' norms
+            def spy(vecs, bound):
+                row_norms.append(torch.linalg.vector_norm(vecs, dim=1).cpu())
+                return real_clip(vecs, bound)
+
+            pipeline.norm_clip_rows = spy
+        try:
+            fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev)
+            _zero_counts()
+            t0 = time.perf_counter()
+            hist = fed.run(rounds=TRAIN_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+            t0 = time.perf_counter()
+            den = FederatedGPO(gcfg, plain, data, tr, ev, device=dev)
+            den_hist = den.run(rounds=TRAIN_ROUNDS)
+            torch.cuda.synchronize()
+            den_wall = time.perf_counter() - t0
+        finally:
+            pipeline.norm_clip_rows = real_clip
+        agg_kernel = STRATEGY_KERNEL.get(label, "fedavg_reduce")
+        want = {**dict.fromkeys(_COUNTED, 0),
+                **_attention_launches(gcfg, kern, TRAIN_ROUNDS)}
+        if agg_kernel:
+            want[agg_kernel] = TRAIN_ROUNDS
+        agree = {"plain": _agreement(hist, fed.global_params, den_hist,
+                                     den.global_params)}
+        rec = {"agg": {"name": kern.agg.name, **STRATEGIES[label]},
+               "kernel": agg_kernel,
+               "launches": {k: v for k, v in launches.items() if v},
+               "wall_ms_per_round": wall / TRAIN_ROUNDS * 1e3,
+               "plain_wall_ms_per_round": den_wall / TRAIN_ROUNDS * 1e3,
+               "round_loss": hist.round_loss,
+               "eval_mean_as": hist.eval_mean_as}
+        if row_norms:  # the kernel run's rounds, then the plain run's
+            clipped = [int((n > NORM_BOUND).sum())
+                       for n in row_norms[:TRAIN_ROUNDS]]
+            rec.update(norm_bound=NORM_BOUND, rows_clipped=clipped,
+                       round0_row_norms=row_norms[0].tolist())
+            print(f"  norm_bound {NORM_BOUND}: rows clipped per round "
+                  f"{clipped} of {len(tr)} (round 0 norms "
+                  f"{np.round(row_norms[0].numpy(), 4).tolist()})")
+            if clipped[0] < 1:
+                raise AssertionError("the norm bound clipped no row in "
+                                     "round 0")
+        if label in CPU_STRATEGIES:
+            cpu = FederatedGPO(gcfg, kern, data, tr, ev, device="cpu")
+            cpu_hist = cpu.run(rounds=TRAIN_ROUNDS)
+            agree["cpu"] = _agreement(hist, fed.global_params, cpu_hist,
+                                      cpu.global_params)
+        rec["agreement"] = agree
+        out[label] = rec
+        print(f"  {label:17s} {wall / TRAIN_ROUNDS * 1e3:8.2f} ms/round "
+              f"(plain aggregation {den_wall / TRAIN_ROUNDS * 1e3:8.2f}); "
+              f"{agg_kernel or 'no aggregation kernel'} "
+              f"x{launches.get(agg_kernel, 0) if agg_kernel else 0}; "
+              + "; ".join(f"vs {k}: loss rel {a['round_loss_rel']:.2e} "
+                          f"eval {a['eval_abs']:.2e} params "
+                          f"{a['params_max_abs']:.2e}"
+                          for k, a in agree.items())
+              + f"; loss {np.round(hist.round_loss, 5).tolist()}")
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, want "
+                                 f"{want}")
+        for k, a in agree.items():
+            if not _within(a):
+                raise AssertionError(f"{label}: the kernel run is off the "
+                                     f"{k} run (tolerance {TRAIN_TOL})")
+    return out
+
+
+def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, card_name,
+           worst) -> list:
     """Phase 5: kernel, plain and library times at main-path shapes."""
     peaks = _peaks(card_name)
     g = _gen(SEED + 2)
     out = []
     train_launches, rounds = train_rec["launches"], train_rec["rounds"]
+    # each aggregation kernel's launches over the strategies phase's
+    # kernel runs
+    strat_launches = {k: sum(r["launches"].get(k, 0)
+                             for r in strat_rec.values())
+                      for k in _COUNTED}
 
     # every layer's shape at the largest decode and prefill of the run:
     # device time of the kernel and of cuBLAS on the dequantized weight
@@ -858,9 +1100,60 @@ def timing(dev, serve_rec, pred_rec, train_rec, card_name, worst) -> list:
                       "(fedavg_reduce_flat)",
         "launches": train_launches["fedavg_reduce"],
         "launches_per_round": train_launches["fedavg_reduce"] / rounds,
+        "launches_by_path": {"train": train_launches["fedavg_reduce"],
+                             "strategies": strat_launches["fedavg_reduce"]},
         "max_abs_err": worst["fedavg_reduce"],
         "shape": [c, p], **times, "bound_ms": bound, "bound_by": by,
         "library_call": "weights @ stacked (cuBLAS gemv)"})
+
+    # the other aggregation kernels at the same (C, P), inputs rotated
+    # the same way; launches from the strategies phase
+    def agg_row(name, src, line, fn, times, nbytes, flops, **extra):
+        bound, by = _bound_ms(nbytes, flops, peaks)
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+                "replaces": f"src/repro/kernels/agg_reduce.py:{line}",
+                "tpu_kernel": f"src/repro/kernels/agg_reduce.py::{fn}",
+                "launches": strat_launches[name],
+                "launches_per_round": strat_launches[name] / rounds,
+                "max_abs_err": worst[name], "shape": [c, p], **times,
+                "bound_ms": bound, "bound_by": by, **extra}
+
+    m = torch.randn((p,), generator=g).to(dev)
+    beta = STRATEGIES["fedavgm"]["momentum"]
+    out.append(agg_row(
+        "momentum_reduce", "momentum_reduce", 139,
+        "_moment_kernel (momentum_reduce_flat)",
+        _timed(rotating(lambda x: momentum_reduce_flat(x, w, m, beta=beta)),
+               rotating(lambda x: ref_momentum_reduce_flat(x, w, m,
+                                                           beta=beta)),
+               rotating(lambda x: torch.addmv(m, x.T, w, beta=beta))),
+        4 * (c * p + 3 * p + c), 2 * c * p + 2 * p,
+        library_call="torch.addmv(m, stacked.T, w, beta=beta): beta*m + "
+                     "delta in one call, without delta itself"))
+    # the median's trim, (C-1)//2; trimmed_mean's trim of 1 beside it
+    trim = (c - 1) // 2
+    out.append(agg_row(
+        "trimmed_reduce", "trimmed_reduce", 475,
+        "_trim_kernel (trimmed_reduce_flat)",
+        _timed(rotating(lambda x: trimmed_reduce_flat(x, w, trim=trim)),
+               rotating(lambda x: ref_trimmed_flat(x, w, trim=trim)), None),
+        4 * (c * p + p + c), c * c * p, trim=trim,
+        library_call=None,
+        sort_path_note="plain_ms is the dense path's stable torch.sort "
+                       "over the clients (not one library call)",
+        trim_1={"kernel_ms": _time_ms(rotating(
+            lambda x: trimmed_reduce_flat(x, w, trim=1)))[0],
+            "plain_ms": _time_ms(rotating(
+                lambda x: ref_trimmed_flat(x, w, trim=1)))[0]}))
+    out.append(agg_row(
+        "pairwise_dists", "pairwise_dists", 522,
+        "_pairwise_kernel (pairwise_dists_flat)",
+        _timed(rotating(pairwise_dists_flat),
+               rotating(ref_pairwise_sq_dists),
+               rotating(lambda x: torch.cdist(x, x).square())),
+        4 * c * p, c * (c + 1) * p,
+        library_call="torch.cdist(x, x).square()"))
 
     for r in out:
         e = r["eager_ms"]
@@ -900,9 +1193,14 @@ def main() -> int:
     paths = backend.build()
     print(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
     for src, log in backend.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line or "error" in line:
-                print(f"  {src}: {line.strip()}")
+        # ptxas -v: one report per kernel (trimmed_reduce has one per C)
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = sorted({ln.strip() for ln in log.splitlines()
+                         if "spill" in ln and " 0 bytes spill stores, 0 "
+                         "bytes spill loads" not in ln})
+        print(f"  {src}: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers a thread, spills: "
+              f"{'; '.join(spills) or 'none'}")
 
     print("[1] kernels against their plain versions on the card")
     worst = check_kernels(dev)
@@ -918,14 +1216,19 @@ def main() -> int:
     print("[4] FederatedGPO at GPOConfig() width, the quickstart's "
           "FedConfig, through the kernels")
     train_rec = train(dev, data, tr, held_out)
+    print("[4b] the aggregation registry's strategies, 3 rounds each, "
+          "through the kernels")
+    strat_rec = train_strategies(dev, data, tr, held_out)
     print("[5] timing at the main paths' shapes (CUDA events, median)")
-    kernels = timing(dev, serve_rec, pred_rec, train_rec, name, worst)
+    kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec, name,
+                     worst)
 
     print(json.dumps({"engine": {
         k: serve_rec[k] for k in ("steps", "launches", "prefill_requests",
                                   "summaries", "profile_int8",
                                   "profile_f32")}}))
     print(json.dumps({"train": train_rec}))
+    print(json.dumps({"strategies": strat_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -11,18 +11,24 @@ A round, with every training client participating:
      written out; one attention launch per layer covers C·H client-
      heads). The loss differentiated is the SUM of the clients' mean
      losses, so each client's gradient is its own;
+     With ``AggConfig.prox_mu > 0`` each client's objective gains the
+     FedProx term (μ/2)·‖θ − θ_broadcast‖²; the reported loss stays the
+     task loss;
   3. clients ship deltas θ_g − θ;
-  4. the server reduces them with w_g = |D_g| / Σ|D_g'| (Eq. 2-3), with
-     ``use_pallas_aggregation`` through one ``fedavg_reduce`` kernel
-     launch on the raveled (C, P) matrix;
-  5. the server step θ' = θ + server_lr·Δ (``core/aggregation.py``).
+  4. the aggregate stage (``core/pipeline.py``): the configured strategy
+     of the registry (``core/aggregation.py``) reduces the deltas with
+     w_g = |D_g| / Σ|D_g'| (Eq. 2-3) and applies its server update,
+     with the clients' losses passed on (``adaptive`` scores them);
+     ``AggConfig.norm_bound > 0`` clips each delta row first. With
+     ``use_pallas_aggregation`` the client-axis work is one CUDA kernel
+     launch on the raveled (C, P) matrix.
 
 ``engine="scan"`` and ``engine="loop"`` both run this per-round driver:
 the fused multi-round driver (a captured round replayed as a CUDA graph)
 is ROADMAP.md queue A item 6. Partial participation, per-round optimizer
-resets, FedProx, and the privacy, compression, availability, adversary
-and hierarchy stages are not ported yet; a config that asks for one
-raises ``NotImplementedError`` naming its ROADMAP item.
+resets, and the privacy, compression, availability, adversary and
+hierarchy stages are not ported yet; a config that asks for one raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Randomness: the initial params come from a CPU ``torch.Generator``
 seeded with ``FedConfig.seed``, the training batches and the eval
@@ -53,12 +59,14 @@ from repro_torch.core.gpo import (
     params_from_numpy,
     predict_preferences,
 )
+from repro_torch.core.pipeline import RoundPipeline
 from repro_torch.data.surveys import ICLBatch, SurveyData, sample_icl_batches
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.optim import adam
 from repro_torch.utils.pytree import (
     tree_leaves,
     tree_map,
+    tree_sq_norm,
     tree_sub,
     tree_unflatten,
 )
@@ -67,16 +75,22 @@ BatchHook = Callable[[int, int], ICLBatch]
 EvalHook = Callable[[int], ICLBatch]
 
 
-def _train_step(gpo_cfg: GPOConfig, opt, params, opt_state, batch):
+def _train_step(gpo_cfg: GPOConfig, opt, params, opt_state, batch,
+                prox_mu: float = 0.0, anchor=None):
     """One Adam step on ``batch``: for client-stacked params and a batch
     over the same clients, every client's step at once (the summed loss
-    gives each client its own gradient). Returns (params, opt_state,
-    loss () or (C,))."""
+    gives each client its own gradient). With ``prox_mu > 0`` the
+    objective adds (μ/2)·‖θ − anchor‖², which sums over the clients as
+    the loss does. Returns (params, opt_state, task loss () or (C,))."""
     p = tree_map(lambda x: x.detach().requires_grad_(), params)
     with torch.enable_grad():
         loss = gpo_loss(p, gpo_cfg, batch.ctx_x, batch.ctx_y, batch.tgt_x,
                         batch.tgt_y)
-        grads = torch.autograd.grad(loss.sum(), tree_leaves(p))
+        objective = loss.sum()
+        if prox_mu > 0.0:
+            objective = objective + 0.5 * prox_mu * tree_sq_norm(
+                tree_sub(p, anchor))
+        grads = torch.autograd.grad(objective, tree_leaves(p))
     params, opt_state = opt.update(tree_unflatten(p, grads), opt_state, p)
     return params, opt_state, loss.detach()
 
@@ -84,14 +98,18 @@ def _train_step(gpo_cfg: GPOConfig, opt, params, opt_state, batch):
 def _make_local_train(gpo_cfg: GPOConfig, fed_cfg: FedConfig, opt):
     """Local training of every client at once: ``local_epochs`` Adam
     steps on client-stacked params; ``batches(epoch)`` gives the
-    epoch's client-stacked ICL batch. Returns (params, opt_state,
-    per-client mean loss (C,))."""
+    epoch's client-stacked ICL batch. With ``AggConfig.prox_mu > 0`` the
+    FedProx term anchors every step to the entry params (the round's
+    broadcast global). Returns (params, opt_state, per-client mean task
+    loss (C,))."""
+    mu = fed_cfg.agg.prox_mu
 
     def local_train(params, opt_state, batches: Callable[[int], ICLBatch]):
-        losses = []
+        anchor, losses = params, []
         for e in range(fed_cfg.local_epochs):
             params, opt_state, loss = _train_step(gpo_cfg, opt, params,
-                                                  opt_state, batches(e))
+                                                  opt_state, batches(e), mu,
+                                                  anchor)
             losses.append(loss)
         return params, opt_state, torch.stack(losses).mean(dim=0)
 
@@ -145,8 +163,6 @@ def _refuse_unported(fed_cfg: FedConfig) -> None:
         (fed_cfg.batch_groups > 0, "batch_groups > 0 (partial "
          "participation)", "A.6"),
         (fed_cfg.reset_opt_each_round, "reset_opt_each_round", "A.6"),
-        (fed_cfg.agg.prox_mu > 0.0, "agg.prox_mu > 0 (FedProx)", "A.6"),
-        (fed_cfg.agg.norm_bound > 0.0, "agg.norm_bound > 0", "A.7"),
         (fed_cfg.privacy.enabled, "the privacy stage", "A.8"),
         (fed_cfg.compression.enabled, "the compression stage", "A.8"),
         (fed_cfg.avail.enabled, "the availability stage", "A.8"),
@@ -158,7 +174,7 @@ def _refuse_unported(fed_cfg: FedConfig) -> None:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP.md queue A item "
                 f"{item[2:]}); the port runs the full-participation "
-                "FedAvg round")
+                "round")
 
 
 def _generators(seed: int):
@@ -194,6 +210,7 @@ class FederatedGPO:
         self.agg = make_aggregator(
             fed_cfg.agg, num_clients=num_clients,
             use_pallas=fed_cfg.use_pallas_aggregation)
+        self._pipe = RoundPipeline(self.agg)
         if init_params is None:
             self.global_params = init_gpo_params(
                 gpo_cfg, torch.Generator().manual_seed(fed_cfg.seed),
@@ -230,8 +247,9 @@ class FederatedGPO:
         trained, self.opt_states, losses = self._local_train(
             clients, self.opt_states, batches)
         deltas = tree_sub(trained, clients)
-        self.global_params, self.server_state = self.agg.step(
-            self.server_state, self.global_params, deltas, self.weights)
+        self.global_params, self.server_state = self._pipe.reduce_apply(
+            self.server_state, self.global_params, deltas, self.weights,
+            losses=losses, idx=None)
         return float(losses.mean())
 
     def evaluate(self, batch: ICLBatch) -> np.ndarray:
@@ -242,7 +260,7 @@ class FederatedGPO:
 
     def run(self, rounds: int | None = None, log_every: int = 0,
             engine: str | None = None) -> History:
-        """Run ``rounds`` FedAvg rounds and return the metric ``History``.
+        """Run ``rounds`` rounds and return the metric ``History``.
         ``engine`` ("scan" or "loop", default ``FedConfig.engine``) is
         accepted for parity with the reference; both run the per-round
         driver."""

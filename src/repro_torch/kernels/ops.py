@@ -6,7 +6,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.agg_reduce import fedavg_reduce_flat
+from repro_torch.kernels.agg_reduce import (
+    fedavg_reduce_flat,
+    momentum_reduce_flat,
+    pairwise_dists_flat,
+    trimmed_reduce_flat,
+)
 from repro_torch.kernels.gpo_attention import GPOAttention
 from repro_torch.kernels.quant_matmul import int8_matmul_flat
 from repro_torch.utils.pytree import (
@@ -59,3 +64,29 @@ def fedavg_reduce_tree(stacked_tree, weights: torch.Tensor):
     like = tree_index(stacked_tree, 0)
     return tree_unflatten_from_vector(
         fedavg_reduce(tree_ravel_clients(stacked_tree), weights), like)
+
+
+def agg_momentum_reduce(stacked: torch.Tensor, weights: torch.Tensor,
+                        moment: torch.Tensor, *, beta: float):
+    """stacked (C, P) client deltas, weights (C,), moment (P,) ->
+    (weighted delta moment (P,), beta·moment + delta (P,)) in one launch:
+    the FedAvgM server update."""
+    return momentum_reduce_flat(stacked.float().contiguous(),
+                                weights.float().contiguous(),
+                                moment.float().contiguous(), beta=beta)
+
+
+def agg_trimmed_reduce(stacked: torch.Tensor, weights: torch.Tensor, *,
+                       trim: int) -> torch.Tensor:
+    """stacked (C, P) client deltas, weights (C,) -> (P,): the rank-
+    trimmed weighted mean over the client axis (``trim`` clients cut at
+    each end; trim = (C−1)//2 is the coordinate-wise median)."""
+    return trimmed_reduce_flat(stacked.float().contiguous(),
+                               weights.float().contiguous(), trim=trim)
+
+
+def agg_pairwise_dists(stacked: torch.Tensor) -> torch.Tensor:
+    """stacked (C, P) client deltas -> (C, C) pairwise squared L2
+    distances over the raveled parameter axis: the Krum / multi-Krum
+    selection metric."""
+    return pairwise_dists_flat(stacked.float().contiguous())

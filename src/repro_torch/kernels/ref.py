@@ -2,7 +2,8 @@
 
 Each is the most obviously correct form of what its kernel computes
 (naive masked softmax and its closed-form gradient; dequantize-then-
-matmul; a weighted sum over clients), written independently of the
+matmul; a weighted sum over clients; a stable sort per coordinate; the
+direct difference form of a distance), written independently of the
 kernels' tiling. The kernel wrappers run these on CPU tensors, and
 ``chip_smoke.py`` holds each kernel against its plain version on the
 card.
@@ -84,6 +85,41 @@ def ref_fedavg_flat(stacked: torch.Tensor,
     sum_c w_c x_c in float32, cast to the stacked dtype."""
     return torch.einsum("c,cp->p", weights.float(),
                         stacked.float()).to(stacked.dtype)
+
+
+def ref_momentum_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor,
+                             moment: torch.Tensor, *, beta: float):
+    """Weighted delta moment and server momentum, the obvious two-liner:
+    (delta = sum_c w_c x_c, cast to the stacked dtype;
+    beta * moment + delta in float32)."""
+    d = torch.einsum("c,cp->p", weights.float(), stacked.float())
+    nm = beta * moment.float() + d
+    return d.to(stacked.dtype), nm
+
+
+def ref_trimmed_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
+                     trim: int) -> torch.Tensor:
+    """Rank-trimmed weighted mean through an explicit stable sort: sort
+    each coordinate's clients (ties by client index), drop ``trim`` at
+    each end, weighted mean of the survivors with their weights
+    renormalised."""
+    x = stacked.float()
+    c = x.shape[0]
+    xs, order = torch.sort(x, dim=0, stable=True)
+    ws = weights.float()[order]
+    pos = torch.arange(c, device=x.device)
+    keep = ((pos >= trim) & (pos < c - trim)).float()[:, None]
+    num = (keep * ws * xs).sum(dim=0)
+    den = (keep * ws).sum(dim=0)
+    return (num / den).to(stacked.dtype)
+
+
+def ref_pairwise_sq_dists(stacked: torch.Tensor) -> torch.Tensor:
+    """(C, P) deltas -> (C, C) pairwise squared L2 distances in the
+    direct difference form sum_p (x_i[p] - x_j[p])^2, independent of the
+    kernel's expansion form |x_i|^2 + |x_j|^2 - 2 x_i.x_j."""
+    x = stacked.float()
+    return ((x[:, None, :] - x[None, :, :]) ** 2).sum(dim=-1)
 
 
 def ref_int8_matmul(x: torch.Tensor, q: torch.Tensor,

@@ -1,18 +1,21 @@
 """Training launcher: the paper's federated GPO experiment on the GPU.
 
   PYTHONPATH=src python -m repro_torch.launch.train --trainer gpo \
-      --rounds 50 --ckpt-dir checkpoints/gpo_serve
+      --rounds 50 --agg fedavg --ckpt-dir checkpoints/gpo_serve
 
-Trains the GPO preference predictor with FedAvg (``core.FederatedGPO``)
-on synthetic survey data at ``GPOConfig()`` width with the paper's
+Trains the GPO preference predictor federated (``core.FederatedGPO``) on
+synthetic survey data at ``GPOConfig()`` width with the paper's
 ``FedConfig`` (10 training clients, 6 local Adam epochs at 3e-4, 16+16
 questions), and with ``--ckpt-dir`` saves the final global params as an
 ``.npz`` checkpoint in the JAX package's format, which
 ``python -m repro_torch.launch.serve --gpo --restore`` serves.
-The attention (forward and backward) and the FedAvg reduce always go
-through the hand-written CUDA kernels on the card; ``--device cpu`` runs
-their plain PyTorch versions on the CPU (the rehearsal; the default is
-the card).
+``--agg`` picks the server-aggregation strategy from the registry
+(DESIGN.md §7, §13), with the reference's flags for its
+hyperparameters; ``--norm-bound`` clips each client's delta on the
+server. The attention (forward and backward) and the aggregation's
+client-axis work always go through the hand-written CUDA kernels on the
+card; ``--device cpu`` runs their plain PyTorch versions on the CPU (the
+rehearsal; the default is the card).
 The backbone trainers of the reference (standard, fedavg, fedlora) come
 with the backbone-zoo slice.
 """
@@ -22,8 +25,8 @@ import argparse
 import time
 
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.configs import FedConfig, GPOConfig
-from repro_torch.core import FederatedGPO
+from repro_torch.configs import AggConfig, FedConfig, GPOConfig
+from repro_torch.core import AGGREGATORS, FederatedGPO
 from repro_torch.data import SurveyConfig, make_survey_data, split_groups
 from repro_torch.kernels.backend import resolve_device
 
@@ -40,20 +43,47 @@ def main(argv=None) -> None:
                     help="save the final global params here")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
+    # server-aggregation strategy (DESIGN.md §7) and the defenses (§13)
+    ap.add_argument("--agg", default="fedavg", choices=AGGREGATORS.names())
+    ap.add_argument("--server-lr", type=float, default=1.0)
+    ap.add_argument("--server-momentum", type=float, default=0.9,
+                    help="fedavgm server momentum")
+    ap.add_argument("--prox-mu", type=float, default=0.0,
+                    help="FedProx client proximal coefficient")
+    ap.add_argument("--trim-frac", type=float, default=0.1,
+                    help="trimmed_mean per-side trim fraction")
+    ap.add_argument("--fair-temp", type=float, default=1.0,
+                    help="adaptive fairness-weight temperature")
+    ap.add_argument("--attackers", type=int, default=0,
+                    help="the defenses' assumed number f of Byzantine "
+                         "clients (krum, multi_krum); the attack "
+                         "simulation is not ported yet")
+    ap.add_argument("--norm-bound", type=float, default=0.0,
+                    help="server-side per-client L2 norm bound on "
+                         "received deltas (0 = off)")
+    ap.add_argument("--multi-krum-m", type=int, default=3,
+                    help="rows averaged by --agg multi_krum")
     args = ap.parse_args(argv)
 
     device = resolve_device(args.device)
     data = make_survey_data(SurveyConfig(seed=args.seed))
     tr, ev = split_groups(data, seed=args.seed)
     gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    agg = AggConfig(name=args.agg, server_lr=args.server_lr,
+                    momentum=args.server_momentum, prox_mu=args.prox_mu,
+                    trim_frac=args.trim_frac, fair_temp=args.fair_temp,
+                    num_malicious=args.attackers,
+                    multi_krum_m=args.multi_krum_m,
+                    norm_bound=args.norm_bound)
     fcfg = FedConfig(num_clients=len(tr), rounds=args.rounds,
-                     eval_every=args.eval_every, seed=args.seed,
+                     eval_every=args.eval_every, seed=args.seed, agg=agg,
                      use_pallas_attention=True,
                      use_pallas_aggregation=True)
     fed = FederatedGPO(gcfg, fcfg, data, tr, ev, device=device)
     t0 = time.time()
     hist = fed.run(rounds=args.rounds, log_every=args.eval_every)
-    print(f"{args.rounds} rounds on {device} in {time.time() - t0:.1f}s: "
+    print(f"{args.rounds} rounds on {device} ({args.agg}) in "
+          f"{time.time() - t0:.1f}s: "
           f"final loss={hist.round_loss[-1]:.4f} "
           f"AS={hist.eval_mean_as[-1]:.4f} FI={hist.eval_fi[-1]:.4f}")
     if args.ckpt_dir:

@@ -1,1 +1,1 @@
-"""Helpers shared across the port (params trees)."""
+"""Helpers shared across the port (params trees, the name registry)."""

@@ -53,9 +53,15 @@ def tree_sq_norm(tree: PyTree) -> torch.Tensor:
     return sum(x.float().square().sum() for x in tree_leaves(tree))
 
 
+def tree_flatten_to_vector(tree: PyTree) -> torch.Tensor:
+    """Every leaf raveled and concatenated into one (P,) f32 vector, in
+    the reference's leaf order."""
+    return torch.cat([x.reshape(-1).float() for x in tree_leaves(tree)])
+
+
 def tree_ravel_clients(stacked_tree: PyTree) -> torch.Tensor:
     """Client-stacked tree (leaves (C, ...)) -> (C, P) f32 matrix, the
-    operand of the ``fedavg_reduce`` kernel."""
+    operand of the aggregation kernels."""
     leaves = tree_leaves(stacked_tree)
     c = leaves[0].shape[0]
     return torch.cat([x.reshape(c, -1).float() for x in leaves], dim=1)

@@ -179,7 +179,8 @@ def _counts():
     return (qm.int8_matmul_flat.launches, ga.gpo_attention_fwd.launches,
             ga.gpo_attention_bwd_dq.launches,
             ga.gpo_attention_bwd_dkdv.launches,
-            ar.fedavg_reduce_flat.launches)
+            ar.fedavg_reduce_flat.launches, ar.momentum_reduce_flat.launches,
+            ar.trimmed_reduce_flat.launches, ar.pairwise_dists_flat.launches)
 
 
 def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
@@ -207,8 +208,24 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
             ga.gpo_attention_bwd_dq(a, a, a, a, r, r, num_ctx=4)
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             ga.gpo_attention_bwd_dkdv(a, a, a, a, r, r, num_ctx=4)
+        w = torch.empty((4,), device="cuda")
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
-            ar.fedavg_reduce_flat(x, torch.empty((4,), device="cuda"))
+            ar.fedavg_reduce_flat(x, w)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ar.momentum_reduce_flat(x, w, torch.empty((8,), device="cuda"),
+                                    beta=0.9)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ar.trimmed_reduce_flat(x, w, trim=1)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ar.pairwise_dists_flat(x)
+        # the operand contract and the trim and client caps come first,
+        # on a CUDA tensor as on the CPU
+        with pytest.raises(ValueError, match="trim=2 must satisfy"):
+            ar.trimmed_reduce_flat(x, w, trim=2)
+        with pytest.raises(ValueError, match="holds 1 to 32"):
+            ar.pairwise_dists_flat(torch.empty((33, 8), device="cuda"))
+        with pytest.raises(ValueError, match="different devices"):
+            ar.momentum_reduce_flat(x, w, torch.empty((8,)), beta=0.9)
         with pytest.raises(ValueError, match="different devices"):
             qm.int8_matmul_flat(x, q.cpu(), s)
     assert _counts() == before

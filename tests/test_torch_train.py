@@ -8,10 +8,12 @@ wrappers their plain versions. Tolerances:
 * attention gradients: atol 1e-5, rtol 1e-5 (float32, the same math in
   another summation order);
 * gpo_loss and its gradients, one Adam step: 1e-5;
-* three replayed FederatedGPO rounds (two for CentralizedGPO): round
-  losses rtol 1e-4, eval AS / FI / CoV atol 1e-4, final params max-abs
-  1e-4 (Adam divides by sqrt(v) + 1e-8, which magnifies the float32
-  differences of gradients near zero).
+* three replayed FederatedGPO rounds (two for CentralizedGPO), for
+  FedAvg and for the aggregation strategies and round features the port
+  runs (fedavgm, median, krum, adaptive, FedProx, norm bounding): round
+  losses rtol 1e-4, eval AS / FI / CoV atol 1e-4, final params and
+  server state max-abs 1e-4 (Adam divides by sqrt(v) + 1e-8, which
+  magnifies the float32 differences of gradients near zero).
 """
 import importlib
 
@@ -21,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import AggConfig as JaxAggConfig
 from repro.configs import FedConfig as JaxFedConfig
 from repro.configs import GPOConfig as JaxGPOConfig
 from repro.core import CentralizedGPO as JaxCentralizedGPO
@@ -53,6 +56,7 @@ from repro_torch.core import (
     gpo_loss,
     params_from_numpy,
 )
+from repro_torch.core import pipeline
 from repro_torch.core.fedavg import broadcast_to_clients
 from repro_torch.data import ICLBatch, SurveyData
 from repro_torch.kernels import gpo_attention
@@ -209,6 +213,56 @@ def test_client_stacked_params_give_each_client_its_own_loss_and_grad(
                   *(_t(a) for a in ins[:3]))
 
 
+def test_fedprox_step_matches_jax():
+    """One local Adam step with the FedProx term (μ/2)·‖θ − anchor‖² on
+    client-stacked params, against the reference's objective per client
+    (jax.grad of the task loss plus the term, then its Adam); the loss
+    reported is the task loss alone."""
+    from repro.utils.pytree import tree_sq_norm as jax_sq_norm
+    from repro.utils.pytree import tree_sub as jax_sub
+    from repro_torch.core.federated import _train_step
+
+    cfg, jcfg = GPOConfig(**SMALL), JaxGPOConfig(**SMALL)
+    c, mu = 2, 0.5
+    jps = [jax_gpo.init_gpo_params(jcfg, jax.random.PRNGKey(i))
+           for i in range(2 * c)]
+    params, anchors = jps[:c], jps[c:]  # anchors far off: a large term
+    ins = _batch(np.random.default_rng(4), b=c)
+    jopt = jax_adam(3e-4)
+    want = []
+    for i in range(c):
+        def objective(p):
+            task = jax_gpo.gpo_loss(p, jcfg, *(jnp.asarray(a[i])
+                                               for a in ins))
+            return task + 0.5 * mu * jax_sq_norm(jax_sub(p, anchors[i])), \
+                task
+
+        (_, task), g = jax.value_and_grad(objective, has_aux=True)(params[i])
+        new, _ = jopt.update(g, jopt.init(params[i]), params[i])
+        want.append((float(task), new))
+
+    def stack(trees):
+        return params_from_numpy(jax.tree_util.tree_map(
+            lambda *xs: np.stack(xs), *map(_np_tree, trees)), "cpu")
+
+    opt = adam(3e-4)
+    p = stack(params)
+    batch = ICLBatch(*(_t(a) for a in ins), tgt_q=None, num_options=5)
+    new, _, loss = _train_step(cfg, opt, p, opt.init(p, num_clients=c),
+                               batch, mu, stack(anchors))
+    plain, _, _ = _train_step(cfg, opt, p, opt.init(p, num_clients=c),
+                              batch)
+    for i in range(c):
+        np.testing.assert_allclose(loss[i].item(), want[i][0], **TOL)
+        for a, b in zip(tree_leaves(new), jax.tree_util.tree_leaves(
+                want[i][1])):
+            np.testing.assert_allclose(a[i].numpy(), np.asarray(b), **TOL)
+    # the term moved the step: Adam's first step is lr·sign(grad), so a
+    # sign flipped by the pull toward the anchor moves a parameter
+    assert any(not torch.equal(a, b) for a, b in zip(tree_leaves(new),
+                                                     tree_leaves(plain)))
+
+
 @pytest.mark.parametrize("clients", [None, 4])
 def test_adam_update_matches_jax(clients):
     """Two Adam steps (with gradient clipping on) on a params tree, one
@@ -331,27 +385,94 @@ def _assert_runs_agree(h, jh, params, jparams):
                                    atol=1e-4)
 
 
-@pytest.mark.parametrize("kernels", [False, True],
-                         ids=["dense", "kernels"])
-def test_federated_rounds_match_jax_on_replayed_draws(kernels):
+def _replayed_pair(agg: dict, kernels: bool, rounds: int):
+    """The reference FederatedGPO (engine="loop") and the port's, with
+    the aggregation config ``agg`` and the kernel flags, the port
+    replaying the reference's init and draws for ``rounds`` rounds."""
     data, port_data, tr, ev = _jax_setup()
     flags = dict(use_pallas_attention=kernels,
                  use_pallas_aggregation=kernels)
     jfed = JaxFederatedGPO(JaxGPOConfig(**SMALL),
                            JaxFedConfig(num_clients=len(tr), engine="loop",
-                                        **FED, **flags), data, tr, ev)
-    init = _np_tree(jfed.global_params)
-    fcfg = FedConfig(num_clients=len(tr), **FED, **flags)
-    train, evals = _fed_draws(data, fcfg, tr, ev, rounds=3)
+                                        agg=JaxAggConfig(**agg), **FED,
+                                        **flags), data, tr, ev)
+    fcfg = FedConfig(num_clients=len(tr), agg=AggConfig(**agg), **FED,
+                     **flags)
+    train, evals = _fed_draws(data, fcfg, tr, ev, rounds=rounds)
     fed = FederatedGPO(GPOConfig(**SMALL), fcfg, port_data, tr, ev,
-                       device="cpu", init_params=init,
+                       device="cpu", init_params=_np_tree(jfed.global_params),
                        batches=lambda r, e: train[r, e],
                        eval_batches=lambda r: evals[r])
+    return fed, jfed
+
+
+# a bound under every client's delta norm (about 0.08 after two Adam
+# steps at 3e-4 over this model's parameters), so every row is clipped
+NORM_BOUND = 0.02
+
+
+@pytest.mark.parametrize("kernels,agg", [
+    (False, {}), (True, {}),
+    (True, dict(name="fedavgm", momentum=0.9)),
+    (True, dict(name="median")),
+    (True, dict(name="krum", num_malicious=1)),
+    (True, dict(name="adaptive", fair_temp=1.0)),
+    (True, dict(name="fedprox", prox_mu=0.01)),
+    (True, dict(norm_bound=NORM_BOUND))],
+    ids=["dense", "kernels", "fedavgm", "median", "krum", "adaptive",
+         "fedprox", "norm_bound"])
+def test_federated_rounds_match_jax_on_replayed_draws(kernels, agg,
+                                                      monkeypatch):
+    clipped = []
+    real_clip = pipeline.norm_clip_rows
+
+    def clip(vecs, bound):
+        clipped.append(float(torch.linalg.vector_norm(vecs, dim=1).min()))
+        return real_clip(vecs, bound)
+
+    monkeypatch.setattr(pipeline, "norm_clip_rows", clip)
+    fed, jfed = _replayed_pair(agg, kernels, rounds=3)
     jh = jfed.run(rounds=3)
     h = fed.run(rounds=3)
     assert len(h.round_loss) == 3 and h.eval_rounds == [0, 1, 2]
     _assert_runs_agree(h, jh, fed.global_params, jfed.global_params)
-    np.testing.assert_array_equal(fed.opt_states.step.numpy(), [6] * len(tr))
+    np.testing.assert_array_equal(fed.opt_states.step.numpy(),
+                                  [6] * len(fed.train_groups))
+    state, jstate = fed.server_state, jfed.server_state
+    assert int(state.step) == int(jstate.step) == 3
+    pairs = []
+    if not isinstance(state.m, torch.Tensor):  # fedavgm's momentum tree
+        pairs += zip(tree_leaves(state.m),
+                     jax.tree_util.tree_leaves(jstate.m))
+    if isinstance(state.scores, dict):  # adaptive's ema and seen
+        pairs += [(state.scores[k], jstate.scores[k])
+                  for k in state.scores]
+    want = {"fedavgm": len(tree_leaves(state.m)), "adaptive": 2}
+    assert len(pairs) == want.get(agg.get("name"), 0)
+    for a, b in pairs:
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
+                                   atol=1e-4)
+    if agg.get("norm_bound"):  # every round clipped every row
+        assert len(clipped) == 3 and min(clipped) > NORM_BOUND
+    else:
+        assert not clipped
+
+
+def test_adaptive_scores_after_a_round_match_jax():
+    """The round passes the clients' losses to the aggregate stage, so
+    adaptive's per-client loss EMA is seeded after one round, as the
+    reference's is."""
+    fed, jfed = _replayed_pair(dict(name="adaptive"), False, rounds=1)
+    jfed.run(rounds=1)
+    fed.run(rounds=1)
+    scores, jscores = fed.server_state.scores, jfed.server_state.scores
+    np.testing.assert_array_equal(scores["seen"].numpy(),
+                                  np.ones(len(fed.train_groups)))
+    for key in ("ema", "seen"):
+        np.testing.assert_allclose(scores[key].numpy(),
+                                   np.asarray(jscores[key]), rtol=1e-5,
+                                   atol=0)
+    assert float(scores["ema"].min()) > 0.0
 
 
 def test_centralized_epochs_match_jax_on_replayed_draws():
@@ -399,13 +520,11 @@ def test_unreplayed_runs_are_seeded_and_device_independent_of_hooks():
 
 @pytest.mark.parametrize("change", [
     dict(batch_groups=2), dict(reset_opt_each_round=True),
-    dict(agg=AggConfig(prox_mu=0.1)), dict(agg=AggConfig(norm_bound=1.0)),
     dict(privacy=PrivacyConfig(clip_norm=0.5)),
     dict(compression=CompressionConfig(kind="int8")),
     dict(avail=AvailabilityConfig(online_prob=0.5)),
     dict(adversary=AdversaryConfig(kind="sign_flip", num_attackers=1)),
-    dict(hierarchy=HierarchyConfig(num_edges=2)),
-    dict(agg=AggConfig(name="krum"))])
+    dict(hierarchy=HierarchyConfig(num_edges=2))])
 def test_unported_round_features_raise(change):
     _, port_data, tr, ev = _jax_setup()
     fcfg = FedConfig(num_clients=len(tr), **FED, **change)
