@@ -12,8 +12,11 @@ the card, raising on any mismatch:
    the int8 matmul, the attention forward and backward (dq, dk/dv; head
    widths 32 and 24), the ``GPOAttention`` Function's gradients, and
    the aggregation kernels: the FedAvg reduce, the FedAvgM momentum
-   reduce, the rank-trimmed reduce (ties included) and the Krum pairwise
-   distances, each also bit-equal from one call to the next.
+   reduce, the rank-trimmed reduce (ties included), the Krum pairwise
+   distances, the DP clip reduce (with and without noise), the fused int8
+   quant-clip reduce (every operand combination of the reference's
+   tests) and the top-k reduce (zero and tied rows), each also bit-equal
+   from one call to the next.
 2. Serving: ``PreferenceServer`` at ``ServeConfig()`` defaults over a
    64-request trace, with f32 and with int8 weights, at ``GPOConfig()``
    width with random weights from a seed; cache hit == miss bit for bit,
@@ -35,19 +38,28 @@ the card, raising on any mismatch:
    with a norm bound that clips in round 0): 3 rounds each through the
    kernels with the launch counts asserted, against the same run with
    the aggregation's plain versions on the card, and median and krum
-   against their CPU runs.
+   against their CPU runs. Then the round's DP and codec stages: the
+   clip alone, clip and noise, int8 with error feedback, both together,
+   top-k with error feedback and DP under the median, 3 rounds each
+   through the kernels with the launch counts asserted, against the
+   plain-aggregation card run (the same device generator draws the
+   noise and the uniforms), two of them against a CPU run that replays
+   draws made once on the CPU, and the cumulative ε against the port's
+   accountant; one round each of dp_int8_ef and topk_ef under the
+   profiler.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
    beside the card's least time for the same work.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last five lines of standard output are the
+right after it. The last seven lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
-round), the ``kernels`` JSON line, the card's ``nvidia-smi`` name and
-power limit,
+round), the ``private`` JSON line (the same per DP and codec
+configuration, with ε), the ``kernels`` JSON line, the card's
+``nvidia-smi`` name and power limit,
 and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
 result. Full float32 throughout: TF32 is off for matmuls and cuDNN.
@@ -77,11 +89,15 @@ from repro_torch.checkpoint import (  # noqa: E402
 )
 from repro_torch.configs import (  # noqa: E402
     AggConfig,
+    CompressionConfig,
     FedConfig,
     GPOConfig,
+    PrivacyConfig,
     ServeConfig,
 )
+from repro_torch.core import compression as cx  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
+from repro_torch.core import privacy as dp  # noqa: E402
 from repro_torch.core import (  # noqa: E402
     FederatedGPO,
     PreferenceServer,
@@ -102,9 +118,12 @@ from repro_torch.data import (  # noqa: E402
 )
 from repro_torch.kernels import backend, quantize_linear  # noqa: E402
 from repro_torch.kernels.agg_reduce import (  # noqa: E402
+    clip_reduce_flat,
     fedavg_reduce_flat,
     momentum_reduce_flat,
     pairwise_dists_flat,
+    quant_clip_reduce_flat,
+    topk_reduce_flat,
     trimmed_reduce_flat,
 )
 from repro_torch.kernels.gpo_attention import (  # noqa: E402
@@ -115,9 +134,12 @@ from repro_torch.kernels.gpo_attention import (  # noqa: E402
 )
 from repro_torch.kernels.quant_matmul import int8_matmul_flat  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
+    ref_clip_reduce,
     ref_fedavg_flat,
     ref_momentum_reduce_flat,
     ref_pairwise_sq_dists,
+    ref_quant_clip_reduce,
+    ref_topk_mask_reduce,
     ref_trimmed_flat,
     ref_gpo_attention,
     ref_gpo_attention_bwd,
@@ -125,7 +147,10 @@ from repro_torch.kernels.ref import (  # noqa: E402
     ref_gpo_attention_bwd_dq,
     ref_int8_matmul,
 )
-from repro_torch.utils.pytree import tree_leaves  # noqa: E402
+from repro_torch.utils.pytree import (  # noqa: E402
+    tree_count_params,
+    tree_leaves,
+)
 
 # weights, survey data, trace and kernel inputs. With seed 0 the random
 # predictor's mu stays well above the 1e-4 clip on the served groups, so
@@ -184,6 +209,34 @@ STRATEGY_KERNEL = {"fedavgm": "momentum_reduce",
                    "median": "trimmed_reduce", "krum": "pairwise_dists",
                    "multi_krum": "pairwise_dists", "geomedian": None}
 CPU_STRATEGIES = ("median", "krum")
+# the round's DP and codec stages (DESIGN.md §9, §10): the clip at the
+# norm bound above (about half of round 0's rows clipped), the noise
+# multiplier of examples/quickstart.py:30, the reference's int8 and
+# top-k defaults (stochastic rounding, EF21 error feedback, 1% kept)
+TOPK_FRAC = 0.01
+_DP = {"clip_norm": NORM_BOUND, "noise_multiplier": 0.8}
+PRIVATE = {
+    "dp_clip": {"privacy": {"clip_norm": NORM_BOUND}},
+    "dp_noise": {"privacy": _DP},
+    "int8_ef": {"compression": {"kind": "int8"}},
+    "dp_int8_ef": {"privacy": _DP, "compression": {"kind": "int8"}},
+    "topk_ef": {"compression": {"kind": "topk", "topk_frac": TOPK_FRAC}},
+    "dp_median": {"privacy": _DP, "agg": {"name": "median"}},
+}
+# the kernel each configuration launches once a round (dp_median:
+# privatize in plain torch, then the median's trimmed kernel)
+PRIVATE_KERNEL = {"dp_clip": "clip_reduce", "dp_noise": "clip_reduce",
+                  "int8_ef": "quant_clip_reduce",
+                  "dp_int8_ef": "quant_clip_reduce",
+                  "topk_ef": "topk_reduce", "dp_median": "trimmed_reduce"}
+CPU_PRIVATE = ("dp_noise", "int8_ef")
+# one more round of these under the profiler: the heaviest transport
+# kernel, and the top-k selection outside its kernel
+PROFILED_PRIVATE = ("dp_int8_ef", "topk_ef")
+# coordinates of params and EF residual that may lie beyond 1e-4 of the
+# other run after 3 rounds (flipped int8 levels, swapped top-k near-ties;
+# train_private): 0.02% of the 5.3 M, a bound against a systematic error
+MAX_FLIPPED = 1000
 # FederatedGPO against its CPU run and its dense run after 3 rounds
 TRAIN_ROUNDS, MORE_ROUNDS = 3, 20
 TRAIN_TOL = {"round_loss_rtol": 1e-4, "eval_atol": 1e-4,
@@ -211,24 +264,27 @@ def _bound_ms(nbytes: float, flops: float, peaks):
                                  else "bytes")
 
 
-def _time_ms(fn, iters: int = 50, reps: int = 7) -> tuple:
+def _time_ms(fn, iters: int = 50, reps: int = 7,
+             graph: bool = True) -> tuple:
     """(device, eager) milliseconds per call of ``fn``, each the median
     over ``reps`` of CUDA-event times over ``iters`` calls, after a
     warm-up. Device: the calls captured once in a CUDA graph and
     replayed, so the host's launch cost is out of the reading and the
     card's own time for the work remains (inputs stay in the 50 MB L2,
-    as the serving path's weights do). Eager: the same calls launched
-    one by one from Python, host overhead included."""
+    as the serving path's weights do); None with ``graph=False``. Eager:
+    the same calls launched one by one from Python, host overhead
+    included."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
             fn()
     torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(iters):
-            fn()
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            for _ in range(iters):
+                fn()
 
     def median_ms(run):
         run()
@@ -248,7 +304,7 @@ def _time_ms(fn, iters: int = 50, reps: int = 7) -> tuple:
         for _ in range(iters):
             fn()
 
-    return median_ms(graph.replay), median_ms(eager)
+    return (median_ms(captured.replay) if graph else None), median_ms(eager)
 
 
 def _timed(kernel_fn, plain_fn, library_fn) -> dict:
@@ -263,12 +319,13 @@ def _timed(kernel_fn, plain_fn, library_fn) -> dict:
                          "library": lib_eager}}
 
 
-def _profile(fn, trace: str = "engine_trace.json") -> dict:
+def _profile(fn, trace: str = "engine_trace.json", match=()) -> dict:
     """Wall time of ``fn()`` under ``torch.profiler``, and the device
     time of every kernel it ran, read from the exported trace (kept as
     ``trace`` in the git-ignored ``build/``). ``busy_share`` is kernel
     time over wall time; the profiler's own host overhead is in the wall
-    time."""
+    time. ``matched`` sums the launches and time of the kernels whose
+    name holds each string of ``match`` (any case)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -287,11 +344,16 @@ def _profile(fn, trace: str = "engine_trace.json") -> dict:
             by_name[e["name"]] = (n + 1, ms + e["dur"] * 1e-3)
     kernel_ms = sum(ms for _, ms in by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:6]
+    matched = {m: [sum(v[i] for k, v in by_name.items()
+                       if m.lower() in k.lower()) for i in (0, 1)]
+               for m in match}
     return {"wall_ms": wall_ms, "kernel_ms": kernel_ms,
             "kernels": sum(n for n, _ in by_name.values()),
             "busy_share": kernel_ms / wall_ms,
             "top": [{"name": k[:60], "launches": n, "ms": ms}
-                    for k, (n, ms) in top]}
+                    for k, (n, ms) in top],
+            "matched": {m: {"launches": n, "ms": ms}
+                        for m, (n, ms) in matched.items()}}
 
 
 def _gen(seed: int) -> torch.Generator:
@@ -447,13 +509,114 @@ def _check_agg_kernels(g, dev, worst) -> None:
         worst["pairwise_dists"] = max(worst["pairwise_dists"], err)
 
 
+def _transport_inputs(c, p, g, dev):
+    """Deltas with every other row 10x larger (half the rows above the
+    median clip), normalised weights, noise, a residual and uniforms on
+    ``dev``, and the median row norm as the clip."""
+    x = torch.randn((c, p), generator=g)
+    x[::2] *= 10.0
+    w = torch.rand((c,), generator=g) + 0.1
+    noise = 0.3 * torch.randn((c, p), generator=g)
+    resid = 0.5 * torch.randn((c, p), generator=g)
+    uniform = torch.rand((c, p), generator=g)
+    clip = float(torch.linalg.vector_norm(x, dim=1).median())
+    return [t.to(dev) for t in (x, w / w.sum(), noise, resid, uniform)], clip
+
+
+def _check_transport_kernels(g, dev, worst) -> None:
+    """clip_reduce, quant_clip_reduce and topk_reduce against their
+    plain versions, and two calls on the same input bit-equal (norm and
+    absmax partials finished in a fixed order, no atomics)."""
+    for c, p in AGG_SHAPES:
+        (x, w, noise, resid, uniform), clip = _transport_inputs(c, p, g,
+                                                                dev)
+        for n in (None, noise):
+            out = clip_reduce_flat(x, w, clip=clip, noise=n)
+            again = clip_reduce_flat(x, w, clip=clip, noise=n)
+            plain = ref_clip_reduce(x, w, clip=clip, noise=n)
+            torch.cuda.synchronize()
+            err, ok = _close(out, plain, 1e-5)
+            same = torch.equal(out, again)
+            print(f"  clip_reduce C={c:2d} P={p:7d} noise={n is not None!s:5}"
+                  f"  max_abs_err={err:.3e}  tol=1e-5*(1+|plain|)  repeat "
+                  f"bit-equal: {same}")
+            if not (ok and same):
+                raise AssertionError(f"clip_reduce mismatch at {(c, p)}")
+            worst["clip_reduce"] = max(worst["clip_reduce"], err)
+
+        # one quantization level bounds |u| / 127: a scale an ulp off
+        # (norms summed in another order) may flip one rounding decision
+        level = (x.abs().max() + noise.abs().max()
+                 + resid.abs().max()).item() / 127.0
+        variants = {  # tests/test_compression.py:229-234, then two more
+            "plain": {}, "clip": {"clip": clip},
+            "clip_noise_ef": {"clip": clip, "noise": noise, "resid": resid},
+            "ef_stochastic": {"uniform": uniform, "resid": resid},
+            "stochastic": {"uniform": uniform},
+            "every_operand": {"clip": clip, "noise": noise, "resid": resid,
+                              "uniform": uniform}}
+        for name, kw in variants.items():
+            out, er = quant_clip_reduce_flat(x, w, **kw)
+            out2, er2 = quant_clip_reduce_flat(x, w, **kw)
+            pout, per = ref_quant_clip_reduce(x, w, **kw)
+            torch.cuda.synchronize()
+            pairs = [(out, pout)] + ([(er, per)] if er is not None else [])
+            errs = [(a - b).abs() for a, b in pairs]
+            err = max(e.max().item() for e in errs)
+            # coordinates beyond float error: flipped levels
+            flips = sum(int((e > 2e-5 + 2e-5 * b.abs()).sum())
+                        for e, (_, b) in zip(errs, pairs))
+            ok = err <= 2e-5 + level and flips <= 1e-3 * sum(
+                b.numel() for _, b in pairs) and all(
+                torch.isfinite(a).all() for a, _ in pairs)
+            same = torch.equal(out, out2) and (er is None
+                                               or torch.equal(er, er2))
+            resid_exact = er is None or torch.equal(er, per)
+            print(f"  quant_clip_reduce C={c:2d} P={p:7d} {name:13s}  "
+                  f"max_abs_err={err:.3e}  tol=2e-5+level={2e-5 + level:.3e}"
+                  f"  coords beyond 2e-5: {flips}  residual bit-equal: "
+                  f"{resid_exact}  repeat bit-equal: {same}")
+            if not (ok and same):
+                raise AssertionError(f"quant_clip_reduce mismatch at "
+                                     f"{(c, p, name)}")
+            worst["quant_clip_reduce"] = max(worst["quant_clip_reduce"],
+                                             err)
+
+        xt = x.clone()
+        xt[0] = 0.0  # a zero row: threshold 0, every zero kept
+        if c > 2:  # a row of few distinct magnitudes: ties at the k-th
+            xt[1] = torch.round(2 * xt[1]) / 2
+        tau = cx.topk_thresholds(xt, TOPK_FRAC)
+        for with_residual in (False, True):
+            out, er = topk_reduce_flat(xt, w, tau,
+                                       with_residual=with_residual)
+            out2, er2 = topk_reduce_flat(xt, w, tau,
+                                         with_residual=with_residual)
+            pout, per = ref_topk_mask_reduce(xt, w, tau,
+                                             with_residual=with_residual)
+            torch.cuda.synchronize()
+            err, ok = _close(out, pout, 1e-6)
+            exact = er is None or torch.equal(er, per)
+            same = torch.equal(out, out2) and (er is None
+                                               or torch.equal(er, er2))
+            print(f"  topk_reduce C={c:2d} P={p:7d} residual="
+                  f"{with_residual!s:5}  max_abs_err={err:.3e}  "
+                  f"tol=1e-6*(1+|plain|)  residual bit-equal: {exact}  "
+                  f"repeat bit-equal: {same}")
+            if not (ok and exact and same):
+                raise AssertionError(f"topk_reduce mismatch at {(c, p)}")
+            worst["topk_reduce"] = max(worst["topk_reduce"], err)
+
+
 def check_kernels(dev) -> dict:
     """Phase 1: every kernel against its plain version on the card."""
     g = _gen(SEED)
     worst = {"int8_matmul": 0.0, "gpo_attention_fwd": 0.0,
              "gpo_attention_bwd_dq": 0.0, "gpo_attention_bwd_dkdv": 0.0,
              "fedavg_reduce": 0.0, "momentum_reduce": 0.0,
-             "trimmed_reduce": 0.0, "pairwise_dists": 0.0}
+             "trimmed_reduce": 0.0, "pairwise_dists": 0.0,
+             "clip_reduce": 0.0, "quant_clip_reduce": 0.0,
+             "topk_reduce": 0.0}
     for k, n in INT8_SHAPES:
         tol = 1e-4 if k > 256 else 1e-5
         for m in (1, 37, 1280):
@@ -492,6 +655,7 @@ def check_kernels(dev) -> dict:
     _check_attention_bwd(g, dev, worst)
     _check_fedavg(g, dev, worst)
     _check_agg_kernels(g, dev, worst)
+    _check_transport_kernels(g, dev, worst)
     return worst
 
 
@@ -684,6 +848,9 @@ _COUNTED = {"gpo_attention_fwd": gpo_attention_fwd,
             "momentum_reduce": momentum_reduce_flat,
             "trimmed_reduce": trimmed_reduce_flat,
             "pairwise_dists": pairwise_dists_flat,
+            "clip_reduce": clip_reduce_flat,
+            "quant_clip_reduce": quant_clip_reduce_flat,
+            "topk_reduce": topk_reduce_flat,
             "int8_matmul": int8_matmul_flat}
 
 
@@ -932,8 +1099,197 @@ def train_strategies(dev, data, tr, ev) -> dict:
     return out
 
 
-def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, card_name,
-           worst) -> list:
+def _private_cfg(base: FedConfig, label: str) -> FedConfig:
+    spec = PRIVATE[label]
+    return replace(base, agg=AggConfig(**spec.get("agg", {})),
+                   privacy=PrivacyConfig(**spec.get("privacy", {})),
+                   compression=CompressionConfig(
+                       **spec.get("compression", {})))
+
+
+def _cpu_draws(fcfg: FedConfig, shape: tuple, rounds: int) -> dict:
+    """The release draws of ``rounds`` rounds (noise, then uniforms,
+    where the config uses them), made once on the CPU from a seed, as
+    numpy, for a card run and a CPU run to replay."""
+    g = _gen(SEED + 11)
+    priv, comp = fcfg.privacy, fcfg.compression
+    return {r: (dp.client_noise(g, shape, priv.sigma).numpy()
+                if priv.enabled and priv.noise_multiplier > 0 else None,
+                cx.client_uniform(g, shape).numpy()
+                if comp.needs_rng else None)
+            for r in range(rounds)}
+
+
+def _spy_levels(levels: list):
+    """Record the codec's level size each round of a plain run: the
+    largest int8 scale, or the largest top-k threshold. Returns the
+    originals to put back."""
+    real = cx.quantize_int8, cx.topk_thresholds
+
+    def quantize(vecs, *, uniform=None):
+        q, scales = real[0](vecs, uniform=uniform)
+        levels.append(float(scales.max()))
+        return q, scales
+
+    def thresholds(vecs, frac):
+        tau = real[1](vecs, frac)
+        levels.append(float(tau.max()))
+        return tau
+
+    cx.quantize_int8, cx.topk_thresholds = quantize, thresholds
+    return real
+
+
+def _private_agreement(hist, fed, other, other_fed, allowance) -> dict:
+    """``_agreement``, the EF residuals' max abs difference, and how
+    many coordinates of params and residual lie beyond 1e-4."""
+    a = _agreement(hist, fed.global_params, other, other_fed.global_params)
+    diffs = [(x.cpu() - y.cpu()).abs() for x, y in zip(
+        tree_leaves(fed.global_params), tree_leaves(other_fed.global_params))]
+    if fed.ef_resid is not None:
+        r = (fed.ef_resid.cpu() - other_fed.ef_resid.cpu()).abs()
+        a["ef_resid_max_abs"] = r.max().item()
+        diffs.append(r)
+    a["coords_beyond_1e-4"] = int(sum((d > 1e-4).sum() for d in diffs))
+    a.update(allowance)
+    return a
+
+
+def _private_within(a: dict) -> bool:
+    """TRAIN_TOL, the params and the residual widened by the level
+    allowance, and at most MAX_FLIPPED coordinates beyond 1e-4."""
+    return (a["round_loss_rel"] <= TRAIN_TOL["round_loss_rtol"]
+            and a["coords_beyond_1e-4"] <= MAX_FLIPPED
+            and a["eval_abs"] <= TRAIN_TOL["eval_atol"]
+            and a["params_max_abs"] <= TRAIN_TOL["params_max_abs"]
+            + a["params_allowance"]
+            and a.get("ef_resid_max_abs", 0.0)
+            <= TRAIN_TOL["params_max_abs"] + a["resid_allowance"])
+
+
+def train_private(dev, data, tr, ev) -> dict:
+    """Phase 4, continued: the round's DP and codec stages, each
+    configuration of ``PRIVATE`` for 3 rounds through the kernels (launch
+    counts asserted), against the same run with the aggregation's plain
+    versions on the card (the same device generator draws the noise and
+    the uniforms); dp_noise and int8_ef also as a card run and a CPU run
+    that replay draws made once on the CPU; the cumulative ε against the
+    port's accountant.
+
+    A codec run may flip one coordinate a round between two paths: an
+    int8 scale an ulp off (norms summed in another order) flips a
+    rounding decision by one level s, and near-tied magnitudes (Adam's
+    first steps leave many |Δ| within an ulp of each other) may trade
+    places across a top-k threshold τ. The params' bound therefore grows
+    by Σ_rounds w_max·level, the residual's by Σ_rounds level, level the
+    largest s or τ of the plain run's round; the coordinates beyond 1e-4
+    are counted and reported."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    base = FedConfig(num_clients=len(tr), local_epochs=6, lr=3e-4,
+                     eval_every=1, use_pallas_attention=True,
+                     use_pallas_aggregation=True)
+    out = {}
+    for label in PRIVATE:
+        kern = _private_cfg(base, label)
+        plain = replace(kern, use_pallas_aggregation=False)
+        fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev)
+        _zero_counts()
+        t0 = time.perf_counter()
+        hist = fed.run(rounds=TRAIN_ROUNDS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        levels: list = []
+        real = _spy_levels(levels)
+        try:
+            t0 = time.perf_counter()
+            den = FederatedGPO(gcfg, plain, data, tr, ev, device=dev)
+            den_hist = den.run(rounds=TRAIN_ROUNDS)
+            torch.cuda.synchronize()
+            den_wall = time.perf_counter() - t0
+        finally:
+            cx.quantize_int8, cx.topk_thresholds = real
+        w_max = float(fed.weights.max())
+        allowance = {"levels": levels,
+                     "params_allowance": w_max * sum(levels),
+                     "resid_allowance": sum(levels)}
+        kernel = PRIVATE_KERNEL[label]
+        want = {**dict.fromkeys(_COUNTED, 0),
+                **_attention_launches(gcfg, kern, TRAIN_ROUNDS),
+                kernel: TRAIN_ROUNDS}
+        agree = {"plain": _private_agreement(hist, fed, den_hist, den,
+                                             allowance)}
+        acct = dp.make_accountant(kern.privacy, 1.0)
+        eps_want = [] if not kern.privacy.enabled else [
+            acct.epsilon(r) if acct else float("inf")
+            for r in range(1, TRAIN_ROUNDS + 1)]
+        if label in CPU_PRIVATE:
+            draws = _cpu_draws(
+                kern, (len(tr), tree_count_params(fed.global_params)),
+                TRAIN_ROUNDS)
+            runs = []
+            for d in (dev, "cpu"):
+                f = FederatedGPO(gcfg, kern, data, tr, ev, device=d,
+                                 release_draws=lambda r: draws[r])
+                runs.append((f.run(rounds=TRAIN_ROUNDS), f))
+            agree["cpu"] = _private_agreement(*runs[0], *runs[1],
+                                              allowance)
+        if label in PROFILED_PRIVATE:
+            prof = _profile(lambda: fed.run(rounds=1),
+                            f"private_{label}_trace.json",
+                            match=("row_sumsq", "row_absmax",
+                                   "quant_reduce", "topk_reduce_kernel",
+                                   "gatherTopK", "kth", "sort"))
+            print(f"  {label}: one round under the profiler: wall "
+                  f"{prof['wall_ms']:.3f}ms, {prof['kernels']} kernels, "
+                  f"device busy {prof['kernel_ms']:.3f}ms "
+                  f"({100 * prof['busy_share']:.2f}%); by name: "
+                  + ", ".join(f"{m} {v['ms']:.4f}ms x{v['launches']}"
+                              for m, v in prof["matched"].items()))
+            for t in prof["top"]:
+                print(f"    {t['ms']:.4f}ms  {t['launches']:5d}x  "
+                      f"{t['name']}")
+        rec = {"config": PRIVATE[label], "kernel": kernel,
+               "launches": {k: v for k, v in launches.items() if v},
+               "wall_ms_per_round": wall / TRAIN_ROUNDS * 1e3,
+               "plain_wall_ms_per_round": den_wall / TRAIN_ROUNDS * 1e3,
+               "round_loss": hist.round_loss,
+               "eval_mean_as": hist.eval_mean_as,
+               "round_eps": hist.round_eps, "agreement": agree}
+        if label in PROFILED_PRIVATE:
+            rec["profile_round"] = prof
+        out[label] = rec
+        print(f"  {label:10s} {wall / TRAIN_ROUNDS * 1e3:8.2f} ms/round "
+              f"(plain aggregation {den_wall / TRAIN_ROUNDS * 1e3:8.2f}); "
+              f"{kernel} x{launches[kernel]}; "
+              + "; ".join(f"vs {k}: loss rel {a['round_loss_rel']:.2e} "
+                          f"eval {a['eval_abs']:.2e} params "
+                          f"{a['params_max_abs']:.2e} (allowance "
+                          f"{a['params_allowance']:.2e}) resid "
+                          f"{a.get('ef_resid_max_abs', 0.0):.2e} coords>1e-4 "
+                          f"{a['coords_beyond_1e-4']}"
+                          for k, a in agree.items())
+              + f"; loss {np.round(hist.round_loss, 5).tolist()}; eps "
+              f"{np.round(hist.round_eps, 4).tolist()}")
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, want "
+                                 f"{want}")
+        for k, a in agree.items():
+            if not _private_within(a):
+                raise AssertionError(f"{label}: the kernel run is off the "
+                                     f"{k} run (tolerance {TRAIN_TOL} plus "
+                                     f"the level allowance)")
+        if hist.round_eps != eps_want or den_hist.round_eps != eps_want:
+            raise AssertionError(f"{label}: round_eps {hist.round_eps}, "
+                                 f"want {eps_want}")
+        if (fed.ef_resid is None) != (not kern.compression.enabled
+                                      or not kern.compression.error_feedback):
+            raise AssertionError(f"{label}: EF residual carried wrongly")
+    return out
+
+
+def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
+           card_name, worst) -> list:
     """Phase 5: kernel, plain and library times at main-path shapes."""
     peaks = _peaks(card_name)
     g = _gen(SEED + 2)
@@ -1155,6 +1511,98 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, card_name,
         4 * c * p, c * (c + 1) * p,
         library_call="torch.cdist(x, x).square()"))
 
+    # the DP clip and the transport codecs at the same (C, P), every
+    # operand rotated over 4 copies; launches from the DP and codec phase
+    priv_launches = {k: sum(r["launches"].get(k, 0)
+                            for r in priv_rec.values()) for k in _COUNTED}
+    # deltas of about the clip's norm, dp_noise's σ = 0.8 · 0.475
+    clip = _DP["clip_norm"]
+    sets = [tuple(t.to(dev) for t in (
+        torch.randn((c, p), generator=g) * (clip / p ** 0.5),
+        torch.randn((c, p), generator=g) * (_DP["noise_multiplier"] * clip),
+        torch.randn((c, p), generator=g) * 1e-4,
+        torch.rand((c, p), generator=g))) for _ in range(4)]
+
+    def rotating_sets(fn):
+        turn = [0]
+
+        def call():
+            turn[0] += 1
+            return fn(*sets[turn[0] % len(sets)])
+
+        return call
+
+    def private_row(name, line, fn, times, nbytes, flops, **extra):
+        bound, by = _bound_ms(nbytes, flops, peaks)
+        return {"name": name, "route": "cuda",
+                "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+                "replaces": f"src/repro/kernels/agg_reduce.py:{line}",
+                "tpu_kernel": f"src/repro/kernels/agg_reduce.py::{fn}",
+                "launches": priv_launches[name],
+                "launches_per_round": priv_launches[name] / rounds,
+                "max_abs_err": worst[name], "shape": [c, p], **times,
+                "bound_ms": bound, "bound_by": by, "library_call": None,
+                **extra}
+
+    # with noise (dp_noise, dp_median's release); the clip alone beside
+    clip_only = _timed(
+        rotating_sets(lambda x, n, r, u: clip_reduce_flat(x, w, clip=clip)),
+        rotating_sets(lambda x, n, r, u: ref_clip_reduce(x, w, clip=clip)),
+        None)
+    out.append(private_row(
+        "clip_reduce", 211,
+        "_clip_reduce_kernel / _clip_reduce_noise_kernel (clip_reduce_flat)",
+        _timed(rotating_sets(lambda x, n, r, u: clip_reduce_flat(
+            x, w, clip=clip, noise=n)),
+            rotating_sets(lambda x, n, r, u: ref_clip_reduce(
+                x, w, clip=clip, noise=n)), None),
+        4 * (2 * c * p + p + c), 6 * c * p,
+        clip_only={"kernel_ms": clip_only["ms"],
+                   "plain_ms": clip_only["plain_ms"],
+                   "bound_ms": _bound_ms(4 * (c * p + p + c), 5 * c * p,
+                                         peaks)[0]}))
+    # every operand (dp_int8_ef's call); int8_ef's (residual and uniforms,
+    # no clip) beside
+    ef_only = _timed(
+        rotating_sets(lambda x, n, r, u: quant_clip_reduce_flat(
+            x, w, uniform=u, resid=r)),
+        rotating_sets(lambda x, n, r, u: ref_quant_clip_reduce(
+            x, w, uniform=u, resid=r)), None)
+    out.append(private_row(
+        "quant_clip_reduce", 264,
+        "_quant_clip_reduce_kernel (quant_clip_reduce_flat)",
+        _timed(rotating_sets(lambda x, n, r, u: quant_clip_reduce_flat(
+            x, w, clip=clip, noise=n, uniform=u, resid=r)),
+            rotating_sets(lambda x, n, r, u: ref_quant_clip_reduce(
+                x, w, clip=clip, noise=n, uniform=u, resid=r)), None),
+        4 * (5 * c * p + p + c), 14 * c * p,
+        int8_ef={"kernel_ms": ef_only["ms"], "plain_ms": ef_only["plain_ms"],
+                 "bound_ms": _bound_ms(4 * (4 * c * p + p + c), 10 * c * p,
+                                       peaks)[0]}))
+    # with the residual (topk_ef's call); the thresholds, torch.topk
+    # outside the kernel in both packages, timed beside (eager)
+    taus = [cx.topk_thresholds(st[0], TOPK_FRAC) for st in sets]
+    turn = [0]
+
+    def topk_call(fn):
+        def call():
+            turn[0] += 1
+            i = turn[0] % len(sets)
+            return fn(sets[i][0], w, taus[i], with_residual=True)
+        return call
+
+    thresholds_ms = _time_ms(rotating_sets(
+        lambda x, n, r, u: cx.topk_thresholds(x, TOPK_FRAC)),
+        graph=False)[1]
+    out.append(private_row(
+        "topk_reduce", 419, "_topk_kernel (topk_reduce_flat)",
+        _timed(topk_call(topk_reduce_flat), topk_call(ref_topk_mask_reduce),
+               None),
+        4 * (2 * c * p + p + 2 * c), 5 * c * p,
+        thresholds={"call": "torch.topk(|u|, k).values[:, -1], "
+                            f"k = ceil({TOPK_FRAC}·P), eager",
+                    "ms": thresholds_ms}))
+
     for r in out:
         e = r["eager_ms"]
         lib = ("n/a" if r["library_ms"] is None
@@ -1164,6 +1612,15 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, card_name,
               f"library {lib}  bound {r['bound_ms'] * 1e3:.3f}us "
               f"({r['bound_by']}); eager: kernel {e['kernel'] * 1e3:.2f}us  "
               f"plain {e['plain'] * 1e3:.2f}us")
+    clip_row, quant_row, topk_row = out[-3:]
+    for label, extra in (("clip_reduce without noise", clip_row["clip_only"]),
+                         ("quant_clip_reduce as int8_ef calls it (residual "
+                          "and uniforms, no clip)", quant_row["int8_ef"])):
+        print(f"  {label}, device: kernel {extra['kernel_ms'] * 1e3:.2f}us  "
+              f"plain {extra['plain_ms'] * 1e3:.2f}us  bound "
+              f"{extra['bound_ms'] * 1e3:.3f}us")
+    print(f"  top-k thresholds ({topk_row['thresholds']['call']}): "
+          f"{topk_row['thresholds']['ms'] * 1e3:.2f}us")
     print(f"  gpo_attention_fwd at predict's {predict_row['shape']}, device: "
           f"kernel {predict_row['ms'] * 1e3:.2f}us  plain "
           f"{predict_row['plain_ms'] * 1e3:.2f}us  library "
@@ -1219,9 +1676,12 @@ def main() -> int:
     print("[4b] the aggregation registry's strategies, 3 rounds each, "
           "through the kernels")
     strat_rec = train_strategies(dev, data, tr, held_out)
+    print("[4c] the DP and codec stages, 3 rounds each, through the "
+          "kernels")
+    priv_rec = train_private(dev, data, tr, held_out)
     print("[5] timing at the main paths' shapes (CUDA events, median)")
-    kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec, name,
-                     worst)
+    kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
+                     priv_rec, name, worst)
 
     print(json.dumps({"engine": {
         k: serve_rec[k] for k in ("steps", "launches", "prefill_requests",
@@ -1229,6 +1689,7 @@ def main() -> int:
                                   "profile_f32")}}))
     print(json.dumps({"train": train_rec}))
     print(json.dumps({"strategies": strat_rec}))
+    print(json.dumps({"private": priv_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

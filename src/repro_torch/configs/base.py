@@ -105,8 +105,10 @@ class PrivacyConfig:
     """Differential privacy on the client→server delta path (DESIGN.md
     §9): per-client L2 clip of the flat delta to ``clip_norm`` and
     Gaussian noise of std ``noise_multiplier * clip_norm``, with Rényi-DP
-    accounting. ``clip_norm == 0`` disables it (the port runs only that
-    case so far)."""
+    accounting (``core/privacy.py::RdpAccountant``, one sampled Gaussian
+    mechanism a round, q = 1 under full participation; the per-round ε
+    at ``target_delta`` lands in ``History.round_eps``). ``clip_norm ==
+    0`` disables it."""
 
     clip_norm: float = 0.0
     noise_multiplier: float = 0.0
@@ -117,6 +119,11 @@ class PrivacyConfig:
     @property
     def enabled(self) -> bool:
         return self.clip_norm > 0.0
+
+    @property
+    def sigma(self) -> float:
+        """Per-client noise standard deviation (z * S)."""
+        return self.noise_multiplier * self.clip_norm
 
     def validate(self) -> None:
         if self.clip_norm < 0.0 or self.noise_multiplier < 0.0:
@@ -197,8 +204,7 @@ class AdversaryConfig:
 class CompressionConfig:
     """Client→server delta compression (DESIGN.md §10): int8 stochastic
     quantization or top-k sparsification, with an EF21 error-feedback
-    residual. ``kind="none"`` disables it (the port runs only that case
-    so far)."""
+    residual (``core/compression.py``). ``kind="none"`` disables it."""
 
     kind: str = "none"  # none | int8 | topk
     topk_frac: float = 0.01
@@ -208,6 +214,11 @@ class CompressionConfig:
     @property
     def enabled(self) -> bool:
         return self.kind != "none"
+
+    @property
+    def needs_rng(self) -> bool:
+        """The codec draws per-client randomness (stochastic rounding)."""
+        return self.kind == "int8" and self.stochastic
 
     def validate(self) -> None:
         if self.kind not in ("none", "int8", "topk"):
@@ -222,8 +233,8 @@ class CompressionConfig:
 @dataclass(frozen=True)
 class AggConfig:
     """Server-aggregation strategy (DESIGN.md §7). The paper's Eq. 2-3
-    FedAvg is ``name="fedavg"`` with the defaults below; it is the one
-    strategy the port runs so far (``core/aggregation.py``)."""
+    FedAvg is ``name="fedavg"`` with the defaults below; the registry's
+    strategies are in ``core/aggregation.py``."""
 
     # registry name: fedavg | fedavgm | fedadam | fedyogi | fedprox |
     # trimmed_mean | median | adaptive | fedbuff | krum | multi_krum |
@@ -290,8 +301,9 @@ class FedConfig:
     # driver for both (core/federated.py)
     engine: str = "scan"
     scan_unroll: int = 1
-    # reduce the client deltas with the hand-written fedavg_reduce CUDA
-    # kernel on the raveled (C, P) matrix instead of per-leaf sums
+    # run the round's client-axis work (the strategy's reduce, the DP
+    # clip, the int8 / top-k transport) through the hand-written CUDA
+    # kernels on the raveled (C, P) matrix instead of per-leaf sums
     use_pallas_aggregation: bool = False
     agg: AggConfig = AggConfig()
     privacy: PrivacyConfig = PrivacyConfig()

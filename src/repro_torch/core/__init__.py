@@ -1,7 +1,7 @@
 # The PyTorch port's core: the GPO preference predictor, its federated
-# trainer (with the server-aggregation registry) and centralized trainer,
-# the multi-tenant serving engine, and the alignment and fairness
-# metrics.
+# trainer (with the server-aggregation registry, the DP release and the
+# delta codecs) and centralized trainer, the multi-tenant serving
+# engine, and the alignment and fairness metrics.
 from repro_torch.core.aggregation import (  # noqa: F401
     AGGREGATORS,
     AggState,

@@ -31,12 +31,32 @@ by bytes on the H100. Shapes and times at the quickstart's
   second launch sums the partials in a fixed order: no atomics, two
   calls bit-equal. 4·C·P bytes, 21.4 MB, about 6.4 µs.
 
+* ``clip_reduce_flat`` (``csrc/clip_reduce.cu``, replaces
+  ``_clip_reduce_kernel`` and ``_clip_reduce_noise_kernel``): the DP
+  release and reduce, Σ_c w_c · (x_c · min(1, S/max(‖x_c‖, 1e-12)) +
+  n_c). The TPU kernel's norm sweep becomes per-chunk partial squared
+  norms on a (nb, C) grid (``csrc/client_rows.cuh``), finished in a fixed
+  order by every block of the reduce. 4·(2·C·P + P + C) bytes with noise,
+  44.9 MB, about 13.4 µs; 23.5 MB, 7.0 µs without.
+* ``quant_clip_reduce_flat`` (``csrc/quant_clip_reduce.cu``, replaces
+  ``_quant_clip_reduce_kernel``): the optional clip and noise, the EF
+  residual, the per-client int8 round trip (stochastic or
+  round-half-to-even) and the reduce, writing the new residual. Norm and
+  absmax partials, then the quantize-and-reduce pass, each pass rebuilding
+  the released value in the TPU kernel's op order. 4·(5·C·P + P + C)
+  bytes with every operand, 109 MB, about 32.5 µs.
+* ``topk_reduce_flat`` (``csrc/topk_reduce.cu``, replaces
+  ``_topk_kernel``): the mask |x| ≥ τ_c (thresholds from outside), the
+  weighted reduce and the optional residual, in one pass.
+  4·(2·C·P + P + 2·C) bytes with the residual, 44.9 MB, about 13.4 µs.
+
 The trimmed and pairwise kernels hold at most ``MAX_CLIENTS`` clients
-(instantiations and registers, shared memory per block); the wrappers
-refuse more on both devices.
+(instantiations and registers, shared memory per block), the clip and
+quant kernels at most ``MAX_ROWS`` (two floats a client in shared
+memory); the wrappers refuse more on both devices.
 Every wrapper holds the operand contract on both devices, runs the plain
 version on CPU tensors, launches on CUDA tensors or raises, and counts
-its launches (the pairwise kernel's two launches count as one call).
+its launches (one call counts once, however many kernels it launches).
 """
 from __future__ import annotations
 
@@ -46,18 +66,35 @@ import torch
 
 from repro_torch.kernels import backend
 from repro_torch.kernels.ref import (
+    ref_clip_reduce,
     ref_fedavg_flat,
     ref_momentum_reduce_flat,
     ref_pairwise_sq_dists,
+    ref_quant_clip_reduce,
+    ref_topk_mask_reduce,
     ref_trimmed_flat,
 )
+
+# norm floor of the DP clip: a zero delta keeps scale 1 (clipping never
+# manufactures a direction). Shared with core/privacy.py.
+_NORM_FLOOR = 1e-12
+# the symmetric int8 grid of the transport codec, q in [-127, 127], with
+# the scale floored so an all-zero client quantizes to exact zeros.
+# Shared with core/compression.py and kernels/quant_matmul.py.
+INT8_LEVELS = 127.0
+_SCALE_FLOOR = 1e-30
 
 # the trimmed and pairwise kernels' cap on C (kMaxClients in their
 # sources): FedConfig.num_clients is 10 in the quickstart and the sweeps,
 # 32 in benchmarks/bench_round.py's aggregation section
 MAX_CLIENTS = 32
+# the clip and quant kernels' cap on C (kMaxRows in csrc/client_rows.cuh)
+MAX_ROWS = 4096
 # columns per block of the pairwise kernel (kChunk in its source)
 PAIRWISE_CHUNK = 1024
+# columns of one client row per partial block of the norm and absmax
+# passes (kChunk in csrc/client_rows.cuh)
+ROW_CHUNK = 8192
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_void_p]
@@ -67,6 +104,14 @@ _TRIMMED_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 _PAIRWISE_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+_CLIP_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p]
+_QUANT_ARGTYPES = [ctypes.c_void_p] * 9 + [
+    ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p]
+_TOPK_ARGTYPES = [ctypes.c_void_p] * 5 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 
 
 def fedavg_reduce_flat(stacked: torch.Tensor,
@@ -192,3 +237,139 @@ def pairwise_dists_flat(stacked: torch.Tensor) -> torch.Tensor:
 
 
 pairwise_dists_flat.launches = 0
+
+
+def _ptr(t) -> int | None:
+    return None if t is None else t.data_ptr()
+
+
+def _check_rows(what: str, stacked: torch.Tensor, weights: torch.Tensor,
+                **mats) -> None:
+    """(C, P) stacked, (C,) weights, every other operand (C, P) or None,
+    and 1 <= C <= MAX_ROWS."""
+    bad = {k: tuple(v.shape) for k, v in mats.items()
+           if v is not None and v.shape != stacked.shape}
+    if stacked.dim() != 2 or weights.shape != stacked.shape[:1] or bad:
+        raise ValueError(f"{what} shapes: stacked {tuple(stacked.shape)}, "
+                         f"weights {tuple(weights.shape)}, other operands "
+                         f"{bad}")
+    if not 1 <= stacked.shape[0] <= MAX_ROWS:
+        raise ValueError(f"{what}: C={stacked.shape[0]} clients; the CUDA "
+                         f"kernel holds 1 to {MAX_ROWS}")
+
+
+def clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
+                     clip: float,
+                     noise: torch.Tensor | None = None) -> torch.Tensor:
+    """stacked (C, P) f32 deltas, weights (C,) f32, optional presampled
+    σ-scaled noise (C, P) f32 -> (P,) f32:
+    Σ_c w_c · (x_c · min(1, clip / ‖x_c‖₂) + n_c), the DP-FedAvg reduce.
+    ``clip`` must be > 0. CPU tensors take the plain version; CUDA
+    tensors launch the kernel (without noise, one that reads none)."""
+    if clip <= 0.0:
+        raise ValueError(f"clip={clip} must be > 0 (clip_norm == 0 means "
+                         "the privacy pipeline is disabled; callers must "
+                         "not reach the kernel)")
+    _check_rows("clip_reduce", stacked, weights, noise=noise)
+    ops = [t for t in (stacked, weights, noise) if t is not None]
+    if backend.on_cpu("clip_reduce", *ops, dtypes=(torch.float32,) * 3):
+        return ref_clip_reduce(stacked, weights, clip=clip, noise=noise)
+    fn = backend.kernel("clip_reduce", "clip_reduce_launch", _CLIP_ARGTYPES)
+    c, p = stacked.shape
+    out = torch.empty((p,), dtype=torch.float32, device=stacked.device)
+    if p == 0:
+        return out
+    nb = -(-p // ROW_CHUNK)
+    part = torch.empty((nb, c), dtype=torch.float32, device=stacked.device)
+    err = fn(stacked.data_ptr(), _ptr(noise), weights.data_ptr(),
+             part.data_ptr(), out.data_ptr(), float(clip), c, p, nb,
+             backend.stream_ptr(stacked.device))
+    backend.check(err, "clip_reduce")
+    clip_reduce_flat.launches += 1
+    return out
+
+
+clip_reduce_flat.launches = 0
+
+
+def quant_clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
+                           clip: float = 0.0,
+                           noise: torch.Tensor | None = None,
+                           uniform: torch.Tensor | None = None,
+                           resid: torch.Tensor | None = None):
+    """Fused DP release + int8 quantized transport + weighted reduce.
+    stacked (C, P) f32 raw deltas, weights (C,) f32, optional presampled
+    σ-scaled noise (C, P) (only with ``clip > 0``), optional presampled
+    U[0, 1) rounding tile (C, P) (round half to even without it),
+    optional EF residual (C, P) -> (Σ_c w_c · dequant(Q(ũ_c)) (P,), the
+    new residual ũ − t (C, P) or None), ũ_c being the clip/noise release
+    of x_c plus the residual. ``clip <= 0`` skips the DP release. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if noise is not None and clip <= 0.0:
+        raise ValueError("noise requires clip > 0 (the DP release scales "
+                         "noise by the clip bound; see PrivacyConfig)")
+    _check_rows("quant_clip_reduce", stacked, weights, noise=noise,
+                uniform=uniform, resid=resid)
+    ops = [t for t in (stacked, weights, noise, uniform, resid)
+           if t is not None]
+    if backend.on_cpu("quant_clip_reduce", *ops,
+                      dtypes=(torch.float32,) * 5):
+        return ref_quant_clip_reduce(stacked, weights, clip=clip,
+                                     noise=noise, uniform=uniform,
+                                     resid=resid)
+    fn = backend.kernel("quant_clip_reduce", "quant_clip_reduce_launch",
+                        _QUANT_ARGTYPES)
+    c, p = stacked.shape
+    dev = stacked.device
+    out = torch.empty((p,), dtype=torch.float32, device=dev)
+    new_resid = None if resid is None else torch.empty_like(stacked)
+    if p == 0:
+        return out, new_resid
+    nb = -(-p // ROW_CHUNK)
+    parts = torch.empty((2, nb, c), dtype=torch.float32, device=dev)
+    err = fn(stacked.data_ptr(), _ptr(noise), _ptr(resid), _ptr(uniform),
+             weights.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+             out.data_ptr(), _ptr(new_resid), float(max(clip, 0.0)), c, p,
+             nb, backend.stream_ptr(dev))
+    backend.check(err, "quant_clip_reduce")
+    quant_clip_reduce_flat.launches += 1
+    return out, new_resid
+
+
+quant_clip_reduce_flat.launches = 0
+
+
+def topk_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor,
+                     thresholds: torch.Tensor, *,
+                     with_residual: bool = False):
+    """Top-k mask + weighted reduce. stacked (C, P) f32 codec inputs
+    (already released and EF-accumulated), weights (C,) f32, thresholds
+    (C,) f32, the k-th largest |x_c| per client -> (Σ_c w_c · t_c (P,),
+    x − t (C, P) or None), t_c = x_c where |x_c| ≥ τ_c (ties kept), else
+    0. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if (stacked.dim() != 2 or weights.shape != stacked.shape[:1]
+            or thresholds.shape != stacked.shape[:1]):
+        raise ValueError(f"topk_reduce shapes: stacked "
+                         f"{tuple(stacked.shape)}, weights "
+                         f"{tuple(weights.shape)}, thresholds "
+                         f"{tuple(thresholds.shape)}")
+    if backend.on_cpu("topk_reduce", stacked, weights, thresholds,
+                      dtypes=(torch.float32,) * 3):
+        return ref_topk_mask_reduce(stacked, weights, thresholds,
+                                    with_residual=with_residual)
+    fn = backend.kernel("topk_reduce", "topk_reduce_launch", _TOPK_ARGTYPES)
+    c, p = stacked.shape
+    out = torch.empty((p,), dtype=torch.float32, device=stacked.device)
+    new_resid = torch.empty_like(stacked) if with_residual else None
+    if p == 0 or c == 0:
+        return out.zero_(), new_resid
+    err = fn(stacked.data_ptr(), weights.data_ptr(), thresholds.data_ptr(),
+             out.data_ptr(), _ptr(new_resid), c, p,
+             backend.stream_ptr(stacked.device))
+    backend.check(err, "topk_reduce")
+    topk_reduce_flat.launches += 1
+    return out, new_resid
+
+
+topk_reduce_flat.launches = 0

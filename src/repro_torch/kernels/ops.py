@@ -7,9 +7,12 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.agg_reduce import (
+    clip_reduce_flat,
     fedavg_reduce_flat,
     momentum_reduce_flat,
     pairwise_dists_flat,
+    quant_clip_reduce_flat,
+    topk_reduce_flat,
     trimmed_reduce_flat,
 )
 from repro_torch.kernels.gpo_attention import GPOAttention
@@ -90,3 +93,42 @@ def agg_pairwise_dists(stacked: torch.Tensor) -> torch.Tensor:
     distances over the raveled parameter axis: the Krum / multi-Krum
     selection metric."""
     return pairwise_dists_flat(stacked.float().contiguous())
+
+
+def _f32(t):
+    return None if t is None else t.float().contiguous()
+
+
+def agg_clip_reduce(stacked: torch.Tensor, weights: torch.Tensor, *,
+                    clip: float, noise=None) -> torch.Tensor:
+    """stacked (C, P) client deltas, weights (C,), optional presampled
+    σ-scaled per-client noise (C, P) -> (P,): the DP-aggregation kernel,
+    per-client L2 norm, scale to the clip, noise add and weighted sum in
+    one call. ``noise=None`` is the clip-only path (no zero matrix is
+    read)."""
+    return clip_reduce_flat(_f32(stacked), _f32(weights), clip=clip,
+                            noise=_f32(noise))
+
+
+def agg_quant_clip_reduce(stacked: torch.Tensor, weights: torch.Tensor, *,
+                          clip: float = 0.0, noise=None, uniform=None,
+                          resid=None):
+    """stacked (C, P) raw client deltas, weights (C,), optional
+    presampled σ-scaled noise (C, P), optional presampled U[0, 1)
+    stochastic-rounding tile (C, P), optional EF residual (C, P) ->
+    (reduced (P,), new residual (C, P) or None): the fused DP release +
+    int8 quantized transport + weighted reduce kernel. ``clip=0`` skips
+    the DP stage; ``uniform=None`` rounds to nearest (half to even)."""
+    return quant_clip_reduce_flat(_f32(stacked), _f32(weights), clip=clip,
+                                  noise=_f32(noise), uniform=_f32(uniform),
+                                  resid=_f32(resid))
+
+
+def agg_topk_reduce(stacked: torch.Tensor, weights: torch.Tensor,
+                    thresholds: torch.Tensor, *,
+                    with_residual: bool = False):
+    """stacked (C, P) codec inputs, weights (C,), per-client magnitude
+    thresholds (C,) -> (reduced (P,), residual (C, P) or None): the top-k
+    mask + weighted-reduce kernel."""
+    return topk_reduce_flat(_f32(stacked), _f32(weights), _f32(thresholds),
+                            with_residual=with_residual)

@@ -30,12 +30,10 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import backend
+# the symmetric-quantization contract of the transport codec: 127
+# levels, floored scale
+from repro_torch.kernels.agg_reduce import INT8_LEVELS, _SCALE_FLOOR
 from repro_torch.kernels.ref import ref_int8_matmul
-
-# the symmetric-quantization contract of the JAX package's transport
-# codec (kernels/agg_reduce.py), copied: 127 levels, floored scale
-INT8_LEVELS = 127.0
-_SCALE_FLOOR = 1e-30
 
 
 class QuantizedLinear(NamedTuple):

@@ -3,8 +3,12 @@
 Each is the most obviously correct form of what its kernel computes
 (naive masked softmax and its closed-form gradient; dequantize-then-
 matmul; a weighted sum over clients; a stable sort per coordinate; the
-direct difference form of a distance), written independently of the
-kernels' tiling. The kernel wrappers run these on CPU tensors, and
+direct difference form of a distance; the DP clip, int8 codec and top-k
+mask stage by stage over the whole (C, P) matrix), written independently
+of the kernels' tiling. The clip, codec and top-k constants (the 1e-12
+norm floor, 127 levels, the 1e-30 scale floor) are restated as literals,
+as the reference's oracles restate them, so an oracle never imports the
+code it checks. The kernel wrappers run these on CPU tensors, and
 ``chip_smoke.py`` holds each kernel against its plain version on the
 card.
 """
@@ -120,6 +124,84 @@ def ref_pairwise_sq_dists(stacked: torch.Tensor) -> torch.Tensor:
     kernel's expansion form |x_i|^2 + |x_j|^2 - 2 x_i.x_j."""
     x = stacked.float()
     return ((x[:, None, :] - x[None, :, :]) ** 2).sum(dim=-1)
+
+
+def _clip_scale(x: torch.Tensor, clip: float) -> torch.Tensor:
+    """(C, P) -> (C,) min(1, clip / max(‖x_c‖₂, 1e-12)). Both divisions
+    of this module are tensor by tensor: PyTorch computes ``scalar /
+    tensor`` as a reciprocal times the scalar (and, on CUDA, ``tensor /
+    scalar`` too), one rounding more than the IEEE quotient that the
+    kernels and the JAX package take."""
+    norms = torch.sqrt(torch.square(x).sum(dim=1))
+    return torch.clamp(torch.full_like(norms, clip)
+                       / torch.clamp(norms, min=1e-12), max=1.0)
+
+
+def ref_clip_reduce(stacked: torch.Tensor, weights: torch.Tensor, *,
+                    clip: float, noise=None) -> torch.Tensor:
+    """The DP-FedAvg reduction written out: per-client L2 norm, scale to
+    the clip bound min(1, clip / max(norm, 1e-12)), optional presampled
+    noise added, weighted sum over the clients -> (P,) float32."""
+    x = stacked.float()
+    y = x * _clip_scale(x, clip)[:, None]
+    if noise is not None:
+        y = y + noise.float()
+    return torch.einsum("c,cp->p", weights.float(), y)
+
+
+def ref_quant_clip_reduce(stacked: torch.Tensor, weights: torch.Tensor, *,
+                          clip: float = 0.0, noise=None, uniform=None,
+                          resid=None):
+    """The quantized transport written out stage by stage: DP release
+    (clip > 0: scale to the bound, add the presampled noise), the EF
+    residual added, per-client symmetric int8 quantization (scale =
+    absmax / 127 floored at 1e-30; stochastic rounding floor(z + u) from
+    the presampled uniforms, round half to even without them),
+    dequantize, weighted sum. Returns (reduced (P,), new residual (C, P)
+    or None), both float32."""
+    x = stacked.float()
+    if clip > 0.0:
+        x = x * _clip_scale(x, clip)[:, None]
+        if noise is not None:
+            x = x + noise.float()
+    if resid is not None:
+        x = x + resid.float()
+    amax = x.abs().amax(dim=1)
+    scales = torch.clamp(amax / torch.full_like(amax, 127.0), min=1e-30)
+    z = x / scales[:, None]
+    q = (torch.floor(z + uniform.float()) if uniform is not None
+         else torch.round(z))
+    t = torch.clamp(q, -127.0, 127.0) * scales[:, None]
+    out = torch.einsum("c,cp->p", weights.float(), t)
+    return out, (x - t if resid is not None else None)
+
+
+def ref_topk_mask_reduce(stacked: torch.Tensor, weights: torch.Tensor,
+                         thresholds: torch.Tensor, *,
+                         with_residual: bool = False):
+    """Given per-client magnitude thresholds (C,): keep the entries
+    whose magnitude reaches the client's threshold (ties kept), zero the
+    rest, weighted sum of the survivors. Returns (reduced (P,), the
+    masked-out remainder (C, P) or None), float32."""
+    x = stacked.float()
+    t = torch.where(x.abs() >= thresholds.float()[:, None], x,
+                    torch.zeros((), dtype=x.dtype, device=x.device))
+    out = torch.einsum("c,cp->p", weights.float(), t)
+    return out, (x - t if with_residual else None)
+
+
+def ref_topk_reduce(stacked: torch.Tensor, weights: torch.Tensor, *,
+                    frac: float):
+    """Top-k transport: per client keep the entries whose magnitude
+    reaches the ceil(frac·P)-th largest |value| (the threshold from a
+    full sort; ties kept), zero the rest, weighted-sum the survivors.
+    Returns (reduced (P,), masked-out remainder (C, P)): the remainder
+    is the EF residual."""
+    x = stacked.float()
+    p = x.shape[1]
+    k = max(1, int(math.ceil(frac * p)))
+    tau = torch.sort(x.abs(), dim=1).values[:, p - k]
+    return ref_topk_mask_reduce(x, weights, tau, with_residual=True)
 
 
 def ref_int8_matmul(x: torch.Tensor, q: torch.Tensor,

@@ -12,10 +12,13 @@ questions), and with ``--ckpt-dir`` saves the final global params as an
 ``--agg`` picks the server-aggregation strategy from the registry
 (DESIGN.md §7, §13), with the reference's flags for its
 hyperparameters; ``--norm-bound`` clips each client's delta on the
-server. The attention (forward and backward) and the aggregation's
-client-axis work always go through the hand-written CUDA kernels on the
-card; ``--device cpu`` runs their plain PyTorch versions on the CPU (the
-rehearsal; the default is the card).
+server. ``--clip-norm`` and ``--noise-multiplier`` turn on the DP
+release (DESIGN.md §9; the final ε is printed), ``--compress int8`` or
+``topk`` the delta codec with error feedback (DESIGN.md §10). The
+attention (forward and backward) and the aggregation's client-axis work,
+the DP clip and the codec included, always go through the hand-written
+CUDA kernels on the card; ``--device cpu`` runs their plain PyTorch
+versions on the CPU (the rehearsal; the default is the card).
 The backbone trainers of the reference (standard, fedavg, fedlora) come
 with the backbone-zoo slice.
 """
@@ -25,7 +28,13 @@ import argparse
 import time
 
 from repro_torch.checkpoint import save_checkpoint
-from repro_torch.configs import AggConfig, FedConfig, GPOConfig
+from repro_torch.configs import (
+    AggConfig,
+    CompressionConfig,
+    FedConfig,
+    GPOConfig,
+    PrivacyConfig,
+)
 from repro_torch.core import AGGREGATORS, FederatedGPO
 from repro_torch.data import SurveyConfig, make_survey_data, split_groups
 from repro_torch.kernels.backend import resolve_device
@@ -63,8 +72,34 @@ def main(argv=None) -> None:
                          "received deltas (0 = off)")
     ap.add_argument("--multi-krum-m", type=int, default=3,
                     help="rows averaged by --agg multi_krum")
+    # DP client-delta pipeline (DESIGN.md §9). --clip-norm 0 (default)
+    # disables it.
+    ap.add_argument("--clip-norm", type=float, default=0.0,
+                    help="per-client L2 clip on the flat delta (0 = off)")
+    ap.add_argument("--noise-multiplier", type=float, default=0.0,
+                    help="Gaussian noise std = z * clip-norm per client")
+    ap.add_argument("--dp-delta", type=float, default=1e-5,
+                    help="target delta for the Renyi accountant's eps")
+    # client->server delta compression (DESIGN.md §10). --compress none
+    # (default) disables it.
+    ap.add_argument("--compress", default="none",
+                    choices=["none", "int8", "topk"],
+                    help="delta codec: int8 stochastic quantization or "
+                         "top-k magnitude sparsification")
+    ap.add_argument("--topk-frac", type=float, default=0.01,
+                    help="fraction of coordinates kept per client "
+                         "(--compress topk)")
+    ap.add_argument("--no-error-feedback", action="store_true",
+                    help="disable the EF21 error-feedback residual")
     args = ap.parse_args(argv)
 
+    priv = PrivacyConfig(clip_norm=args.clip_norm,
+                         noise_multiplier=args.noise_multiplier,
+                         target_delta=args.dp_delta)
+    priv.validate()
+    comp = CompressionConfig(kind=args.compress, topk_frac=args.topk_frac,
+                             error_feedback=not args.no_error_feedback)
+    comp.validate()
     device = resolve_device(args.device)
     data = make_survey_data(SurveyConfig(seed=args.seed))
     tr, ev = split_groups(data, seed=args.seed)
@@ -77,6 +112,7 @@ def main(argv=None) -> None:
                     norm_bound=args.norm_bound)
     fcfg = FedConfig(num_clients=len(tr), rounds=args.rounds,
                      eval_every=args.eval_every, seed=args.seed, agg=agg,
+                     privacy=priv, compression=comp,
                      use_pallas_attention=True,
                      use_pallas_aggregation=True)
     fed = FederatedGPO(gcfg, fcfg, data, tr, ev, device=device)
@@ -86,6 +122,11 @@ def main(argv=None) -> None:
           f"{time.time() - t0:.1f}s: "
           f"final loss={hist.round_loss[-1]:.4f} "
           f"AS={hist.eval_mean_as[-1]:.4f} FI={hist.eval_fi[-1]:.4f}")
+    if hist.round_eps:
+        print(f"privacy: eps={hist.round_eps[-1]:.3f} at "
+              f"delta={priv.target_delta:g} after {args.rounds} "
+              f"rounds (clip={priv.clip_norm}, "
+              f"z={priv.noise_multiplier})")
     if args.ckpt_dir:
         path = save_checkpoint(args.ckpt_dir, args.rounds, fed.global_params)
         print(f"saved the global params to {path}")

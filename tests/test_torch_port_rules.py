@@ -180,7 +180,9 @@ def _counts():
             ga.gpo_attention_bwd_dq.launches,
             ga.gpo_attention_bwd_dkdv.launches,
             ar.fedavg_reduce_flat.launches, ar.momentum_reduce_flat.launches,
-            ar.trimmed_reduce_flat.launches, ar.pairwise_dists_flat.launches)
+            ar.trimmed_reduce_flat.launches, ar.pairwise_dists_flat.launches,
+            ar.clip_reduce_flat.launches, ar.quant_clip_reduce_flat.launches,
+            ar.topk_reduce_flat.launches)
 
 
 def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
@@ -228,6 +230,68 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
             ar.momentum_reduce_flat(x, w, torch.empty((8,)), beta=0.9)
         with pytest.raises(ValueError, match="different devices"):
             qm.int8_matmul_flat(x, q.cpu(), s)
+    assert _counts() == before
+
+
+def _transport_call(name, dev, **over):
+    """One call of a transport kernel's wrapper on (4, 8) operands."""
+    x = over.get("x", torch.empty((4, 8), device=dev))
+    w = over.get("w", torch.empty((4,), device=dev))
+    m = over.get("m", torch.empty((4, 8), device=dev))
+    if name == "clip_reduce":
+        return ar.clip_reduce_flat(x, w, clip=over.get("clip", 0.5), noise=m)
+    if name == "quant_clip_reduce":
+        return ar.quant_clip_reduce_flat(x, w, clip=over.get("clip", 0.5),
+                                         noise=m, uniform=m, resid=m)
+    return ar.topk_reduce_flat(x, w, over.get("tau", w),
+                               with_residual=True)
+
+
+TRANSPORT = ["clip_reduce", "quant_clip_reduce", "topk_reduce"]
+
+
+@pytest.mark.parametrize("name", TRANSPORT)
+def test_transport_wrappers_launch_or_raise_on_cuda_tensors(name):
+    """The DP clip, int8 and top-k wrappers on CUDA tensors without a
+    card: the operand contract and the argument checks come first, then
+    the launch raises; no plain version runs and nothing is counted."""
+    _no_card()
+    before = _counts()
+    with FakeTensorMode():
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            _transport_call(name, "cuda")
+        with pytest.raises(ValueError, match="different devices"):
+            _transport_call(name, "cuda", w=torch.empty((4,)))
+        with pytest.raises(ValueError, match="shapes"):
+            _transport_call(name, "cuda",
+                            w=torch.empty((5,), device="cuda"))
+        if name != "topk_reduce":
+            # no release without a clip bound: noise needs clip > 0
+            with pytest.raises(ValueError, match="clip"):
+                _transport_call(name, "cuda", clip=0.0)
+            with pytest.raises(ValueError, match="holds 1 to 4096"):
+                _transport_call(name, "cuda",
+                                x=torch.empty((4097, 8), device="cuda"),
+                                w=torch.empty((4097,), device="cuda"),
+                                m=torch.empty((4097, 8), device="cuda"))
+    assert _counts() == before
+
+
+@pytest.mark.parametrize("name", TRANSPORT)
+def test_transport_wrappers_hold_the_contract_on_the_cpu(name):
+    """The same contract on CPU tensors, where the plain version runs
+    and the launch counter stays put."""
+    before = _counts()
+    x = torch.randn((4, 8))
+    out = _transport_call(name, "cpu", x=x, w=torch.full((4,), 0.25),
+                          m=torch.zeros((4, 8)))
+    out = out[0] if isinstance(out, tuple) else out
+    assert out.shape == (8,) and torch.isfinite(out).all()
+    with pytest.raises(ValueError, match="contiguous"):
+        _transport_call(name, "cpu", x=torch.zeros((8, 4)).T)
+    with pytest.raises(ValueError, match="expected torch.float32"):
+        _transport_call(name, "cpu", x=torch.zeros((4, 8),
+                                                   dtype=torch.float64))
     assert _counts() == before
 
 

@@ -10,10 +10,20 @@ wrappers their plain versions. Tolerances:
 * gpo_loss and its gradients, one Adam step: 1e-5;
 * three replayed FederatedGPO rounds (two for CentralizedGPO), for
   FedAvg and for the aggregation strategies and round features the port
-  runs (fedavgm, median, krum, adaptive, FedProx, norm bounding): round
-  losses rtol 1e-4, eval AS / FI / CoV atol 1e-4, final params and
-  server state max-abs 1e-4 (Adam divides by sqrt(v) + 1e-8, which
-  magnifies the float32 differences of gradients near zero).
+  runs (fedavgm, median, krum, adaptive, FedProx, norm bounding, the DP
+  release and the int8 and top-k codecs): round losses rtol 1e-4, eval
+  AS / FI / CoV atol 1e-4, final params, server state and EF residual
+  max-abs 1e-4 (Adam divides by sqrt(v) + 1e-8, which magnifies the
+  float32 differences of gradients near zero), cumulative ε rtol 1e-12.
+  Two codec runs take an allowance of one coordinate a round, with at
+  most 12 coordinates beyond 1e-4: with the clip and the int8 codec
+  together, one quantization level s (the reference's scale can sit an
+  ulp off the port's, its norms summed in another order and its division
+  by 127 compiled to a reciprocal multiply, which may flip a rounding
+  decision by one level); with top-k, one kept entry of size τ (Adam's
+  first steps leave the top 1% of |Δ| within 1e-7 of 2·lr, so a float
+  difference can swap two near-tied entries across the threshold). The
+  params take w_max times that a round, the residual that a round.
 """
 import importlib
 
@@ -24,12 +34,16 @@ import pytest
 import torch
 
 from repro.configs import AggConfig as JaxAggConfig
+from repro.configs import CompressionConfig as JaxCompressionConfig
 from repro.configs import FedConfig as JaxFedConfig
 from repro.configs import GPOConfig as JaxGPOConfig
+from repro.configs import PrivacyConfig as JaxPrivacyConfig
 from repro.core import CentralizedGPO as JaxCentralizedGPO
 from repro.core import FederatedGPO as JaxFederatedGPO
+from repro.core import compression as jax_cx
 from repro.core import fairness as jax_fairness
 from repro.core import gpo as jax_gpo
+from repro.core import privacy as jax_dp
 from repro.data import SurveyConfig as JaxSurveyConfig
 from repro.data import make_survey_data as jax_make_survey_data
 from repro.data import sample_icl_batch as jax_sample_icl_batch
@@ -67,7 +81,9 @@ from repro_torch.kernels.ref import (
     ref_gpo_attention_bwd_dq,
 )
 from repro_torch.optim import adam, clip_by_global_norm
-from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.core import compression as cx
+from repro_torch.core import privacy as dp
+from repro_torch.utils.pytree import tree_count_params, tree_leaves, tree_map
 
 ga = importlib.import_module("repro_torch.kernels.gpo_attention")
 
@@ -458,6 +474,118 @@ def test_federated_rounds_match_jax_on_replayed_draws(kernels, agg,
         assert not clipped
 
 
+def _jax_release_draws(jfed, rounds):
+    """The reference's DP noise and rounding uniforms, rebuilt from its
+    key chain as in _fed_draws: the round's per-client training keys
+    fold them out (privacy.client_noise, compression.client_uniform)."""
+    fcfg, priv, comp = jfed.fed_cfg, jfed.fed_cfg.privacy, \
+        jfed.fed_cfg.compression
+    c = len(jfed.train_groups)
+    shape = (c, tree_count_params(_np_tree(jfed.global_params)))
+    key = jax.random.PRNGKey(fcfg.seed + 1)
+    draws = {}
+    for r in range(rounds):
+        key, k_round, _ = jax.random.split(key, 3)
+        keys = jax.random.split(jax.random.split(k_round)[1], c)
+        noise = (np.asarray(jax_dp.client_noise(keys, shape, priv.sigma))
+                 if priv.enabled and priv.noise_multiplier > 0 else None)
+        uniform = (np.asarray(jax_cx.client_uniform(keys, shape))
+                   if comp.needs_rng else None)
+        draws[r] = (noise, uniform)
+    return draws
+
+
+# a DP clip under round 0's delta norms (0.068-0.072 at this size) and
+# round 1's largest two (0.0456-0.050), over the other two
+DP_CLIP = 0.045
+DP = dict(clip_norm=DP_CLIP, noise_multiplier=0.8)
+PRIVATE = {
+    "dp_noise": dict(privacy=DP),
+    "int8_ef": dict(compression=dict(kind="int8")),
+    "topk_ef": dict(compression=dict(kind="topk", topk_frac=0.01)),
+    "dp_int8_ef": dict(privacy=DP, compression=dict(kind="int8")),
+    "dp_median": dict(privacy=DP, agg=dict(name="median")),
+    "norm_bound_dp_noise": dict(privacy=DP,
+                                agg=dict(norm_bound=NORM_BOUND)),
+}
+
+
+@pytest.mark.parametrize("kernels", [False, True], ids=["plain", "kernels"])
+@pytest.mark.parametrize("label", list(PRIVATE))
+def test_private_rounds_match_jax_on_replayed_draws(label, kernels,
+                                                    monkeypatch):
+    """Three rounds with the DP release and the codecs, the port
+    replaying the reference's init, batches, noise and uniforms: loss,
+    eval, params, the EF residual and the cumulative ε."""
+    taus = []
+    real_thresholds = cx.topk_thresholds
+
+    def thresholds(vecs, frac):
+        taus.append(real_thresholds(vecs, frac))
+        return taus[-1]
+
+    monkeypatch.setattr(cx, "topk_thresholds", thresholds)
+    spec = PRIVATE[label]
+    data, port_data, tr, ev = _jax_setup()
+    flags = dict(use_pallas_attention=kernels,
+                 use_pallas_aggregation=kernels)
+    kw = dict(agg=spec.get("agg", {}), privacy=spec.get("privacy", {}),
+              compression=spec.get("compression", {}))
+    jfcfg = JaxFedConfig(
+        num_clients=len(tr), engine="loop", **FED, **flags,
+        agg=JaxAggConfig(**kw["agg"]),
+        privacy=JaxPrivacyConfig(**kw["privacy"]),
+        compression=JaxCompressionConfig(**kw["compression"]))
+    jfed = JaxFederatedGPO(JaxGPOConfig(**SMALL), jfcfg, data, tr, ev)
+    fcfg = FedConfig(num_clients=len(tr), **FED, **flags,
+                     agg=AggConfig(**kw["agg"]),
+                     privacy=PrivacyConfig(**kw["privacy"]),
+                     compression=CompressionConfig(**kw["compression"]))
+    train, evals = _fed_draws(data, fcfg, tr, ev, rounds=3)
+    draws = _jax_release_draws(jfed, rounds=3)
+    fed = FederatedGPO(GPOConfig(**SMALL), fcfg, port_data, tr, ev,
+                       device="cpu", init_params=_np_tree(jfed.global_params),
+                       batches=lambda r, e: train[r, e],
+                       eval_batches=lambda r: evals[r],
+                       release_draws=lambda r: draws[r])
+    jh = jfed.run(rounds=3)
+    h = fed.run(rounds=3)
+    assert len(h.round_loss) == 3
+    np.testing.assert_allclose(h.round_loss, jh.round_loss, rtol=1e-4,
+                               atol=0)
+    for key in ("eval_mean_as", "eval_fi", "eval_cov"):
+        np.testing.assert_allclose(getattr(h, key), getattr(jh, key),
+                                   rtol=0, atol=1e-4)
+    # the size of one coordinate that may flip a round (module doc)
+    level = 0.0
+    if fcfg.privacy.enabled and fcfg.compression.kind == "int8":
+        noise_max = max(np.abs(n).max() for n, _ in draws.values())
+        # |u| <= clip + |noise| + |resid|, |resid| < s
+        level = 1.01 * (DP_CLIP + noise_max) / 127.0
+    elif fcfg.compression.kind == "topk":
+        assert len(taus) == 3
+        level = max(float(t.max()) for t in taus)
+    w_max = float(fed.weights.max())
+    pairs = [(p, jp, 3 * w_max * level) for p, jp in zip(
+        tree_leaves(fed.global_params),
+        jax.tree_util.tree_leaves(jfed.global_params))]
+    if fed.ef_resid is not None:
+        pairs.append((fed.ef_resid, jfed.ef_resid, 3 * level))
+    for p, jp, allowance in pairs:
+        np.testing.assert_allclose(p.numpy(), np.asarray(jp), rtol=0,
+                                   atol=1e-4 + allowance)
+        assert (np.abs(p.numpy() - np.asarray(jp)) > 1e-4).sum() <= 12
+    assert (fed.ef_resid is None) == (jfed.ef_resid is None) == (
+        not fcfg.compression.enabled)
+    if fcfg.privacy.enabled:
+        acct = dp.RdpAccountant(0.8, 1.0, fcfg.privacy.target_delta)
+        np.testing.assert_allclose(h.round_eps, jh.round_eps, rtol=1e-12)
+        np.testing.assert_allclose(
+            h.round_eps, [acct.epsilon(r) for r in (1, 2, 3)], rtol=1e-12)
+    else:
+        assert h.round_eps == jh.round_eps == []
+
+
 def test_adaptive_scores_after_a_round_match_jax():
     """The round passes the clients' losses to the aggregate stage, so
     adaptive's per-client loss EMA is seeded after one round, as the
@@ -520,8 +648,6 @@ def test_unreplayed_runs_are_seeded_and_device_independent_of_hooks():
 
 @pytest.mark.parametrize("change", [
     dict(batch_groups=2), dict(reset_opt_each_round=True),
-    dict(privacy=PrivacyConfig(clip_norm=0.5)),
-    dict(compression=CompressionConfig(kind="int8")),
     dict(avail=AvailabilityConfig(online_prob=0.5)),
     dict(adversary=AdversaryConfig(kind="sign_flip", num_attackers=1)),
     dict(hierarchy=HierarchyConfig(num_edges=2))])
@@ -545,3 +671,38 @@ def test_train_launcher_checkpoint_is_served(tmp_path, capsys):
     out = capsys.readouterr().out
     assert "1 rounds on cpu" in out and "ckpt_00000001.npz" in out
     assert "served 4/4 requests" in out
+
+
+@pytest.mark.parametrize("flags,priv,comp", [
+    (["--clip-norm", "0.475", "--noise-multiplier", "0.8", "--compress",
+      "int8"], dict(clip_norm=0.475, noise_multiplier=0.8),
+     dict(kind="int8")),
+    (["--compress", "topk", "--topk-frac", "0.05", "--no-error-feedback",
+      "--dp-delta", "1e-6"], dict(target_delta=1e-6),
+     dict(kind="topk", topk_frac=0.05, error_feedback=False))],
+    ids=["dp_int8", "topk_no_ef"])
+def test_train_launcher_dp_and_codec_flags(flags, priv, comp, capsys,
+                                          monkeypatch):
+    """The reference's DP and codec flags reach the FedConfig; one round
+    on the CPU at GPOConfig() width, with the final ε printed where the
+    release is noised."""
+    from repro_torch.launch import train
+
+    built = []
+
+    def spy(gcfg, fcfg, *a, **k):
+        built.append(fcfg)
+        return FederatedGPO(gcfg, fcfg, *a, **k)
+
+    monkeypatch.setattr(train, "FederatedGPO", spy)
+    train.main(["--trainer", "gpo", "--rounds", "1", "--device", "cpu",
+                *flags])
+    out = capsys.readouterr().out
+    assert built[0].privacy == PrivacyConfig(**priv)
+    assert built[0].compression == CompressionConfig(**comp)
+    assert "1 rounds on cpu" in out
+    if built[0].privacy.noise_multiplier > 0:
+        eps = dp.RdpAccountant(0.8, 1.0).epsilon(1)
+        assert f"privacy: eps={eps:.3f} at delta=1e-05 after 1 rounds" in out
+    else:
+        assert "privacy:" not in out
