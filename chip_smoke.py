@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU.
+"""Drive the PyTorch port's serving and training paths on one NVIDIA GPU:
+the GPO predictor's and the LM backbones'.
 
     python3 chip_smoke.py
 
@@ -15,8 +16,12 @@ the card, raising on any mismatch:
    reduce, the rank-trimmed reduce (ties included), the Krum pairwise
    distances, the DP clip reduce (with and without noise), the fused int8
    quant-clip reduce (every operand combination of the reference's
-   tests) and the top-k reduce (zero and tied rows), each also bit-equal
-   from one call to the next.
+   tests) and the top-k reduce (zero and tied rows); and the LM
+   backbones' flash-attention forward (the reference's sweeps of S,
+   GQA, windows and softcap, non-causal at ragged S, qwen2's 14/2
+   heads) and SSD chunked scan (the reference's sweep and mamba2's
+   chunk 128, p 64, n 128, with the final state), in f32 and bf16;
+   each also bit-equal from one call to the next.
 2. Serving: ``PreferenceServer`` at ``ServeConfig()`` defaults over a
    64-request trace, with f32 and with int8 weights, at ``GPOConfig()``
    width with random weights from a seed; cache hit == miss bit for bit,
@@ -47,22 +52,33 @@ the card, raising on any mismatch:
    draws made once on the CPU, and the cumulative ε against the port's
    accountant; one round each of dp_int8_ef and topk_ef under the
    profiler.
+   4d. LM serving: ``serve_lm``'s path (``make_prefill_step``, then
+   ``greedy_decode``) for qwen2-0.5b and mamba2-780m at full width and
+   depth in bf16, random weights from the seed, batch 4, prompt 2048,
+   32 tokens: the launch counts (flash 24 a qwen2 prefill, ssd 48 a
+   mamba2 prefill, 0 in decode and 0 for every other kernel), the last
+   logits and greedy tokens against the same run through the plain
+   branch on the card, prefill and decode times, one profiled prefill;
+   then an f32 run at full width, 4 layers, prompt 512, against the
+   same run on the CPU.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
    beside the card's least time for the same work.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last seven lines of standard output are the
+right after it. The last eight lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
 round), the ``private`` JSON line (the same per DP and codec
-configuration, with ε), the ``kernels`` JSON line, the card's
-``nvidia-smi`` name and power limit,
-and ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
+configuration, with ε), the ``lm`` JSON line (per architecture:
+launches, times, agreement, profile), the ``kernels`` JSON line, the
+card's ``nvidia-smi`` name and power limit, and
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
-result. Full float32 throughout: TF32 is off for matmuls and cuDNN.
+result. Full float32 for the GPO paths: TF32 is off for matmuls and
+cuDNN; the LM phase serves the configs' bf16 (and one f32 run).
 """
 from __future__ import annotations
 
@@ -92,8 +108,11 @@ from repro_torch.configs import (  # noqa: E402
     CompressionConfig,
     FedConfig,
     GPOConfig,
+    ModelConfig,
     PrivacyConfig,
     ServeConfig,
+    get_arch,
+    override,
 )
 from repro_torch.core import compression as cx  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
@@ -102,8 +121,10 @@ from repro_torch.core import (  # noqa: E402
     FederatedGPO,
     PreferenceServer,
     gpo_apply,
+    greedy_decode,
     init_gpo_params,
     latency_summary,
+    make_prefill_step,
     make_request_trace,
     predict_preferences,
     quantize_gpo_params,
@@ -126,11 +147,18 @@ from repro_torch.kernels.agg_reduce import (  # noqa: E402
     topk_reduce_flat,
     trimmed_reduce_flat,
 )
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention_bhsd,
+)
 from repro_torch.kernels.gpo_attention import (  # noqa: E402
     GPOAttention,
     gpo_attention_bwd_dkdv,
     gpo_attention_bwd_dq,
     gpo_attention_fwd,
+)
+from repro_torch.kernels.ops import (  # noqa: E402
+    flash_attention,
+    ssd_scan_with_state,
 )
 from repro_torch.kernels.quant_matmul import int8_matmul_flat  # noqa: E402
 from repro_torch.kernels.ref import (  # noqa: E402
@@ -146,7 +174,11 @@ from repro_torch.kernels.ref import (  # noqa: E402
     ref_gpo_attention_bwd_dkdv,
     ref_gpo_attention_bwd_dq,
     ref_int8_matmul,
+    ref_attention,
+    ref_ssd,
 )
+from repro_torch.kernels.ssd_scan import ssd_scan_bhsp  # noqa: E402
+from repro_torch.models import init_params  # noqa: E402
 from repro_torch.utils.pytree import (  # noqa: E402
     tree_count_params,
     tree_leaves,
@@ -160,6 +192,9 @@ SEED = 0
 # NVIDIA data sheet rows: (f32 CUDA-core FLOP/s, memory bytes/s), dense
 _PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12),
           "NVL": (60e12, 3.9e12)}
+# and the bf16 dense tensor-core rate of the same rows (the LM kernels'
+# operations are bf16 products)
+_BF16_PEAKS = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
 INT8_SHAPES = [(66, 128), (128, 128), (128, 256), (256, 128), (128, 1),
                (4098, 128)]  # (K, N): in_proj, wq..wo, w1, w2, head, paper
 # (BH, S, ctx): training's 10 clients x 4 heads, predict's 7 held-out
@@ -241,6 +276,34 @@ MAX_FLIPPED = 1000
 TRAIN_ROUNDS, MORE_ROUNDS = 3, 20
 TRAIN_TOL = {"round_loss_rtol": 1e-4, "eval_atol": 1e-4,
              "params_max_abs": 1e-4}
+
+
+# the LM backbones' kernels against their plain versions: the tolerances
+# of tests/test_kernels.py (the bf16 flash plain version rounds its
+# scores to bf16, the kernel keeps them in f32)
+FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# LM serving: (arch, its prefill's kernel, a config change that reorders
+# the plain branch's sums without changing what it computes, or None);
+# one kernel launch a layer
+LM_ARCHS = (("qwen2-0.5b", "flash_attention", None),
+            ("mamba2-780m", "ssd_scan", {"ssm_chunk": 64}))
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+# the kernel run's last logits against the plain branch's on the card,
+# max-abs over the largest |logit|: bf16 activations round every layer's
+# output, and the flash kernel keeps scores in f32 where the plain
+# branch rounds them to bf16. Where the plain branch run once more with
+# its sums reordered (mamba2 at chunk 64) lands further from itself
+# than that, rounding alone sets the floor: the bound is then 1.5 times
+# that floor, and the f32 run at full depth (LM_F32_TOL) is what holds
+# the kernel to the plain branch.
+LM_BF16_TOL = 2e-2
+LM_FLOOR_FACTOR = 1.5
+# f32 at full width and depth, prompt 2048: the kernel prefill against
+# the plain branch's on the card; and f32 at full width, 4 layers,
+# prompt 512, 4 tokens: the card against the CPU
+LM_F32_LAYERS, LM_F32_PROMPT, LM_F32_GEN = 4, 512, 4
+LM_F32_TOL = 1e-4
 
 
 def _card_line() -> str:
@@ -608,6 +671,76 @@ def _check_transport_kernels(g, dev, worst) -> None:
             worst["topk_reduce"] = max(worst["topk_reduce"], err)
 
 
+def _check_backbone_kernels(g, dev, worst) -> None:
+    """The LM backbones' kernels against their plain versions: the flash
+    forward over the reference's sweeps (S 64/100/257, (H, KV) 4/4, 4/2,
+    8/1; windows 1/7/64 with and without softcap 20), non-causal at
+    ragged S and qwen2's g = 7; the SSD scan over the reference's sweep
+    and at mamba2's chunk 128, p 64, n 128, with its final state. f32 and
+    bf16, each call twice and bit-equal."""
+    def flash_case(dtype, b, s, h, kv, bq=32, **kw):
+        q, k, v = (torch.randn((b, s, n, 64), generator=g).to(dev, dtype)
+                   for n in (h, kv, kv))
+        got = flash_attention(q, k, v, bq=bq, **kw)
+        again = flash_attention(q, k, v, bq=bq, **kw)
+        tr = (0, 2, 1, 3)
+        plain = ref_attention(q.permute(tr), k.permute(tr), v.permute(tr),
+                              **kw).permute(tr)
+        torch.cuda.synchronize()
+        tol = FLASH_TOL[dtype]
+        err, ok = _close(got.float(), plain.float(), tol)
+        same = torch.equal(got, again)
+        print(f"  flash_attention {str(dtype)[6:]:8} B={b} S={s:3d} H={h:2d} "
+              f"KV={kv} {kw}  max_abs_err={err:.3e}  tol={tol:g}*(1+|plain|)"
+              f"  repeat bit-equal: {same}")
+        if not (ok and same):
+            raise AssertionError(f"flash_attention mismatch at "
+                                 f"{(dtype, b, s, h, kv, kw)}")
+        worst["flash_attention"] = max(worst["flash_attention"], err)
+
+    def ssd_case(dtype, b, s, h, p, n, chunk):
+        x = (torch.randn((b, s, h, p), generator=g) * 0.5).to(dev, dtype)
+        dt = F.softplus(torch.randn((b, s, h), generator=g)).to(dev)
+        a_log = (torch.randn((h,), generator=g) * 0.5).to(dev)
+        bm, cm = ((torch.randn((b, s, n), generator=g) * 0.5).to(dev, dtype)
+                  for _ in range(2))
+        d = torch.randn((h,), generator=g).to(dev)
+        y, state = ssd_scan_with_state(x, dt, a_log, bm, cm, d, chunk=chunk)
+        y2, state2 = ssd_scan_with_state(x, dt, a_log, bm, cm, d,
+                                         chunk=chunk)
+        py, pstate = ref_ssd(x, dt, a_log, bm, cm, d)
+        torch.cuda.synchronize()
+        tol = SSD_TOL[dtype]
+        ey, oky = _close(y.float(), py.float(), tol)
+        es, oks = _close(state, pstate, SSD_TOL[torch.float32])
+        same = torch.equal(y, y2) and torch.equal(state, state2)
+        print(f"  ssd_scan {str(dtype)[6:]:8} b={b} s={s:3d} h={h} p={p:2d} "
+              f"n={n:3d} chunk={chunk:3d}  y max_abs_err={ey:.3e} "
+              f"(tol={tol:g}*(1+|plain|))  state max_abs_err={es:.3e} "
+              f"(tol={SSD_TOL[torch.float32]:g}*(1+|plain|))  repeat "
+              f"bit-equal: {same}")
+        if not (oky and oks and same):
+            raise AssertionError(f"ssd_scan mismatch at "
+                                 f"{(dtype, b, s, h, p, n, chunk)}")
+        worst["ssd_scan"] = max(worst["ssd_scan"], ey, es)
+
+    for dtype in (torch.float32, torch.bfloat16):
+        for s in (64, 100, 257):
+            for h, kv in ((4, 4), (4, 2), (8, 1)):
+                flash_case(dtype, 2, s, h, kv, causal=True)
+        for window in (1, 7, 64):
+            for cap in (None, 20.0):
+                flash_case(dtype, 1, 128, 4, 2, causal=True, window=window,
+                           softcap=cap)
+        flash_case(dtype, 2, 100, 4, 2, causal=False)
+        flash_case(dtype, 2, 257, 4, 2, bq=128, causal=False, window=64)
+        flash_case(dtype, 2, 300, 14, 2, bq=128, causal=True)  # qwen2's g
+        for s, chunk in ((64, 16), (75, 16), (128, 32)):
+            ssd_case(dtype, 2, s, 3, 16, 8, chunk)
+        ssd_case(dtype, 2, 300, 4, 64, 128, 128)  # mamba2's widths
+
+
+
 def check_kernels(dev) -> dict:
     """Phase 1: every kernel against its plain version on the card."""
     g = _gen(SEED)
@@ -616,7 +749,7 @@ def check_kernels(dev) -> dict:
              "fedavg_reduce": 0.0, "momentum_reduce": 0.0,
              "trimmed_reduce": 0.0, "pairwise_dists": 0.0,
              "clip_reduce": 0.0, "quant_clip_reduce": 0.0,
-             "topk_reduce": 0.0}
+             "topk_reduce": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0}
     for k, n in INT8_SHAPES:
         tol = 1e-4 if k > 256 else 1e-5
         for m in (1, 37, 1280):
@@ -656,6 +789,7 @@ def check_kernels(dev) -> dict:
     _check_fedavg(g, dev, worst)
     _check_agg_kernels(g, dev, worst)
     _check_transport_kernels(g, dev, worst)
+    _check_backbone_kernels(g, dev, worst)
     return worst
 
 
@@ -851,7 +985,9 @@ _COUNTED = {"gpo_attention_fwd": gpo_attention_fwd,
             "clip_reduce": clip_reduce_flat,
             "quant_clip_reduce": quant_clip_reduce_flat,
             "topk_reduce": topk_reduce_flat,
-            "int8_matmul": int8_matmul_flat}
+            "int8_matmul": int8_matmul_flat,
+            "flash_attention": flash_attention_bhsd,
+            "ssd_scan": ssd_scan_bhsp}
 
 
 def _counts() -> dict:
@@ -1288,6 +1424,280 @@ def train_private(dev, data, tr, ev) -> dict:
     return out
 
 
+def _lm_cfg(arch: str, **kw) -> ModelConfig:
+    return override(get_arch(arch), **kw) if kw else get_arch(arch)
+
+
+def _rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max |a - b| over the largest |b|."""
+    return ((a.float() - b.float()).abs().max()
+            / b.float().abs().max()).item()
+
+
+def _lm_run(cfg, params, prompts, gen_len, use_kernels: bool) -> dict:
+    """``serve_lm``'s path: one prefill, then greedy decoding; host-clock
+    times around work that ends in a synchronize."""
+    prefill = make_prefill_step(cfg, prompts.shape[1] + gen_len,
+                                use_kernels=use_kernels)
+    t0 = time.perf_counter()
+    last, cache = prefill(params, {"tokens": prompts})
+    first = torch.argmax(last, dim=-1)[:, None]
+    _sync(prompts.device)
+    t1 = time.perf_counter()
+    after_prefill = _counts()
+    rest, _ = greedy_decode(cfg, params, cache, first, prompts.shape[1],
+                            gen_len - 1)
+    _sync(prompts.device)
+    t2 = time.perf_counter()
+    return {"last": last, "tokens": torch.cat([first, rest], dim=1),
+            "launches_prefill": after_prefill, "launches": _counts(),
+            "prefill_ms": (t1 - t0) * 1e3,
+            "decode_ms_per_token": (t2 - t1) * 1e3 / max(gen_len - 1, 1),
+            "prefill": lambda: prefill(params, {"tokens": prompts})}
+
+
+def _sync(device) -> None:
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def serve_lm(dev) -> dict:
+    """Phase 6: ``serve_lm``'s path for qwen2-0.5b and mamba2-780m at full
+    width and depth in bf16 (random weights from the seed, batch 4,
+    prompt 2048, 32 tokens): launch counts, the kernel run against the
+    plain-branch run on the card, timing and one profiled prefill; then
+    an f32 run at full width, 4 layers, prompt 512, against the CPU."""
+    out = {}
+    for arch, kernel, reorder in LM_ARCHS:
+        cfg = _lm_cfg(arch)
+        t0 = time.perf_counter()
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(cfg, gen, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
+                                generator=gen, device=dev)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n_params = sum(t.numel() for t in tree_leaves(params)
+                       if t is not None)
+        print(f"  {arch}: {n_params / 1e6:.1f} M params ({cfg.param_dtype}, "
+              f"{cfg.num_layers} layers) initialised on the card in "
+              f"{init_s:.2f}s")
+        plain = _lm_run(cfg, params, prompts, LM_GEN, use_kernels=False)
+        floor = None
+        if reorder:
+            floor = _rel_max(make_prefill_step(
+                override(cfg, **reorder), LM_PROMPT + LM_GEN,
+                use_kernels=False)(params, {"tokens": prompts})[0],
+                plain["last"])
+        bound = max(LM_BF16_TOL, LM_FLOOR_FACTOR * (floor or 0.0))
+        torch.cuda.reset_peak_memory_stats()
+        # the main path: the counters from 0, one prefill, then decode
+        _zero_counts()
+        run = _lm_run(cfg, params, prompts, LM_GEN, use_kernels=True)
+        launches = run["launches"]
+        # one launch a layer in the prefill, none in decode
+        want = {**dict.fromkeys(_COUNTED, 0), kernel: cfg.num_layers}
+        if run["launches_prefill"] != want or launches != want:
+            raise AssertionError(
+                f"{arch} launches {run['launches_prefill']} after the "
+                f"prefill, {launches} after decoding; want {want}")
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        rel = _rel_max(run["last"], plain["last"])
+        diff = (run["last"] - plain["last"]).abs().max(dim=-1).values
+        top2 = plain["last"].topk(2, dim=-1).values
+        margin = top2[:, 0] - top2[:, 1]
+        first_ok = ((run["tokens"][:, 0] == plain["tokens"][:, 0])
+                    | (margin <= diff))
+        agree = (run["tokens"] == plain["tokens"]).sum().item()
+        print(f"    prefill {run['prefill_ms']:.2f} ms, decode "
+              f"{run['decode_ms_per_token']:.2f} ms/token (plain branch: "
+              f"{plain['prefill_ms']:.2f} ms, "
+              f"{plain['decode_ms_per_token']:.2f} ms/token); launches "
+              f"{ {k: v for k, v in launches.items() if v} } (decode: 0); "
+              f"peak {peak_gb:.2f} GB")
+        print(f"    last logits vs the plain branch: max_abs/max|logit| = "
+              f"{rel:.3e} (bound {bound:.3e}; the plain branch against "
+              f"itself reordered {reorder}: {floor}); greedy tokens agree "
+              f"{agree}/{run['tokens'].numel()}; first-token margins "
+              f"{margin.tolist()} against diffs {diff.tolist()}")
+        if not (rel <= bound and bool(first_ok.all())
+                and torch.isfinite(run["last"]).all()):
+            raise AssertionError(f"{arch}: kernel run off the plain branch")
+        # steady prefills, after the counted one: kernel, plain, plain,
+        # kernel, the best of each
+        walls = {"kernel": [], "plain": []}
+        for which in ("kernel", "plain", "plain", "kernel"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (run if which == "kernel" else plain)["prefill"]()
+            torch.cuda.synchronize()
+            walls[which].append((time.perf_counter() - t0) * 1e3)
+        prefill_ms = min(walls["kernel"])
+        plain_prefill_ms = min(walls["plain"])
+        decode_ms = run["decode_ms_per_token"]
+        tokens_s = LM_BATCH * LM_GEN / ((prefill_ms + decode_ms
+                                         * (LM_GEN - 1)) / 1e3)
+        prof = _profile(run["prefill"], trace=f"lm_{arch}_trace.json",
+                        match=(kernel,))
+        rec = {
+            "params_m": n_params / 1e6, "init_s": init_s,
+            "batch": LM_BATCH, "prompt": LM_PROMPT, "generated": LM_GEN,
+            "launches": {k: v for k, v in launches.items() if v},
+            "prefill_ms": prefill_ms, "first_prefill_ms": run["prefill_ms"],
+            "decode_ms_per_token": decode_ms, "tokens_per_s": tokens_s,
+            "plain_prefill_ms": plain_prefill_ms,
+            "first_plain_prefill_ms": plain["prefill_ms"],
+            "plain_decode_ms_per_token": plain["decode_ms_per_token"],
+            "peak_gb": peak_gb, "rel_logits_vs_plain": rel,
+            "plain_reordered": {"change": reorder, "rel": floor},
+            "bound": bound,
+            "first_token_margin": margin.tolist(),
+            "first_token_diff": diff.tolist(), "tokens_agree": agree,
+            "profile": {k: prof[k] for k in ("wall_ms", "kernel_ms",
+                                             "busy_share", "top",
+                                             "matched")}}
+        print(f"    steady prefill {prefill_ms:.2f} ms (plain branch "
+              f"{plain_prefill_ms:.2f} ms); {tokens_s:.1f} "
+              f"generated tokens/s; profiled prefill: busy "
+              f"{prof['busy_share']:.3f}, {kernel} "
+              f"{prof['matched'][kernel]['ms']:.2f} ms of "
+              f"{prof['kernel_ms']:.2f} ms kernel time; top "
+              f"{[(t['name'][:40], round(t['ms'], 2)) for t in prof['top']]}")
+        del params, plain, run
+        torch.cuda.empty_cache()
+
+        # f32 at full width and depth: the kernel prefill against the
+        # plain branch's, on the card
+        full32 = _lm_cfg(arch, param_dtype="float32",
+                         activation_dtype="float32")
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        params = init_params(full32, gen, device=dev)
+        lasts = [make_prefill_step(full32, LM_PROMPT + LM_GEN,
+                                   use_kernels=uk)(
+            params, {"tokens": prompts})[0] for uk in (True, False)]
+        rel_deep = _rel_max(*lasts)
+        print(f"    f32, {full32.num_layers} layers, prompt {LM_PROMPT}: "
+              f"last logits kernel vs plain branch max_abs/max|logit| = "
+              f"{rel_deep:.3e} (bound {LM_F32_TOL:g})")
+        if not (rel_deep <= LM_F32_TOL and torch.isfinite(lasts[0]).all()):
+            raise AssertionError(f"{arch}: f32 kernel run off the plain "
+                                 "branch")
+        del params, lasts
+        torch.cuda.empty_cache()
+
+        # f32 at full width, 4 layers, prompt 512: the card against the CPU
+        cfg32 = _lm_cfg(arch, param_dtype="float32",
+                        activation_dtype="float32", num_layers=LM_F32_LAYERS)
+        gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+        params = init_params(cfg32, gen, device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_F32_PROMPT),
+                                generator=gen, device=dev)
+        card = _lm_run(cfg32, params, prompts, LM_F32_GEN, use_kernels=True)
+        t0 = time.perf_counter()
+        cpu = _lm_run(cfg32, _cpu_tree(params), prompts.cpu(), LM_F32_GEN,
+                      use_kernels=True)
+        cpu_s = time.perf_counter() - t0
+        rel32 = _rel_max(card["last"].cpu(), cpu["last"])
+        agree32 = (card["tokens"].cpu() == cpu["tokens"]).sum().item()
+        print(f"    f32, {LM_F32_LAYERS} layers, prompt {LM_F32_PROMPT}: "
+              f"last logits card vs CPU max_abs/max|logit| = {rel32:.3e} "
+              f"(bound {LM_F32_TOL:g}); greedy tokens agree {agree32}/"
+              f"{cpu['tokens'].numel()}; CPU run {cpu_s:.1f}s")
+        if not (rel32 <= LM_F32_TOL and torch.isfinite(card["last"]).all()):
+            raise AssertionError(f"{arch}: f32 card run off the CPU run")
+        del params, card, cpu
+        torch.cuda.empty_cache()
+        out[arch] = {**rec, "f32_rel_logits_vs_plain": rel_deep,
+                     "f32_rel_logits_vs_cpu": rel32,
+                     "f32_tokens_agree": agree32, "f32_cpu_s": cpu_s}
+    return out
+
+
+def _cpu_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _cpu_tree(v) for k, v in tree.items()}
+    return None if tree is None else tree.cpu()
+
+
+def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
+    """Phase 5's rows for the LM backbones' kernels at the prefill shapes
+    of the LM phase: flash at qwen2-0.5b's (B 4, H 14, KV 2, S 2048, hd
+    64, bf16, causal), SSD at mamba2-780m's (b 4, s 2048, h 48, p 64,
+    n 128, chunk 128, bf16, with the final state). The bound is at the
+    bf16 tensor-core rate and the memory rate."""
+    peaks = (_BF16_PEAKS[next((k for k in _BF16_PEAKS if k != "SXM"
+                               and k in card_name), "SXM")],
+             _peaks(card_name)[1])
+    g = _gen(SEED + 3)
+    bf = torch.bfloat16
+    rows = []
+
+    b, h, kv, s, hd = LM_BATCH, 14, 2, LM_PROMPT, 64
+    q = torch.randn((b, h, s, hd), generator=g).to(dev, bf)
+    k, v = (torch.randn((b, kv, s, hd), generator=g).to(dev, bf)
+            for _ in range(2))
+    times = _timed(lambda: flash_attention_bhsd(q, k, v),
+                   lambda: ref_attention(q, k, v),
+                   lambda: F.scaled_dot_product_attention(
+                       q, k, v, is_causal=True, enable_gqa=True))
+    pairs = b * h * s * (s + 1) // 2  # the causal band
+    bound, by = _bound_ms(2 * (2 * b * h * s * hd + 2 * b * kv * s * hd),
+                          4 * pairs * hd, peaks)
+    rows.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:36",
+        "tpu_kernel": "src/repro/kernels/flash_attention.py::_flash_kernel "
+                      "(flash_attention_bhsd)",
+        "launches": lm_rec["qwen2-0.5b"]["launches"]["flash_attention"],
+        "launches_from": "one qwen2-0.5b prefill (decode: 0)",
+        "max_abs_err": worst["flash_attention"],
+        "shape": [b, h, kv, s, hd], "dtype": "bfloat16", **times,
+        "bound_ms": bound, "bound_by": by,
+        "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                        "is_causal=True, enable_gqa=True)"})
+
+    b, s, h, p, n, chunk = LM_BATCH, LM_PROMPT, 48, 64, 128, 128
+    x = (torch.randn((b, s, h, p), generator=g) * 0.5).to(dev, bf)
+    dt = F.softplus(torch.randn((b, s, h), generator=g) - 4.0).to(dev)
+    a_log = torch.log(torch.rand((h,), generator=g) * 15 + 1).to(dev)
+    bm, cm = ((torch.randn((b, s, n), generator=g) * 0.5).to(dev, bf)
+              for _ in range(2))
+    d = torch.ones((h,), device=dev)
+    ms, eager = _time_ms(lambda: ssd_scan_bhsp(
+        x, dt, a_log, bm, cm, d, chunk=chunk, return_state=True))
+    # the plain recurrence is s steps of a few launches: one call a rep
+    plain, plain_eager = _time_ms(lambda: ref_ssd(x, dt, a_log, bm, cm, d),
+                                  iters=1, reps=3)
+    tri = chunk * (chunk + 1) // 2  # (i, j) pairs with j <= i in a chunk
+    per_chunk = 2 * (tri * n + tri * p + 2 * chunk * p * n)
+    bound, by = _bound_ms(
+        2 * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + 2 * h)
+        + 4 * b * h * p * n, b * h * (s // chunk) * per_chunk, peaks)
+    rows.append({
+        "name": "ssd_scan", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:28",
+        "tpu_kernel": "src/repro/kernels/ssd_scan.py::_ssd_kernel "
+                      "(ssd_scan_bhsp)",
+        "launches": lm_rec["mamba2-780m"]["launches"]["ssd_scan"],
+        "launches_from": "one mamba2-780m prefill (decode: 0)",
+        "max_abs_err": worst["ssd_scan"],
+        "shape": [b, s, h, p, n, chunk], "dtype": "bfloat16",
+        "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": None,
+        "eager_ms": {"kernel": eager, "plain": plain_eager,
+                     "library": None},
+        "bound_ms": bound, "bound_by": by, "library_call": None})
+    for r in rows:
+        lib = ("n/a" if r["library_ms"] is None
+               else f"{r['library_ms'] * 1e3:.2f}us")
+        print(f"  {r['name']} at {r['shape']} bf16, device (CUDA graph): "
+              f"kernel {r['ms'] * 1e3:.2f}us  plain {r['plain_ms'] * 1e3:.2f}"
+              f"us  library {lib}  bound {r['bound_ms'] * 1e3:.3f}us "
+              f"({r['bound_by']})")
+    return rows
+
+
 def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
            card_name, worst) -> list:
     """Phase 5: kernel, plain and library times at main-path shapes."""
@@ -1679,9 +2089,13 @@ def main() -> int:
     print("[4c] the DP and codec stages, 3 rounds each, through the "
           "kernels")
     priv_rec = train_private(dev, data, tr, held_out)
+    print("[4d] LM serving: qwen2-0.5b and mamba2-780m at full width and "
+          "depth, bf16, through the flash-attention and SSD kernels")
+    lm_rec = serve_lm(dev)
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, name, worst)
+    kernels += _backbone_rows(dev, lm_rec, name, worst)
 
     print(json.dumps({"engine": {
         k: serve_rec[k] for k in ("steps", "launches", "prefill_requests",
@@ -1690,6 +2104,7 @@ def main() -> int:
     print(json.dumps({"train": train_rec}))
     print(json.dumps({"strategies": strat_rec}))
     print(json.dumps({"private": priv_rec}))
+    print(json.dumps({"lm": lm_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,5 @@
-"""Config classes of the port: the GPO predictor, serving, and the
-federated runtime.
+"""Config classes of the port: the LM backbones, the GPO predictor,
+serving, and the federated runtime.
 
 Every class copies the JAX package's class of the same name field for
 field: same names, same defaults, same ``validate()`` (a test holds the
@@ -13,6 +13,136 @@ from __future__ import annotations
 
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
+
+from repro_torch.utils.registry import Registry
+
+# ---------------------------------------------------------------------------
+# Block kinds
+# ---------------------------------------------------------------------------
+ATTN = "attn"  # full/windowed self-attention + MLP (dense or MoE)
+MAMBA = "mamba"  # Mamba2 SSD block
+GLOBAL = -1  # sentinel window: attend to everything (causal)
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A single decoder (or encoder-decoder) LM backbone.
+
+    One config class covers the zoo: dense/GQA, MoE, SSM, hybrid,
+    enc-dec, and embedding-input (VLM / audio) variants are all field
+    combinations. The port's models run the dense and the pure-SSM
+    families so far (``models/transformer.py`` refuses the rest).
+    """
+
+    name: str = "model"
+    family: str = "dense"  # dense | moe | ssm | hybrid | vlm | audio
+    source: str = ""  # citation for the assigned config
+
+    # trunk
+    num_layers: int = 2
+    d_model: int = 256
+    vocab_size: int = 1024
+
+    # attention
+    num_heads: int = 4
+    num_kv_heads: int = 4
+    head_dim: int = 64
+    qkv_bias: bool = False
+    qk_norm: bool = False
+    attn_logit_softcap: Optional[float] = None  # gemma2-style soft capping
+    final_logit_softcap: Optional[float] = None
+    rope_theta: float = 10_000.0
+    rope_theta_global: Optional[float] = None  # gemma3: different theta for global
+    # sliding-window pattern, cycled over attention layers. -1 == global.
+    window_pattern: Tuple[int, ...] = (GLOBAL,)
+
+    # MLP / MoE
+    d_ff: int = 1024
+    num_experts: int = 0  # 0 => dense MLP
+    experts_per_token: int = 0
+    router_aux_coef: float = 0.01
+    moe_capacity_factor: float = 1.25  # tokens dropped beyond capacity
+
+    # SSM (Mamba2 / SSD)
+    ssm_state_size: int = 0
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 128
+
+    # layer pattern: cycled to num_layers. ("attn",) pure transformer,
+    # ("mamba",) pure SSM. Hybrid (zamba2) uses block_pattern plus
+    # shared_attn_every (a single *shared-weight* attention block applied
+    # after every k trunk layers, as in Zamba2).
+    block_pattern: Tuple[str, ...] = (ATTN,)
+    shared_attn_every: int = 0  # 0 => no shared block
+
+    # encoder-decoder (whisper)
+    is_encoder_decoder: bool = False
+    enc_layers: int = 0
+    enc_seq_len: int = 0  # fixed encoder length (e.g. 1500 audio frames)
+
+    # input modality: "tokens" -> int32 token ids; "embeddings" -> the
+    # modality frontend is a stub and the model consumes (B, S, d_model)
+    # precomputed embeddings (VLM patch embeddings / audio frames).
+    input_kind: str = "tokens"
+
+    # numerics
+    param_dtype: str = "bfloat16"
+    activation_dtype: str = "bfloat16"
+
+    # serving
+    long_context_variant: bool = False  # pure-dense archs get a SWA override
+    long_context_window: int = 4096
+    # ring-buffer decode caches for sliding-window layers (periodic
+    # local:global patterns): local layers allocate W slots instead of the
+    # full context (off = paper-faithful baseline)
+    ring_cache: bool = False
+
+    # normalization
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    scale_embeddings: bool = False  # gemma: embed * sqrt(d_model)
+    use_post_norm: bool = False  # gemma2/3 sandwich norm
+
+    # ---------------------------------------------------------------
+    @property
+    def q_dim(self) -> int:
+        return self.num_heads * self.head_dim
+
+    @property
+    def kv_dim(self) -> int:
+        return self.num_kv_heads * self.head_dim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.num_experts > 0
+
+    def layer_kinds(self) -> Tuple[str, ...]:
+        """Per-layer block kind, block_pattern cycled to num_layers."""
+        p = self.block_pattern
+        return tuple(p[i % len(p)] for i in range(self.num_layers))
+
+    def attn_layer_windows(self, seq_hint: int = 0) -> Tuple[int, ...]:
+        """Window size per *attention* layer (cycled window_pattern).
+
+        GLOBAL (-1) stays -1; consumers replace it with the running
+        sequence length. Ordering matches the order attention layers
+        appear in ``layer_kinds()``.
+        """
+        n_attn = sum(1 for k in self.layer_kinds() if k == ATTN)
+        p = self.window_pattern
+        return tuple(p[i % len(p)] for i in range(n_attn))
+
+    def validate(self) -> None:
+        assert self.num_heads % max(self.num_kv_heads, 1) == 0, self.name
+        if self.is_moe:
+            assert 0 < self.experts_per_token <= self.num_experts, self.name
+        kinds = set(self.layer_kinds())
+        if MAMBA in kinds:
+            assert self.ssm_state_size > 0, self.name
+        if self.is_encoder_decoder:
+            assert self.enc_layers > 0 and self.enc_seq_len > 0, self.name
 
 
 @dataclass(frozen=True)
@@ -326,3 +456,72 @@ class FedConfig:
             gpo_cfg = replace(
                 gpo_cfg, use_pallas_attention=self.use_pallas_attention)
         return gpo_cfg
+
+
+# registry: arch id -> ModelConfig factory
+ARCHITECTURES: Registry = Registry("architecture")
+
+# the reference's other architectures, registered once the port runs
+# their families (ROADMAP queue A item 10, in this order)
+PENDING_ARCHS = {
+    "gemma2-27b": "sliding windows, softcaps and the ring cache",
+    "gemma3-27b": "sliding windows, softcaps and the ring cache",
+    "granite-moe-3b-a800m": "the MoE layers",
+    "grok-1-314b": "the MoE layers",
+    "zamba2-1.2b": "the Mamba2/shared-attention hybrid",
+    "whisper-small": "the encoder-decoder",
+    "llava-next-34b": "the embeddings input",
+    "qwen3-32b": "qk-norm and head_dim 128 in the attention kernel",
+}
+
+
+def get_arch(name: str) -> ModelConfig:
+    if name in PENDING_ARCHS and name not in ARCHITECTURES:
+        raise NotImplementedError(
+            f"architecture {name!r} is not ported yet: it needs "
+            f"{PENDING_ARCHS[name]} (ROADMAP queue A item 10)")
+    cfg = ARCHITECTURES.get(name)
+    cfg.validate()
+    return cfg
+
+
+def smoke_variant(cfg: ModelConfig) -> ModelConfig:
+    """Reduced variant of the same family: 2 layers, d_model<=512,
+    <=4 experts — runnable on CPU in a test."""
+    updates = dict(
+        num_layers=2,
+        d_model=min(cfg.d_model, 256),
+        num_heads=4,
+        num_kv_heads=min(4, max(1, cfg.num_kv_heads)),
+        head_dim=64,
+        d_ff=min(cfg.d_ff, 512) if cfg.d_ff else 0,
+        vocab_size=min(cfg.vocab_size, 512),
+        param_dtype="float32",
+        activation_dtype="float32",
+    )
+    if cfg.is_moe:
+        updates.update(num_experts=4, experts_per_token=min(2, cfg.experts_per_token),
+                       moe_capacity_factor=4.0)  # drop-free for exact tests
+    if cfg.ssm_state_size:
+        updates.update(ssm_state_size=min(cfg.ssm_state_size, 32), ssm_head_dim=32,
+                       ssm_chunk=16)
+    if cfg.is_encoder_decoder:
+        updates.update(enc_layers=2, enc_seq_len=32)
+    if cfg.shared_attn_every:
+        updates.update(shared_attn_every=2)
+    if len(cfg.window_pattern) > 1 or cfg.window_pattern[0] != GLOBAL:
+        # keep the local/global alternation but shrink windows
+        updates.update(
+            window_pattern=tuple(min(w, 16) if w > 0 else w for w in cfg.window_pattern)
+        )
+    out = replace(cfg, name=cfg.name + "-smoke", **updates)
+    out.validate()
+    return out
+
+
+def override(cfg, **kw):
+    """Dataclass-replace with validation (public config-override hook)."""
+    out = replace(cfg, **kw)
+    if isinstance(out, ModelConfig):
+        out.validate()
+    return out

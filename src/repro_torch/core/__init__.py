@@ -1,7 +1,8 @@
 # The PyTorch port's core: the GPO preference predictor, its federated
 # trainer (with the server-aggregation registry, the DP release and the
 # delta codecs) and centralized trainer, the multi-tenant serving
-# engine, and the alignment and fairness metrics.
+# engine, the alignment and fairness metrics, and the LM backbones'
+# serving steps.
 from repro_torch.core.aggregation import (  # noqa: F401
     AGGREGATORS,
     AggState,
@@ -34,5 +35,10 @@ from repro_torch.core.serving import (  # noqa: F401
     latency_summary,
     make_request_trace,
     quantize_gpo_params,
+)
+from repro_torch.core.trainer import (  # noqa: F401
+    greedy_decode,
+    make_prefill_step,
+    make_serve_step,
 )
 from repro_torch.core import fairness  # noqa: F401

@@ -4,7 +4,10 @@ vmap): one call is one launch however many groups (or clients) it
 carries."""
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
+import torch.nn.functional as F
 
 from repro_torch.kernels.agg_reduce import (
     clip_reduce_flat,
@@ -15,13 +18,76 @@ from repro_torch.kernels.agg_reduce import (
     topk_reduce_flat,
     trimmed_reduce_flat,
 )
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
 from repro_torch.kernels.gpo_attention import GPOAttention
 from repro_torch.kernels.quant_matmul import int8_matmul_flat
+from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
 from repro_torch.utils.pytree import (
     tree_index,
     tree_ravel_clients,
     tree_unflatten_from_vector,
 )
+
+
+def _pad_seq(x: torch.Tensor, block: int, dim: int) -> torch.Tensor:
+    """x zero-padded along ``dim`` to a multiple of ``block``."""
+    pad = (-x.shape[dim]) % block
+    if pad == 0:
+        return x
+    widths = [0, 0] * (x.dim() - 1 - dim) + [0, pad]
+    return F.pad(x, widths)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int = 0,
+                    softcap: Optional[float] = None,
+                    bq: int = 128) -> torch.Tensor:
+    """Model layout: q (B, S, H, hd), k/v (B, S, KV, hd) -> (B, S, H, hd).
+    S is padded to the query block as the reference's wrapper pads it;
+    the kernel is told the unpadded length and masks the padded keys, so
+    the result is ``ref_attention``'s for every S, causal or not."""
+    s_orig = q.shape[1]
+    bq = min(bq, max(16, s_orig))
+
+    def bhsd(t):
+        return _pad_seq(t.transpose(1, 2), bq, 2).contiguous()
+
+    out = flash_attention_bhsd(bhsd(q), bhsd(k), bhsd(v), causal=causal,
+                               window=window, softcap=softcap, kv_len=s_orig)
+    return out[:, :, :s_orig].transpose(1, 2)
+
+
+def _ssd_padded(x, dt, A_log, B, C, D, chunk, return_state):
+    s_orig = x.shape[1]
+    chunk = min(chunk, max(16, s_orig))
+
+    def padded(t):
+        return _pad_seq(t, chunk, 1).contiguous()
+
+    y, state = ssd_scan_bhsp(padded(x), padded(dt.float()),
+                             A_log.float().contiguous(), padded(B),
+                             padded(C), D.float().contiguous(), chunk=chunk,
+                             return_state=return_state)
+    return y[:, :s_orig], state
+
+
+def ssd_scan(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+             B: torch.Tensor, C: torch.Tensor, D: torch.Tensor, *,
+             chunk: int = 128) -> torch.Tensor:
+    """Model layout (as ``models/ssm.py``): x (b, s, h, p), dt (b, s, h),
+    B/C (b, s, n) -> y like x. S is padded to the chunk with dt = 0, an
+    exact identity: a padded step neither decays the state nor adds to
+    it."""
+    return _ssd_padded(x, dt, A_log, B, C, D, chunk, False)[0]
+
+
+def ssd_scan_with_state(x: torch.Tensor, dt: torch.Tensor,
+                        A_log: torch.Tensor, B: torch.Tensor,
+                        C: torch.Tensor, D: torch.Tensor, *,
+                        chunk: int = 128):
+    """``ssd_scan`` that also returns the final state (b, h, p, n) f32,
+    the decode cache of a prefill; the padded tail leaves it exact."""
+    return _ssd_padded(x, dt, A_log, B, C, D, chunk, True)
 
 
 def gpo_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

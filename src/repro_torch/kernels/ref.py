@@ -1,16 +1,16 @@
 """Plain PyTorch versions of the hand-written kernels.
 
 Each is the most obviously correct form of what its kernel computes
-(naive masked softmax and its closed-form gradient; dequantize-then-
-matmul; a weighted sum over clients; a stable sort per coordinate; the
-direct difference form of a distance; the DP clip, int8 codec and top-k
-mask stage by stage over the whole (C, P) matrix), written independently
-of the kernels' tiling. The clip, codec and top-k constants (the 1e-12
-norm floor, 127 levels, the 1e-30 scale floor) are restated as literals,
-as the reference's oracles restate them, so an oracle never imports the
-code it checks. The kernel wrappers run these on CPU tensors, and
-``chip_smoke.py`` holds each kernel against its plain version on the
-card.
+(naive masked softmax and its closed-form gradient; the step-by-step
+SSD recurrence; dequantize-then-matmul; a weighted sum over clients; a
+stable sort per coordinate; the direct difference form of a distance;
+the DP clip, int8 codec and top-k mask stage by stage over the whole
+(C, P) matrix), written independently of the kernels' tiling. The
+clip, codec and top-k constants (the 1e-12 norm floor, 127 levels, the
+1e-30 scale floor) are restated as literals, as the reference's oracles
+restate them, so an oracle never imports the code it checks. The kernel
+wrappers run these on CPU tensors, and ``chip_smoke.py`` holds each
+kernel against its plain version on the card.
 """
 from __future__ import annotations
 
@@ -19,6 +19,54 @@ import math
 import torch
 
 NEG_INF = -1e30
+
+
+def ref_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0, softcap=None,
+                  kv_len=None) -> torch.Tensor:
+    """q (B, H, S, hd), k/v (B, KV, S, hd) -> (B, H, S, hd). Naive masked
+    softmax with repeated KV heads; keys at or past ``kv_len`` (default
+    all) are masked too."""
+    b, h, s, hd = q.shape
+    g = h // k.shape[1]
+    kk = k.repeat_interleave(g, dim=1)
+    vv = v.repeat_interleave(g, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, kk) / math.sqrt(hd)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    qpos = torch.arange(s, device=q.device)[:, None]
+    kpos = torch.arange(s, device=q.device)[None, :]
+    mask = kpos < (s if kv_len is None else kv_len)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window > 0:
+        mask = mask & (qpos - kpos < window)
+    scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores.float(), dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", probs.to(vv.dtype), vv)
+
+
+def ref_ssd(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
+            B: torch.Tensor, C: torch.Tensor, D: torch.Tensor):
+    """Step-by-step SSD recurrence (the definition, O(S) sequential).
+    x (b, s, h, p); dt (b, s, h); A_log/D (h,); B/C (b, s, n) ->
+    (y like x, the final state (b, h, p, n) f32)."""
+    b, s, h, p = x.shape
+    n = B.shape[-1]
+    a = -torch.exp(A_log.float())
+    state = torch.zeros((b, h, p, n), dtype=torch.float32, device=x.device)
+    ys = []
+    for t in range(s):
+        xt = x[:, t].float()  # (b, h, p)
+        dtt = dt[:, t].float()  # (b, h)
+        decay = torch.exp(dtt * a[None, :])
+        state = (decay[..., None, None] * state
+                 + torch.einsum("bhp,bn->bhpn", xt * dtt[..., None],
+                                B[:, t].float()))
+        ys.append(torch.einsum("bhpn,bn->bhp", state, C[:, t].float())
+                  + xt * D[None, :, None])
+    y = torch.stack(ys, dim=1) if ys else x.float()
+    return y.to(x.dtype), state
 
 
 def ref_gpo_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -1,6 +1,17 @@
-"""Serving launcher: the GPO preference-serving engine on the GPU.
+"""Serving launcher: batched greedy decoding of an LM backbone against
+a prefilled KV cache or SSM state, or the GPO preference-serving engine
+(the paper's inference product), on the GPU.
 
-Serves the latest GPO checkpoint under ``--ckpt-dir`` (the JAX package's
+``serve_lm`` builds ``--arch`` (the ported ones: qwen2-0.5b, mamba2-780m;
+``--smoke`` for the reduced variant) with random weights from
+``--seed``, prefills ``--batch`` random prompts of ``--prompt-len``
+tokens through the flash-attention or SSD kernel, and decodes
+``--gen-len`` tokens greedily:
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+      --smoke --prompt-len 16 --gen-len 16 --batch 4 --device cpu
+
+``serve_gpo`` serves the latest GPO checkpoint under ``--ckpt-dir`` (the JAX package's
 ``serve --gpo`` writes one in the same format) through
 ``core.serving.PreferenceServer`` (DESIGN.md §12): admission-controlled
 queue, bucketed continuous batching, LRU prefix/KV cache over shared ICL
@@ -24,16 +35,53 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import latest_checkpoint, restore_checkpoint
-from repro_torch.configs import GPOConfig, ServeConfig
+from repro_torch.configs import (
+    GPOConfig,
+    ServeConfig,
+    get_arch,
+    smoke_variant,
+)
 from repro_torch.core import (
     PreferenceServer,
+    greedy_decode,
     init_gpo_params,
     latency_summary,
+    make_prefill_step,
     make_request_trace,
 )
 from repro_torch.core.fairness import alignment_score
 from repro_torch.data import SurveyConfig, make_survey_data, split_groups
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.models import init_params
+
+
+def serve_lm(args) -> torch.Tensor:
+    """Random weights and prompts from ``--seed`` (a generator on the
+    serving device), one prefill, then greedy decoding; prints the
+    throughput and the first sequences and returns the generated tokens
+    (B, gen_len)."""
+    device = resolve_device(args.device)
+    cfg = get_arch(args.arch)
+    if args.smoke:
+        cfg = smoke_variant(cfg)
+    gen = torch.Generator(device=device).manual_seed(args.seed)
+    params = init_params(cfg, gen, device=device)
+    b, p = args.batch, args.prompt_len
+    prompts = torch.randint(0, cfg.vocab_size, (b, p), generator=gen,
+                            device=device)
+    prefill = make_prefill_step(cfg, p + args.gen_len)
+    t0 = time.perf_counter()
+    last_logits, cache = prefill(params, {"tokens": prompts})
+    first = torch.argmax(last_logits, dim=-1)[:, None]
+    toks, _ = greedy_decode(cfg, params, cache, first, p, args.gen_len - 1)
+    toks = torch.cat([first, toks], dim=1).cpu()
+    dt = time.perf_counter() - t0
+    print(f"arch={cfg.name} batch={b} prompt={p} generated={args.gen_len} "
+          f"device={device}")
+    print(f"tokens/s={b * args.gen_len / dt:.1f}")
+    for i in range(min(b, 4)):
+        print(f"  seq{i}: {toks[i].tolist()}")
+    return toks
 
 
 def _restore_params(ckpt_dir: str, gcfg: GPOConfig, seed: int,
@@ -111,9 +159,15 @@ def serve_gpo(args) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="qwen2-0.5b",
+                    help="LM backbone to serve (qwen2-0.5b, mamba2-780m)")
     ap.add_argument("--gpo", action="store_true",
-                    help="serve the GPO preference predictor (the only "
-                         "mode ported so far)")
+                    help="serve the GPO preference predictor instead")
+    ap.add_argument("--smoke", action="store_true",
+                    help="the reduced variant of --arch")
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=16)
+    ap.add_argument("--gen-len", type=int, default=16)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="checkpoints/gpo_serve")
     ap.add_argument("--restore", action="store_true",
@@ -134,10 +188,10 @@ def main(argv=None) -> None:
                     help="quantize weights to int8 at load time and serve "
                          "through the int8 matmul kernel")
     args = ap.parse_args(argv)
-    if not args.gpo:
-        raise SystemExit("only --gpo serving is ported; LM serving comes "
-                         "with the backbone-zoo slice")
-    serve_gpo(args)
+    if args.gpo:
+        serve_gpo(args)
+    else:
+        serve_lm(args)
 
 
 if __name__ == "__main__":

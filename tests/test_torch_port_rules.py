@@ -27,6 +27,8 @@ ROOT = Path(__file__).resolve().parents[1]
 qm = importlib.import_module("repro_torch.kernels.quant_matmul")
 ga = importlib.import_module("repro_torch.kernels.gpo_attention")
 ar = importlib.import_module("repro_torch.kernels.agg_reduce")
+fa = importlib.import_module("repro_torch.kernels.flash_attention")
+sd = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 
 def _port_modules():
@@ -72,7 +74,7 @@ def test_no_jax_or_reference_import_in_the_port_sources():
 @pytest.mark.parametrize("name", [
     "GPOConfig", "ServeConfig", "FedConfig", "AggConfig", "PrivacyConfig",
     "AvailabilityConfig", "AdversaryConfig", "CompressionConfig",
-    "HierarchyConfig"])
+    "HierarchyConfig", "ModelConfig"])
 def test_configs_copy_the_reference_field_for_field(name):
     port, ref = getattr(repro_torch.configs, name), getattr(jax_configs, name)
 
@@ -84,6 +86,17 @@ def test_configs_copy_the_reference_field_for_field(name):
     assert spec(port) == spec(ref)
     if name == "GPOConfig":
         assert port(d_model=96, num_heads=3).head_dim == 32
+    if name == "ModelConfig":  # the ported archs, their properties too
+        for arch in repro_torch.configs.ALL_ARCHS:
+            p, r = (m.get_arch(arch) for m in (repro_torch.configs,
+                                               jax_configs))
+            assert dataclasses.asdict(p) == dataclasses.asdict(r)
+            assert (p.q_dim, p.kv_dim, p.is_moe, p.layer_kinds(),
+                    p.attn_layer_windows()) == (
+                r.q_dim, r.kv_dim, r.is_moe, r.layer_kinds(),
+                r.attn_layer_windows())
+            assert dataclasses.asdict(repro_torch.configs.smoke_variant(
+                p)) == dataclasses.asdict(jax_configs.smoke_variant(r))
 
 
 @pytest.mark.parametrize("kw", [
@@ -182,7 +195,8 @@ def _counts():
             ar.fedavg_reduce_flat.launches, ar.momentum_reduce_flat.launches,
             ar.trimmed_reduce_flat.launches, ar.pairwise_dists_flat.launches,
             ar.clip_reduce_flat.launches, ar.quant_clip_reduce_flat.launches,
-            ar.topk_reduce_flat.launches)
+            ar.topk_reduce_flat.launches, fa.flash_attention_bhsd.launches,
+            sd.ssd_scan_bhsp.launches)
 
 
 def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
@@ -231,6 +245,110 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
         with pytest.raises(ValueError, match="different devices"):
             qm.int8_matmul_flat(x, q.cpu(), s)
     assert _counts() == before
+
+
+def test_backbone_wrappers_launch_or_raise_on_cuda_tensors():
+    """The flash-attention and SSD wrappers on fake CUDA tensors without
+    a card: the operand contract (dtype, one device, contiguity,
+    head_dim, chunk) comes first, then the launch raises; no plain
+    version runs and nothing is counted."""
+    _no_card()
+    before = _counts()
+    with FakeTensorMode():
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.empty((2, 4, 48, 64), dtype=dt, device="cuda")
+            k = torch.empty((2, 2, 48, 64), dtype=dt, device="cuda")
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                fa.flash_attention_bhsd(q, k, k, window=7, softcap=20.0)
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                fa.flash_attention_bhsd(q, k, k, causal=False, kv_len=40)
+            x = torch.empty((2, 64, 3, 16), dtype=dt, device="cuda")
+            bc = torch.empty((2, 64, 8), dtype=dt, device="cuda")
+            dtt = torch.empty((2, 64, 3), device="cuda")
+            h = torch.empty((3,), device="cuda")
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                sd.ssd_scan_bhsp(x, dtt, h, bc, bc, h, chunk=16,
+                                 return_state=True)
+        q = torch.empty((2, 4, 48, 64), device="cuda")
+        k = torch.empty((2, 2, 48, 64), device="cuda")
+        with pytest.raises(ValueError, match="head_dim"):
+            fa.flash_attention_bhsd(*(torch.empty((1, 2, 8, 32),
+                                                  device="cuda")
+                                      for _ in range(3)))
+        with pytest.raises(ValueError, match="different devices"):
+            fa.flash_attention_bhsd(q, k, k.cpu())
+        with pytest.raises(ValueError, match="contiguous"):
+            fa.flash_attention_bhsd(torch.empty(
+                (2, 48, 4, 64), device="cuda").transpose(1, 2), k, k)
+        with pytest.raises(ValueError, match="expected torch.float32"):
+            fa.flash_attention_bhsd(q, k, k.to(torch.bfloat16))
+        with pytest.raises(ValueError, match="H a multiple of KV"):
+            fa.flash_attention_bhsd(q, *(torch.empty(
+                (2, 3, 48, 64), device="cuda") for _ in range(2)))
+        x = torch.empty((2, 64, 3, 64), device="cuda")
+        bc = torch.empty((2, 64, 128), device="cuda")
+        dtt = torch.empty((2, 64, 3), device="cuda")
+        h = torch.empty((3,), device="cuda")
+        with pytest.raises(ValueError, match="chunk=24"):
+            sd.ssd_scan_bhsp(x, dtt, h, bc, bc, h, chunk=24)
+        with pytest.raises(ValueError, match="chunk=256"):
+            sd.ssd_scan_bhsp(x, dtt, h, bc, bc, h, chunk=256)
+        with pytest.raises(ValueError, match="the kernel's tiles"):
+            sd.ssd_scan_bhsp(x, dtt, h, torch.empty((2, 64, 512),
+                                                    device="cuda"),
+                             torch.empty((2, 64, 512), device="cuda"), h,
+                             chunk=64)
+        with pytest.raises(ValueError, match="expected torch.float32"):
+            sd.ssd_scan_bhsp(x, dtt.to(torch.bfloat16), h, bc, bc, h,
+                             chunk=16)
+    assert _counts() == before
+
+
+def test_backbone_wrappers_hold_the_contract_on_the_cpu():
+    before = _counts()
+    q = torch.zeros((1, 4, 20, 64))
+    k = torch.zeros((1, 2, 20, 64))
+    assert fa.flash_attention_bhsd(q, k, k, kv_len=17).shape == q.shape
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention_bhsd(q, k.transpose(2, 3).contiguous()
+                                .transpose(2, 3), k)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bhsd(q[..., :32], k[..., :32], k[..., :32])
+    with pytest.raises(ValueError, match="kv_len"):
+        fa.flash_attention_bhsd(q, k, k, kv_len=21)
+    with pytest.raises(ValueError, match="softcap"):
+        fa.flash_attention_bhsd(q, k, k, softcap=0.0)
+    x = torch.zeros((1, 32, 2, 8))
+    bc = torch.zeros((1, 32, 4))
+    y, st = sd.ssd_scan_bhsp(x, torch.zeros((1, 32, 2)), torch.zeros(2), bc,
+                             bc, torch.zeros(2), chunk=16, return_state=True)
+    assert y.shape == x.shape and st.shape == (1, 2, 8, 4)
+    with pytest.raises(ValueError, match="divide"):
+        sd.ssd_scan_bhsp(x, torch.zeros((1, 32, 2)), torch.zeros(2), bc, bc,
+                         torch.zeros(2), chunk=12)
+    with pytest.raises(ValueError, match="shapes"):
+        sd.ssd_scan_bhsp(x, torch.zeros((1, 32, 3)), torch.zeros(2), bc, bc,
+                         torch.zeros(2), chunk=16)
+    assert _counts() == before
+
+
+def test_lm_serving_refuses_to_run_on_the_cpu_unasked():
+    _no_card()
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.launch import serve
+    from repro_torch.models import init_cache, init_params
+
+    cfg = smoke_variant(get_arch("qwen2-0.5b"))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_params(cfg, torch.Generator().manual_seed(0))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        init_cache(cfg, 1, 8)
+    for arch in ("qwen2-0.5b", "mamba2-780m"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            serve.main(["--arch", arch, "--smoke"])
+    # and on the CPU when asked
+    assert init_params(cfg, torch.Generator().manual_seed(0),
+                       device="cpu")["embed"].device.type == "cpu"
 
 
 def _transport_call(name, dev, **over):
