@@ -462,7 +462,7 @@ class FedConfig:
 ARCHITECTURES: Registry = Registry("architecture")
 
 # the reference's other architectures, registered once the port runs
-# their families (ROADMAP queue A item 10, in this order)
+# their families (ROADMAP queue A.8, in this order)
 PENDING_ARCHS = {
     "gemma2-27b": "sliding windows, softcaps and the ring cache",
     "gemma3-27b": "sliding windows, softcaps and the ring cache",
@@ -471,7 +471,8 @@ PENDING_ARCHS = {
     "zamba2-1.2b": "the Mamba2/shared-attention hybrid",
     "whisper-small": "the encoder-decoder",
     "llava-next-34b": "the embeddings input",
-    "qwen3-32b": "qk-norm and head_dim 128 in the attention kernel",
+    "qwen3-32b": "its config and parity tests (qk-norm and head_dim 128 "
+                 "run already)",
 }
 
 
@@ -479,7 +480,7 @@ def get_arch(name: str) -> ModelConfig:
     if name in PENDING_ARCHS and name not in ARCHITECTURES:
         raise NotImplementedError(
             f"architecture {name!r} is not ported yet: it needs "
-            f"{PENDING_ARCHS[name]} (ROADMAP queue A item 10)")
+            f"{PENDING_ARCHS[name]} (ROADMAP queue A.8)")
     cfg = ARCHITECTURES.get(name)
     cfg.validate()
     return cfg

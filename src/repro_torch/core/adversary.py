@@ -1,6 +1,6 @@
 """Server-side norm bounding (``AggConfig.norm_bound``, DESIGN.md §13),
 the one piece of the reference's ``core/adversary.py`` that the port
-runs so far. The attack simulator is ROADMAP.md queue A item 8."""
+runs so far. The attack simulator is ROADMAP.md queue A.4."""
 from __future__ import annotations
 
 import torch

@@ -391,8 +391,7 @@ def _make_fedbuff(cfg, *, num_clients, use_pallas):
     client updates have been absorbed since the last flush. The
     synchronous round releases every participant with mass 1, so
     buffer_k <= C flushes every round (fedbuff is fedavg there); the
-    fault-aware round that passes other masses is ROADMAP.md queue A
-    item 8."""
+    fault-aware round that passes other masses is ROADMAP.md queue A.5."""
     reduce, reduce_flat = _linear_reduce(use_pallas)
     base_lr, buffer_k = cfg.server_lr, cfg.buffer_k
 

@@ -33,7 +33,7 @@ A round, with every training client participating:
 
 ``engine="scan"`` and ``engine="loop"`` both run this per-round driver:
 the fused multi-round driver (a captured round replayed as a CUDA graph)
-is ROADMAP.md queue A item 6. Partial participation, per-round optimizer
+is ROADMAP.md queue A.2. Partial participation, per-round optimizer
 resets, and the availability, adversary and hierarchy stages are not
 ported yet; a config that asks for one raises ``NotImplementedError``
 naming its ROADMAP item.
@@ -187,17 +187,17 @@ def _refuse_unported(fed_cfg: FedConfig) -> None:
     ROADMAP.md item, rather than running a different round."""
     todo = [
         (fed_cfg.batch_groups > 0, "batch_groups > 0 (partial "
-         "participation)", "A.6"),
-        (fed_cfg.reset_opt_each_round, "reset_opt_each_round", "A.6"),
-        (fed_cfg.avail.enabled, "the availability stage", "A.8"),
-        (fed_cfg.adversary.enabled, "the adversary stage", "A.8"),
-        (fed_cfg.hierarchy.enabled, "the hierarchy stage", "A.8"),
+         "participation)", "A.2"),
+        (fed_cfg.reset_opt_each_round, "reset_opt_each_round", "A.2"),
+        (fed_cfg.avail.enabled, "the availability stage", "A.5"),
+        (fed_cfg.adversary.enabled, "the adversary stage", "A.4"),
+        (fed_cfg.hierarchy.enabled, "the hierarchy stage", "A.6"),
     ]
     for on, what, item in todo:
         if on:
             raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP.md queue A item "
-                f"{item[2:]}); the port runs the full-participation "
+                f"{what} is not ported yet (ROADMAP.md queue {item}); "
+                "the port runs the full-participation "
                 "round")
 
 

@@ -21,7 +21,7 @@ runs the privacy, codec and aggregate stages on the clients' raw deltas:
 ``losses`` and ``idx`` pass through to the strategy. The randomness of
 the release comes in as operands (the σ-scaled noise and the rounding
 uniforms, (C, P) each), the EF residual as carry state that the caller
-owns. The attack and hierarchy stages are ROADMAP.md queue A item 8;
+owns. The attack and hierarchy stages are ROADMAP.md queue A.4 and A.6;
 ``FederatedGPO`` refuses a config that turns one on.
 """
 from __future__ import annotations

@@ -9,7 +9,7 @@ serving half):
 The prefill runs the flash-attention and SSD kernels unless
 ``use_kernels=False``; decode is plain PyTorch, as in the reference.
 LM training (``lm_loss``, ``make_train_step``, the backbone FedAvg and
-FedLoRA rounds) is ROADMAP queue A item 10.
+FedLoRA rounds) is ROADMAP queue A.8.
 """
 from __future__ import annotations
 

@@ -76,6 +76,18 @@ def on_cpu(what: str, *tensors: torch.Tensor, dtypes) -> bool:
     return dev.type == "cpu"
 
 
+def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
+    """Raise when grad mode is on and an operand requires grad: for a
+    kernel with no backward, whose CUDA result would carry no
+    ``grad_fn`` while the CPU's plain version differentiates. Checked on
+    both devices, so the CPU tests see what the card would do."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{what} has no backward yet (ROADMAP A.8.5 / C.1): call it "
+            "under torch.no_grad() or with operands that do not require "
+            "grad")
+
+
 def _nvcc() -> str:
     found = shutil.which("nvcc")
     if found:

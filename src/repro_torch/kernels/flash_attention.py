@@ -10,21 +10,36 @@ never materialised). The kernel takes the unpadded key length and masks
 the keys at or past it, so the padded tail the wrapper adds never
 enters a softmax, causal or not.
 
-Kernel: one block per (batch·head, 64 query rows), two threads per row,
-each owning half of the head's dims; 32-key tiles of K and V staged in
-shared memory as f32, m, l and the accumulator in registers; tiles
-outside the causal or window band skipped by the TPU kernel's own
-relevance rule. Scores in f32 from upcast inputs, p rounded to v's
-dtype before the PV product, o = acc / max(l, 1e-30), as the TPU kernel
-does.
+Kernels, one launch a call, routed on the dtype:
+
+* bf16, on the tensor cores (FlashAttention-2's scheme): a block of 4
+  warps takes 64 query rows of one (batch, head), each warp 16 rows with
+  its Q slice in registers as ``mma.sync.m16n8k16`` A fragments; 64-key
+  tiles of K and V staged in shared memory in bf16 by ``cp.async`` in a
+  ring of three, padded rows so ``ldmatrix`` reads are conflict-free;
+  S = Q·Kᵀ and O += P·V in bf16 → f32 with m and l per row in
+  registers, scores in log2 units (one ``ex2`` a probability), P
+  rounded to bf16 in registers (the reference's ``p.astype(v.dtype)``)
+  and fed back as the A operand of P·V.
+* f32, on the CUDA cores (the first design): one block per
+  (batch·head, 64 query rows), two threads per row, 32-key f32 tiles in
+  shared memory. TF32 products would not hold the f32 tolerances.
+
+Both skip tiles outside the causal or window band by the TPU kernel's
+relevance rule (the bf16 kernel masks per key only in tiles that cross
+an edge or ``kv_len``) and compute o = acc / max(l, 1e-30) as the TPU
+kernel does.
 
 What bounds it on the H100 SXM (data-sheet rates at its 700 W limit):
 operations. At qwen2-0.5b's prefill (B 4, H 14, KV 2, S 2048, hd 64,
 bf16, causal) the band is about 30.1 GFLOP against 33.6 MB of q, k, v
 and o (10 µs of bytes): about 30.4 µs at the 989 TFLOP/s bf16
-tensor-core rate. This first kernel upcasts to f32 and runs on the CUDA
-cores (67 TFLOP/s), so about 450 µs is its own ceiling; tensor-core
-tiles are later work.
+tensor-core rate, which the bf16 kernel runs on. The f32 kernel's own
+ceiling at the same shape is about 450 µs (67 TFLOP/s).
+
+There is no backward yet (ROADMAP A.8.5 / C.1): the wrapper refuses
+operands that require grad while grad mode is on, on either device,
+rather than hand back a result without a ``grad_fn``.
 """
 from __future__ import annotations
 
@@ -36,7 +51,7 @@ import torch
 from repro_torch.kernels import backend
 from repro_torch.kernels.ref import ref_attention
 
-HEAD_DIMS = (64,)  # head widths the CUDA source instantiates
+HEAD_DIMS = (64, 128)  # head widths the CUDA source instantiates
 DTYPES = (torch.float32, torch.bfloat16)
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
@@ -73,9 +88,11 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """q (B, H, S, hd), k/v (B, KV, S, hd), all f32 or all bf16 ->
     (B, H, S, hd). Keys at or past ``kv_len`` (default S) are masked.
     CPU tensors take the plain version (``ref_attention``); CUDA tensors
-    launch the kernel or raise."""
+    launch the kernel or raise. Raises for operands that require grad
+    under grad mode (no backward yet)."""
     kv_len = q.shape[2] if kv_len is None else kv_len
     _check(q, k, v, kv_len, softcap)
+    backend.refuse_grad("flash_attention_bhsd", q, k, v)
     if backend.on_cpu("flash_attention", q, k, v, dtypes=(q.dtype,) * 3):
         return ref_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, kv_len=kv_len)

@@ -6,21 +6,31 @@ Inference quantizes each dense weight per *output channel*
 nearest, and computes  out = (x @ q_f32) * scale  with the scale applied
 after the reduction over k.
 
-Kernel (replaces ``repro/kernels/quant_matmul.py::_int8_matmul_kernel``):
-one 64x64 output tile per block of 256 threads, each thread 4x4 outputs
-in f32 registers; K is walked in 32-deep tiles staged in shared memory
-(x as f32, q as int8 upcast on load), so K is not bounded by the tile
-and K = 4098 (the paper's d_embed 4096 + 2) works. All three edges are
-masked in the kernel. No atomics and no split-K: each output is one
-thread's sum in fixed K order, so a row's result does not depend on M or
-on the other rows (the serving cache's hit == miss contract).
+Kernel (replaces ``repro/kernels/quant_matmul.py::_int8_matmul_kernel``),
+shaped for latency, since the serving shapes are too small to be bound
+by bytes or operations: 16×32 output tiles, so the engine step's
+(320, 128) × (128, 256) launches 160 blocks on the 132 SMs; K in
+128-deep chunks staged in shared memory by ``cp.async`` with 16-byte
+copies (a float4 of x, 16 int8 of q), two chunks in flight, so K ≤ 256
+is one load phase and K = 4098 (the paper's d_embed 4096 + 2) streams
+through the two stages; 128 threads, each 4×4 outputs over a quarter of
+K, the four partial sums added by a fixed xor butterfly; q widened to
+f32 in registers by byte permutes, exactly. All three edges are masked
+in the kernel; operands whose rows do not allow 16-byte copies (K not a
+multiple of 4, N not of 16, as the head's N = 1) take narrower ones.
+No atomics and no split of K across warps or blocks: each output is
+summed in a fixed order that depends only on K, so a row's result does
+not depend on M or on the other rows (the serving cache's hit == miss
+contract).
 
-What bounds it on the H100: at the serving shapes (M <= 1280, K <= 256,
-N <= 256) one call moves at most ~2 MB and does ~84 MFLOP, under 1 µs
-of bytes or f32 CUDA-core work, so a launch costs more than the work;
-the engine step's int8 time is its launch count. The simple tiling does
-nothing about that; a later PR's CUDA graph does. At K = 4098 the x and
-q streams dominate, and the tile reuses each loaded value 4x per thread.
+What bounds it on the H100: at the serving shapes (M ≤ 1280, K ≤ 256,
+N ≤ 256) one call moves at most ~2 MB and does at most ~168 MFLOP: at
+the engine's decode step (320, 128) × (128, 256), 21 MFLOP, 0.31 µs of
+f32 CUDA-core work (67 TFLOP/s) and less of bytes, so launch latency,
+the load's round trip and the number of blocks in flight set its time;
+at the corner of that range, (1280, 256) × (256, 256), the operations,
+2.5 µs. The engine step's int8 time is its launch count, which a CUDA graph
+of the step (later work) would cut.
 """
 from __future__ import annotations
 

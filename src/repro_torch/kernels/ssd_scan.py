@@ -25,7 +25,9 @@ bytes. At mamba2-780m's prefill (b 4, s 2048, h 48, p 64, n 128, chunk
 counting the triangles in full) take 22.9 µs at the 989 TFLOP/s bf16
 tensor-core rate. This kernel runs in f32 on the CUDA cores (67 TFLOP/s,
 about 340 µs for the same work); tensor cores, a chunk-parallel state
-pass and sharing C·Bᵀ across heads are later work.
+pass and sharing C·Bᵀ across heads are later work. There is no
+backward yet (ROADMAP A.8.5 / C.1): the wrapper refuses operands that
+require grad while grad mode is on, on either device.
 """
 from __future__ import annotations
 
@@ -77,8 +79,10 @@ def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     (b, s, h), A_log and D (h,) in f32; s a multiple of ``chunk`` ->
     (y like x, the final state (b, h, p, n) f32 or None). CPU tensors
     take the plain version (``ref_ssd``); CUDA tensors launch the kernel
-    or raise."""
+    or raise. Raises for operands that require grad under grad mode (no
+    backward yet)."""
     _check(x, dt, A_log, B, C, D, chunk)
+    backend.refuse_grad("ssd_scan_bhsp", x, dt, A_log, B, C, D)
     if backend.on_cpu("ssd_scan", x, B, C, dt, A_log, D,
                       dtypes=(x.dtype,) * 3 + (_F32,) * 3):
         y, state = ref_ssd(x, dt, A_log, B, C, D)

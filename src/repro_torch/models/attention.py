@@ -14,7 +14,7 @@
 
 On one device the reference's sharding choices are fixed: KV is not
 repeated, the query sequence is not sharded, and ``shard_act`` is the
-identity, so the port has none of them (ROADMAP queue A item 9).
+identity, so the port has none of them (ROADMAP queue A.7).
 """
 from __future__ import annotations
 

@@ -17,7 +17,7 @@ the pure-SSM (all-Mamba2) families (the reference's
 
 MoE, the zamba2 hybrid, the encoder-decoder, the embeddings input and
 the ring cache are refused with ``NotImplementedError`` (ROADMAP queue
-A item 10).
+A.8).
 """
 from __future__ import annotations
 
@@ -61,7 +61,7 @@ def check_supported(cfg: ModelConfig) -> None:
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port does not run {', '.join(missing)} yet "
-            "(ROADMAP queue A item 10)")
+            "(ROADMAP queue A.8)")
 
 
 def _stack_layers(layers: list) -> dict:
@@ -321,7 +321,7 @@ def forward(params, cfg: ModelConfig, *, tokens, cache=None,
             cache_pos: Optional[int] = None,
             prefill_len: Optional[int] = None, use_kernels: bool = True):
     """Unified forward, no autograd (the port serves; LM training is
-    ROADMAP queue A item 10).
+    ROADMAP queue A.8).
 
     Modes:
       * full    : cache=None, prefill_len=None -> (logits, None, aux)

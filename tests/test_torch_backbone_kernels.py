@@ -19,7 +19,9 @@ from repro.kernels.ref import ref_attention as jax_ref_attention
 from repro.kernels.ref import ref_ssd as jax_ref_ssd
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import ops
-from repro_torch.kernels.ref import ref_ssd
+from repro_torch.kernels.flash_attention import flash_attention_bhsd
+from repro_torch.kernels.ref import ref_attention, ref_ssd
+from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
 
 
 def _tol(dtype):
@@ -88,6 +90,100 @@ def test_flash_attention_non_causal_ragged_matches_ref(s, bq, window):
                              window=window).transpose(tr)
     got = ops.flash_attention(q, k, v, causal=False, window=window, bq=bq)
     np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+# head_dim 128 (qwen3-32b, gemma2/3): the same checks at small B and S
+
+@pytest.mark.parametrize("s,h,kv", [(64, 4, 2), (100, 8, 1)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_attention_hd128_matches_jax(s, h, kv, dtype):
+    (jq, q), (jk, k), (jv, v) = (_both(a, dtype)
+                                 for a in _qkv(11, 2, s, h, kv, hd=128))
+    want = jax_flash_attention(jq, jk, jv, causal=True, bq=32, bk=32)
+    got = ops.flash_attention(q, k, v, causal=True, bq=32)
+    assert got.dtype == q.dtype and got.shape == q.shape
+    np.testing.assert_allclose(_f32(got), _f32(want), **_tol(dtype))
+
+
+@pytest.mark.parametrize("window,softcap", [(7, 20.0), (64, None),
+                                            (1, 50.0)])
+def test_flash_attention_hd128_window_softcap_matches_jax(window, softcap):
+    (jq, q), (jk, k), (jv, v) = (_both(a)
+                                 for a in _qkv(13, 1, 128, 4, 2, hd=128))
+    want = jax_flash_attention(jq, jk, jv, causal=True, window=window,
+                               softcap=softcap, bq=32, bk=32)
+    got = ops.flash_attention(q, k, v, causal=True, window=window,
+                              softcap=softcap, bq=32)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+@pytest.mark.parametrize("s,bq", [(20, 16), (100, 32)])
+def test_flash_attention_hd128_non_causal_ragged_matches_ref(s, bq):
+    """As the head_dim 64 case: held to ``ref_attention`` itself, since
+    the reference's wrapper leaves the padded keys unmasked."""
+    (jq, q), (jk, k), (jv, v) = (_both(a)
+                                 for a in _qkv(17, 2, s, 4, 2, hd=128))
+    tr = (0, 2, 1, 3)
+    want = jax_ref_attention(jq.transpose(tr), jk.transpose(tr),
+                             jv.transpose(tr), causal=False).transpose(tr)
+    got = ops.flash_attention(q, k, v, causal=False, bq=bq)
+    np.testing.assert_allclose(_f32(got), _f32(want), rtol=2e-5, atol=2e-5)
+
+
+# no backward yet: an operand that requires grad under grad mode is
+# refused on the CPU as on the card, and runs under no_grad
+
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_flash_wrapper_refuses_autograd(which):
+    ops_in = dict(zip("qkv", (torch.from_numpy(a).transpose(1, 2)
+                              .contiguous() for a in _qkv(19, 1, 20, 4, 2))))
+    ops_in[which].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        flash_attention_bhsd(**ops_in, kv_len=17)
+    with torch.no_grad():
+        got = flash_attention_bhsd(**ops_in, kv_len=17)
+        want = ref_attention(**ops_in, kv_len=17)
+    assert got.grad_fn is None and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("which", ["x", "dt", "A_log", "B", "C", "D"])
+def test_ssd_wrapper_refuses_autograd(which):
+    inp = {k: torch.from_numpy(v)
+           for k, v in _ssd_inputs(23, 1, 32, 2, 8, 4).items()}
+    inp[which].requires_grad_(True)
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        ssd_scan_bhsp(**inp, chunk=16, return_state=True)
+    with torch.no_grad():
+        y, state = ssd_scan_bhsp(**inp, chunk=16, return_state=True)
+        want_y, want_state = ref_ssd(**inp)
+    assert torch.equal(y, want_y) and torch.equal(state, want_state)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-0.5b", "mamba2-780m"])
+def test_hidden_states_refuses_a_gradient_through_the_kernels(arch):
+    """``hidden_states`` runs under grad mode (unlike ``forward``): with
+    params that require grad it raises at the flash or SSD wrapper rather
+    than return states whose gradient skips the attention or the scan.
+    The plain branch differentiates, and ``no_grad`` runs the kernels."""
+    from repro_torch.configs import get_arch, smoke_variant
+    from repro_torch.models import hidden_states, init_params
+    from repro_torch.utils.pytree import tree_leaves
+
+    cfg = smoke_variant(get_arch(arch))
+    params = init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    for t in tree_leaves(params):
+        if t is not None and t.is_floating_point():
+            t.requires_grad_(True)
+    tokens = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab_size, (2, 16)))
+    with pytest.raises(RuntimeError, match="no backward yet"):
+        hidden_states(params, cfg, tokens)
+    plain, _ = hidden_states(params, cfg, tokens, use_kernels=False)
+    assert plain.grad_fn is not None
+    with torch.no_grad():
+        got, _ = hidden_states(params, cfg, tokens)
+    np.testing.assert_allclose(got.numpy(), plain.detach().numpy(),
+                               rtol=1e-4, atol=1e-4)
 
 
 def _ssd_inputs(seed, b, s, h, p, n):

@@ -132,7 +132,7 @@ def test_serve_without_restore_names_the_training_slice():
         serve_cli.main(["--gpo", "--device", "cpu"])
     # LM serving runs qwen2-0.5b and mamba2-780m; an architecture whose
     # family is not ported yet names its slice
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A item 10"):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue A.8"):
         serve_cli.main(["--arch", "zamba2-1.2b", "--device", "cpu"])
 
 

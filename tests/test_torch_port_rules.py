@@ -304,6 +304,53 @@ def test_backbone_wrappers_launch_or_raise_on_cuda_tensors():
     assert _counts() == before
 
 
+def test_backbone_wrappers_refuse_autograd_and_take_both_hds_on_fake_cuda():
+    """On fake CUDA tensors, as on the CPU: head_dim 64 and 128 reach the
+    launch (which raises without a card), 96 is refused by the contract,
+    and an operand that requires grad under grad mode is refused before
+    any launch (the kernels have no backward); under ``no_grad`` the same
+    operand reaches the launch."""
+    _no_card()
+    before = _counts()
+    with FakeTensorMode():
+        for dt in (torch.float32, torch.bfloat16):
+            for hd in fa.HEAD_DIMS:
+                q = torch.empty((1, 4, 32, hd), dtype=dt, device="cuda")
+                k = torch.empty((1, 2, 32, hd), dtype=dt, device="cuda")
+                with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                    fa.flash_attention_bhsd(q, k, k)
+            with pytest.raises(ValueError, match="head_dim"):
+                fa.flash_attention_bhsd(*(torch.empty(
+                    (1, 2, 32, 96), dtype=dt, device="cuda")
+                    for _ in range(3)))
+        q = torch.empty((1, 4, 32, 128), device="cuda", requires_grad=True)
+        k = torch.empty((1, 2, 32, 128), device="cuda")
+        with pytest.raises(RuntimeError, match="no backward yet"):
+            fa.flash_attention_bhsd(q, k, k)
+        with pytest.raises(RuntimeError, match="no backward yet"):
+            fa.flash_attention_bhsd(q.detach(), k.requires_grad_(), k)
+        with torch.no_grad():
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                fa.flash_attention_bhsd(q, k, k)
+        x = torch.empty((2, 64, 3, 16), device="cuda", requires_grad=True)
+        bc = torch.empty((2, 64, 8), device="cuda")
+        dtt = torch.empty((2, 64, 3), device="cuda")
+        h = torch.empty((3,), device="cuda")
+        with pytest.raises(RuntimeError, match="no backward yet"):
+            sd.ssd_scan_bhsp(x, dtt, h, bc, bc, h, chunk=16)
+        with torch.no_grad():
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                sd.ssd_scan_bhsp(x, dtt, h, bc, bc, h, chunk=16)
+    assert _counts() == before
+
+
+def test_flash_head_dim_96_is_refused_on_the_cpu():
+    q = torch.zeros((1, 2, 8, 96))
+    with pytest.raises(ValueError, match="head_dim"):
+        fa.flash_attention_bhsd(q, q, q)
+    assert fa.HEAD_DIMS == (64, 128)
+
+
 def test_backbone_wrappers_hold_the_contract_on_the_cpu():
     before = _counts()
     q = torch.zeros((1, 4, 20, 64))
