@@ -22,9 +22,14 @@ the card, raising on any mismatch:
    GQA, windows and softcap, non-causal at ragged S, qwen2's 14/2
    heads; head_dim 128 too, up to qwen3-32b's 64/8 heads at S 1024,
    bf16 there against the f32 plain version) and SSD chunked scan (the
-   reference's sweep and mamba2's
-   chunk 128, p 64, n 128, with the final state), in f32 and bf16;
-   each also bit-equal from one call to the next.
+   reference's sweep, mamba2's p 64, n 128 at chunk 128, 64 and 20 and
+   at batch 1, p and n that are not multiples of 8; with the final
+   state; bf16 also by each row of y against the f32 plain version, at
+   SSD_BF16_ROW_TOL, two planted faults that must fail: one chunk's B
+   zeroed, the state one chunk short; and each sequence of a batch-4
+   call bit-equal to the same sequence alone, which the kernel runs at
+   another p_width), in f32 and bf16; each also bit-equal from one call
+   to the next.
 2. Serving: ``PreferenceServer`` at ``ServeConfig()`` defaults over a
    64-request trace, with f32 and with int8 weights, at ``GPOConfig()``
    width with random weights from a seed; cache hit == miss bit for bit,
@@ -69,7 +74,9 @@ the card, raising on any mismatch:
    from a CUDA graph for the device time, and launched eagerly),
    beside the card's least time for the same work; flash also at
    qwen3-32b's widths (B 1, H 64, KV 8, S 2048, hd 128), int8 also at
-   (1280, 256) x (256, 256).
+   (1280, 256) x (256, 256); SSD also at batch 1, in f32, and beside
+   the chunked plain branch (``ssd_chunked``), after its bf16 check and
+   planted faults at the prefill shape.
 
 Launch counters are set to 0 right before each main-path phase and read
 right after it. The last eight lines of standard output are the
@@ -182,8 +189,12 @@ from repro_torch.kernels.ref import (  # noqa: E402
     ref_attention,
     ref_ssd,
 )
-from repro_torch.kernels.ssd_scan import ssd_scan_bhsp  # noqa: E402
+from repro_torch.kernels.ssd_scan import (  # noqa: E402
+    p_width_for,
+    ssd_scan_bhsp,
+)
 from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.utils.pytree import (  # noqa: E402
     tree_count_params,
     tree_leaves,
@@ -298,6 +309,17 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 FLASH_BF16_ROW_FLOOR = 3.45e-3
 FLASH_BF16_ROW_TOL = 2 * FLASH_BF16_ROW_FLOOR
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+# bf16 SSD, besides SSD_TOL: the largest error of a row of y (|y −
+# plain|₂ over |plain|₂ for each (b, s, h), plain = ref_ssd on the f32
+# upcast of the same inputs). The kernel's rounding (y to bf16 once; the
+# products keep ~16 bits of each f32 operand) read at most
+# SSD_BF16_ROW_FLOOR over the phase 1 cases and the timed prefill shapes
+# on an H100 (PERF.md §6, the SSD rows); the limit is twice that. The
+# planted faults (one interior chunk's B zeroed; the state of a run one
+# chunk short, against SSD_TOL's f32 state check) must fail: they read
+# 6-59 and 1.2-3.2 there
+SSD_BF16_ROW_FLOOR = 3.146e-3
+SSD_BF16_ROW_TOL = 2 * SSD_BF16_ROW_FLOOR
 # LM serving: (arch, its prefill's kernel, a config change that reorders
 # the plain branch's sums without changing what it computes, or None);
 # one kernel launch a layer
@@ -486,6 +508,52 @@ def _flash_control(fault: str, got, plain) -> float:
     if ok:
         raise AssertionError(f"the bf16 flash check passes {fault}")
     return row
+
+
+def _ssd_inputs(g, dev, dtype, b, s, h, p, n):
+    """x, dt, A_log, B, C, D for the SSD scan: x, B, C in ``dtype``."""
+    x = (torch.randn((b, s, h, p), generator=g) * 0.5).to(dev, dtype)
+    dt = F.softplus(torch.randn((b, s, h), generator=g)).to(dev)
+    a_log = (torch.randn((h,), generator=g) * 0.5).to(dev)
+    bm, cm = ((torch.randn((b, s, n), generator=g) * 0.5).to(dev, dtype)
+              for _ in range(2))
+    d = torch.randn((h,), generator=g).to(dev)
+    return x, dt, a_log, bm, cm, d
+
+
+def _f32(*ts):
+    return tuple(t.float() for t in ts)
+
+
+def _ssd_controls(args, chunk: int) -> tuple:
+    """Planted faults the bf16 SSD checks must catch, at one shape (s at
+    least three chunks): the kernel given B with chunk 1 zeroed, against
+    the plain version (f32) with B intact, must read above
+    SSD_BF16_ROW_TOL; the kernel's final state from a run one chunk
+    short, against the plain version's full-length state, must fail the
+    1e-4 (1 + |plain|) state check. Returns (row error, state error)."""
+    x, dt, a_log, bm, cm, d = args
+    s = x.shape[1]
+    py, pstate = ref_ssd(*_f32(x, dt, a_log, bm, cm, d))
+    bz = bm.clone()
+    bz[:, chunk:2 * chunk] = 0
+    row = _row_rel(ssd_scan_bhsp(x, dt, a_log, bz, cm, d, chunk=chunk)[0],
+                   py)
+    xs, dts, bs, cs = (t[:, :s - chunk].contiguous()
+                       for t in (x, dt, bm, cm))
+    state = ssd_scan_bhsp(xs, dts, a_log, bs, cs, d, chunk=chunk,
+                          return_state=True)[1]
+    torch.cuda.synchronize()
+    est, state_ok = _close(state, pstate, SSD_TOL[torch.float32])
+    print(f"    ssd_scan bf16 controls {list(x.shape)} chunk={chunk}: chunk 1's "
+          f"B zeroed: row error {row:.3e} (limit {SSD_BF16_ROW_TOL:g}); the "
+          f"state one chunk short: max_abs_err {est:.3e} (tol "
+          f"{SSD_TOL[torch.float32]:g}*(1+|plain|))")
+    if row <= SSD_BF16_ROW_TOL:
+        raise AssertionError("the bf16 SSD row check passes a zeroed chunk")
+    if state_ok:
+        raise AssertionError("the SSD state check passes a short run")
+    return row, est
 
 
 def _check_attention_bwd(g, dev, worst) -> None:
@@ -770,30 +838,61 @@ def _check_backbone_kernels(g, dev, worst) -> None:
             worst["flash_bf16_control"])
 
     def ssd_case(dtype, b, s, h, p, n, chunk):
-        x = (torch.randn((b, s, h, p), generator=g) * 0.5).to(dev, dtype)
-        dt = F.softplus(torch.randn((b, s, h), generator=g)).to(dev)
-        a_log = (torch.randn((h,), generator=g) * 0.5).to(dev)
-        bm, cm = ((torch.randn((b, s, n), generator=g) * 0.5).to(dev, dtype)
-                  for _ in range(2))
-        d = torch.randn((h,), generator=g).to(dev)
+        x, dt, a_log, bm, cm, d = _ssd_inputs(g, dev, dtype, b, s, h, p, n)
         y, state = ssd_scan_with_state(x, dt, a_log, bm, cm, d, chunk=chunk)
         y2, state2 = ssd_scan_with_state(x, dt, a_log, bm, cm, d,
                                          chunk=chunk)
-        py, pstate = ref_ssd(x, dt, a_log, bm, cm, d)
+        # the plain version upcasts its inputs, so its y before the cast
+        # back to x's type is its y on the f32 upcast
+        fy, pstate = ref_ssd(*_f32(x, dt, a_log, bm, cm, d))
+        py = fy.to(dtype)
         torch.cuda.synchronize()
         tol = SSD_TOL[dtype]
         ey, oky = _close(y.float(), py.float(), tol)
         es, oks = _close(state, pstate, SSD_TOL[torch.float32])
         same = torch.equal(y, y2) and torch.equal(state, state2)
+        row = ""
+        if dtype == torch.bfloat16:
+            err = _row_rel(y, fy)
+            oky = oky and err <= SSD_BF16_ROW_TOL
+            worst["ssd_bf16_row"] = max(worst["ssd_bf16_row"], err)
+            row = f"  row error {err:.3e} (limit {SSD_BF16_ROW_TOL:g})"
         print(f"  ssd_scan {str(dtype)[6:]:8} b={b} s={s:3d} h={h} p={p:2d} "
               f"n={n:3d} chunk={chunk:3d}  y max_abs_err={ey:.3e} "
-              f"(tol={tol:g}*(1+|plain|))  state max_abs_err={es:.3e} "
+              f"(tol={tol:g}*(1+|plain|)){row}  state max_abs_err={es:.3e} "
               f"(tol={SSD_TOL[torch.float32]:g}*(1+|plain|))  repeat "
               f"bit-equal: {same}")
         if not (oky and oks and same):
             raise AssertionError(f"ssd_scan mismatch at "
                                  f"{(dtype, b, s, h, p, n, chunk)}")
         worst["ssd_scan"] = max(worst["ssd_scan"], ey, es)
+
+    def ssd_batch_rows(b, s, h, p, n, chunk):
+        """bf16: each sequence of a batch-b call gives the bits of the
+        same sequence alone, though the wrapper picks another p_width
+        (the columns of p a block takes) for the two grids; the widths
+        must differ, or the check shows nothing."""
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        widths = (p_width_for(b, h, p, sms), p_width_for(1, h, p, sms))
+        x, dt, a_log, bm, cm, d = _ssd_inputs(g, dev, torch.bfloat16, b, s,
+                                              h, p, n)
+        y, state = ssd_scan_bhsp(x, dt, a_log, bm, cm, d, chunk=chunk,
+                                 return_state=True)
+        same = [all(torch.equal(u, v) for u, v in zip(
+            (y[i], state[i]), (t[0] for t in ssd_scan_bhsp(
+                *(t[i:i + 1] for t in (x, dt)), a_log,
+                *(t[i:i + 1] for t in (bm, cm)), d, chunk=chunk,
+                return_state=True)))) for i in range(b)]
+        torch.cuda.synchronize()
+        print(f"  ssd_scan bf16 h={h} s={s} p={p} n={n} chunk={chunk}: each "
+              f"sequence of batch {b} (p_width {widths[0]}) bit-equal to it "
+              f"alone (p_width {widths[1]}): {same}")
+        if widths[0] == widths[1]:
+            raise AssertionError(f"ssd_scan: batch {b} and 1 take the same "
+                                 f"p_width {widths[0]}")
+        if not all(same):
+            raise AssertionError("ssd_scan: a sequence's result depends on "
+                                 "its batch")
 
     for dtype in (torch.float32, torch.bfloat16):
         for s in (64, 100, 257):
@@ -823,6 +922,17 @@ def _check_backbone_kernels(g, dev, worst) -> None:
         ssd_case(dtype, 2, 300, 4, 64, 128, 128)  # mamba2's widths
     flash_controls(1, 256, 4, 2, 64, 7, 20.0)
     flash_controls(1, 1024, 64, 8, 128, 256, 50.0)
+    # mamba2's widths at chunk 64, at a chunk that is not a multiple of
+    # 16 and at batch 1; then p and n that are not multiples of 8 (plain
+    # loads in place of cp.async)
+    for dtype in (torch.float32, torch.bfloat16):
+        ssd_case(dtype, 2, 300, 4, 64, 128, 64)
+        ssd_case(dtype, 2, 100, 4, 64, 128, 20)
+        ssd_case(dtype, 1, 512, 8, 64, 128, 128)
+        ssd_case(dtype, 2, 64, 3, 10, 12, 16)
+    worst["ssd_bf16_control"], worst["ssd_state_control"] = _ssd_controls(
+        _ssd_inputs(g, dev, torch.bfloat16, 2, 384, 4, 64, 128), 128)
+    ssd_batch_rows(4, 384, 48, 64, 128, 128)  # mamba2's heads
 
 
 def check_kernels(dev) -> dict:
@@ -834,7 +944,8 @@ def check_kernels(dev) -> dict:
              "trimmed_reduce": 0.0, "pairwise_dists": 0.0,
              "clip_reduce": 0.0, "quant_clip_reduce": 0.0,
              "topk_reduce": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0,
-             "flash_bf16_row": 0.0, "flash_bf16_control": float("inf")}
+             "flash_bf16_row": 0.0, "flash_bf16_control": float("inf"),
+             "ssd_bf16_row": 0.0}
     for k, n in INT8_SHAPES:
         tol = 1e-4 if k > 256 else 1e-5
         for m in (1, 37, 1280):
@@ -1801,44 +1912,105 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
                         "is_causal=True, enable_gqa=True)",
         "hd128": hd128})
 
-    b, s, h, p, n, chunk = LM_BATCH, LM_PROMPT, 48, 64, 128, 128
-    x = (torch.randn((b, s, h, p), generator=g) * 0.5).to(dev, bf)
-    dt = F.softplus(torch.randn((b, s, h), generator=g) - 4.0).to(dev)
-    a_log = torch.log(torch.rand((h,), generator=g) * 15 + 1).to(dev)
-    bm, cm = ((torch.randn((b, s, n), generator=g) * 0.5).to(dev, bf)
-              for _ in range(2))
-    d = torch.ones((h,), device=dev)
-    ms, eager = _time_ms(lambda: ssd_scan_bhsp(
-        x, dt, a_log, bm, cm, d, chunk=chunk, return_state=True))
-    # the plain recurrence is s steps of a few launches: one call a rep
-    plain, plain_eager = _time_ms(lambda: ref_ssd(x, dt, a_log, bm, cm, d),
-                                  iters=1, reps=3)
-    tri = chunk * (chunk + 1) // 2  # (i, j) pairs with j <= i in a chunk
-    per_chunk = 2 * (tri * n + tri * p + 2 * chunk * p * n)
-    bound, by = _bound_ms(
-        2 * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + 2 * h)
-        + 4 * b * h * p * n, b * h * (s // chunk) * per_chunk, peaks)
+    def ssd_timed(b, s=LM_PROMPT, h=48, p=64, n=128, chunk=128):
+        """SSD at mamba2-780m's prefill widths, batch b: the kernel (bf16)
+        held to the plain version in f32 (and, at batch 4, the planted
+        faults shown to fail), then timed; at batch 4 also the f32
+        kernel and the chunked plain branch (``ssd_chunked``: several
+        einsums and a loop, not one library call)."""
+        x = (torch.randn((b, s, h, p), generator=g) * 0.5).to(dev, bf)
+        dt = F.softplus(torch.randn((b, s, h), generator=g) - 4.0).to(dev)
+        a_log = torch.log(torch.rand((h,), generator=g) * 15 + 1).to(dev)
+        bm, cm = ((torch.randn((b, s, n), generator=g) * 0.5).to(dev, bf)
+                  for _ in range(2))
+        d = torch.ones((h,), device=dev)
+        args = (x, dt, a_log, bm, cm, d)
+        y, state = ssd_scan_bhsp(*args, chunk=chunk, return_state=True)
+        y2, state2 = ssd_scan_bhsp(*args, chunk=chunk, return_state=True)
+        py, pstate = ref_ssd(*_f32(*args))
+        torch.cuda.synchronize()
+        ey, oky = _close(y.float(), py, SSD_TOL[bf])
+        row = _row_rel(y, py)
+        es, oks = _close(state, pstate, SSD_TOL[torch.float32])
+        same = torch.equal(y, y2) and torch.equal(state, state2)
+        width = p_width_for(b, h, p, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        print(f"  ssd_scan bf16 at {[b, s, h, p, n, chunk]} (p_width "
+              f"{width}): y max_abs_err={ey:.3e}  row error {row:.3e} "
+              f"(limit {SSD_BF16_ROW_TOL:g})  state max_abs_err={es:.3e}  "
+              f"repeat bit-equal: {same}")
+        if not (oky and row <= SSD_BF16_ROW_TOL and oks and same):
+            raise AssertionError(f"ssd_scan mismatch at {(b, s, h, p, n)}")
+        check = {"max_abs_err": max(ey, es), "row_err": row,
+                 "row_limit": SSD_BF16_ROW_TOL}
+        del y, y2, state, state2, py, pstate
+        if b == LM_BATCH:
+            check["control_row_err"], check["control_state_err"] = (
+                _ssd_controls(args, chunk))
+        ms, eager = _time_ms(lambda: ssd_scan_bhsp(
+            *args, chunk=chunk, return_state=True))
+        # the plain recurrence is s steps of a few launches: one call a rep
+        plain, plain_eager = _time_ms(lambda: ref_ssd(*args), iters=1,
+                                      reps=3)
+        tri = chunk * (chunk + 1) // 2  # (i, j) pairs with j <= i
+        per_chunk = 2 * (tri * n + tri * p + 2 * chunk * p * n)
+        bound, by = _bound_ms(
+            2 * (2 * b * s * h * p + 2 * b * s * n) + 4 * (b * s * h + 2 * h)
+            + 4 * b * h * p * n, b * h * (s // chunk) * per_chunk, peaks)
+        rec = {"shape": [b, s, h, p, n, chunk], "dtype": "bfloat16",
+               "p_width": width, "check": check,
+               "ms": ms, "kernel_ms": ms, "plain_ms": plain,
+               "library_ms": None,
+               "eager_ms": {"kernel": eager, "plain": plain_eager,
+                            "library": None},
+               "bound_ms": bound, "bound_by": by}
+        if b == LM_BATCH:
+            f32 = _f32(x, dt, a_log, bm, cm, d)
+            rec["f32_kernel_ms"] = _time_ms(lambda: ssd_scan_bhsp(
+                *f32, chunk=chunk, return_state=True), iters=10, reps=5)[0]
+            rec["chunked_plain_ms"] = _time_ms(
+                lambda: ssd_chunked(*args, chunk), iters=10, reps=5)[0]
+        return rec
+
+    mamba2 = ssd_timed(LM_BATCH)
+    batch1 = {"name": "ssd_scan batch 1", **ssd_timed(1)}
     rows.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:28",
         "tpu_kernel": "src/repro/kernels/ssd_scan.py::_ssd_kernel "
                       "(ssd_scan_bhsp)",
+        "design": {
+            "bfloat16": "ssd_scan_bf16_kernel: tensor cores, mma.sync "
+                        "m16n8k16 bf16 -> f32 with hi/lo f32 operands, "
+                        "scores in registers, cp.async double buffer, a "
+                        "block per (batch, head, p_width columns)",
+            "float32": "ssd_scan_kernel: CUDA cores, f32 register tiles"},
         "launches": lm_rec["mamba2-780m"]["launches"]["ssd_scan"],
         "launches_from": "one mamba2-780m prefill (decode: 0)",
-        "max_abs_err": worst["ssd_scan"],
-        "shape": [b, s, h, p, n, chunk], "dtype": "bfloat16",
-        "ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": None,
-        "eager_ms": {"kernel": eager, "plain": plain_eager,
-                     "library": None},
-        "bound_ms": bound, "bound_by": by, "library_call": None})
-    for r in rows + [hd128]:
+        "max_abs_err": max(worst["ssd_scan"],
+                           mamba2["check"]["max_abs_err"],
+                           batch1["check"]["max_abs_err"]),
+        "bf16_row_err": {"phase1": worst["ssd_bf16_row"],
+                         "limit": SSD_BF16_ROW_TOL,
+                         "controls_min": min(
+                             worst["ssd_bf16_control"],
+                             mamba2["check"]["control_row_err"]),
+                         "state_controls_min": min(
+                             worst["ssd_state_control"],
+                             mamba2["check"]["control_state_err"])},
+        **mamba2, "library_call": None, "batch1": batch1})
+    for r in rows + [hd128, batch1]:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.2f}us")
         print(f"  {r['name']} at {r['shape']} bf16, "
               f"device (CUDA graph): kernel {r['ms'] * 1e3:.2f}us  plain "
               f"{r['plain_ms'] * 1e3:.2f}us  library {lib}  bound "
               f"{r['bound_ms'] * 1e3:.3f}us ({r['bound_by']})")
+    print(f"  ssd_scan bf16 p_width: batch {LM_BATCH} {mamba2['p_width']}, "
+          f"batch 1 {batch1['p_width']}; f32 kernel "
+          f"{mamba2['f32_kernel_ms'] * 1e3:.2f}us, chunked plain branch "
+          f"(ssd_chunked) {mamba2['chunked_plain_ms'] * 1e3:.2f}us")
     return rows
 
 

@@ -12,22 +12,35 @@ B and C are shared by every head (ngroups = 1). The kernel also writes
 the final state (b, h, p, n) in f32 when asked: the decode cache of a
 prefill, which the TPU kernel keeps in VMEM only.
 
-Kernel: one block per (batch, head) walking the chunks in order, the
-(p, n) state resident in shared memory; x and B of a chunk staged as
-f32, the rows of C and of the scores in blocks of 32 (166 KB of shared
-memory, sized for L 128, p 64, n 128 and zero past the call's), each
-product a register tile per thread; the cumsum a warp scan.
-
 What bounds it on the H100 SXM (data-sheet rates at its 700 W limit):
 bytes. At mamba2-780m's prefill (b 4, s 2048, h 48, p 64, n 128, chunk
 128, bf16) about 113 MB with the final state, 33.6 µs at 3.35 TB/s; the
 22.6 GFLOP of the causal triangles and the state's products (32.2
 counting the triangles in full) take 22.9 µs at the 989 TFLOP/s bf16
-tensor-core rate. This kernel runs in f32 on the CUDA cores (67 TFLOP/s,
-about 340 µs for the same work); tensor cores, a chunk-parallel state
-pass and sharing C·Bᵀ across heads are later work. There is no
-backward yet (ROADMAP A.8.5 / C.1): the wrapper refuses operands that
-require grad while grad mode is on, on either device.
+tensor-core rate.
+
+bf16 operands reach the tensor-core kernel: the four products on
+``mma.sync`` m16n8k16 bf16 → f32. x, B and C are exact bf16 operands;
+the three f32 operands (the scores, the state, x·dt·exp(cs_L − cs_j))
+go in as a hi and a lo bf16 part, two mmas into one f32 accumulator
+(about 16 bits of each). The scores stay in registers (the C·Bᵀ
+accumulator, scaled and masked, is the A fragment of scores·x); the
+state is f32 in registers across the scan, with a hi/lo bf16 copy in
+shared memory for the next chunk's C·stateᵀ; the next chunk's x, B, C
+and dt arrive by ``cp.async`` into a second stage while this one
+computes. ~40 GFLOP of mma work at the shape above (the lo terms and
+the causal band in 16-row tiles). A block takes a (batch, head) and
+32 or 64 columns of p (``p_width_for``'s choice from the grid and the
+card), recomputing C·Bᵀ per slice, so that batch 1 fills the card too.
+The width changes no result.
+
+f32 operands reach the original CUDA-core kernel, unchanged: one block
+per (batch, head), the (p, n) state resident in shared memory, each
+product a register tile per thread (about 340 µs of f32 work at the
+shape above; TF32 mma would not hold the f32 tolerances).
+
+There is no backward yet (ROADMAP A.8.5 / C.1): the wrapper refuses
+operands that require grad while grad mode is on, on either device.
 """
 from __future__ import annotations
 
@@ -44,8 +57,25 @@ DTYPES = (torch.float32, torch.bfloat16)
 # width p and state size n (mamba2-780m's 128, 64, 128)
 MAX_CHUNK, MAX_P, MAX_N = 128, 64, 128
 
+# the columns of p a block of the bf16 kernel may take
+P_WIDTHS = (64, 32)
+
 _F32 = torch.float32
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+
+
+def p_width_for(b: int, h: int, p: int, sms: int) -> int:
+    """The columns of p a block of the bf16 kernel takes: the narrowest
+    of ``P_WIDTHS`` whose b·h·⌈p/width⌉ blocks fit in one wave on the
+    card's ``sms`` multiprocessors (one block an SM), else the narrowest
+    that covers p in one slice. A block's time is mostly its C·Bᵀ and
+    its chunk chain, whatever its width, so splitting p pays only while
+    it fills idle SMs (PERF.md §6, the SSD rows)."""
+    widest = min(w for w in P_WIDTHS if w >= p)
+    for w in sorted(P_WIDTHS):
+        if w <= widest and b * h * -(-p // w) <= sms:
+            return w
+    return widest
 
 
 def _check(x, dt, A_log, B, C, D, chunk):
@@ -79,8 +109,9 @@ def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
     (b, s, h), A_log and D (h,) in f32; s a multiple of ``chunk`` ->
     (y like x, the final state (b, h, p, n) f32 or None). CPU tensors
     take the plain version (``ref_ssd``); CUDA tensors launch the kernel
-    or raise. Raises for operands that require grad under grad mode (no
-    backward yet)."""
+    (bf16 the tensor-core one, f32 the CUDA-core one) or raise.
+    Raises for operands that require grad under grad mode (no backward
+    yet)."""
     _check(x, dt, A_log, B, C, D, chunk)
     backend.refuse_grad("ssd_scan_bhsp", x, dt, A_log, B, C, D)
     if backend.on_cpu("ssd_scan", x, B, C, dt, A_log, D,
@@ -95,10 +126,12 @@ def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
              if return_state else None)
     if b * h == 0:
         return y, state
+    p_width = p_width_for(b, h, p, torch.cuda.get_device_properties(
+        x.device).multi_processor_count)
     err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
              C.data_ptr(), D.data_ptr(), y.data_ptr(),
              0 if state is None else state.data_ptr(), b, s, h, p, n, chunk,
-             DTYPES.index(x.dtype), backend.stream_ptr(x.device))
+             DTYPES.index(x.dtype), p_width, backend.stream_ptr(x.device))
     backend.check(err, "ssd_scan")
     ssd_scan_bhsp.launches += 1
     return y, state
