@@ -12,7 +12,12 @@ the card, raising on any mismatch:
    same inputs on the card, at the serving and training paths' shapes:
    the int8 matmul (with rows 0-15 bit-equal at M = 16, 320 and 1280),
    the attention forward and backward (dq, dk/dv; head
-   widths 32 and 24), the ``GPOAttention`` Function's gradients, and
+   widths 32 and 24; the backward up to S 645, bit-equal from one call
+   to the next and for one bh computed alone as in the batch of 40, its
+   mean error against float64 within ``BWD_F64_RATIO`` of the plain's,
+   which a planted control rebuilt from the source with chained
+   tensor-core sums must exceed),
+   the ``GPOAttention`` Function's gradients, and
    the aggregation kernels: the FedAvg reduce, the FedAvgM momentum
    reduce, the rank-trimmed reduce (ties included), the Krum pairwise
    distances, the DP clip reduce (with and without noise), the fused int8
@@ -72,7 +77,10 @@ the card, raising on any mismatch:
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
-   beside the card's least time for the same work; flash also at
+   beside the card's least time for the same work; the attention
+   backward (delta, dq, dk/dv through ``GPOAttention``) also beside
+   SDPA's backward alone, each replayed from a retained graph, and dq
+   and dk/dv at other num_ctx and for one bh alone; flash also at
    qwen3-32b's widths (B 1, H 64, KV 8, S 2048, hd 128), int8 also at
    (1280, 256) x (256, 256); SSD also at batch 1, in f32, and beside
    the chunked plain branch (``ssd_chunked``), after its bf16 check and
@@ -94,6 +102,7 @@ cuDNN; the LM phase serves the configs' bf16 (and one f32 run).
 """
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import shutil
@@ -211,6 +220,9 @@ _PEAKS = {"SXM": (67e12, 3.35e12), "PCIe": (51e12, 2.0e12),
 # and the bf16 dense tensor-core rate of the same rows (the LM kernels'
 # operations are bf16 products)
 _BF16_PEAKS = {"SXM": 989e12, "PCIe": 756e12, "NVL": 835e12}
+# and the TF32 dense tensor-core rate (the attention backward's products,
+# three TF32 passes each)
+_TF32_PEAKS = {"SXM": 494.7e12, "PCIe": 378e12, "NVL": 417.5e12}
 INT8_SHAPES = [(66, 128), (128, 128), (128, 256), (256, 128), (128, 1),
                (4098, 128)]  # (K, N): in_proj, wq..wo, w1, w2, head, paper
 INT8_M_ROWS = (16, 320, 1280)  # M of which rows 0-15 must not depend on
@@ -219,9 +231,35 @@ INT8_M_ROWS = (16, 320, 1280)  # M of which rows 0-15 must not depend on
 ATTN_SHAPES = [(10 * 4, 160, 80), (7 * 4, 160, 80), (4, 80, 60),
                (4, 85, 37)]
 # the backward's: 10 clients x 4 heads at the quickstart's 16+16
-# questions of 5 options, then ragged S and num_ctx at both ends
+# questions of 5 options, then ragged S and num_ctx at both ends, and a
+# longer ragged S that streams many stages through both kernels
 BWD_SHAPES = [(10 * 4, 160, 80), (4, 80, 60), (4, 85, 37), (4, 64, 0),
-              (4, 64, 64)]
+              (4, 64, 64), (4, 645, 321)]
+BWD_ALONE = 7  # the bh slice that must come out alone as in the batch
+# the backward kernels' mean |error| against the backward in float64, at
+# the training shape, at most this many times the plain f32 version's: a
+# design that chained every product through one tensor-core accumulator
+# (which rounds toward zero) drifted far enough to fail phase 4's krum
+# agreement with the CPU; phase 1 rebuilds that design from the source as
+# a planted control (_CHAINED_EDITS) and requires it to fail this limit
+BWD_F64_RATIO = 1.5
+# the control's edits of gpo_attention_bwd.cu: each k-step's big.big and
+# each product of a stage go into the running accumulator itself
+_CHAINED_EDITS = (
+    ("""    mma_tf32(lo, a.small[ks], bb[0], bb[1]);
+    mma_tf32(lo, a.big[ks], bs[0], bs[1]);
+    float hi[4] = {};
+    mma_tf32(hi, a.big[ks], bb[0], bb[1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += hi[e];
+""", """    mma_3xtf32(d, a.big[ks], a.small[ks], bb, bs);
+"""),
+    ("""    float t[4] = {};
+    mma_3xtf32(t, ab, as, bb, bs);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] += t[e];
+""", """    mma_3xtf32(acc[nt], ab, as, bb, bs);
+"""))
 HEAD_DIM = 32
 HEAD_DIMS = (32, 24)  # GPOConfig() and benchmarks/paper_experiment.py
 # (C, P): the quickstart's 10 clients x 534,016 GPOConfig() params, then
@@ -351,11 +389,14 @@ def _card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def _card_row(name: str) -> str:
+    """The data sheet row of the card ``name``: SXM unless it says
+    PCIe or NVL."""
+    return next((k for k in _PEAKS if k != "SXM" and k in name), "SXM")
+
+
 def _peaks(name: str):
-    for key, val in _PEAKS.items():
-        if key != "SXM" and key in name:
-            return val
-    return _PEAKS["SXM"]
+    return _PEAKS[_card_row(name)]
 
 
 def _bound_ms(nbytes: float, flops: float, peaks):
@@ -364,8 +405,8 @@ def _bound_ms(nbytes: float, flops: float, peaks):
                                  else "bytes")
 
 
-def _time_ms(fn, iters: int = 50, reps: int = 7,
-             graph: bool = True) -> tuple:
+def _time_ms(fn, iters: int = 50, reps: int = 7, graph: bool = True,
+             stream=None) -> tuple:
     """(device, eager) milliseconds per call of ``fn``, each the median
     over ``reps`` of CUDA-event times over ``iters`` calls, after a
     warm-up. Device: the calls captured once in a CUDA graph and
@@ -373,8 +414,9 @@ def _time_ms(fn, iters: int = 50, reps: int = 7,
     card's own time for the work remains (inputs stay in the 50 MB L2,
     as the serving path's weights do); None with ``graph=False``. Eager:
     the same calls launched one by one from Python, host overhead
-    included."""
-    side = torch.cuda.Stream()
+    included. ``stream``: the warm-up and capture stream (default a new
+    one)."""
+    side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
         for _ in range(3):
@@ -382,7 +424,7 @@ def _time_ms(fn, iters: int = 50, reps: int = 7,
     torch.cuda.current_stream().wait_stream(side)
     if graph:
         captured = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(captured):
+        with torch.cuda.graph(captured, stream=stream):
             for _ in range(iters):
                 fn()
 
@@ -556,35 +598,148 @@ def _ssd_controls(args, chunk: int) -> tuple:
     return row, est
 
 
+def _attention_bwd(ops, nc) -> tuple:
+    """(dq, dk, dv) from the two backward kernels on ``ops`` = (q, k, v,
+    do, lse, delta)."""
+    return (gpo_attention_bwd_dq(*ops, num_ctx=nc),
+            *gpo_attention_bwd_dkdv(*ops, num_ctx=nc))
+
+
+_CHAINED = {}  # the planted control's nvcc process, then its library
+
+
+def _start_chained_build() -> None:
+    """Start nvcc on the chained control (``_CHAINED_EDITS`` applied to
+    ``gpo_attention_bwd.cu``) under ``build/``, beside the kernels'
+    build."""
+    src = (backend.CSRC / "gpo_attention_bwd.cu").read_text()
+    for old, new in _CHAINED_EDITS:
+        if src.count(old) != 1:
+            raise AssertionError("the chained control's edit no longer "
+                                 "matches gpo_attention_bwd.cu")
+        src = src.replace(old, new)
+    backend.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cu = backend.BUILD_DIR / "gpo_attention_bwd_chained.cu"
+    cu.write_text(src)
+    so = cu.with_suffix(".so")
+    _CHAINED["build"] = (so, subprocess.Popen(
+        [backend._nvcc(), *backend.NVCC_FLAGS, "-I", str(backend.CSRC),
+         "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+
+
+def _chained_bwd(ops, nc) -> tuple:
+    """(dq, dk, dv) from the chained control on ``ops``, as
+    ``_attention_bwd``; uncounted (no wrapper)."""
+    if "lib" not in _CHAINED:
+        if "build" not in _CHAINED:
+            _start_chained_build()
+        so, proc = _CHAINED.pop("build")
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the chained control:\n{out}")
+        lib = ctypes.CDLL(str(so))
+        for fn, n_out in ((lib.gpo_attention_bwd_dq_launch, 1),
+                          (lib.gpo_attention_bwd_dkdv_launch, 2)):
+            fn.argtypes = ([ctypes.c_void_p] * (6 + n_out)
+                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        _CHAINED["lib"] = lib
+    lib = _CHAINED["lib"]
+    q = ops[0]
+    bh, s, hd = q.shape
+    outs = [torch.empty_like(q) for _ in range(3)]
+    ptrs = [t.data_ptr() for t in ops]
+    stream = backend.stream_ptr(q.device)
+    backend.check(lib.gpo_attention_bwd_dq_launch(
+        *ptrs, outs[0].data_ptr(), bh, s, nc, hd, stream), "chained dq")
+    backend.check(lib.gpo_attention_bwd_dkdv_launch(
+        *ptrs, outs[1].data_ptr(), outs[2].data_ptr(), bh, s, nc, hd,
+        stream), "chained dk/dv")
+    return tuple(outs)
+
+
 def _check_attention_bwd(g, dev, worst) -> None:
     """dq and dk/dv against the closed-form plain backward, at every
-    backward shape and head width; then the GPOAttention Function's
-    gradients against autograd through the plain forward."""
+    backward shape and head width, each bit-equal from one call to the
+    next, and bh slice ``BWD_ALONE`` computed alone bit-equal to the same
+    slice of the batch; the kernels' mean error against the backward in
+    float64 at the training shape, beside the plain version's, and the
+    chained control's, which must exceed the limit; then the
+    GPOAttention Function's gradients against autograd through the plain
+    forward."""
     for hd in HEAD_DIMS:
         for bh, s, nc in BWD_SHAPES:
             q, k, v, do = _attn_inputs(bh, s, g, dev, hd, n=4)
             o, lse = ref_gpo_attention(q, k, v, num_ctx=nc)
             plain = ref_gpo_attention_bwd(q, k, v, o, lse, do, num_ctx=nc)
-            delta = (do * o).sum(-1)
-            dq = gpo_attention_bwd_dq(q, k, v, do, lse, delta, num_ctx=nc)
-            dk, dv = gpo_attention_bwd_dkdv(q, k, v, do, lse, delta,
-                                            num_ctx=nc)
+            ops = (q, k, v, do, lse, (do * o).sum(-1))
+            got = _attention_bwd(ops, nc)
+            again = _attention_bwd(ops, nc)
+            alone = None
+            if bh > BWD_ALONE:
+                one = slice(BWD_ALONE, BWD_ALONE + 1)
+                alone = _attention_bwd([t[one].contiguous() for t in ops],
+                                       nc)
             torch.cuda.synchronize()
-            errs = [_close(got, want, 1e-5)
-                    for got, want in zip((dq, dk, dv), plain)]
+            errs = [_close(a, want, 1e-5) for a, want in zip(got, plain)]
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            sliced = alone is None or all(
+                torch.equal(a, b[one]) for a, b in zip(alone, got))
             print(f"  gpo_attention_bwd BH={bh:3d} S={s:4d} num_ctx={nc:3d} "
                   f"hd={hd}  max_abs_err dq={errs[0][0]:.3e} dk="
                   f"{errs[1][0]:.3e} dv={errs[2][0]:.3e}  "
-                  f"tol=1e-5*(1+|plain|)")
+                  f"tol=1e-5*(1+|plain|); repeat bit-equal {repeat}"
+                  + ("" if alone is None else
+                     f"; bh {BWD_ALONE} alone bit-equal {sliced}"))
             if not all(ok for _, ok in errs):
                 raise AssertionError(f"gpo_attention_bwd mismatch at "
                                      f"{(bh, s, nc, hd)}")
+            if not (repeat and sliced):
+                raise AssertionError(f"gpo_attention_bwd not bit-equal "
+                                     f"between calls at {(bh, s, nc, hd)}")
             worst["gpo_attention_bwd_dq"] = max(
                 worst["gpo_attention_bwd_dq"], errs[0][0])
             worst["gpo_attention_bwd_dkdv"] = max(
                 worst["gpo_attention_bwd_dkdv"], errs[1][0], errs[2][0])
 
     bh, s, nc = BWD_SHAPES[0]
+    for hd in HEAD_DIMS:
+        q, k, v, do = _attn_inputs(bh, s, g, dev, hd, n=4)
+        o, lse = ref_gpo_attention(q, k, v, num_ctx=nc)
+        wide = [t.double() for t in (q, k, v, do)]
+        o64, lse64 = ref_gpo_attention(*wide[:3], num_ctx=nc)
+        exact = ref_gpo_attention_bwd(*wide[:3], o64, lse64, wide[3],
+                                      num_ctx=nc)
+        ops = (q, k, v, do, lse, (do * o).sum(-1))
+        means = [[(a.double() - b).abs().mean().item()
+                  for a, b in zip(got, exact)]
+                 for got in (_attention_bwd(ops, nc),
+                             ref_gpo_attention_bwd(q, k, v, o, lse, do,
+                                                   num_ctx=nc),
+                             _chained_bwd(ops, nc))]
+        torch.cuda.synchronize()
+        ratios = {name: [m / pm for m, pm in zip(ms, means[1])]
+                  for name, ms in (("kernels", means[0]),
+                                   ("chained", means[2]))}
+        worst["gpo_attention_bwd_f64"][hd] = {
+            "kernels": means[0], "plain": means[1], "chained": means[2],
+            "ratios": ratios}
+        print(f"  gpo_attention_bwd against float64 BH={bh} S={s} "
+              f"num_ctx={nc} hd={hd}: mean |err| dq, dk, dv kernels "
+              f"{[f'{m:.3e}' for m in means[0]]}, plain f32 "
+              f"{[f'{m:.3e}' for m in means[1]]}, chained control "
+              f"{[f'{m:.3e}' for m in means[2]]}; ratios to the plain's "
+              f"kernels {[f'{r:.2f}' for r in ratios['kernels']]}, "
+              f"control {[f'{r:.2f}' for r in ratios['chained']]} (limit "
+              f"{BWD_F64_RATIO})")
+        if max(ratios["kernels"]) > BWD_F64_RATIO:
+            raise AssertionError(f"gpo_attention_bwd drifts from float64 "
+                                 f"at hd={hd}: {means}")
+        if max(ratios["chained"]) <= BWD_F64_RATIO:
+            raise AssertionError(f"the float64 check passes the chained "
+                                 f"control at hd={hd}: {means}")
+
     q, k, v, do = _attn_inputs(bh, s, g, dev, n=4)
     ins = [t.clone().requires_grad_() for t in (q, k, v)]
     got = torch.autograd.grad(GPOAttention.apply(*ins, nc), ins, do)
@@ -940,8 +1095,9 @@ def check_kernels(dev) -> dict:
     g = _gen(SEED)
     worst = {"int8_matmul": 0.0, "gpo_attention_fwd": 0.0,
              "gpo_attention_bwd_dq": 0.0, "gpo_attention_bwd_dkdv": 0.0,
-             "fedavg_reduce": 0.0, "momentum_reduce": 0.0,
-             "trimmed_reduce": 0.0, "pairwise_dists": 0.0,
+             "gpo_attention_bwd_f64": {}, "fedavg_reduce": 0.0,
+             "momentum_reduce": 0.0, "trimmed_reduce": 0.0,
+             "pairwise_dists": 0.0,
              "clip_reduce": 0.0, "quant_clip_reduce": 0.0,
              "topk_reduce": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0,
              "flash_bf16_row": 0.0, "flash_bf16_control": float("inf"),
@@ -1833,9 +1989,7 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
     64, bf16, causal), SSD at mamba2-780m's (b 4, s 2048, h 48, p 64,
     n 128, chunk 128, bf16, with the final state). The bound is at the
     bf16 tensor-core rate and the memory rate."""
-    peaks = (_BF16_PEAKS[next((k for k in _BF16_PEAKS if k != "SXM"
-                               and k in card_name), "SXM")],
-             _peaks(card_name)[1])
+    peaks = (_BF16_PEAKS[_card_row(card_name)], _peaks(card_name)[1])
     g = _gen(SEED + 3)
     bf = torch.bfloat16
     rows = []
@@ -2118,12 +2272,13 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
                         "attn_mask=boolean NP mask)",
         "predict_path": predict_row})
 
-    # the backward at the training shape: 10 clients x 4 heads. No single
-    # library call computes dq or dk/dv alone, so those rows have no
-    # library time; SDPA's forward and backward together stand in
-    # ``fwd_bwd`` beside the forward kernel and both backward kernels
-    # through the GPOAttention Function (and the plain forward under
-    # autograd).
+    # the backward at the training shape: 10 clients x 4 heads. No PyTorch
+    # call computes dq or dk/dv alone; SDPA's backward computes dq, dk and
+    # dv together, so both rows carry it as their library time, beside
+    # the port's whole backward through the GPOAttention Function (delta,
+    # dq, dk/dv), each replayed from one retained autograd graph; and
+    # ``fwd_bwd``, the forward and backward of each (and of the plain
+    # forward under autograd).
     bh, s_len, nc = BWD_SHAPES[0]
     q, k, v, do = _attn_inputs(bh, s_len, g, dev, n=4)
     o, lse = gpo_attention_fwd(q, k, v, num_ctx=nc)
@@ -2132,18 +2287,58 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
     mask = (pos[None, :] < nc) | (pos[None, :] == pos[:, None])
     leaf = [t.clone().requires_grad_() for t in (q, k, v)]
 
+    def gpo_forward(*a):
+        return GPOAttention.apply(*a, nc)
+
+    def sdpa_forward(*a):
+        return F.scaled_dot_product_attention(*a, attn_mask=mask)
+
     def fwd_bwd(forward):
         return lambda: torch.autograd.grad(forward(*leaf), leaf, do)
 
+    def bwd_alone(forward) -> tuple:
+        """(device, eager) ms of the backward alone. A backward op runs on
+        its forward's stream, so the forward runs on the capture stream."""
+        stream = torch.cuda.Stream()
+        stream.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(stream):
+            out_ = forward(*leaf)
+        return _time_ms(lambda: torch.autograd.grad(out_, leaf, do,
+                                                    retain_graph=True),
+                        stream=stream)
+
     chain = {
-        "kernels_ms": _time_ms(fwd_bwd(
-            lambda *a: GPOAttention.apply(*a, nc)))[0],
+        "kernels_ms": _time_ms(fwd_bwd(gpo_forward))[0],
         "plain_ms": _time_ms(fwd_bwd(
             lambda *a: ref_gpo_attention(*a, num_ctx=nc)[0]))[0],
-        "library_ms": _time_ms(fwd_bwd(
-            lambda *a: F.scaled_dot_product_attention(*a,
-                                                      attn_mask=mask)))[0]}
+        "library_ms": _time_ms(fwd_bwd(sdpa_forward))[0]}
+    backward = {"gpo_attention_ms": bwd_alone(gpo_forward)[0]}
+    sdpa_bwd = bwd_alone(sdpa_forward)
+    backward["library_ms"] = sdpa_bwd[0]
+    print(f"  attention backward alone at {[bh, s_len, nc, HEAD_DIM]}, "
+          f"device (CUDA graph): GPOAttention (delta, dq, dk/dv) "
+          f"{backward['gpo_attention_ms'] * 1e3:.2f}us  SDPA's backward "
+          f"{backward['library_ms'] * 1e3:.2f}us")
+    # what sets the pace: each kernel's device time against the number
+    # of 32-row stages its blocks walk (num_ctx for dq, S for dk/dv's
+    # context blocks), and one bh alone (a single wave of blocks)
+    pace = {}
+    for label, pbh, pnc in (("num_ctx 32", bh, 32),
+                            (f"num_ctx {s_len}", bh, s_len), ("bh 1", 1, nc)):
+        pq, pk, pv, pdo = (t[:pbh] for t in (q, k, v, do))
+        po, plse = gpo_attention_fwd(pq, pk, pv, num_ctx=pnc)
+        pops = (pq, pk, pv, pdo, plse, (pdo * po).sum(-1))
+        pace[label] = {
+            "gpo_attention_bwd_dq": _time_ms(
+                lambda: gpo_attention_bwd_dq(*pops, num_ctx=pnc))[0],
+            "gpo_attention_bwd_dkdv": _time_ms(
+                lambda: gpo_attention_bwd_dkdv(*pops, num_ctx=pnc))[0]}
+        print(f"  pace at BH={pbh} num_ctx={pnc}: dq "
+              f"{pace[label]['gpo_attention_bwd_dq'] * 1e3:.2f}us  dk/dv "
+              f"{pace[label]['gpo_attention_bwd_dkdv'] * 1e3:.2f}us")
     band = s_len * nc + (s_len - nc)  # allowed (query, key) pairs
+    # every product runs as three TF32 passes on the tensor cores
+    tf32 = (_TF32_PEAKS[_card_row(card_name)] / 3, peaks[1])
     for name, kfn, pfn, n_out, per_pair, src_key in (
             ("gpo_attention_bwd_dq", gpo_attention_bwd_dq,
              ref_gpo_attention_bwd_dq, 1, 6, "223"),
@@ -2152,10 +2347,11 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
         ops = (q, k, v, do, lse, delta)
         times = _timed(lambda: kfn(*ops, num_ctx=nc),
                        lambda: pfn(*ops, num_ctx=nc), None)
+        times["library_ms"], times["eager_ms"]["library"] = sdpa_bwd
         # q, k, v, do, lse and delta read once; each output written once
         bound, by = _bound_ms(4 * bh * ((4 + n_out) * s_len * HEAD_DIM
                                         + 2 * s_len),
-                              per_pair * bh * band * HEAD_DIM, peaks)
+                              per_pair * bh * band * HEAD_DIM, tf32)
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gpo_attention_bwd.cu",
@@ -2166,8 +2362,20 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
             "launches": train_launches[name],
             "launches_per_round": train_launches[name] / rounds,
             "max_abs_err": worst[name],
+            "f64_mean_err": worst["gpo_attention_bwd_f64"],
             "shape": [bh, s_len, nc, HEAD_DIM], **times, "bound_ms": bound,
-            "bound_by": by, "library_call": None,
+            "bound_by": by,
+            "pace": {label: t[name] for label, t in pace.items()},
+            "library_call": (
+                "SDPA's backward alone, dq, dk and dv together: "
+                "torch.autograd.grad through F.scaled_dot_product_attention("
+                "q, k, v, attn_mask=boolean NP mask), replayed"),
+            "library_covers": (
+                "the whole backward, not this kernel alone: compare it "
+                "with backward.gpo_attention_ms, not with ms"),
+            "backward": {**backward, "library_call": (
+                "the same SDPA backward, against the GPOAttention "
+                "Function's backward (delta, dq, dk/dv)")},
             "fwd_bwd": {**chain, "library_call": (
                 "forward + backward of F.scaled_dot_product_attention("
                 "attn_mask=boolean NP mask) through torch.autograd.grad, "
@@ -2393,6 +2601,7 @@ def main() -> int:
           f"{torch.version.cuda}; TF32 off")
 
     t0 = time.perf_counter()
+    _start_chained_build()  # phase 1's planted control, built alongside
     paths = backend.build()
     print(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
     for src, log in backend.BUILD_LOG.items():

@@ -1,5 +1,6 @@
 // GPO neural-process attention, backward, written by hand for Hopper
-// (sm_90a), CUDA cores only: one kernel for dq, one for dk and dv.
+// (sm_90a): one kernel for dq, one for dk and dv, every product on the
+// tensor cores in 3xTF32 (mma_tf32.cuh).
 //
 // Replaces: src/repro/kernels/gpo_attention.py::_gpo_bwd_dq_kernel and
 // ::_gpo_bwd_dkdv_kernel (the two pallas_calls in _gpo_backward).
@@ -13,33 +14,230 @@
 //   ds = p * (dp - delta_i) * scale
 //   dq_i += ds * k_j          dk_j += ds * q_i       dv_j += p * do_i
 //
-// Bound on the H100: at the training shapes (BH = 40 client-heads,
-// S = 160, num_ctx = 80, HD = 32) one call moves ~4-5 MB and does
-// ~0.1 GFLOP of f32 CUDA-core work, each about 1.3-2 us of the card, so
-// the bound is about even between bytes and operations; a call is held
-// back by its launch and by each thread's serial walk over its keys.
+// Precision: each product is mma.sync m16n8k8 tf32 -> f32 with every f32
+// operand split into big + small TF32 and three products summed (3xTF32,
+// mma_tf32.cuh); one TF32 pass would miss the card check's
+// 1e-5 (1 + |plain|) 40-180 times over (tests/test_torch_gpo_bwd_numerics.py
+// models both). The tensor cores' sums round toward zero, so a chain of
+// products through one accumulator drifts: each k-step's big.big sum and
+// each stage's accumulation start from zero and are added in f32, which
+// brings the error against float64 to that of the plain f32 version
+// (PERF.md, section 6). k = 8 divides HD 24 and 32, so nothing is padded.
 //
-// The design: one thread owns one output row, so nothing crosses blocks
-// and there are no atomics; a result depends on neither the grid order
-// nor the batch. dq: one block per (bh, 64 query rows); the block walks
-// the context keys [0, num_ctx) in 32-key shared-memory tiles of k and v,
-// then each target row adds its own key once (the TPU kernel's band as a
-// loop). dk/dv: one block per (bh, 64 key rows); a context key is read by
-// every query row, so its thread sweeps all S rows in 32-row shared-
-// memory tiles of q, do, lse and delta; a target key j is read by query j
-// alone and takes one term (the TPU kernel's transposed band). Masked
-// pairs are skipped, never computed with -1e30.
-#include <cuda_runtime.h>
-
+// dq: one block of four warps per (bh, 16 query rows). The block's q and
+// do rows (and, if it holds target rows, their own k and v rows) come
+// into shared memory by cp.async with the first stages of the context
+// keys [0, num_ctx): k and v, 32 keys a stage, a ring of four stages
+// with three in flight. Q and dO sit in registers as split A fragments;
+// each warp takes 8 keys of a stage: S = Q.K^T and dP = dO.V^T (16 x 8)
+// on the tensor cores, p and ds in registers, then dq += dS.K. The four
+// warps' partial dq tiles are summed in shared memory in warp order, and
+// each target row (i >= num_ctx) adds its own key's term, one dot
+// product per row on the CUDA cores.
+// dk/dv: a one-dimensional grid, every bh's context blocks first, so the
+// heavy blocks spread evenly over the SMs. A context block takes 16
+// context keys (K and V as A fragments) and streams all S query rows
+// (q, do, lse, delta) through the same ring, 8 rows a warp: S^T = K.Q^T
+// and dP^T = V.dO^T put the keys in the mma's M, then dV += P^T.dO and
+// dK += dS^T.Q, and the warp partials are summed in warp order. A target
+// block takes 32 target keys: key j >= num_ctx is read by query j alone,
+// so dv_j = p_jj do_j and dk_j = ds_jj q_j, an elementwise pass in the
+// same launch.
+//
+// An accumulator tile feeds the next product with no shuffle: its
+// columns 2 tq, 2 tq + 1 become A's k = tq, tq + 4, and the B operand's
+// rows are read from shared memory in that order (a_from_acc). A masked
+// pair (a key past num_ctx in a context tile, a query or a staged key
+// past the end, zero-filled) is a select to p = 0, never exp(-1e30 -
+// lse). No atomics: every sum runs in a fixed order and a block reads
+// one bh alone, so a result is bit-equal from call to call and does not
+// depend on BH.
+//
+// Bound on the H100 SXM: at the training shape (BH 40, S 160, num_ctx
+// 80, HD 32) dq moves 4.15 MB and dk/dv 4.97 MB: 1.24 and 1.48 us at
+// 3.35 TB/s. Their 0.099 and 0.132 GFLOP of products, three TF32 passes
+// each at 495 TFLOP/s dense, take 0.6 and 0.8 us, so the bytes set the
+// bound. Neither sets the pace: a call pays
+// a fixed cost (the launch, the first copies, the epilogue) and a cost a
+// stage of 32 rows, in which each warp issues a few hundred
+// instructions, most of them TF32 splits and f32 adds around its
+// mma.sync, with 3-4 warps an SM sub-partition: too few to hide the
+// latency of its mma.sync chains and its exp (chip_smoke.py phase 5
+// times both; PERF.md, section 6).
 #include <cmath>
+#include <cstdint>
+#include <initializer_list>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kRows = 64;  // output rows (threads) per block
-constexpr int kTile = 32;  // keys (dq) or query rows (dk/dv) per tile
+constexpr int kWarps = 4;
+constexpr int kThreads = 32 * kWarps;
+constexpr int kTile = 16;           // rows a block owns: queries or keys
+constexpr int kStage = 8 * kWarps;  // streamed rows a stage, 8 a warp
+constexpr int kBufs = 4;            // a ring of stages, 3 ahead in flight
+constexpr int kTpr = 4;             // threads a target key, dk/dv
+constexpr int kTargets = kThreads / kTpr;  // target keys a dk/dv block takes
+// shared-memory row pitch in floats: fragment reads hit 32 banks
+__host__ __device__ constexpr int pitch(int hd) { return hd + 4; }
+// after the walk the ring of stages holds the warp partials, dk and dv
+static_assert(2 * kWarps * kTile <= kBufs * 2 * kStage, "partials overflow");
+static_assert(kThreads == 8 * kTile && 2 * kStage <= kThreads,
+              "8 threads an epilogue row; a thread each lse and delta value");
+
+// a 16 x HD tile in shared memory (pitch(HD)) as split A fragments, one
+// per k-step of 8
+template <int HD>
+struct TileA {
+  uint32_t big[HD / 8][4];
+  uint32_t small[HD / 8][4];
+
+  __device__ __forceinline__ void load(const float* tile, int g, int tq) {
+#pragma unroll
+    for (int ks = 0; ks < HD / 8; ++ks) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = g + 8 * (e & 1);
+        const int c = 8 * ks + tq + 4 * (e >> 1);
+        split_tf32(tile[r * pitch(HD) + c], big[ks][e], small[ks][e]);
+      }
+    }
+  }
+};
+
+// d (16 x 8) = a (16 x HD) . u^T, u 8 staged rows of HD. A tensor-core
+// sum is coarser than an f32 add (it rounds toward zero), so the small
+// terms share one accumulator, where its error is 2^-11 smaller, and
+// each k-step's big.big starts from zero and is added in f32
+template <int HD>
+__device__ __forceinline__ void mma_abt(float (&d)[4], const TileA<HD>& a,
+                                        const float* u, int g, int tq) {
+  constexpr int P = pitch(HD);
+  float lo[4] = {};
+  d[0] = d[1] = d[2] = d[3] = 0.0f;
+#pragma unroll
+  for (int ks = 0; ks < HD / 8; ++ks) {
+    uint32_t bb[2], bs[2];
+    split_tf32(u[g * P + 8 * ks + tq], bb[0], bs[0]);
+    split_tf32(u[g * P + 8 * ks + tq + 4], bb[1], bs[1]);
+    mma_tf32(lo, a.small[ks], bb[0], bb[1]);
+    mma_tf32(lo, a.big[ks], bs[0], bs[1]);
+    float hi[4] = {};
+    mma_tf32(hi, a.big[ks], bb[0], bb[1]);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) d[e] += hi[e];
+  }
+#pragma unroll
+  for (int e = 0; e < 4; ++e) d[e] += lo[e];
+}
+
+// acc (16 x HD, one accumulator per 8 columns) += c . u, c a 16 x 8
+// accumulator tile over the 8 staged rows u (HD wide): k = tq reads row
+// 2 tq, k = tq + 4 row 2 tq + 1 (a_from_acc). Each product starts from
+// zero and is added to acc in f32 (see mma_abt)
+template <int HD>
+__device__ __forceinline__ void mma_acc_u(float (&acc)[HD / 8][4],
+                                          const float (&c)[4], const float* u,
+                                          int g, int tq) {
+  constexpr int P = pitch(HD);
+  uint32_t ab[4], as[4];
+  a_from_acc(c, ab, as);
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+    uint32_t bb[2], bs[2];
+    split_tf32(u[2 * tq * P + 8 * nt + g], bb[0], bs[0]);
+    split_tf32(u[(2 * tq + 1) * P + 8 * nt + g], bb[1], bs[1]);
+    float t[4] = {};
+    mma_3xtf32(t, ab, as, bb, bs);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[nt][e] += t[e];
+  }
+}
+
+// rows [r0, r0 + ROWS) of one bh's (S, HD) slab into shared memory at
+// pitch(HD), 16 bytes a copy, zero-filled from row `end` on
+template <int HD, int ROWS>
+__device__ __forceinline__ void stage_rows(float* dst,
+                                           const float* __restrict__ src,
+                                           int r0, int end) {
+  constexpr int kVec = HD / 4;
+#pragma unroll
+  for (int n = 0; n < (ROWS * kVec + kThreads - 1) / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    if (i >= ROWS * kVec) break;
+    const int r = i / kVec;
+    const int c = 4 * (i % kVec);
+    const bool live = r0 + r < end;
+    cp_async16(smem_addr(dst + r * pitch(HD) + c),
+               src + static_cast<size_t>(live ? r0 + r : 0) * HD + c, live);
+  }
+}
+
+// rows [r0, r0 + kStage) of one bh's (S,) lse or delta into shared
+// memory, zero-filled from row `end` on; threads [t0, t0 + kStage) copy
+__device__ __forceinline__ void stage_row_values(float* dst,
+                                                 const float* __restrict__ src,
+                                                 int r0, int end, int t0) {
+  const int i = static_cast<int>(threadIdx.x) - t0;
+  if (i < 0 || i >= kStage) return;
+  const bool live = r0 + i < end;
+  cp_async4(smem_addr(dst + i), src + (live ? r0 + i : 0), live);
+}
+
+// the warp partials (kWarps tiles of 16 x HD at pitch(HD)) of
+// accumulator tiles, written by each warp
+template <int HD>
+__device__ __forceinline__ void store_partial(float* part,
+                                              const float (&acc)[HD / 8][4],
+                                              int w, int g, int tq) {
+  constexpr int P = pitch(HD);
+#pragma unroll
+  for (int nt = 0; nt < HD / 8; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      part[(w * kTile + g + 8 * (e >> 1)) * P + 8 * nt + 2 * tq + (e & 1)] =
+          acc[nt][e];
+  }
+}
+
+// row r, column c of the tile, summed over the warp partials in warp
+// order
+template <int HD>
+__device__ __forceinline__ float sum_partials(const float* part, int r,
+                                              int c) {
+  float x = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) x += part[(w * kTile + r) * pitch(HD) + c];
+  return x;
+}
+
+// one row's own-key pair (p, ds) on the CUDA cores, TPR neighbouring
+// threads a row, each over HD / TPR columns of q, k, v and do; every
+// lane of the warp joins the shuffles
+template <int HD, int TPR>
+__device__ __forceinline__ void own_key(const float* q, const float* k,
+                                        const float* v, const float* dout,
+                                        float l, float dl, float scale,
+                                        float& p, float& ds) {
+  float s = 0.0f;
+  float dp = 0.0f;
+#pragma unroll
+  for (int c = 0; c < HD / TPR; ++c) {
+    s = fmaf(q[c], k[c], s);
+    dp = fmaf(dout[c], v[c], dp);
+  }
+#pragma unroll
+  for (int m = TPR / 2; m > 0; m >>= 1) {
+    s += __shfl_xor_sync(0xffffffffu, s, m);
+    dp += __shfl_xor_sync(0xffffffffu, dp, m);
+  }
+  p = expf(s * scale - l);
+  ds = p * (dp - dl) * scale;
+}
 
 template <int HD>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
 gpo_attention_bwd_dq_kernel(const float* __restrict__ q,
                             const float* __restrict__ k,
                             const float* __restrict__ v,
@@ -48,77 +246,114 @@ gpo_attention_bwd_dq_kernel(const float* __restrict__ q,
                             const float* __restrict__ delta,
                             float* __restrict__ dq, int S, int num_ctx,
                             float scale) {
-  __shared__ float ks[kTile][HD];
-  __shared__ float vs[kTile][HD];
+  constexpr int P = pitch(HD);
+  constexpr int kTileF = kTile * P;        // floats of a 16-row tile
+  constexpr int kStageF = 2 * kStage * P;  // floats of a stage: k, v
+  // the block's rows of q, do, k and v; then the ring of stages, which
+  // holds the warp partials after the walk
+  __shared__ __align__(16) float sm[4 * kTileF + kBufs * kStageF];
+  float* const qs = sm;
+  float* const dos = sm + kTileF;
+  float* const kd = sm + 2 * kTileF;
+  float* const vd = sm + 3 * kTileF;
+  float* const ring = sm + 4 * kTileF;
+
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
   const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * S;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool live = row < S;  // dead threads still join every barrier
+  const float* lr = lse + static_cast<size_t>(blockIdx.y) * S;
+  const float* dr = delta + static_cast<size_t>(blockIdx.y) * S;
+  const int r0 = blockIdx.x * kTile;
+  const bool has_target = r0 + kTile > num_ctx;  // uniform in the block
 
-  float qr[HD];
-  float dor[HD];
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    const size_t g = base + static_cast<size_t>(row) * HD + d;
-    qr[d] = live ? q[g] : 0.0f;
-    dor[d] = live ? dout[g] : 0.0f;
-    acc[d] = 0.0f;
+  // group 0: the block's tiles and stage 0; then stages 1 .. kBufs - 2,
+  // one group each (empty past the last stage)
+  stage_rows<HD, kTile>(qs, q + base, r0, S);
+  stage_rows<HD, kTile>(dos, dout + base, r0, S);
+  if (has_target) {
+    stage_rows<HD, kTile>(kd, k + base, r0, S);
+    stage_rows<HD, kTile>(vd, v + base, r0, S);
   }
-  const float l = live ? lse[rbase + row] : 0.0f;
-  const float dl = live ? delta[rbase + row] : 0.0f;
-
-  for (int k0 = 0; k0 < num_ctx; k0 += kTile) {
-    const int n = min(kTile, num_ctx - k0);  // real keys in the tile
-    for (int i = threadIdx.x; i < kTile * HD; i += kRows) {
-      const int j = i / HD;
-      const int d = i % HD;
-      const size_t g = base + static_cast<size_t>(k0 + j) * HD + d;
-      ks[j][d] = j < n ? k[g] : 0.0f;
-      vs[j][d] = j < n ? v[g] : 0.0f;
-    }
-    __syncthreads();
-    for (int j = 0; j < n; ++j) {
-      float s = 0.0f;
-      float dp = 0.0f;
+  auto stage = [&](int st) {
+    float* buf = ring + (st % kBufs) * kStageF;
+    stage_rows<HD, kStage>(buf, k + base, st * kStage, num_ctx);
+    stage_rows<HD, kStage>(buf + kStage * P, v + base, st * kStage, num_ctx);
+  };
+  const int stages = (num_ctx + kStage - 1) / kStage;
 #pragma unroll
-      for (int d = 0; d < HD; ++d) {
-        s = fmaf(qr[d], ks[j][d], s);
-        dp = fmaf(dor[d], vs[j][d], dp);
+  for (int st = 0; st < kBufs - 1; ++st) {
+    if (st < stages) stage(st);
+    cp_async_commit();
+  }
+  float l[2], dl[2];  // rows g and g + 8
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    l[h] = r < S ? lr[r] : 0.0f;
+    dl[h] = r < S ? dr[r] : 0.0f;
+  }
+  const int r = threadIdx.x >> 3;  // the epilogue's row, 8 threads a row
+  const int row = r0 + r;
+  const bool live = row < S;
+  const float l_own = live ? lr[row] : 0.0f;
+  const float dl_own = live ? dr[row] : 0.0f;
+  cp_async_wait<kBufs - 2>();
+  __syncthreads();
+
+  TileA<HD> qa, da;
+  qa.load(qs, g, tq);
+  da.load(dos, g, tq);
+  float acc[HD / 8][4] = {};
+  for (int st = 0; st < stages; ++st) {
+    if (st > 0) {
+      cp_async_wait<kBufs - 2>();
+      __syncthreads();  // stage st landed; stage st - 1's buffer is free
+    }
+    if (st + kBufs - 1 < stages) stage(st + kBufs - 1);
+    cp_async_commit();
+    const int j0 = st * kStage + 8 * w;  // this warp's 8 keys
+    if (j0 < num_ctx) {
+      const float* ku = ring + (st % kBufs) * kStageF + 8 * w * P;
+      const float* vu = ku + kStage * P;
+      float s[4], dp[4], ds[4];
+      mma_abt<HD>(s, qa, ku, g, tq);
+      mma_abt<HD>(dp, da, vu, g, tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool on = j0 + 2 * tq + (e & 1) < num_ctx;
+        const float p = on ? expf(s[e] * scale - l[e >> 1]) : 0.0f;
+        ds[e] = p * (dp[e] - dl[e >> 1]) * scale;
       }
-      const float p = expf(s * scale - l);
-      const float ds = p * (dp - dl) * scale;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(ds, ks[j][d], acc[d]);
+      mma_acc_u<HD>(acc, ds, ku, g, tq);
     }
-    __syncthreads();
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  store_partial<HD>(ring, acc, w, g, tq);
+  __syncthreads();
 
-  if (live && row >= num_ctx) {  // a target row: its own key, once
-    const float* kr = k + base + static_cast<size_t>(row) * HD;
-    const float* vr = v + base + static_cast<size_t>(row) * HD;
-    float s = 0.0f;
-    float dp = 0.0f;
+  // the partials in warp order, plus a target row's own key
+  const int c0 = (threadIdx.x & 7) * (HD / 8);
+  const int t = r * P + c0;
+  float p = 0.0f;
+  float ds = 0.0f;
+  if (has_target)
+    own_key<HD, 8>(qs + t, kd + t, vd + t, dos + t, l_own, dl_own, scale, p,
+                   ds);
+  if (!live) return;
+  const bool target = row >= num_ctx;
+  const size_t off = base + static_cast<size_t>(row) * HD + c0;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      s = fmaf(qr[d], kr[d], s);
-      dp = fmaf(dor[d], vr[d], dp);
-    }
-    const float p = expf(s * scale - l);
-    const float ds = p * (dp - dl) * scale;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = fmaf(ds, kr[d], acc[d]);
-  }
-
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      dq[base + static_cast<size_t>(row) * HD + d] = acc[d];
+  for (int c = 0; c < HD / 8; ++c) {
+    const float x = sum_partials<HD>(ring, r, c0 + c);
+    dq[off + c] = target ? fmaf(ds, kd[t + c], x) : x;
   }
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
 gpo_attention_bwd_dkdv_kernel(const float* __restrict__ q,
                               const float* __restrict__ k,
                               const float* __restrict__ v,
@@ -126,97 +361,130 @@ gpo_attention_bwd_dkdv_kernel(const float* __restrict__ q,
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               float* __restrict__ dk, float* __restrict__ dv,
-                              int S, int num_ctx, float scale) {
-  __shared__ float qs[kTile][HD];
-  __shared__ float dos[kTile][HD];
-  __shared__ float ls[kTile];
-  __shared__ float dls[kTile];
-  const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
-  const size_t rbase = static_cast<size_t>(blockIdx.y) * S;
-  const int key = blockIdx.x * kRows + threadIdx.x;
-  const bool live = key < S;
-  const bool ctx_key = key < num_ctx;  // num_ctx <= S, so also live
+                              int bh, int S, int num_ctx, int ctx_blocks,
+                              int tgt_blocks, float scale) {
+  constexpr int P = pitch(HD);
+  constexpr int kTileF = kTile * P;
+  // floats of a stage: q and do rows, then lse and delta
+  constexpr int kStageF = 2 * kStage * P + 2 * kStage;
+  // the block's rows of k and v; then the ring of stages, which holds
+  // the dk and dv warp partials after the walk
+  __shared__ __align__(16) float sm[2 * kTileF + kBufs * kStageF];
 
-  float kr[HD];
-  float vr[HD];
-  float dka[HD];
-  float dva[HD];
+  // a one-dimensional grid: every bh's context blocks, then every bh's
+  // target blocks, so the heavy blocks spread evenly over the SMs
+  const int n_ctx = bh * ctx_blocks;
+  const int b = blockIdx.x;
+  const bool ctx = b < n_ctx;
+  const int bhi = ctx ? b / ctx_blocks : (b - n_ctx) / tgt_blocks;
+  const int tile = ctx ? b % ctx_blocks : (b - n_ctx) % tgt_blocks;
+  const size_t base = static_cast<size_t>(bhi) * S * HD;
+  const float* lr = lse + static_cast<size_t>(bhi) * S;
+  const float* dr = delta + static_cast<size_t>(bhi) * S;
+
+  if (!ctx) {
+    // kTargets target keys, kTpr threads a key: read by their own query
+    // alone
+    const int key = num_ctx + tile * kTargets + threadIdx.x / kTpr;
+    const bool live = key < S;
+    const size_t off = base + static_cast<size_t>(live ? key : 0) * HD +
+                       (threadIdx.x % kTpr) * (HD / kTpr);
+    float p, ds;
+    own_key<HD, kTpr>(q + off, k + off, v + off, dout + off,
+                      live ? lr[key] : 0.0f, live ? dr[key] : 0.0f, scale, p,
+                      ds);
+    if (!live) return;
 #pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    const size_t g = base + static_cast<size_t>(key) * HD + d;
-    kr[d] = live ? k[g] : 0.0f;
-    vr[d] = live ? v[g] : 0.0f;
-    dka[d] = 0.0f;
-    dva[d] = 0.0f;
+    for (int c = 0; c < HD / kTpr; ++c) {
+      dv[off + c] = p * dout[off + c];
+      dk[off + c] = ds * q[off + c];
+    }
+    return;
   }
 
-  // a context key in the block: every query row reads it, so sweep all
-  // S rows (a uniform condition per block, so every thread joins every
-  // barrier; the block's target keys only help stage the tiles)
-  if (static_cast<int>(blockIdx.x) * kRows < num_ctx) {
-    for (int i0 = 0; i0 < S; i0 += kTile) {
-      const int n = min(kTile, S - i0);
-      for (int t = threadIdx.x; t < kTile * HD; t += kRows) {
-        const int i = t / HD;
-        const int d = t % HD;
-        const size_t g = base + static_cast<size_t>(i0 + i) * HD + d;
-        qs[i][d] = i < n ? q[g] : 0.0f;
-        dos[i][d] = i < n ? dout[g] : 0.0f;
-      }
-      if (threadIdx.x < kTile) {
-        const int i = threadIdx.x;
-        ls[i] = i < n ? lse[rbase + i0 + i] : 0.0f;
-        dls[i] = i < n ? delta[rbase + i0 + i] : 0.0f;
-      }
-      __syncthreads();
-      if (ctx_key) {
-        for (int i = 0; i < n; ++i) {
-          float s = 0.0f;
-          float dp = 0.0f;
+  float* const ks = sm;
+  float* const vs = sm + kTileF;
+  float* const ring = sm + 2 * kTileF;
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
+  const int j0 = tile * kTile;  // the block's 16 keys
+
+  // group 0: the block's k and v rows (zero from num_ctx on: those are
+  // target keys) and stage 0; then stages 1 .. kBufs - 2
+  stage_rows<HD, kTile>(ks, k + base, j0, num_ctx);
+  stage_rows<HD, kTile>(vs, v + base, j0, num_ctx);
+  auto stage = [&](int st) {
+    float* buf = ring + (st % kBufs) * kStageF;
+    const int i0 = st * kStage;
+    stage_rows<HD, kStage>(buf, q + base, i0, S);
+    stage_rows<HD, kStage>(buf + kStage * P, dout + base, i0, S);
+    stage_row_values(buf + 2 * kStage * P, lr, i0, S, 0);
+    stage_row_values(buf + 2 * kStage * P + kStage, dr, i0, S, kStage);
+  };
+  const int stages = (S + kStage - 1) / kStage;
 #pragma unroll
-          for (int d = 0; d < HD; ++d) {
-            s = fmaf(qs[i][d], kr[d], s);
-            dp = fmaf(dos[i][d], vr[d], dp);
-          }
-          const float p = expf(s * scale - ls[i]);
-          const float ds = p * (dp - dls[i]) * scale;
+  for (int st = 0; st < kBufs - 1; ++st) {
+    if (st < stages) stage(st);
+    cp_async_commit();
+  }
+  bool key_on[2];
 #pragma unroll
-          for (int d = 0; d < HD; ++d) {
-            dva[d] = fmaf(p, dos[i][d], dva[d]);
-            dka[d] = fmaf(ds, qs[i][d], dka[d]);
-          }
-        }
+  for (int h = 0; h < 2; ++h) key_on[h] = j0 + g + 8 * h < num_ctx;
+  cp_async_wait<kBufs - 2>();
+  __syncthreads();
+
+  TileA<HD> ka, va;
+  ka.load(ks, g, tq);
+  va.load(vs, g, tq);
+  float dk_acc[HD / 8][4] = {};
+  float dv_acc[HD / 8][4] = {};
+  for (int st = 0; st < stages; ++st) {
+    if (st > 0) {
+      cp_async_wait<kBufs - 2>();
+      __syncthreads();  // stage st landed; stage st - 1's buffer is free
+    }
+    if (st + kBufs - 1 < stages) stage(st + kBufs - 1);
+    cp_async_commit();
+    const int i0 = st * kStage + 8 * w;  // this warp's 8 query rows
+    if (i0 < S) {
+      const float* buf = ring + (st % kBufs) * kStageF;
+      const float* qu = buf + 8 * w * P;
+      const float* du = qu + kStage * P;
+      const float* lu = buf + 2 * kStage * P + 8 * w;
+      const float* dlu = lu + kStage;
+      float s[4], dp[4], p[4], ds[4];
+      mma_abt<HD>(s, ka, qu, g, tq);
+      mma_abt<HD>(dp, va, du, g, tq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = 2 * tq + (e & 1);  // query i0 + col
+        const bool on = key_on[e >> 1] && i0 + col < S;
+        p[e] = on ? expf(s[e] * scale - lu[col]) : 0.0f;
+        ds[e] = p[e] * (dp[e] - dlu[col]) * scale;
       }
-      __syncthreads();
+      mma_acc_u<HD>(dv_acc, p, du, g, tq);
+      mma_acc_u<HD>(dk_acc, ds, qu, g, tq);
     }
   }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* const part_k = ring;
+  float* const part_v = ring + kWarps * kTileF;
+  store_partial<HD>(part_k, dk_acc, w, g, tq);
+  store_partial<HD>(part_v, dv_acc, w, g, tq);
+  __syncthreads();
 
-  if (live && !ctx_key) {  // a target key: read by its own query alone
-    const float* qr = q + base + static_cast<size_t>(key) * HD;
-    const float* dr = dout + base + static_cast<size_t>(key) * HD;
-    float s = 0.0f;
-    float dp = 0.0f;
+  const int r = threadIdx.x >> 3;
+  const int key = j0 + r;
+  if (key >= num_ctx) return;  // a target key: a target block writes it
+  const int c0 = (threadIdx.x & 7) * (HD / 8);
+  const size_t off = base + static_cast<size_t>(key) * HD + c0;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      s = fmaf(qr[d], kr[d], s);
-      dp = fmaf(dr[d], vr[d], dp);
-    }
-    const float p = expf(s * scale - lse[rbase + key]);
-    const float ds = p * (dp - delta[rbase + key]) * scale;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      dva[d] = p * dr[d];
-      dka[d] = ds * qr[d];
-    }
-  }
-
-  if (live) {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      const size_t g = base + static_cast<size_t>(key) * HD + d;
-      dk[g] = dka[d];
-      dv[g] = dva[d];
-    }
+  for (int c = 0; c < HD / 8; ++c) {
+    dk[off + c] = sum_partials<HD>(part_k, r, c0 + c);
+    dv[off + c] = sum_partials<HD>(part_v, r, c0 + c);
   }
 }
 
@@ -225,8 +493,8 @@ void launch_dq(const float* q, const float* k, const float* v,
                const float* dout, const float* lse, const float* delta,
                float* dq, int bh, int S, int num_ctx, float scale,
                cudaStream_t st) {
-  const dim3 grid((S + kRows - 1) / kRows, bh);
-  gpo_attention_bwd_dq_kernel<HD><<<grid, kRows, 0, st>>>(
+  const dim3 grid((S + kTile - 1) / kTile, bh);
+  gpo_attention_bwd_dq_kernel<HD><<<grid, kThreads, 0, st>>>(
       q, k, v, dout, lse, delta, dq, S, num_ctx, scale);
 }
 
@@ -235,27 +503,40 @@ void launch_dkdv(const float* q, const float* k, const float* v,
                  const float* dout, const float* lse, const float* delta,
                  float* dk, float* dv, int bh, int S, int num_ctx,
                  float scale, cudaStream_t st) {
-  const dim3 grid((S + kRows - 1) / kRows, bh);
-  gpo_attention_bwd_dkdv_kernel<HD><<<grid, kRows, 0, st>>>(
-      q, k, v, dout, lse, delta, dk, dv, S, num_ctx, scale);
+  const int ctx_blocks = (num_ctx + kTile - 1) / kTile;
+  const int tgt_blocks = (S - num_ctx + kTargets - 1) / kTargets;
+  gpo_attention_bwd_dkdv_kernel<HD>
+      <<<bh * (ctx_blocks + tgt_blocks), kThreads, 0, st>>>(
+          q, k, v, dout, lse, delta, dk, dv, bh, S, num_ctx, ctx_blocks,
+          tgt_blocks, scale);
 }
 
 float softmax_scale(int hd) {
   return static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
 }
 
+// cp.async copies 16 bytes: every (S, HD) slab must start 16-byte aligned
+bool aligned16(std::initializer_list<const void*> ps) {
+  for (const void* p : ps)
+    if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) return false;
+  return true;
+}
+
 }  // namespace
 
 // C entries, bound with ctypes. Each launches on `stream` (PyTorch's
 // current stream), allocates nothing, does not synchronise; returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a head width that is
-// not instantiated here.
+// cudaGetLastError(), cudaErrorInvalidValue for a head width that is not
+// instantiated here, or cudaErrorMisalignedAddress for a (BH, S, HD)
+// operand that does not start 16-byte aligned.
 extern "C" int gpo_attention_bwd_dq_launch(const float* q, const float* k,
                                            const float* v, const float* dout,
                                            const float* lse,
                                            const float* delta, float* dq,
                                            int bh, int S, int num_ctx, int hd,
                                            void* stream) {
+  if (!aligned16({q, k, v, dout, dq}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = softmax_scale(hd);
   switch (hd) {
@@ -275,6 +556,8 @@ extern "C" int gpo_attention_bwd_dkdv_launch(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, float* dk, float* dv, int bh,
     int S, int num_ctx, int hd, void* stream) {
+  if (!aligned16({q, k, v, dout, dk, dv}))
+    return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = softmax_scale(hd);
   switch (hd) {

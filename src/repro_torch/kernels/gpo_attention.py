@@ -20,20 +20,31 @@ touched. Scores scale by 1/√hd, ``l`` clamps at 1e-30 and
 Backward kernels (replace ``_gpo_bwd_dq_kernel`` and
 ``_gpo_bwd_dkdv_kernel``): ``delta = rowsum(do·o)`` is computed in plain
 PyTorch, as the reference computes it outside any Pallas kernel; then
-dq walks the forward's band per query row, and dk/dv the transposed
-band per key row (a context key sweeps all S query rows, a target key
-takes only its own query). Each recomputes p = exp(s − lse) from q and
-k. One thread owns one output row: no atomics, and a result depends on
-neither the grid order nor the batch.
+two launches recompute p = exp(s − lse) from q and k. Every product
+(q·kᵀ, do·vᵀ, ds·k, dsᵀ·q, pᵀ·do) runs on the tensor cores as
+``mma.sync`` m16n8k8 TF32 in 3xTF32: each f32 operand is split into
+big + small TF32 values and three products are summed, in short chains
+whose results are added in f32, which keeps the plain f32 version's
+accuracy (one TF32 pass would not; see
+``tests/test_torch_gpo_bwd_numerics.py``). dq: a block of four warps
+per (batch·head, 16 query rows) streams the context keys through
+shared memory (``cp.async``, a ring of four stages, three in flight),
+each warp 8 keys of a stage; the warps' partial dq tiles are summed in
+a fixed order and each target row adds its own key on the CUDA cores.
+dk/dv: a block per (batch·head, 16 context keys) streams all S query
+rows the same way, keys in the mma's M; target keys, each read by its
+own query alone, take an elementwise pass in extra blocks of the same
+launch. No atomics: a result is bit-equal from call to call and does
+not depend on the batch.
 
 What bounds them on the H100: at the training shapes (BH = 10 clients ×
-4 heads = 40, S = 160, num_ctx = 80, hd = 32) q/k/v/do are 3.3 MB and
-the band is 0.1 GFLOP per kernel, each about a microsecond or two of
-the card's bytes or f32 rate, so a call is bound by its launch and its
-per-row serial walk. The simple design keeps it to one launch per layer
-and direction over all clients and heads and never materialises scores;
-it leaves most SMs idle (S/64·BH blocks of 64 threads), which a later
-PR can fix with more rows per block and tensor-core tiles.
+4 heads = 40, S = 160, num_ctx = 80, hd = 32) the bound is 1.24 µs (dq)
+and 1.48 µs (dk/dv), set by the bytes (the three TF32 passes of their
+products take 0.6 and 0.8 µs at the dense TF32 rate). Neither sets the
+pace: a call takes one block's latency (its stages in a row, each a
+chain of dependent ``mma.sync`` and an exp) plus the instruction issue
+of the TF32 splits, with 3–4 warps an SM sub-partition (``PERF.md``
+§6).
 """
 from __future__ import annotations
 
@@ -103,7 +114,16 @@ def _bwd_operands(what, q, k, v, do, lse, delta, num_ctx) -> bool:
     if lse.shape != q.shape[:2] or delta.shape != q.shape[:2]:
         raise ValueError(f"{what}: lse {tuple(lse.shape)} and delta "
                          f"{tuple(delta.shape)} must be {tuple(q.shape[:2])}")
-    return backend.on_cpu(what, q, k, v, do, lse, delta, dtypes=(_F32,) * 6)
+    cpu = backend.on_cpu(what, q, k, v, do, lse, delta, dtypes=(_F32,) * 6)
+    # the kernels copy (S, hd) slabs 16 bytes at a time (cp.async); both
+    # allocators align a storage's start further, so a view that starts
+    # a whole number of 4 floats into its storage is aligned
+    for name, t in zip(("q", "k", "v", "do"), (q, k, v, do)):
+        if t.storage_offset() % 4:
+            raise ValueError(f"{what}: {name} starts {t.storage_offset()} "
+                             "floats into its storage; the kernels need "
+                             "a multiple of 4 (16-byte aligned)")
+    return cpu
 
 
 def gpo_attention_bwd_dq(q, k, v, do, lse, delta, *,

@@ -473,6 +473,34 @@ def test_operand_contract_is_held_on_the_cpu_too():
                              a, a, num_ctx=2)
 
 
+@pytest.mark.parametrize("device", ["cpu", "cuda"])
+@pytest.mark.parametrize("fn", ["gpo_attention_bwd_dq",
+                                "gpo_attention_bwd_dkdv"])
+def test_attention_bwd_refuses_a_view_the_kernels_cannot_copy(fn, device):
+    """The backward kernels copy 16 bytes at a time: a contiguous view
+    that starts 2 floats into its storage is refused by name, on the CPU
+    as on (fake) CUDA tensors, before any launch; 4 floats in is fine."""
+    _no_card()
+    before = _counts()
+    with FakeTensorMode() if device == "cuda" else torch.no_grad():
+        a = torch.empty((2, 10, 32), device=device).fill_(1.0)
+        r = torch.empty((2, 10), device=device).fill_(0.0)
+        for off in (2, 4):
+            v = torch.as_strided(
+                torch.empty(a.numel() + off, device=device).fill_(1.0),
+                a.shape, a.stride(), off)
+            assert v.is_contiguous() and v.storage_offset() == off
+            if off == 2:
+                with pytest.raises(ValueError, match="v starts 2 floats"):
+                    getattr(ga, fn)(a, a, v, a, r, r, num_ctx=4)
+            elif device == "cuda":
+                with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                    getattr(ga, fn)(a, a, v, a, r, r, num_ctx=4)
+            else:
+                getattr(ga, fn)(a, a, v, a, r, r, num_ctx=4)
+    assert _counts() == before
+
+
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(shutil, "which", lambda _: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
