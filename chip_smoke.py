@@ -12,11 +12,12 @@ the card, raising on any mismatch:
    same inputs on the card, at the serving and training paths' shapes:
    the int8 matmul (with rows 0-15 bit-equal at M = 16, 320 and 1280),
    the attention forward and backward (dq, dk/dv; head
-   widths 32 and 24; the backward up to S 645, bit-equal from one call
-   to the next and for one bh computed alone as in the batch of 40, its
-   mean error against float64 within ``BWD_F64_RATIO`` of the plain's,
-   which a planted control rebuilt from the source with chained
-   tensor-core sums must exceed),
+   widths 32 and 24; up to S 645 and at num_ctx 0 and S, bit-equal from
+   one call to the next and for one bh computed alone as in the batch of
+   40, the mean error against float64 within ``FWD_F64_RATIO`` (o) and
+   ``BWD_F64_RATIO`` (dq, dk, dv) of the plain version's, which a
+   planted control rebuilt from the sources with chained tensor-core
+   sums must exceed),
    the ``GPOAttention`` Function's gradients, and
    the aggregation kernels: the FedAvg reduce, the FedAvgM momentum
    reduce, the rank-trimmed reduce (ties included), the Krum pairwise
@@ -78,6 +79,7 @@ the card, raising on any mismatch:
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
    beside the card's least time for the same work; the attention
+   forward also at other num_ctx and for one bh alone; the attention
    backward (delta, dq, dk/dv through ``GPOAttention``) also beside
    SDPA's backward alone, each replayed from a retained graph, and dq
    and dk/dv at other num_ctx and for one bh alone; flash also at
@@ -172,6 +174,9 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bhsd,
 )
 from repro_torch.kernels.gpo_attention import (  # noqa: E402
+    _DKDV_ARGTYPES,
+    _DQ_ARGTYPES,
+    _FWD_ARGTYPES,
     GPOAttention,
     gpo_attention_bwd_dkdv,
     gpo_attention_bwd_dq,
@@ -227,15 +232,29 @@ INT8_SHAPES = [(66, 128), (128, 128), (128, 256), (256, 128), (128, 1),
                (4098, 128)]  # (K, N): in_proj, wq..wo, w1, w2, head, paper
 INT8_M_ROWS = (16, 320, 1280)  # M of which rows 0-15 must not depend on
 # (BH, S, ctx): training's 10 clients x 4 heads, predict's 7 held-out
-# groups x 4 heads, then ragged S and num_ctx
+# groups x 4 heads, then the backward's shapes (BWD_SHAPES): ragged S and
+# num_ctx at both ends, and a long ragged S that streams many stages; and
+# num_ctx 13, under one stage, where two of the forward's warps see no key
 ATTN_SHAPES = [(10 * 4, 160, 80), (7 * 4, 160, 80), (4, 80, 60),
-               (4, 85, 37)]
+               (4, 85, 37), (4, 64, 0), (4, 64, 64), (4, 645, 321),
+               (4, 37, 13)]
 # the backward's: 10 clients x 4 heads at the quickstart's 16+16
 # questions of 5 options, then ragged S and num_ctx at both ends, and a
 # longer ragged S that streams many stages through both kernels
 BWD_SHAPES = [(10 * 4, 160, 80), (4, 80, 60), (4, 85, 37), (4, 64, 0),
               (4, 64, 64), (4, 645, 321)]
 BWD_ALONE = 7  # the bh slice that must come out alone as in the batch
+# the forward's o: its mean |error| against the forward in float64 at
+# most this many times the plain f32 version's, at the training shape
+# and at the longest band of ATTN_SHAPES (10 stages of keys), at both
+# head widths. The same planted control (the forward rebuilt with
+# _CHAINED_EDITS) must exceed it at every one of these shapes: the
+# kernel reads 0.54-0.80x there and the control 1.34-2.30x (PERF.md,
+# section 6), so the limit sits between the two. The forward's o and
+# lse feed every backward and every client's training, which phase 4
+# holds to the CPU within 1e-4
+FWD_F64_RATIO = 1.1
+FWD_F64_SHAPES = ((10 * 4, 160, 80), (4, 645, 321))
 # the backward kernels' mean |error| against the backward in float64, at
 # the training shape, at most this many times the plain f32 version's: a
 # design that chained every product through one tensor-core accumulator
@@ -243,8 +262,9 @@ BWD_ALONE = 7  # the bh slice that must come out alone as in the batch
 # agreement with the CPU; phase 1 rebuilds that design from the source as
 # a planted control (_CHAINED_EDITS) and requires it to fail this limit
 BWD_F64_RATIO = 1.5
-# the control's edits of gpo_attention_bwd.cu: each k-step's big.big and
-# each product of a stage go into the running accumulator itself
+# the control's edits of gpo_tiles.cuh, the tile schedule that the
+# forward and backward sources share: each k-step's big.big and each
+# product of a stage go into the running accumulator itself
 _CHAINED_EDITS = (
     ("""    mma_tf32(lo, a.small[ks], bb[0], bb[1]);
     mma_tf32(lo, a.big[ks], bs[0], bs[1]);
@@ -605,47 +625,81 @@ def _attention_bwd(ops, nc) -> tuple:
             *gpo_attention_bwd_dkdv(*ops, num_ctx=nc))
 
 
-_CHAINED = {}  # the planted control's nvcc process, then its library
+_CHAINED = {}  # the planted control's nvcc processes, then its libraries
+_CHAINED_SOURCES = ("gpo_attention_fwd", "gpo_attention_bwd")
 
 
 def _start_chained_build() -> None:
-    """Start nvcc on the chained control (``_CHAINED_EDITS`` applied to
-    ``gpo_attention_bwd.cu``) under ``build/``, beside the kernels'
-    build."""
-    src = (backend.CSRC / "gpo_attention_bwd.cu").read_text()
+    """Start nvcc on the chained control under ``build/chained``, beside
+    the kernels' build: the forward and backward sources copied there
+    beside ``gpo_tiles.cuh`` with ``_CHAINED_EDITS`` applied, which
+    their quoted include finds first; the other headers come from
+    ``csrc`` on the include path."""
+    hdr = (backend.CSRC / "gpo_tiles.cuh").read_text()
     for old, new in _CHAINED_EDITS:
-        if src.count(old) != 1:
+        if hdr.count(old) != 1:
             raise AssertionError("the chained control's edit no longer "
-                                 "matches gpo_attention_bwd.cu")
-        src = src.replace(old, new)
-    backend.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    cu = backend.BUILD_DIR / "gpo_attention_bwd_chained.cu"
-    cu.write_text(src)
-    so = cu.with_suffix(".so")
-    _CHAINED["build"] = (so, subprocess.Popen(
-        [backend._nvcc(), *backend.NVCC_FLAGS, "-I", str(backend.CSRC),
-         "-o", str(so), str(cu)], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True))
+                                 "matches gpo_tiles.cuh")
+        hdr = hdr.replace(old, new)
+    out = backend.BUILD_DIR / "chained"
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "gpo_tiles.cuh").write_text(hdr)
+    builds = {}
+    for name in _CHAINED_SOURCES:
+        cu = out / f"{name}.cu"
+        shutil.copy(backend.CSRC / cu.name, cu)
+        so = cu.with_suffix(".so")
+        builds[name] = (so, subprocess.Popen(
+            [backend._nvcc(), *backend.NVCC_FLAGS, "-I", str(backend.CSRC),
+             "-o", str(so), str(cu)], stdout=subprocess.PIPE,
+            stderr=subprocess.STDOUT, text=True))
+    _CHAINED["build"] = builds
+
+
+def _chained_lib(name: str) -> ctypes.CDLL:
+    """The chained control's library of ``name`` (one of
+    ``_CHAINED_SOURCES``), its C entries bound as the wrappers bind
+    theirs."""
+    if "lib" not in _CHAINED:
+        if "build" not in _CHAINED:
+            _start_chained_build()
+        libs = {}
+        for src, (so, proc) in _CHAINED.pop("build").items():
+            out, _ = proc.communicate(timeout=600)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on the chained control "
+                                   f"{src}:\n{out}")
+            libs[src] = ctypes.CDLL(str(so))
+        for fn, args in (
+                (libs["gpo_attention_fwd"].gpo_attention_fwd_launch,
+                 _FWD_ARGTYPES),
+                (libs["gpo_attention_bwd"].gpo_attention_bwd_dq_launch,
+                 _DQ_ARGTYPES),
+                (libs["gpo_attention_bwd"].gpo_attention_bwd_dkdv_launch,
+                 _DKDV_ARGTYPES)):
+            fn.argtypes = args
+            fn.restype = ctypes.c_int
+        _CHAINED["lib"] = libs
+    return _CHAINED["lib"][name]
+
+
+def _chained_fwd(q, k, v, nc) -> tuple:
+    """(o, lse) from the chained control, as ``gpo_attention_fwd``;
+    uncounted (no wrapper)."""
+    bh, s, hd = q.shape
+    o = torch.empty_like(q)
+    lse = torch.empty((bh, s), dtype=q.dtype, device=q.device)
+    backend.check(_chained_lib("gpo_attention_fwd").gpo_attention_fwd_launch(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+        lse.data_ptr(), bh, s, nc, hd, backend.stream_ptr(q.device)),
+        "chained forward")
+    return o, lse
 
 
 def _chained_bwd(ops, nc) -> tuple:
     """(dq, dk, dv) from the chained control on ``ops``, as
     ``_attention_bwd``; uncounted (no wrapper)."""
-    if "lib" not in _CHAINED:
-        if "build" not in _CHAINED:
-            _start_chained_build()
-        so, proc = _CHAINED.pop("build")
-        out, _ = proc.communicate(timeout=600)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on the chained control:\n{out}")
-        lib = ctypes.CDLL(str(so))
-        for fn, n_out in ((lib.gpo_attention_bwd_dq_launch, 1),
-                          (lib.gpo_attention_bwd_dkdv_launch, 2)):
-            fn.argtypes = ([ctypes.c_void_p] * (6 + n_out)
-                           + [ctypes.c_int] * 4 + [ctypes.c_void_p])
-            fn.restype = ctypes.c_int
-        _CHAINED["lib"] = lib
-    lib = _CHAINED["lib"]
+    lib = _chained_lib("gpo_attention_bwd")
     q = ops[0]
     bh, s, hd = q.shape
     outs = [torch.empty_like(q) for _ in range(3)]
@@ -657,6 +711,96 @@ def _chained_bwd(ops, nc) -> tuple:
         *ptrs, outs[1].data_ptr(), outs[2].data_ptr(), bh, s, nc, hd,
         stream), "chained dk/dv")
     return tuple(outs)
+
+
+def _gpo_fwd_f64(q, k, v, nc) -> tuple:
+    """(o, lse) of the forward in float64 throughout: ref_gpo_attention
+    rounds its scores and softmax to f32 whatever the input type."""
+    q, k, v = (t.double() for t in (q, k, v))
+    s, hd = q.shape[-2:]
+    pos = torch.arange(s, device=q.device)
+    allowed = (pos[None, :] < nc) | (pos[None, :] == pos[:, None])
+    scores = torch.where(allowed, q @ k.transpose(-1, -2) / hd ** 0.5,
+                         -torch.inf)
+    return torch.softmax(scores, -1) @ v, torch.logsumexp(scores, -1)
+
+
+def _check_attention_fwd(g, dev, worst) -> None:
+    """The forward against the plain version at every attention shape
+    and head width, o and lse within 1e-5, each bit-equal from one call
+    to the next, and bh slice ``BWD_ALONE`` computed alone bit-equal to
+    the same slice of the batch; then o's mean error against the forward
+    in float64 at ``FWD_F64_SHAPES``, beside the plain version's and the
+    chained control's, which must exceed the limit at each of them."""
+    for hd in HEAD_DIMS:
+        for bh, s, nc in ATTN_SHAPES:
+            q, k, v = _attn_inputs(bh, s, g, dev, hd)
+            got = gpo_attention_fwd(q, k, v, num_ctx=nc)
+            again = gpo_attention_fwd(q, k, v, num_ctx=nc)
+            alone = None
+            if bh > BWD_ALONE:
+                one = slice(BWD_ALONE, BWD_ALONE + 1)
+                alone = gpo_attention_fwd(q[one].contiguous(),
+                                          k[one].contiguous(),
+                                          v[one].contiguous(), num_ctx=nc)
+            po, plse = ref_gpo_attention(q, k, v, num_ctx=nc)
+            torch.cuda.synchronize()
+            o, lse = got
+            eo = (o - po).abs().max().item()
+            el = (lse - plse).abs().max().item()
+            repeat = all(torch.equal(a, b) for a, b in zip(got, again))
+            sliced = alone is None or all(
+                torch.equal(a, b[one]) for a, b in zip(alone, got))
+            print(f"  gpo_attention_fwd BH={bh:3d} S={s:4d} num_ctx={nc:3d} "
+                  f"hd={hd}  o max_abs_err={eo:.3e}  lse max_abs_err="
+                  f"{el:.3e}  tol=1e-05; repeat bit-equal {repeat}"
+                  + ("" if alone is None else
+                     f"; bh {BWD_ALONE} alone bit-equal {sliced}"))
+            if not (eo <= 1e-5 and el <= 1e-5 and torch.isfinite(o).all()
+                    and torch.isfinite(lse).all()):
+                raise AssertionError(f"gpo_attention_fwd mismatch at "
+                                     f"{(bh, s, nc, hd)}")
+            if not (repeat and sliced):
+                raise AssertionError(f"gpo_attention_fwd not bit-equal "
+                                     f"between calls at {(bh, s, nc, hd)}")
+            worst["gpo_attention_fwd"] = max(worst["gpo_attention_fwd"], eo,
+                                             el)
+
+    for hd in HEAD_DIMS:
+        for bh, s, nc in FWD_F64_SHAPES:
+            q, k, v = _attn_inputs(bh, s, g, dev, hd)
+            exact = _gpo_fwd_f64(q, k, v, nc)
+            runs = (gpo_attention_fwd(q, k, v, num_ctx=nc),
+                    ref_gpo_attention(q, k, v, num_ctx=nc),
+                    _chained_fwd(q, k, v, nc))
+            torch.cuda.synchronize()
+            # [o, lse] mean |err| of the kernel, the plain version, the
+            # control
+            means = [[(a.double() - b).abs().mean().item()
+                      for a, b in zip(run, exact)] for run in runs]
+            ratios = {name: [m / pm for m, pm in zip(ms, means[1])]
+                      for name, ms in (("kernel", means[0]),
+                                       ("chained", means[2]))}
+            worst["gpo_attention_fwd_f64"][f"hd {hd} {bh}x{s}x{nc}"] = {
+                "kernel": means[0], "plain": means[1], "chained": means[2],
+                "ratios": ratios}
+            print(f"  gpo_attention_fwd against float64 BH={bh} S={s} "
+                  f"num_ctx={nc} hd={hd}: mean |err| o, lse kernel "
+                  f"{[f'{m:.3e}' for m in means[0]]}, plain f32 "
+                  f"{[f'{m:.3e}' for m in means[1]]}, chained control "
+                  f"{[f'{m:.3e}' for m in means[2]]}; ratios to the "
+                  f"plain's kernel {[f'{r:.2f}' for r in ratios['kernel']]}"
+                  f", control {[f'{r:.2f}' for r in ratios['chained']]} "
+                  f"(limit on o {FWD_F64_RATIO}; the control must exceed "
+                  f"it)")
+            if ratios["kernel"][0] > FWD_F64_RATIO:
+                raise AssertionError(f"gpo_attention_fwd drifts from "
+                                     f"float64 at {(bh, s, nc, hd)}: "
+                                     f"{means}")
+            if ratios["chained"][0] <= FWD_F64_RATIO:
+                raise AssertionError(f"the float64 check passes the "
+                                     f"chained forward at "
+                                     f"{(bh, s, nc, hd)}: {means}")
 
 
 def _check_attention_bwd(g, dev, worst) -> None:
@@ -1094,6 +1238,7 @@ def check_kernels(dev) -> dict:
     """Phase 1: every kernel against its plain version on the card."""
     g = _gen(SEED)
     worst = {"int8_matmul": 0.0, "gpo_attention_fwd": 0.0,
+             "gpo_attention_fwd_f64": {},
              "gpo_attention_bwd_dq": 0.0, "gpo_attention_bwd_dkdv": 0.0,
              "gpo_attention_bwd_f64": {}, "fedavg_reduce": 0.0,
              "momentum_reduce": 0.0, "trimmed_reduce": 0.0,
@@ -1131,23 +1276,7 @@ def check_kernels(dev) -> dict:
               f"{'/'.join(map(str, INT8_M_ROWS))} bit-equal: {same}")
         if not same:
             raise AssertionError(f"int8_matmul rows depend on M at {(k, n)}")
-    for hd in HEAD_DIMS:
-        for bh, s, nc in ATTN_SHAPES:
-            q, k, v = _attn_inputs(bh, s, g, dev, hd)
-            o, lse = gpo_attention_fwd(q, k, v, num_ctx=nc)
-            po, plse = ref_gpo_attention(q, k, v, num_ctx=nc)
-            torch.cuda.synchronize()
-            eo = (o - po).abs().max().item()
-            el = (lse - plse).abs().max().item()
-            print(f"  gpo_attention_fwd BH={bh:3d} S={s:4d} num_ctx={nc:3d} "
-                  f"hd={hd}  o max_abs_err={eo:.3e}  lse max_abs_err="
-                  f"{el:.3e}  tol=1e-05")
-            if not (eo <= 1e-5 and el <= 1e-5 and torch.isfinite(o).all()
-                    and torch.isfinite(lse).all()):
-                raise AssertionError(f"gpo_attention_fwd mismatch at "
-                                     f"{(bh, s, nc, hd)}")
-            worst["gpo_attention_fwd"] = max(worst["gpo_attention_fwd"], eo,
-                                             el)
+    _check_attention_fwd(g, dev, worst)
     _check_attention_bwd(g, dev, worst)
     _check_fedavg(g, dev, worst)
     _check_agg_kernels(g, dev, worst)
@@ -2237,6 +2366,19 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
         "synthetic": {"shape": large_shape, **large_times,
                   "bound_ms": large_bound, "bound_by": large_by}})
 
+    # every product runs as three TF32 passes on the tensor cores: the
+    # attention kernels' bounds price them at the TF32 rate; the f32
+    # CUDA-core rate's price is printed beside (both from the data sheet)
+    tf32 = (_TF32_PEAKS[_card_row(card_name)] / 3, peaks[1])
+
+    def attn_bounds(name, nbytes, flops) -> dict:
+        bound, by = _bound_ms(nbytes, flops, tf32)
+        print(f"  {name} bound {bound * 1e3:.3f}us ({by}); its products "
+              f"priced at the data sheet's rates: "
+              f"{flops / tf32[0] * 1e6:.3f}us at the TF32 rate (3 passes), "
+              f"{flops / peaks[0] * 1e6:.3f}us at the f32 rate")
+        return {"bound_ms": bound, "bound_by": by}
+
     # the forward at training's shape, where its launches come from, and
     # at predict's shape (7 held-out groups x 4 heads)
     fwd_rows = []
@@ -2249,10 +2391,23 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
                        lambda: F.scaled_dot_product_attention(
                            q, k, v, attn_mask=mask))
         keys = s_len * nc + (s_len - nc)  # the band: context keys + self
-        bound, by = _bound_ms(4 * bh * (4 * s_len * HEAD_DIM + s_len),
-                              4 * bh * keys * HEAD_DIM, peaks)
+        # q, k, v read, o and lse written once; q.k and p.v a pair
         fwd_rows.append({"shape": [bh, s_len, nc, HEAD_DIM], **times,
-                         "bound_ms": bound, "bound_by": by})
+                         **attn_bounds(f"gpo_attention_fwd BH={bh}",
+                                       4 * bh * (4 * s_len * HEAD_DIM + s_len),
+                                       4 * bh * keys * HEAD_DIM)})
+    # what sets the forward's pace: its device time against the number of
+    # 32-key stages its blocks walk, and one bh alone (a single wave)
+    bh, s_len, nc = ATTN_SHAPES[0]
+    q, k, v = _attn_inputs(bh, s_len, g, dev)
+    fwd_pace = {}
+    for label, pbh, pnc in (("num_ctx 32", bh, 32), (f"num_ctx {nc}", bh, nc),
+                            (f"num_ctx {s_len}", bh, s_len), ("bh 1", 1, nc)):
+        pq, pk, pv = (t[:pbh] for t in (q, k, v))
+        fwd_pace[label] = _time_ms(
+            lambda: gpo_attention_fwd(pq, pk, pv, num_ctx=pnc))[0]
+        print(f"  gpo_attention_fwd pace at BH={pbh} num_ctx={pnc}: "
+              f"{fwd_pace[label] * 1e3:.2f}us")
     train_row, predict_row = fwd_rows
     out.append({
         "name": "gpo_attention_fwd", "route": "cuda",
@@ -2267,7 +2422,8 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
                              "train": train_launches["gpo_attention_fwd"]},
         "launches_per_call": pred_rec["launches"] / pred_rec["calls"],
         "max_abs_err": worst["gpo_attention_fwd"],
-        **train_row,
+        "f64_mean_err": worst["gpo_attention_fwd_f64"],
+        **train_row, "pace": fwd_pace,
         "library_call": "F.scaled_dot_product_attention(q, k, v, "
                         "attn_mask=boolean NP mask)",
         "predict_path": predict_row})
@@ -2337,8 +2493,6 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
               f"{pace[label]['gpo_attention_bwd_dq'] * 1e3:.2f}us  dk/dv "
               f"{pace[label]['gpo_attention_bwd_dkdv'] * 1e3:.2f}us")
     band = s_len * nc + (s_len - nc)  # allowed (query, key) pairs
-    # every product runs as three TF32 passes on the tensor cores
-    tf32 = (_TF32_PEAKS[_card_row(card_name)] / 3, peaks[1])
     for name, kfn, pfn, n_out, per_pair, src_key in (
             ("gpo_attention_bwd_dq", gpo_attention_bwd_dq,
              ref_gpo_attention_bwd_dq, 1, 6, "223"),
@@ -2349,9 +2503,10 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
                        lambda: pfn(*ops, num_ctx=nc), None)
         times["library_ms"], times["eager_ms"]["library"] = sdpa_bwd
         # q, k, v, do, lse and delta read once; each output written once
-        bound, by = _bound_ms(4 * bh * ((4 + n_out) * s_len * HEAD_DIM
-                                        + 2 * s_len),
-                              per_pair * bh * band * HEAD_DIM, tf32)
+        bounds = attn_bounds(name,
+                             4 * bh * ((4 + n_out) * s_len * HEAD_DIM
+                                       + 2 * s_len),
+                             per_pair * bh * band * HEAD_DIM)
         out.append({
             "name": name, "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/gpo_attention_bwd.cu",
@@ -2363,8 +2518,7 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
             "launches_per_round": train_launches[name] / rounds,
             "max_abs_err": worst[name],
             "f64_mean_err": worst["gpo_attention_bwd_f64"],
-            "shape": [bh, s_len, nc, HEAD_DIM], **times, "bound_ms": bound,
-            "bound_by": by,
+            "shape": [bh, s_len, nc, HEAD_DIM], **times, **bounds,
             "pace": {label: t[name] for label, t in pace.items()},
             "library_call": (
                 "SDPA's backward alone, dq, dk and dv together: "

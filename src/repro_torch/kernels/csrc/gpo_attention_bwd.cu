@@ -1,6 +1,7 @@
 // GPO neural-process attention, backward, written by hand for Hopper
 // (sm_90a): one kernel for dq, one for dk and dv, every product on the
-// tensor cores in 3xTF32 (mma_tf32.cuh).
+// tensor cores in 3xTF32 (mma_tf32.cuh), on the tile schedule that the
+// forward shares (gpo_tiles.cuh).
 //
 // Replaces: src/repro/kernels/gpo_attention.py::_gpo_bwd_dq_kernel and
 // ::_gpo_bwd_dkdv_kernel (the two pallas_calls in _gpo_backward).
@@ -64,115 +65,15 @@
 // mma.sync, with 3-4 warps an SM sub-partition: too few to hide the
 // latency of its mma.sync chains and its exp (chip_smoke.py phase 5
 // times both; PERF.md, section 6).
-#include <cmath>
-#include <cstdint>
-#include <initializer_list>
-
-#include "mma_tf32.cuh"
+#include "gpo_tiles.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = 32 * kWarps;
-constexpr int kTile = 16;           // rows a block owns: queries or keys
-constexpr int kStage = 8 * kWarps;  // streamed rows a stage, 8 a warp
-constexpr int kBufs = 4;            // a ring of stages, 3 ahead in flight
 constexpr int kTpr = 4;             // threads a target key, dk/dv
 constexpr int kTargets = kThreads / kTpr;  // target keys a dk/dv block takes
-// shared-memory row pitch in floats: fragment reads hit 32 banks
-__host__ __device__ constexpr int pitch(int hd) { return hd + 4; }
 // after the walk the ring of stages holds the warp partials, dk and dv
 static_assert(2 * kWarps * kTile <= kBufs * 2 * kStage, "partials overflow");
-static_assert(kThreads == 8 * kTile && 2 * kStage <= kThreads,
-              "8 threads an epilogue row; a thread each lse and delta value");
-
-// a 16 x HD tile in shared memory (pitch(HD)) as split A fragments, one
-// per k-step of 8
-template <int HD>
-struct TileA {
-  uint32_t big[HD / 8][4];
-  uint32_t small[HD / 8][4];
-
-  __device__ __forceinline__ void load(const float* tile, int g, int tq) {
-#pragma unroll
-    for (int ks = 0; ks < HD / 8; ++ks) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int r = g + 8 * (e & 1);
-        const int c = 8 * ks + tq + 4 * (e >> 1);
-        split_tf32(tile[r * pitch(HD) + c], big[ks][e], small[ks][e]);
-      }
-    }
-  }
-};
-
-// d (16 x 8) = a (16 x HD) . u^T, u 8 staged rows of HD. A tensor-core
-// sum is coarser than an f32 add (it rounds toward zero), so the small
-// terms share one accumulator, where its error is 2^-11 smaller, and
-// each k-step's big.big starts from zero and is added in f32
-template <int HD>
-__device__ __forceinline__ void mma_abt(float (&d)[4], const TileA<HD>& a,
-                                        const float* u, int g, int tq) {
-  constexpr int P = pitch(HD);
-  float lo[4] = {};
-  d[0] = d[1] = d[2] = d[3] = 0.0f;
-#pragma unroll
-  for (int ks = 0; ks < HD / 8; ++ks) {
-    uint32_t bb[2], bs[2];
-    split_tf32(u[g * P + 8 * ks + tq], bb[0], bs[0]);
-    split_tf32(u[g * P + 8 * ks + tq + 4], bb[1], bs[1]);
-    mma_tf32(lo, a.small[ks], bb[0], bb[1]);
-    mma_tf32(lo, a.big[ks], bs[0], bs[1]);
-    float hi[4] = {};
-    mma_tf32(hi, a.big[ks], bb[0], bb[1]);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) d[e] += hi[e];
-  }
-#pragma unroll
-  for (int e = 0; e < 4; ++e) d[e] += lo[e];
-}
-
-// acc (16 x HD, one accumulator per 8 columns) += c . u, c a 16 x 8
-// accumulator tile over the 8 staged rows u (HD wide): k = tq reads row
-// 2 tq, k = tq + 4 row 2 tq + 1 (a_from_acc). Each product starts from
-// zero and is added to acc in f32 (see mma_abt)
-template <int HD>
-__device__ __forceinline__ void mma_acc_u(float (&acc)[HD / 8][4],
-                                          const float (&c)[4], const float* u,
-                                          int g, int tq) {
-  constexpr int P = pitch(HD);
-  uint32_t ab[4], as[4];
-  a_from_acc(c, ab, as);
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-    uint32_t bb[2], bs[2];
-    split_tf32(u[2 * tq * P + 8 * nt + g], bb[0], bs[0]);
-    split_tf32(u[(2 * tq + 1) * P + 8 * nt + g], bb[1], bs[1]);
-    float t[4] = {};
-    mma_3xtf32(t, ab, as, bb, bs);
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[nt][e] += t[e];
-  }
-}
-
-// rows [r0, r0 + ROWS) of one bh's (S, HD) slab into shared memory at
-// pitch(HD), 16 bytes a copy, zero-filled from row `end` on
-template <int HD, int ROWS>
-__device__ __forceinline__ void stage_rows(float* dst,
-                                           const float* __restrict__ src,
-                                           int r0, int end) {
-  constexpr int kVec = HD / 4;
-#pragma unroll
-  for (int n = 0; n < (ROWS * kVec + kThreads - 1) / kThreads; ++n) {
-    const int i = threadIdx.x + n * kThreads;
-    if (i >= ROWS * kVec) break;
-    const int r = i / kVec;
-    const int c = 4 * (i % kVec);
-    const bool live = r0 + r < end;
-    cp_async16(smem_addr(dst + r * pitch(HD) + c),
-               src + static_cast<size_t>(live ? r0 + r : 0) * HD + c, live);
-  }
-}
+static_assert(2 * kStage <= kThreads, "a thread each lse and delta value");
 
 // rows [r0, r0 + kStage) of one bh's (S,) lse or delta into shared
 // memory, zero-filled from row `end` on; threads [t0, t0 + kStage) copy
@@ -183,33 +84,6 @@ __device__ __forceinline__ void stage_row_values(float* dst,
   if (i < 0 || i >= kStage) return;
   const bool live = r0 + i < end;
   cp_async4(smem_addr(dst + i), src + (live ? r0 + i : 0), live);
-}
-
-// the warp partials (kWarps tiles of 16 x HD at pitch(HD)) of
-// accumulator tiles, written by each warp
-template <int HD>
-__device__ __forceinline__ void store_partial(float* part,
-                                              const float (&acc)[HD / 8][4],
-                                              int w, int g, int tq) {
-  constexpr int P = pitch(HD);
-#pragma unroll
-  for (int nt = 0; nt < HD / 8; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-      part[(w * kTile + g + 8 * (e >> 1)) * P + 8 * nt + 2 * tq + (e & 1)] =
-          acc[nt][e];
-  }
-}
-
-// row r, column c of the tile, summed over the warp partials in warp
-// order
-template <int HD>
-__device__ __forceinline__ float sum_partials(const float* part, int r,
-                                              int c) {
-  float x = 0.0f;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) x += part[(w * kTile + r) * pitch(HD) + c];
-  return x;
 }
 
 // one row's own-key pair (p, ds) on the CUDA cores, TPR neighbouring
@@ -509,17 +383,6 @@ void launch_dkdv(const float* q, const float* k, const float* v,
       <<<bh * (ctx_blocks + tgt_blocks), kThreads, 0, st>>>(
           q, k, v, dout, lse, delta, dk, dv, bh, S, num_ctx, ctx_blocks,
           tgt_blocks, scale);
-}
-
-float softmax_scale(int hd) {
-  return static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
-}
-
-// cp.async copies 16 bytes: every (S, HD) slab must start 16-byte aligned
-bool aligned16(std::initializer_list<const void*> ps) {
-  for (const void* p : ps)
-    if (reinterpret_cast<std::uintptr_t>(p) % 16 != 0) return false;
-  return true;
 }
 
 }  // namespace

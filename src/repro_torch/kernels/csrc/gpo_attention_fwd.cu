@@ -1,139 +1,252 @@
 // GPO neural-process attention, forward, written by hand for Hopper
-// (sm_90a), CUDA cores only.
+// (sm_90a): both products on the tensor cores in 3xTF32 (mma_tf32.cuh),
+// on the backward's tile schedule (gpo_tiles.cuh).
 //
 // Replaces: src/repro/kernels/gpo_attention.py::_gpo_fwd_kernel (the
 // pallas_call in _gpo_forward).
 //
 // Inputs q, k, v (BH, S, HD) f32 contiguous; outputs o (BH, S, HD) and
 // lse (BH, S) f32. Key j is allowed for query i iff j < num_ctx (a
-// context key) or j == i (a target's own key).
+// context key) or j == i (a target's own key). As in the TPU kernel,
+// scores scale by 1/sqrt(HD), the mask value is -1e30 (never -inf), l
+// clamps at 1e-30 and lse = m + log l; the backward reads this lse.
 //
-// Bound on the H100: at the main path's shapes (BH <= 40, S <= 160,
-// HD = 24 or 32) q/k/v are <= 2.5 MB and the band is ~53 MFLOP, both
-// near a microsecond of bytes or f32 CUDA-core work, so a call is bound
-// by its launch and its per-row latency. The simple design: one block
-// per (bh, 64 query rows), one thread per row. The block walks only the
-// context keys [0, num_ctx) in tiles of 32, staged in shared memory, and
-// keeps the online softmax (m, l, the HD-wide accumulator) in registers.
-// After the walk each target row (i >= num_ctx) adds its own key once; a
-// context row's own key is already one of the context keys. No S x S
-// scores and no target x target key are ever touched: the TPU kernel's
-// band as a loop inside the block, independent of grid order.
-#include <cuda_runtime.h>
-
-#include <cmath>
+// One block of four warps per (bh, 16 query rows). The block's q rows
+// (and, if it holds target rows, their own k and v rows) come into
+// shared memory by cp.async with the first stages of the context keys
+// [0, num_ctx): k and v, 32 keys a stage, a ring of four stages with
+// three in flight. Q sits in registers as split A fragments. Each warp
+// takes 8 keys of a stage: S = Q.K^T (16 x 8) on the tensor cores, an
+// online softmax per row over the warp's own keys (a row's 8 scores lie
+// on the 4 lanes of a quad: two shuffles for the max), then acc (16 x
+// HD) rescaled and acc += P.V, p fed to the mma as it lies in the
+// accumulator (a_from_acc). A key past num_ctx in the last stage is
+// zero-filled and a select to p = 0, never exp(-1e30 - m). After the
+// walk the four warps' (m, l, acc) are merged in warp order, each
+// scaled by exp(m_w - m): a warp that saw no key (m_w = -1e30, l_w = 0,
+// acc_w = 0) adds exactly nothing. Then each target row (i >= num_ctx)
+// adds its own key once, one dot product on the CUDA cores; a context
+// row's own key is one of the context keys. No S x S scores and no
+// target x target pair are ever touched. No atomics: every sum runs in a
+// fixed order and a block reads one bh alone, so a result is bit-equal
+// from call to call and does not depend on BH.
+//
+// Precision: the tensor cores' sums round toward zero, so each k-step's
+// big.big of S and each 8-key slice's P.V start from zero and are added
+// in f32 (mma_abt, mma_acc_u), which keeps the error against float64 at
+// the plain f32 version's (chip_smoke.py phase 1 holds it, with a
+// planted control that chains those sums; PERF.md, section 6).
+//
+// Bound on the H100 SXM: at the training shape (BH 40, S 160, num_ctx
+// 80, HD 32) a call moves 3.30 MB (q, k, v read, o and lse written once):
+// 0.99 us at 3.35 TB/s. Its 0.066 GFLOP of products, three TF32 passes
+// each at 495 TFLOP/s dense, take 0.4 us, so the bytes set the bound.
+// Neither sets the pace: as for the backward's dq, a call is one block's
+// chain (the launch, the first copies, a stage of dependent mma.sync and
+// exp per 32 keys, the merge) with at most 3-4 warps an SM
+// sub-partition (chip_smoke.py phase 5's pace sweep).
+#include "gpo_tiles.cuh"
 
 namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's mask value, not -inf
-constexpr int kRows = 64;          // query rows (threads) per block
-constexpr int kKeys = 32;          // context keys per shared-memory tile
 
 template <int HD>
-__global__ void __launch_bounds__(kRows)
+__global__ void __launch_bounds__(kThreads)
 gpo_attention_fwd_kernel(const float* __restrict__ q,
                          const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ o,
                          float* __restrict__ lse, int S, int num_ctx,
                          float scale) {
-  __shared__ float ks[kKeys][HD];
-  __shared__ float vs[kKeys][HD];
+  constexpr int P = pitch(HD);
+  constexpr int kTileF = kTile * P;        // floats of a 16-row tile
+  constexpr int kStageF = 2 * kStage * P;  // floats of a stage: k, v
+  // the block's rows of q, k and v; then the ring of stages, which holds
+  // the warp partials (acc, then m and l) after the walk
+  __shared__ __align__(16) float sm[3 * kTileF + kBufs * kStageF];
+  static_assert(kWarps * kTileF + 2 * kWarps * kTile <= kBufs * kStageF,
+                "partials overflow");
+  float* const qs = sm;
+  float* const kd = sm + kTileF;
+  float* const vd = sm + 2 * kTileF;
+  float* const ring = sm + 3 * kTileF;
+
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const int g = lane >> 2;
+  const int tq = lane & 3;
   const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
-  const int row = blockIdx.x * kRows + threadIdx.x;
-  const bool live = row < S;  // dead threads still join every barrier
+  const int r0 = blockIdx.x * kTile;
+  const bool has_target = r0 + kTile > num_ctx;  // uniform in the block
 
-  float qr[HD];
-  float acc[HD];
-#pragma unroll
-  for (int d = 0; d < HD; ++d) {
-    qr[d] = live ? q[base + static_cast<size_t>(row) * HD + d] : 0.0f;
-    acc[d] = 0.0f;
+  // group 0: the block's tiles and stage 0; then stages 1 .. kBufs - 2,
+  // one group each (empty past the last stage)
+  stage_rows<HD, kTile>(qs, q + base, r0, S);
+  if (has_target) {
+    stage_rows<HD, kTile>(kd, k + base, r0, S);
+    stage_rows<HD, kTile>(vd, v + base, r0, S);
   }
-  float m = kNegInf;
-  float l = 0.0f;
+  auto stage = [&](int st) {
+    float* buf = ring + (st % kBufs) * kStageF;
+    stage_rows<HD, kStage>(buf, k + base, st * kStage, num_ctx);
+    stage_rows<HD, kStage>(buf + kStage * P, v + base, st * kStage, num_ctx);
+  };
+  const int stages = (num_ctx + kStage - 1) / kStage;
+#pragma unroll
+  for (int st = 0; st < kBufs - 1; ++st) {
+    if (st < stages) stage(st);
+    cp_async_commit();
+  }
+  cp_async_wait<kBufs - 2>();
+  __syncthreads();
 
-  for (int k0 = 0; k0 < num_ctx; k0 += kKeys) {
-    const int n = min(kKeys, num_ctx - k0);  // >= 1 real keys in the tile
-    for (int i = threadIdx.x; i < kKeys * HD; i += kRows) {
-      const int j = i / HD;
-      const int d = i % HD;
-      const size_t g = base + static_cast<size_t>(k0 + j) * HD + d;
-      ks[j][d] = j < n ? k[g] : 0.0f;
-      vs[j][d] = j < n ? v[g] : 0.0f;
+  TileA<HD> qa;
+  qa.load(qs, g, tq);
+  float acc[HD / 8][4] = {};
+  // rows g and g + 8: the running max (the same on the 4 lanes of a
+  // quad) and this lane's share of the running sum
+  float m[2] = {kNegInf, kNegInf};
+  float l[2] = {0.0f, 0.0f};
+  for (int st = 0; st < stages; ++st) {
+    if (st > 0) {
+      cp_async_wait<kBufs - 2>();
+      __syncthreads();  // stage st landed; stage st - 1's buffer is free
     }
-    __syncthreads();
-    float s[kKeys];
-    float tile_max = kNegInf;
+    if (st + kBufs - 1 < stages) stage(st + kBufs - 1);
+    cp_async_commit();
+    const int j0 = st * kStage + 8 * w;  // this warp's 8 keys
+    if (j0 < num_ctx) {
+      const float* ku = ring + (st % kBufs) * kStageF + 8 * w * P;
+      const float* vu = ku + kStage * P;
+      float s[4], p[4];
+      mma_abt<HD>(s, qa, ku, g, tq);
+      bool on[4];
+      float mx[2] = {m[0], m[1]};
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      float dot = 0.0f;
+      for (int e = 0; e < 4; ++e) {
+        on[e] = j0 + 2 * tq + (e & 1) < num_ctx;
+        s[e] *= scale;
+        if (on[e]) mx[e >> 1] = fmaxf(mx[e >> 1], s[e]);
+      }
+      float alpha[2];
 #pragma unroll
-      for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      s[j] = j < n ? dot * scale : kNegInf;
-      tile_max = fmaxf(tile_max, s[j]);
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = expf(m[h] - mx[h]);  // 0 while m is the mask value
+        m[h] = mx[h];
+        l[h] *= alpha[h];
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        p[e] = on[e] ? expf(s[e] - m[e >> 1]) : 0.0f;
+        l[e >> 1] += p[e];
+      }
+#pragma unroll
+      for (int nt = 0; nt < HD / 8; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
+      }
+      mma_acc_u<HD>(acc, p, vu, g, tq);
     }
-    const float m_new = fmaxf(m, tile_max);
-    const float alpha = expf(m - m_new);
-    l *= alpha;
+  }
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] *= alpha;
+  for (int h = 0; h < 2; ++h) {
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
+    l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  float* const ms = ring + kWarps * kTileF;  // kWarps x 16 maxima
+  float* const ls = ms + kWarps * kTile;     // kWarps x 16 sums
+  store_partial<HD>(ring, acc, w, g, tq);
+  if (tq == 0) {
 #pragma unroll
-    for (int j = 0; j < kKeys; ++j) {
-      const float p = expf(s[j] - m_new);  // 0 for the masked tail
-      l += p;
-#pragma unroll
-      for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+    for (int h = 0; h < 2; ++h) {
+      ms[w * kTile + g + 8 * h] = m[h];
+      ls[w * kTile + g + 8 * h] = l[h];
     }
-    m = m_new;
-    __syncthreads();
+  }
+  __syncthreads();
+
+  // the warps in warp order, each scaled by exp(m_w - m_row), 8 threads
+  // a row over HD / 8 columns each
+  const int r = threadIdx.x >> 3;
+  const int row = r0 + r;
+  const int c0 = (threadIdx.x & 7) * (HD / 8);
+  float mr = kNegInf;
+#pragma unroll
+  for (int ww = 0; ww < kWarps; ++ww) mr = fmaxf(mr, ms[ww * kTile + r]);
+  float lr = 0.0f;
+  float x[HD / 8] = {};
+#pragma unroll
+  for (int ww = 0; ww < kWarps; ++ww) {
+    const float a = expf(ms[ww * kTile + r] - mr);
+    lr = fmaf(a, ls[ww * kTile + r], lr);
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c)
+      x[c] = fmaf(a, ring[(ww * kTile + r) * P + c0 + c], x[c]);
   }
 
-  if (live && row >= num_ctx) {  // a target row: its own key, once
-    const float* kr = k + base + static_cast<size_t>(row) * HD;
-    const float* vr = v + base + static_cast<size_t>(row) * HD;
-    float dot = 0.0f;
+  // a target row's own key: q_i . k_i over the row's 8 threads (every
+  // lane of the warp joins the shuffles)
+  const int t = r * P + c0;
+  float s_own = 0.0f;
+  if (has_target) {
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dot = fmaf(qr[d], kr[d], dot);
-    const float sv = dot * scale;
-    const float m_new = fmaxf(m, sv);
-    const float alpha = expf(m - m_new);
-    const float p = expf(sv - m_new);
-    l = l * alpha + p;
+    for (int c = 0; c < HD / 8; ++c) s_own = fmaf(qs[t + c], kd[t + c], s_own);
 #pragma unroll
-    for (int d = 0; d < HD; ++d) acc[d] = fmaf(p, vr[d], acc[d] * alpha);
-    m = m_new;
+    for (int msk = 4; msk > 0; msk >>= 1)
+      s_own += __shfl_xor_sync(0xffffffffu, s_own, msk);
+    s_own *= scale;
   }
+  if (row >= S) return;
+  if (row >= num_ctx) {
+    const float m_new = fmaxf(mr, s_own);
+    const float alpha = expf(mr - m_new);
+    const float p = expf(s_own - m_new);
+    lr = fmaf(lr, alpha, p);
+#pragma unroll
+    for (int c = 0; c < HD / 8; ++c) x[c] = fmaf(p, vd[t + c], x[c] * alpha);
+    mr = m_new;
+  }
+  const float lc = fmaxf(lr, 1e-30f);
+  const size_t off = base + static_cast<size_t>(row) * HD + c0;
+#pragma unroll
+  for (int c = 0; c < HD / 8; ++c) o[off + c] = x[c] / lc;
+  if ((threadIdx.x & 7) == 0)
+    lse[static_cast<size_t>(blockIdx.y) * S + row] = mr + logf(lc);
+}
 
-  if (live) {
-    const float lc = fmaxf(l, 1e-30f);
-#pragma unroll
-    for (int d = 0; d < HD; ++d)
-      o[base + static_cast<size_t>(row) * HD + d] = acc[d] / lc;
-    lse[static_cast<size_t>(blockIdx.y) * S + row] = m + logf(lc);
-  }
+template <int HD>
+void launch_fwd(const float* q, const float* k, const float* v, float* o,
+                float* lse, int bh, int S, int num_ctx, float scale,
+                cudaStream_t st) {
+  const dim3 grid((S + kTile - 1) / kTile, bh);
+  gpo_attention_fwd_kernel<HD><<<grid, kThreads, 0, st>>>(q, k, v, o, lse, S,
+                                                          num_ctx, scale);
 }
 
 }  // namespace
 
 // C entry, bound with ctypes. Launches on `stream` (PyTorch's current
 // stream), allocates nothing, does not synchronise; returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a head width that is
-// not instantiated here.
+// cudaGetLastError(), cudaErrorInvalidValue for a head width that is not
+// instantiated here, or cudaErrorMisalignedAddress for a q, k or v that
+// does not start 16-byte aligned.
 extern "C" int gpo_attention_fwd_launch(const float* q, const float* k,
                                         const float* v, float* o, float* lse,
                                         int bh, int S, int num_ctx, int hd,
                                         void* stream) {
-  const dim3 grid((S + kRows - 1) / kRows, bh);
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(hd)));
+  if (!aligned16({q, k, v})) return static_cast<int>(cudaErrorMisalignedAddress);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float scale = softmax_scale(hd);
   switch (hd) {
     case 24:
-      gpo_attention_fwd_kernel<24><<<grid, kRows, 0, st>>>(q, k, v, o, lse, S,
-                                                            num_ctx, scale);
+      launch_fwd<24>(q, k, v, o, lse, bh, S, num_ctx, scale, st);
       break;
     case 32:
-      gpo_attention_fwd_kernel<32><<<grid, kRows, 0, st>>>(q, k, v, o, lse, S,
-                                                            num_ctx, scale);
+      launch_fwd<32>(q, k, v, o, lse, bh, S, num_ctx, scale, st);
       break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,7 @@
 // Tensor-core building blocks for f32 kernels at about f32 accuracy
 // (sm_90a): the TF32 split and mma.sync m16n8k8 tf32 -> f32 in 3xTF32.
 // The cp.async helpers come from mma_bf16.cuh. Used by the GPO
-// attention backward (gpo_attention_bwd.cu).
+// attention forward and backward (gpo_tiles.cuh).
 //
 // 3xTF32: an f32 operand x becomes big = tf32(x) (round to nearest on
 // the 13 dropped mantissa bits, ties away from zero, as cvt.rna) and

@@ -7,25 +7,29 @@ tokens; target tokens attend to the context tokens and to themselves,
 never to other targets.
 
 Forward kernel (replaces ``repro/kernels/gpo_attention.py::
-_gpo_fwd_kernel``): one block per (batch·head, 64 query rows), one
-thread per query row. The block walks only the context keys
-``[0, num_ctx)``, 32 at a time, staged in shared memory, keeping the
-online-softmax state (running max m, sum l, the hd-wide accumulator) in
-registers; after the walk each target row adds its own key once. That
-is the TPU kernel's band (context tiles plus the diagonal) as a loop
-inside the block: no S×S score tensor and no target×target key is ever
-touched. Scores scale by 1/√hd, ``l`` clamps at 1e-30 and
+_gpo_fwd_kernel``): a block of four warps per (batch·head, 16 query
+rows) streams only the context keys ``[0, num_ctx)`` through shared
+memory (``cp.async``, 32 keys a stage, a ring of four stages), each warp
+8 keys of a stage: S = Q·Kᵀ and acc += P·V on the tensor cores in
+3xTF32, with an online softmax (running max m and sum l) per row over
+the warp's own keys. The four warps' (m, l, acc) are merged in warp
+order, then each target row adds its own key once on the CUDA cores.
+That is the TPU kernel's band (context tiles plus the diagonal): no S×S
+score tensor and no target×target key is ever touched. Scores scale by
+1/√hd, the mask value is −1e30, ``l`` clamps at 1e-30 and
 ``lse = m + log l``, as in the TPU kernel; the backward reuses lse.
 
 Backward kernels (replace ``_gpo_bwd_dq_kernel`` and
 ``_gpo_bwd_dkdv_kernel``): ``delta = rowsum(do·o)`` is computed in plain
 PyTorch, as the reference computes it outside any Pallas kernel; then
 two launches recompute p = exp(s − lse) from q and k. Every product
-(q·kᵀ, do·vᵀ, ds·k, dsᵀ·q, pᵀ·do) runs on the tensor cores as
-``mma.sync`` m16n8k8 TF32 in 3xTF32: each f32 operand is split into
+(q·kᵀ, do·vᵀ, ds·k, dsᵀ·q, pᵀ·do), as the forward's, runs on the tensor
+cores as ``mma.sync`` m16n8k8 TF32 in 3xTF32 (``csrc/gpo_tiles.cuh``
+holds the schedule both directions share): each f32 operand is split into
 big + small TF32 values and three products are summed, in short chains
 whose results are added in f32, which keeps the plain f32 version's
 accuracy (one TF32 pass would not; see
+``tests/test_torch_gpo_fwd_numerics.py`` and
 ``tests/test_torch_gpo_bwd_numerics.py``). dq: a block of four warps
 per (batch·head, 16 query rows) streams the context keys through
 shared memory (``cp.async``, a ring of four stages, three in flight),
@@ -38,13 +42,15 @@ launch. No atomics: a result is bit-equal from call to call and does
 not depend on the batch.
 
 What bounds them on the H100: at the training shapes (BH = 10 clients ×
-4 heads = 40, S = 160, num_ctx = 80, hd = 32) the bound is 1.24 µs (dq)
-and 1.48 µs (dk/dv), set by the bytes (the three TF32 passes of their
-products take 0.6 and 0.8 µs at the dense TF32 rate). Neither sets the
-pace: a call takes one block's latency (its stages in a row, each a
-chain of dependent ``mma.sync`` and an exp) plus the instruction issue
-of the TF32 splits, with 3–4 warps an SM sub-partition (``PERF.md``
-§6).
+4 heads = 40, S = 160, num_ctx = 80, hd = 32) the bound is 0.99 µs
+(forward), 1.24 µs (dq) and 1.48 µs (dk/dv), set by the bytes (the
+three TF32 passes of their products take 0.4, 0.6 and 0.8 µs at the
+dense TF32 rate). None sets the pace: a call takes one block's latency
+(its stages in a row, each a chain of dependent ``mma.sync`` and an
+exp) plus the instruction issue of the TF32 splits, with 3–4 warps an
+SM sub-partition (``PERF.md`` §6). A q, k, v or do whose start lies
+off a 16-byte step of its storage is refused on both devices
+(``cp.async``).
 """
 from __future__ import annotations
 
@@ -83,6 +89,18 @@ def _check_head_dim(hd: int) -> None:
                          f"{HEAD_DIMS}, got {hd}")
 
 
+def _check_aligned(what: str, **operands: torch.Tensor) -> None:
+    """The kernels copy (S, hd) slabs 16 bytes at a time (cp.async); both
+    allocators align a storage's start further, so a view that starts a
+    whole number of 4 floats into its storage is aligned. Checked on
+    both devices, so the CPU tests see what the card would refuse."""
+    for name, t in operands.items():
+        if t.storage_offset() % 4:
+            raise ValueError(f"{what}: {name} starts {t.storage_offset()} "
+                             "floats into its storage; the kernels need "
+                             "a multiple of 4 (16-byte aligned)")
+
+
 def gpo_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       num_ctx: int):
     """q/k/v (BH, S, hd) f32 -> (o (BH, S, hd), lse (BH, S) f32). CPU
@@ -91,7 +109,9 @@ def gpo_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``GPOAttention`` (``ops.gpo_attention``)."""
     _check_shapes(q, k, v, num_ctx)
     bh, s, hd = q.shape
-    if backend.on_cpu("gpo_attention", q, k, v, dtypes=(_F32,) * 3):
+    cpu = backend.on_cpu("gpo_attention", q, k, v, dtypes=(_F32,) * 3)
+    _check_aligned("gpo_attention_fwd", q=q, k=k, v=v)
+    if cpu:
         return ref_gpo_attention(q, k, v, num_ctx=num_ctx)
     _check_head_dim(hd)
     fn = backend.kernel("gpo_attention_fwd", "gpo_attention_fwd_launch",
@@ -115,14 +135,7 @@ def _bwd_operands(what, q, k, v, do, lse, delta, num_ctx) -> bool:
         raise ValueError(f"{what}: lse {tuple(lse.shape)} and delta "
                          f"{tuple(delta.shape)} must be {tuple(q.shape[:2])}")
     cpu = backend.on_cpu(what, q, k, v, do, lse, delta, dtypes=(_F32,) * 6)
-    # the kernels copy (S, hd) slabs 16 bytes at a time (cp.async); both
-    # allocators align a storage's start further, so a view that starts
-    # a whole number of 4 floats into its storage is aligned
-    for name, t in zip(("q", "k", "v", "do"), (q, k, v, do)):
-        if t.storage_offset() % 4:
-            raise ValueError(f"{what}: {name} starts {t.storage_offset()} "
-                             "floats into its storage; the kernels need "
-                             "a multiple of 4 (16-byte aligned)")
+    _check_aligned(what, q=q, k=k, v=v, do=do)
     return cpu
 
 

@@ -148,6 +148,27 @@ def test_gpo_attention_batch_axis_matches_per_group_jax():
                                    atol=ATOL)
 
 
+@pytest.mark.parametrize("name", ["q", "k", "v"])
+def test_gpo_attention_fwd_refuses_a_view_the_kernel_cannot_copy(name):
+    """The forward kernel copies 16 bytes at a time (cp.async): a
+    contiguous view that starts 2 floats into its storage is refused by
+    name on the CPU, as on the card, before any launch; 4 floats in
+    takes the plain version."""
+    a = torch.ones((2, 10, 32))
+    for off in (2, 4):
+        view = torch.as_strided(torch.ones(a.numel() + off), a.shape,
+                                a.stride(), off)
+        assert view.is_contiguous() and view.storage_offset() == off
+        ops = {"q": a, "k": a, "v": a, name: view}
+        if off == 2:
+            with pytest.raises(ValueError, match=f"{name} starts 2 floats"):
+                ga.gpo_attention_fwd(**ops, num_ctx=4)
+        else:
+            o, lse = ga.gpo_attention_fwd(**ops, num_ctx=4)
+            ro, rl = ref_gpo_attention(a, a, a, num_ctx=4)
+            assert torch.equal(o, ro) and torch.equal(lse, rl)
+
+
 def test_gpo_attention_bad_num_ctx_raises():
     x = torch.zeros((2, 10, 8))
     with pytest.raises(ValueError):
