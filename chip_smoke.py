@@ -21,9 +21,14 @@ the card, raising on any mismatch:
    the ``GPOAttention`` Function's gradients, and
    the aggregation kernels: the FedAvg reduce, the FedAvgM momentum
    reduce, the rank-trimmed reduce (ties included), the Krum pairwise
-   distances, the DP clip reduce (with and without noise), the fused int8
-   quant-clip reduce (every operand combination of the reference's
-   tests) and the top-k reduce (zero and tied rows); and the LM
+   distances (exactly symmetric, and their mean error against float64
+   within ``PAIRWISE_F64_RATIO`` of the f32 expansion form's, which a
+   planted control rebuilt with one TF32 pass must exceed), the DP clip
+   reduce (with and without noise), the fused int8 quant-clip reduce
+   (every operand combination of the reference's tests, the design that
+   ran printed: on chip at the quickstart's shape, three passes at
+   ``QUANT_THREE_PASS_SHAPE``) and the top-k reduce (zero and tied
+   rows); and the LM
    backbones' flash-attention forward (the reference's sweeps of S,
    GQA, windows and softcap, non-causal at ragged S, qwen2's 14/2
    heads; head_dim 128 too, up to qwen3-32b's 64/8 heads at S 1024,
@@ -64,8 +69,8 @@ the card, raising on any mismatch:
    plain-aggregation card run (the same device generator draws the
    noise and the uniforms), two of them against a CPU run that replays
    draws made once on the CPU, and the cumulative ε against the port's
-   accountant; one round each of dp_int8_ef and topk_ef under the
-   profiler.
+   accountant; one round each of dp_int8_ef (which must run the on-chip
+   quant kernel and no three-pass one) and topk_ef under the profiler.
    4d. LM serving: ``serve_lm``'s path (``make_prefill_step``, then
    ``greedy_decode``) for qwen2-0.5b and mamba2-780m at full width and
    depth in bf16, random weights from the seed, batch 4, prompt 2048,
@@ -162,6 +167,8 @@ from repro_torch.data import (  # noqa: E402
 )
 from repro_torch.kernels import backend, quantize_linear  # noqa: E402
 from repro_torch.kernels.agg_reduce import (  # noqa: E402
+    _PAIRWISE_ARGTYPES,
+    PAIRWISE_CHUNK,
     clip_reduce_flat,
     fedavg_reduce_flat,
     momentum_reduce_flat,
@@ -280,6 +287,36 @@ _CHAINED_EDITS = (
     for (int e = 0; e < 4; ++e) acc[nt][e] += t[e];
 """, """    mma_3xtf32(acc[nt], ab, as, bb, bs);
 """))
+# Krum's pairwise distances at the quickstart's (C, P): the kernel's mean
+# |error| against the distances in float64 at most this many times the
+# f32 expansion form's in plain PyTorch (TF32 off). A planted control,
+# the source rebuilt with one TF32 pass (big.big alone, _ONE_PASS_EDITS),
+# must exceed it; the per-value 3xTF32 split (_SPLIT_3X_EDITS), whose
+# k-step sums of a row's squares the tensor cores round toward zero, is
+# read beside it
+PAIRWISE_F64_RATIO = 1.5
+PAIRWISE_F64_SHAPE = (10, 534016)
+_ONE_PASS_EDITS = (
+    ("""        mma_tf32(l, as, big[n][kk][0], big[n][kk][1]);
+        mma_tf32(l, as, half[n][kk][0], half[n][kk][1]);
+""", ""),)
+_SPLIT_3X_EDITS = (
+    ("""      const float b = __fmul_rn(rintf(__fmul_rn(v[k][e], inv)), step);
+      const float sm = __fsub_rn(v[k][e], b);
+""", """      uint32_t bb, ss;
+      split_tf32(v[k][e], bb, ss);
+      const float b = __uint_as_float(bb), sm = __uint_as_float(ss);
+"""),
+    ("""          mma_tf32(hi, ab, big[n][kk][0], big[n][kk][1]);
+        }
+        mma_tf32(l, as, big[n][kk][0], big[n][kk][1]);
+        mma_tf32(l, as, half[n][kk][0], half[n][kk][1]);
+""", """          float t3[4] = {};
+          mma_3xtf32(t3, ab, as, big[n][kk], small[n][kk]);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) hi[e] = __fadd_rn(hi[e], t3[e]);
+        }
+"""))
 HEAD_DIM = 32
 HEAD_DIMS = (32, 24)  # GPOConfig() and benchmarks/paper_experiment.py
 # (C, P): the quickstart's 10 clients x 534,016 GPOConfig() params, then
@@ -288,6 +325,9 @@ FEDAVG_SHAPES = [(10, 534016), (3, 2049), (1, 7)]
 # the other aggregation kernels: the quickstart's shape, ragged P, and
 # the kernels' cap of 32 clients (bench_round.py's aggregation section)
 AGG_SHAPES = [(10, 534016), (3, 2049), (1, 7), (32, 5001)]
+# the quant reduce also above its on-chip capacity (48 clients' u is
+# 103 MB), where the three-pass design runs
+QUANT_THREE_PASS_SHAPE = (48, 534016)
 # the registry's strategies on the training path: AGG_SWEEP of
 # benchmarks/bench_round.py:217-228 (its hyperparameters), krum and
 # multi_krum with f = 3 and m = 3 as in BENCH_byz.json, geomedian,
@@ -625,62 +665,66 @@ def _attention_bwd(ops, nc) -> tuple:
             *gpo_attention_bwd_dkdv(*ops, num_ctx=nc))
 
 
-_CHAINED = {}  # the planted control's nvcc processes, then its libraries
-_CHAINED_SOURCES = ("gpo_attention_fwd", "gpo_attention_bwd")
+# planted controls and readings, each built from a copy of the sources
+# under build/<name> with text edits applied: name -> (the sources it
+# builds, {edited file: edits}); the other headers come from csrc on the
+# include path, which a quoted include searches after the copy's folder
+_CONTROLS = {
+    "chained": (("gpo_attention_fwd", "gpo_attention_bwd"),
+                {"gpo_tiles.cuh": _CHAINED_EDITS}),
+    "pairwise_one_pass": (("pairwise_dists",),
+                          {"pairwise_dists.cu": _ONE_PASS_EDITS}),
+    "pairwise_3xtf32": (("pairwise_dists",),
+                        {"pairwise_dists.cu": _SPLIT_3X_EDITS}),
+}
+_BUILDS = {}  # control -> {source: (library, nvcc process)}
+_CONTROL_LIBS = {}  # (control, source) -> the loaded library
 
 
-def _start_chained_build() -> None:
-    """Start nvcc on the chained control under ``build/chained``, beside
-    the kernels' build: the forward and backward sources copied there
-    beside ``gpo_tiles.cuh`` with ``_CHAINED_EDITS`` applied, which
-    their quoted include finds first; the other headers come from
-    ``csrc`` on the include path."""
-    hdr = (backend.CSRC / "gpo_tiles.cuh").read_text()
-    for old, new in _CHAINED_EDITS:
-        if hdr.count(old) != 1:
-            raise AssertionError("the chained control's edit no longer "
-                                 "matches gpo_tiles.cuh")
-        hdr = hdr.replace(old, new)
-    out = backend.BUILD_DIR / "chained"
-    out.mkdir(parents=True, exist_ok=True)
-    (out / "gpo_tiles.cuh").write_text(hdr)
-    builds = {}
-    for name in _CHAINED_SOURCES:
-        cu = out / f"{name}.cu"
-        shutil.copy(backend.CSRC / cu.name, cu)
-        so = cu.with_suffix(".so")
-        builds[name] = (so, subprocess.Popen(
-            [backend._nvcc(), *backend.NVCC_FLAGS, "-I", str(backend.CSRC),
-             "-o", str(so), str(cu)], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True))
-    _CHAINED["build"] = builds
+def _start_control_builds() -> None:
+    """Start nvcc on every control of ``_CONTROLS``, beside the kernels'
+    build."""
+    for ctl, (sources, edits) in _CONTROLS.items():
+        out = backend.BUILD_DIR / ctl
+        out.mkdir(parents=True, exist_ok=True)
+        for fname, pairs in edits.items():
+            text = (backend.CSRC / fname).read_text()
+            for old, new in pairs:
+                if text.count(old) != 1:
+                    raise AssertionError(f"the {ctl} control's edit no "
+                                         f"longer matches {fname}")
+                text = text.replace(old, new)
+            (out / fname).write_text(text)
+        builds = {}
+        for name in sources:
+            cu = out / f"{name}.cu"
+            if cu.name not in edits:
+                shutil.copy(backend.CSRC / cu.name, cu)
+            so = cu.with_suffix(".so")
+            builds[name] = (so, subprocess.Popen(
+                [backend._nvcc(), *backend.NVCC_FLAGS, "-I",
+                 str(backend.CSRC), "-o", str(so), str(cu)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        _BUILDS[ctl] = builds
 
 
-def _chained_lib(name: str) -> ctypes.CDLL:
-    """The chained control's library of ``name`` (one of
-    ``_CHAINED_SOURCES``), its C entries bound as the wrappers bind
-    theirs."""
-    if "lib" not in _CHAINED:
-        if "build" not in _CHAINED:
-            _start_chained_build()
-        libs = {}
-        for src, (so, proc) in _CHAINED.pop("build").items():
-            out, _ = proc.communicate(timeout=600)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on the chained control "
-                                   f"{src}:\n{out}")
-            libs[src] = ctypes.CDLL(str(so))
-        for fn, args in (
-                (libs["gpo_attention_fwd"].gpo_attention_fwd_launch,
-                 _FWD_ARGTYPES),
-                (libs["gpo_attention_bwd"].gpo_attention_bwd_dq_launch,
-                 _DQ_ARGTYPES),
-                (libs["gpo_attention_bwd"].gpo_attention_bwd_dkdv_launch,
-                 _DKDV_ARGTYPES)):
-            fn.argtypes = args
-            fn.restype = ctypes.c_int
-        _CHAINED["lib"] = libs
-    return _CHAINED["lib"][name]
+def _control_fn(ctl: str, name: str, symbol: str, argtypes):
+    """The C entry ``symbol`` of control ``ctl``'s build of ``name``,
+    bound as the wrappers bind theirs."""
+    key = (ctl, name)
+    if key not in _CONTROL_LIBS:
+        if ctl not in _BUILDS:
+            _start_control_builds()
+        so, proc = _BUILDS[ctl][name]
+        out, _ = proc.communicate(timeout=600)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on the {ctl} control "
+                               f"{name}:\n{out}")
+        _CONTROL_LIBS[key] = ctypes.CDLL(str(so))
+    fn = getattr(_CONTROL_LIBS[key], symbol)
+    fn.argtypes = argtypes
+    fn.restype = ctypes.c_int
+    return fn
 
 
 def _chained_fwd(q, k, v, nc) -> tuple:
@@ -689,7 +733,9 @@ def _chained_fwd(q, k, v, nc) -> tuple:
     bh, s, hd = q.shape
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=q.dtype, device=q.device)
-    backend.check(_chained_lib("gpo_attention_fwd").gpo_attention_fwd_launch(
+    backend.check(_control_fn(
+        "chained", "gpo_attention_fwd", "gpo_attention_fwd_launch",
+        _FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         lse.data_ptr(), bh, s, nc, hd, backend.stream_ptr(q.device)),
         "chained forward")
@@ -699,15 +745,18 @@ def _chained_fwd(q, k, v, nc) -> tuple:
 def _chained_bwd(ops, nc) -> tuple:
     """(dq, dk, dv) from the chained control on ``ops``, as
     ``_attention_bwd``; uncounted (no wrapper)."""
-    lib = _chained_lib("gpo_attention_bwd")
     q = ops[0]
     bh, s, hd = q.shape
     outs = [torch.empty_like(q) for _ in range(3)]
     ptrs = [t.data_ptr() for t in ops]
     stream = backend.stream_ptr(q.device)
-    backend.check(lib.gpo_attention_bwd_dq_launch(
+    backend.check(_control_fn(
+        "chained", "gpo_attention_bwd", "gpo_attention_bwd_dq_launch",
+        _DQ_ARGTYPES)(
         *ptrs, outs[0].data_ptr(), bh, s, nc, hd, stream), "chained dq")
-    backend.check(lib.gpo_attention_bwd_dkdv_launch(
+    backend.check(_control_fn(
+        "chained", "gpo_attention_bwd", "gpo_attention_bwd_dkdv_launch",
+        _DKDV_ARGTYPES)(
         *ptrs, outs[1].data_ptr(), outs[2].data_ptr(), bh, s, nc, hd,
         stream), "chained dk/dv")
     return tuple(outs)
@@ -976,13 +1025,65 @@ def _check_agg_kernels(g, dev, worst) -> None:
         err = (out - plain).abs().max().item()
         same = torch.equal(out, again)
         exact_diag = bool((torch.diagonal(out) == 0).all())
+        symmetric = torch.equal(out, out.T)
         print(f"  pairwise_dists C={c:2d} P={p:7d}  max_abs_err={err:.3e}  "
               f"tol={atol:.3e} (1e-5*max|x_i|^2)  zero diagonal: "
-              f"{exact_diag}  repeat bit-equal: {same}")
-        if not (err <= atol and same and exact_diag
+              f"{exact_diag}  symmetric: {symmetric}  repeat bit-equal: "
+              f"{same}")
+        if not (err <= atol and same and exact_diag and symmetric
                 and torch.isfinite(out).all()):
             raise AssertionError(f"pairwise_dists mismatch at {(c, p)}")
         worst["pairwise_dists"] = max(worst["pairwise_dists"], err)
+
+
+def _pairwise_control(ctl: str, x) -> torch.Tensor:
+    """The pairwise distances from control ``ctl``'s build of the kernel
+    (``_CONTROLS``); uncounted (no wrapper)."""
+    c, p = x.shape
+    nb = -(-p // PAIRWISE_CHUNK)
+    part = torch.empty((nb, c, c), dtype=torch.float64, device=x.device)
+    out = torch.empty((c, c), dtype=torch.float32, device=x.device)
+    backend.check(_control_fn(ctl, "pairwise_dists", "pairwise_dists_launch",
+                              _PAIRWISE_ARGTYPES)(
+        x.data_ptr(), part.data_ptr(), out.data_ptr(), c, p, nb,
+        backend.stream_ptr(x.device)), ctl)
+    return out
+
+
+def _check_pairwise_f64(g, dev, worst) -> None:
+    """The pairwise kernel's mean |error| off the diagonal against the
+    distances in float64, at most ``PAIRWISE_F64_RATIO`` times the f32
+    expansion form's in plain PyTorch; the one-pass control must exceed
+    that limit, and the per-value 3xTF32 split is read beside it."""
+    c, p = PAIRWISE_F64_SHAPE
+    x, _ = _agg_inputs(c, p, g, dev)
+    xd = x.double()
+    sq = (xd * xd).sum(dim=1)
+    want = (sq[:, None] + sq[None, :] - 2.0 * (xd @ xd.T)).clamp_min(0.0)
+    sq32 = (x * x).sum(dim=1)
+    plain = sq32[:, None] + sq32[None, :] - 2.0 * (x @ x.T)
+    off = ~torch.eye(c, dtype=torch.bool, device=dev)
+
+    def mean_err(d):
+        return (d.double() - want).abs()[off].mean().item()
+
+    base = mean_err(plain)
+    ratios = {"kernel": mean_err(pairwise_dists_flat(x)) / base}
+    for ctl in ("pairwise_one_pass", "pairwise_3xtf32"):
+        ratios[ctl] = mean_err(_pairwise_control(ctl, x)) / base
+    torch.cuda.synchronize()
+    worst["pairwise_dists_f64"] = {"plain_mean_abs_err": base, **ratios}
+    print(f"  pairwise_dists C={c:2d} P={p:7d}  mean |err| vs float64: f32 "
+          f"expansion form {base:.3e}; the kernel {ratios['kernel']:.3f}x "
+          f"that (limit {PAIRWISE_F64_RATIO}), one-pass control "
+          f"{ratios['pairwise_one_pass']:.3f}x, per-value 3xTF32 split "
+          f"{ratios['pairwise_3xtf32']:.3f}x")
+    if ratios["kernel"] > PAIRWISE_F64_RATIO:
+        raise AssertionError("pairwise_dists: the mean error against "
+                             "float64 is above the limit")
+    if ratios["pairwise_one_pass"] <= PAIRWISE_F64_RATIO:
+        raise AssertionError("the float64 check passes the one-pass "
+                             "pairwise control: it does not guard the split")
 
 
 def _transport_inputs(c, p, g, dev):
@@ -1002,11 +1103,13 @@ def _transport_inputs(c, p, g, dev):
 def _check_transport_kernels(g, dev, worst) -> None:
     """clip_reduce, quant_clip_reduce and topk_reduce against their
     plain versions, and two calls on the same input bit-equal (norm and
-    absmax partials finished in a fixed order, no atomics)."""
-    for c, p in AGG_SHAPES:
+    absmax partials finished in a fixed order, no atomics); the quant
+    reduce also at ``QUANT_THREE_PASS_SHAPE``, and its design asserted
+    there and at the quickstart's shape."""
+    for c, p in AGG_SHAPES + [QUANT_THREE_PASS_SHAPE]:
         (x, w, noise, resid, uniform), clip = _transport_inputs(c, p, g,
                                                                 dev)
-        for n in (None, noise):
+        for n in (None, noise) if (c, p) in AGG_SHAPES else ():
             out = clip_reduce_flat(x, w, clip=clip, noise=n)
             again = clip_reduce_flat(x, w, clip=clip, noise=n)
             plain = ref_clip_reduce(x, w, clip=clip, noise=n)
@@ -1048,16 +1151,25 @@ def _check_transport_kernels(g, dev, worst) -> None:
             same = torch.equal(out, out2) and (er is None
                                                or torch.equal(er, er2))
             resid_exact = er is None or torch.equal(er, per)
-            print(f"  quant_clip_reduce C={c:2d} P={p:7d} {name:13s}  "
-                  f"max_abs_err={err:.3e}  tol=2e-5+level={2e-5 + level:.3e}"
-                  f"  coords beyond 2e-5: {flips}  residual bit-equal: "
-                  f"{resid_exact}  repeat bit-equal: {same}")
+            design = quant_clip_reduce_flat.design
+            print(f"  quant_clip_reduce C={c:2d} P={p:7d} {name:13s} "
+                  f"{design:10s}  max_abs_err={err:.3e}  tol=2e-5+level="
+                  f"{2e-5 + level:.3e}  coords beyond 2e-5: {flips}  "
+                  f"residual bit-equal: {resid_exact}  repeat bit-equal: "
+                  f"{same}")
             if not (ok and same):
                 raise AssertionError(f"quant_clip_reduce mismatch at "
                                      f"{(c, p, name)}")
+            want = {AGG_SHAPES[0]: "on_chip",
+                    QUANT_THREE_PASS_SHAPE: "three_pass"}.get((c, p), design)
+            if design != want:
+                raise AssertionError(f"quant_clip_reduce ran {design} at "
+                                     f"{(c, p)}, want {want}")
             worst["quant_clip_reduce"] = max(worst["quant_clip_reduce"],
                                              err)
 
+        if (c, p) not in AGG_SHAPES:
+            continue
         xt = x.clone()
         xt[0] = 0.0  # a zero row: threshold 0, every zero kept
         if c > 2:  # a row of few distinct magnitudes: ties at the k-th
@@ -1242,7 +1354,7 @@ def check_kernels(dev) -> dict:
              "gpo_attention_bwd_dq": 0.0, "gpo_attention_bwd_dkdv": 0.0,
              "gpo_attention_bwd_f64": {}, "fedavg_reduce": 0.0,
              "momentum_reduce": 0.0, "trimmed_reduce": 0.0,
-             "pairwise_dists": 0.0,
+             "pairwise_dists": 0.0, "pairwise_dists_f64": {},
              "clip_reduce": 0.0, "quant_clip_reduce": 0.0,
              "topk_reduce": 0.0, "flash_attention": 0.0, "ssd_scan": 0.0,
              "flash_bf16_row": 0.0, "flash_bf16_control": float("inf"),
@@ -1280,6 +1392,7 @@ def check_kernels(dev) -> dict:
     _check_attention_bwd(g, dev, worst)
     _check_fedavg(g, dev, worst)
     _check_agg_kernels(g, dev, worst)
+    _check_pairwise_f64(g, dev, worst)
     _check_transport_kernels(g, dev, worst)
     _check_backbone_kernels(g, dev, worst)
     return worst
@@ -1866,9 +1979,10 @@ def train_private(dev, data, tr, ev) -> dict:
         if label in PROFILED_PRIVATE:
             prof = _profile(lambda: fed.run(rounds=1),
                             f"private_{label}_trace.json",
-                            match=("row_sumsq", "row_absmax",
-                                   "quant_reduce", "topk_reduce_kernel",
-                                   "gatherTopK", "kth", "sort"))
+                            match=("quant_on_chip", "row_sumsq",
+                                   "row_absmax", "quant_reduce",
+                                   "topk_reduce_kernel", "gatherTopK",
+                                   "kth", "sort"))
             print(f"  {label}: one round under the profiler: wall "
                   f"{prof['wall_ms']:.3f}ms, {prof['kernels']} kernels, "
                   f"device busy {prof['kernel_ms']:.3f}ms "
@@ -1878,6 +1992,13 @@ def train_private(dev, data, tr, ev) -> dict:
             for t in prof["top"]:
                 print(f"    {t['ms']:.4f}ms  {t['launches']:5d}x  "
                       f"{t['name']}")
+            seen = {m: v["launches"] for m, v in prof["matched"].items()}
+            if label == "dp_int8_ef" and (
+                    seen["quant_on_chip"] != 1 or seen["row_sumsq"]
+                    or seen["row_absmax"] or seen["quant_reduce"]):
+                raise AssertionError(f"dp_int8_ef's profiled round ran "
+                                     f"{seen}: want the on-chip quant "
+                                     f"kernel once and no three-pass one")
         rec = {"config": PRIVATE[label], "kernel": kernel,
                "launches": {k: v for k, v in launches.items() if v},
                "wall_ms_per_round": wall / TRAIN_ROUNDS * 1e3,
@@ -2610,14 +2731,24 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
             lambda x: trimmed_reduce_flat(x, w, trim=1)))[0],
             "plain_ms": _time_ms(rotating(
                 lambda x: ref_trimmed_flat(x, w, trim=1)))[0]}))
+    # cdist's matrix-product mode is the kernel's expansion form in one
+    # call; its direct mode and cuBLAS's Gram alone (not the function)
+    # beside it
     out.append(agg_row(
         "pairwise_dists", "pairwise_dists", 522,
         "_pairwise_kernel (pairwise_dists_flat)",
         _timed(rotating(pairwise_dists_flat),
                rotating(ref_pairwise_sq_dists),
-               rotating(lambda x: torch.cdist(x, x).square())),
+               rotating(lambda x: torch.cdist(
+                   x, x, compute_mode="use_mm_for_euclid_dist").square())),
         4 * c * p, c * (c + 1) * p,
-        library_call="torch.cdist(x, x).square()"))
+        library_call="torch.cdist(x, x, compute_mode="
+                     "'use_mm_for_euclid_dist').square()",
+        f64_mean_err=worst["pairwise_dists_f64"],
+        library_calls={
+            "cdist_direct": _time_ms(rotating(
+                lambda x: torch.cdist(x, x).square()))[0],
+            "gram_mm": _time_ms(rotating(lambda x: torch.mm(x, x.T)))[0]}))
 
     # the DP clip and the transport codecs at the same (C, P), every
     # operand rotated over 4 copies; launches from the DP and codec phase
@@ -2684,6 +2815,7 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
             rotating_sets(lambda x, n, r, u: ref_quant_clip_reduce(
                 x, w, clip=clip, noise=n, uniform=u, resid=r)), None),
         4 * (5 * c * p + p + c), 14 * c * p,
+        design=quant_clip_reduce_flat.design,
         int8_ef={"kernel_ms": ef_only["ms"], "plain_ms": ef_only["plain_ms"],
                  "bound_ms": _bound_ms(4 * (4 * c * p + p + c), 10 * c * p,
                                        peaks)[0]}))
@@ -2720,6 +2852,10 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
               f"library {lib}  bound {r['bound_ms'] * 1e3:.3f}us "
               f"({r['bound_by']}); eager: kernel {e['kernel'] * 1e3:.2f}us  "
               f"plain {e['plain'] * 1e3:.2f}us")
+    pair_row = next(r for r in out if r["name"] == "pairwise_dists")
+    print("  pairwise_dists beside it, device: "
+          + ", ".join(f"{k} {v * 1e3:.2f}us"
+                      for k, v in pair_row["library_calls"].items()))
     clip_row, quant_row, topk_row = out[-3:]
     for label, extra in (("clip_reduce without noise", clip_row["clip_only"]),
                          ("quant_clip_reduce as int8_ef calls it (residual "
@@ -2755,7 +2891,7 @@ def main() -> int:
           f"{torch.version.cuda}; TF32 off")
 
     t0 = time.perf_counter()
-    _start_chained_build()  # phase 1's planted control, built alongside
+    _start_control_builds()  # phase 1's planted controls, alongside
     paths = backend.build()
     print(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
     for src, log in backend.BUILD_LOG.items():

@@ -24,12 +24,17 @@ by bytes on the H100. Shapes and times at the quickstart's
   per C, so the client loops unroll). 4·(C·P + P + C) bytes, about
   7.0 µs; the C² compares (53 M) are far under the rate.
 * ``pairwise_dists_flat`` (``csrc/pairwise_dists.cu``, replaces
-  ``_pairwise_kernel``): the (C, C) squared distances in the expansion
-  form ‖x_i‖² + ‖x_j‖² − 2·x_i·x_j, clamped at 0. The TPU kernel sums
-  into an output block resident across its sequential grid; here each
-  block writes its 1024 columns' partial to an (nb, C, C) scratch and a
-  second launch sums the partials in a fixed order: no atomics, two
-  calls bit-equal. 4·C·P bytes, 21.4 MB, about 6.4 µs.
+  ``_pairwise_kernel``): the (C, C) squared distances
+  G_ii + G_jj − 2·G_ij from the Gram matrix G = X·Xᵀ, clamped at 0. The
+  TPU kernel takes the Gram part as one MXU product into an output block
+  resident across its sequential grid; here each block takes 4096
+  columns and computes its G_b on the tensor cores (``mma.sync`` TF32;
+  each value's big part on its row's grid over a warp's k-steps, so
+  that big·big sums exactly, and the small terms as L + Lᵀ), the warps'
+  sums added in f64 into an (nb, C, C) scratch; a second launch sums the
+  blocks in a fixed order in f64 and forms d from G's own diagonal: no
+  atomics, two calls bit-equal, the diagonal exactly 0, the output
+  exactly symmetric. 4·C·P bytes, 21.4 MB, about 6.4 µs.
 
 * ``clip_reduce_flat`` (``csrc/clip_reduce.cu``, replaces
   ``_clip_reduce_kernel`` and ``_clip_reduce_noise_kernel``): the DP
@@ -41,10 +46,21 @@ by bytes on the H100. Shapes and times at the quickstart's
 * ``quant_clip_reduce_flat`` (``csrc/quant_clip_reduce.cu``, replaces
   ``_quant_clip_reduce_kernel``): the optional clip and noise, the EF
   residual, the per-client int8 round trip (stochastic or
-  round-half-to-even) and the reduce, writing the new residual. Norm and
-  absmax partials, then the quantize-and-reduce pass, each pass rebuilding
-  the released value in the TPU kernel's op order. 4·(5·C·P + P + C)
-  bytes with every operand, 109 MB, about 32.5 µs.
+  round-half-to-even) and the reduce, writing the new residual. u must
+  survive two reductions over whole rows (the norm, then the absmax of
+  u). Two designs, picked before the launch by ``quant_design_for``
+  from (C, P) and the card, the pick recorded in the wrapper's
+  ``design``:
+  "on_chip" where u fits in shared memory, one cooperative launch of
+  ⌈P / width⌉ blocks (``quant_split``: width = 4·⌈⌈P / 128⌉ / 4⌉, a
+  function of P alone), each holding its columns of all C rows, with a
+  grid barrier after the norm and after the absmax partials: each
+  operand read once, each output written once (C ≤ 13 at P = 534016 on
+  an H100 SXM's 132 SMs of 227 KB; no H100 PCIe part holds 128 blocks);
+  "three_pass" elsewhere, norm and absmax partials then the
+  quantize-and-reduce pass, each pass rebuilding u in the TPU kernel's
+  op order. 4·(5·C·P + P + C) bytes with every operand, 109 MB, about
+  32.5 µs; 87.6 MB and 26.1 µs as int8_ef calls it (no clip or noise).
 * ``topk_reduce_flat`` (``csrc/topk_reduce.cu``, replaces
   ``_topk_kernel``): the mask |x| ≥ τ_c (thresholds from outside), the
   weighted reduce and the optional residual, in one pass.
@@ -52,8 +68,9 @@ by bytes on the H100. Shapes and times at the quickstart's
 
 The trimmed and pairwise kernels hold at most ``MAX_CLIENTS`` clients
 (instantiations and registers, shared memory per block), the clip and
-quant kernels at most ``MAX_ROWS`` (two floats a client in shared
-memory); the wrappers refuse more on both devices.
+quant kernels at most ``MAX_ROWS`` (two floats a client in the shared
+memory of the three-pass kernels); the wrappers refuse more on both
+devices.
 Every wrapper holds the operand contract on both devices, runs the plain
 version on CPU tensors, launches on CUDA tensors or raises, and counts
 its launches (one call counts once, however many kernels it launches).
@@ -91,10 +108,15 @@ MAX_CLIENTS = 32
 # the clip and quant kernels' cap on C (kMaxRows in csrc/client_rows.cuh)
 MAX_ROWS = 4096
 # columns per block of the pairwise kernel (kChunk in its source)
-PAIRWISE_CHUNK = 1024
+PAIRWISE_CHUNK = 4096
 # columns of one client row per partial block of the norm and absmax
 # passes (kChunk in csrc/client_rows.cuh)
 ROW_CHUNK = 8192
+# the on-chip quant design's column split: ceil(P / QUANT_SPLIT) columns
+# a block, rounded up to 4, and the columns a warp takes at a time in its
+# row passes (kOcSplit, kSegCols in csrc/quant_clip_reduce.cu)
+QUANT_SPLIT = 128
+QUANT_SEG = 512
 
 _ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_longlong,
                                      ctypes.c_void_p]
@@ -107,9 +129,9 @@ _PAIRWISE_ARGTYPES = [ctypes.c_void_p] * 3 + [
 _CLIP_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_void_p]
-_QUANT_ARGTYPES = [ctypes.c_void_p] * 9 + [
+_QUANT_ARGTYPES = [ctypes.c_void_p] * 10 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_void_p]
+    ctypes.c_longlong, ctypes.c_void_p]
 _TOPK_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 
@@ -227,7 +249,7 @@ def pairwise_dists_flat(stacked: torch.Tensor) -> torch.Tensor:
     if p == 0:
         return out.zero_()
     nb = -(-p // PAIRWISE_CHUNK)
-    part = torch.empty((nb, c, c), dtype=torch.float32,
+    part = torch.empty((nb, c, c), dtype=torch.float64,
                        device=stacked.device)
     err = fn(stacked.data_ptr(), part.data_ptr(), out.data_ptr(), c, p, nb,
              backend.stream_ptr(stacked.device))
@@ -292,6 +314,35 @@ def clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
 clip_reduce_flat.launches = 0
 
 
+def quant_split(p: int) -> tuple:
+    """(width, blocks) of the on-chip quant design at P columns: each
+    block owns ``width`` = 4·⌈⌈P / QUANT_SPLIT⌉ / 4⌉ columns of every
+    client row. A function of P alone, so a result does not depend on
+    the card it ran on."""
+    columns = -(-p // QUANT_SPLIT)
+    width = 4 * -(-columns // 4)
+    return width, -(-p // width)
+
+
+def quant_smem_bytes(c: int, width: int) -> int:
+    """Shared memory of one on-chip block: the (C, width) tile of u, the
+    per-row partials of its QUANT_SEG-column segments, and the clip
+    scales, quantization scales and weights."""
+    return 4 * (c * width + c * -(-width // QUANT_SEG) + 3 * c)
+
+
+def quant_design_for(c: int, p: int, sms: int, smem_optin: int) -> str:
+    """"on_chip" when the on-chip design's blocks fit the card at once,
+    one a multiprocessor (``sms`` of them, ``smem_optin`` bytes of
+    shared memory a block), else "three_pass". At (10, 534016) 128
+    blocks of 4172 columns, 167.4 KB each: on chip on an H100 SXM (132
+    SMs, 227 KB), three passes on a PCIe part's 114 SMs and from 14
+    clients at that P."""
+    width, blocks = quant_split(p)
+    fits = blocks <= sms and quant_smem_bytes(c, width) <= smem_optin
+    return "on_chip" if fits else "three_pass"
+
+
 def quant_clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
                            clip: float = 0.0,
                            noise: torch.Tensor | None = None,
@@ -304,7 +355,8 @@ def quant_clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
     optional EF residual (C, P) -> (Σ_c w_c · dequant(Q(ũ_c)) (P,), the
     new residual ũ − t (C, P) or None), ũ_c being the clip/noise release
     of x_c plus the residual. ``clip <= 0`` skips the DP release. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel of the
+    design ``quant_design_for`` picks, recorded in ``.design``."""
     if noise is not None and clip <= 0.0:
         raise ValueError("noise requires clip > 0 (the DP release scales "
                          "noise by the clip bound; see PrivacyConfig)")
@@ -325,18 +377,28 @@ def quant_clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
     new_resid = None if resid is None else torch.empty_like(stacked)
     if p == 0:
         return out, new_resid
-    nb = -(-p // ROW_CHUNK)
-    parts = torch.empty((2, nb, c), dtype=torch.float32, device=dev)
+    props = torch.cuda.get_device_properties(dev)
+    design = quant_design_for(c, p, props.multi_processor_count,
+                              props.shared_memory_per_block_optin)
+    width, nb = quant_split(p) if design == "on_chip" else (
+        0, -(-p // ROW_CHUNK))
+    # norm and absmax partials, then the on-chip design's barrier counter
+    scratch = torch.empty((2 * nb * c + 1,), dtype=torch.float32,
+                          device=dev)
     err = fn(stacked.data_ptr(), _ptr(noise), _ptr(resid), _ptr(uniform),
-             weights.data_ptr(), parts[0].data_ptr(), parts[1].data_ptr(),
+             weights.data_ptr(), scratch.data_ptr(),
+             scratch[nb * c:].data_ptr(), scratch[2 * nb * c:].data_ptr(),
              out.data_ptr(), _ptr(new_resid), float(max(clip, 0.0)), c, p,
-             nb, backend.stream_ptr(dev))
+             nb, width, backend.stream_ptr(dev))
     backend.check(err, "quant_clip_reduce")
     quant_clip_reduce_flat.launches += 1
+    quant_clip_reduce_flat.design = design
     return out, new_resid
 
 
 quant_clip_reduce_flat.launches = 0
+# the design of the last launch: "on_chip" or "three_pass"
+quant_clip_reduce_flat.design = None
 
 
 def topk_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor,

@@ -1,150 +1,357 @@
 // Pairwise squared L2 distances between the clients' raveled deltas, the
 // Krum / multi-Krum selection metric, written by hand for Hopper
 // (sm_90a):
-//   out[i, j] = max(|x_i|^2 + |x_j|^2 - 2 x_i . x_j, 0).
+//   out[i, j] = max(G_ii + G_jj - 2 G_ij, 0),  G = X X^T.
 //
 // Replaces: src/repro/kernels/agg_reduce.py::_pairwise_kernel (the
 // pallas_call in pairwise_dists_flat). That kernel accumulates the
-// expansion over P tiles into one (C, C) output block that stays resident
-// across a sequential grid. CUDA blocks run in no order, so here the work
-// is two launches and no atomics (two calls are bit-equal, and Krum's
-// argmin cannot flip between runs):
-//   1. pairwise_partial_kernel: block b owns columns
-//      [b kChunk, (b + 1) kChunk) and writes the expansion form of its own
-//      columns, |x_i|^2_b + |x_j|^2_b - 2 (x_i . x_j)_b, to part[b, i, j];
-//   2. pairwise_finish_kernel: one warp per (i, j) sums part[:, i, j] and
-//      clamps at 0: lane l takes blocks l, l + 32, ... in order, and a
-//      fixed butterfly (shuffle xor) adds the 32 lane sums.
-//
-// Inputs x (C, P) f32 contiguous; scratch part (nb, C, C) and output
-// (C, C) f32, allocated by the wrapper. C <= kMaxClients.
+// expansion over P tiles, the Gram part as one MXU product jnp.dot(x,
+// x.T), into one (C, C) output block that stays resident across a
+// sequential grid. CUDA blocks run in no order, so here the work is two
+// launches and no atomics (two calls are bit-equal, and Krum's argmin
+// cannot flip between runs):
+//   1. gram_partial_kernel: block b owns columns [b kChunk, (b + 1)
+//      kChunk) (a split that depends on P alone) and writes its partial
+//      Gram G_b (upper triangle, diagonal included) to part[b] in f64;
+//   2. gram_finish_kernel: one warp per pair i <= j sums part[:, i, j],
+//      part[:, i, i] and part[:, j, j] in f64 in one fixed order (lane l
+//      takes blocks l, l + 32, ..., all its loads in flight, then a
+//      butterfly), forms d from G's own diagonal, clamps at 0 as
+//      jnp.maximum(out, 0.0) does and writes (i, j) and (j, i) from one
+//      value: the diagonal is exactly 0 and the output exactly
+//      symmetric.
 //
 // Bound on the H100: bytes. The kernel reads x once: 4 C P bytes, 21.4 MB
 // at the quickstart's (C, P) = (10, 534016), about 6.4 us at 3.35 TB/s;
 // the C (C + 1) / 2 dot products (2.9e7 FMAs) are far under the card's
-// rate. Design: a block stages its columns in (C, kTile) shared-memory
-// tiles, each thread loading one column (the warp reads consecutive
-// floats of a client row); warp g then takes the upper-triangle pairs
-// q = g, g + 8, ..., each lane summing 8 columns of the tile, a fixed
-// butterfly (shuffle xor) reducing the 32 lane sums, and lane 0 adding the
-// tile's sum to the pair's accumulator in shared memory, tile by tile in
-// order. The column split depends on P alone, not on the card.
+// rate. Measured times: PERF.md section 6, row 11.
+//
+// Design: a block's columns stream through a ring of kStages
+// shared-memory stages, all C rows (cp.async, 16-byte copies when the
+// rows start 16-byte aligned).
+// The product G_b = X_b X_b^T runs on the tensor cores, mma.sync m16n8k8
+// TF32, the rows padded with zeros (in registers) to R = 16 (C <= 16) or
+// 32: A (rows g, g + 8 of a 16-row tile) and B (B[k][n] = X[n][k]) read
+// the same row-major tile. Each of the 16 warps takes every 16th k-step
+// of 8 columns, kSteps of them a stage (4 at R = 16, 2 at R = 32). The
+// split of an f32 value x keeps the sums exact where the tensor cores
+// would bias them:
+//   big = x rounded to its row's grid over the warp's k-steps of the
+//         stage, 2^(e - 9) with 2^e > their max |x| of the row (a quad's
+//         max by two shuffles): 10 significant bits at most, a TF32
+//         value, and every big of the row a multiple of the same step;
+//   small = x - big, exact in f32, which the tensor cores truncate to
+//         TF32 (~2^-10 of itself, |small| <= half a step).
+// big.big's products are then exact multiples of one quantum, at most
+// 2^18 of it, and the warp's 32 of them a stage sum to under 2^23: the
+// chained sum hi (16x8 tiles on or above the diagonal) is exact, and the
+// tensor cores' rounding toward zero never touches it. The three small
+// terms come from one product and its transpose, L = small (big +
+// small / 2)^T, chained as small.big and small.(small / 2) (exact halves)
+// over every tile: L + L^T = small.big^T + big.small^T + small.small^T,
+// 2^-9 of hi, where that rounding costs ~2^-33 of the stage. hi and L
+// start from zero each stage and go into the warp's f32 sums; the
+// block's G_b = hi + (L + L^T) adds the warps in warp order in f64. Three
+// products a k-step and tile where the split's four are. The per-value
+// 3xTF32 split (mma_tf32.cuh's split_tf32 and mma_3xtf32, small.small
+// dropped, each k-step from zero) leaves each k-step of a row's own sum
+// of squares rounded toward zero, a bias of ~2^-24 of G_ii that reads
+// above the plain f32 expansion form's error against float64
+// (chip_smoke.py phase 1 prints both).
+//
+// Inputs x (C, P) f32 contiguous; scratch part (nb, C, C) f64 and output
+// (C, C) f32, allocated by the wrapper. C <= kMaxClients.
 #include <cuda_runtime.h>
+
+#include <cstdint>
+
+#include "mma_tf32.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;  // 8 warps
+constexpr int kThreads = 512;  // 16 warps
 constexpr int kWarps = kThreads / 32;
-constexpr int kTile = 256;  // columns per shared-memory tile, one a thread
-constexpr int kTilesPerBlock = 4;
-constexpr int kRowsInFlight = 8;
-constexpr long long kChunk = static_cast<long long>(kTile) * kTilesPerBlock;
-// (C kTile + C (C + 1) / 2) floats of shared memory: 34.9 KB at the cap,
-// under the 48 KB a block gets without opting in.
+// columns of a stage: 512 (64 k-steps, 4 a warp) for the 16-row Gram,
+// 256 for the 32-row one, so that a ring of kStages stages of every
+// client row stays within a block's shared memory (132 KB at C = 16 or
+// 32) and holds about 60 KB in flight at C = 10 (deeper rings read no
+// faster: loads alone take ~10.5 us with 3 to 8 stages)
+template <int R>
+__host__ __device__ constexpr int stage_cols() { return R == 16 ? 512 : 256; }
+// a row of a stage, padded so that the eight rows g of a fragment load
+// fall in distinct banks (stride = 4 mod 32)
+template <int R>
+__host__ __device__ constexpr int stage_stride() { return stage_cols<R>() + 4; }
+constexpr int kStages = 4;
+constexpr long long kChunk = 4096;  // columns a block
 constexpr int kMaxClients = 32;
 
-__global__ void __launch_bounds__(kThreads)
-pairwise_partial_kernel(const float* __restrict__ x, float* __restrict__ part,
-                        int C, long long P) {
-  extern __shared__ float smem[];
-  float* tile = smem;               // [C][kTile]
-  float* acc = smem + C * kTile;    // upper triangle, row-major
-  const int npairs = C * (C + 1) / 2;
-  const int t = threadIdx.x;
-  const int warp = t / 32;
-  const int lane = t % 32;
-  for (int q = t; q < npairs; q += kThreads) acc[q] = 0.0f;
+// the 16x8 output tiles (m, n) of an R x R matrix, t = 4 m + n: all of
+// them for L (2 at R = 16, 8 at R = 32), those on or above the diagonal
+// (n >= 2 m) for hi
+template <int R>
+__host__ __device__ constexpr int num_tiles() { return R == 16 ? 2 : 8; }
+__host__ __device__ constexpr bool upper(int t) { return t % 4 >= 2 * (t / 4); }
 
-  const long long base = static_cast<long long>(blockIdx.x) * kChunk;
-  for (int k = 0; k < kTilesPerBlock; ++k) {
-    const long long col = base + static_cast<long long>(k) * kTile + t;
-    __syncthreads();  // the previous tile is consumed (and acc zeroed)
-    // kRowsInFlight rows' loads issued before their stores, so their
-    // latencies overlap
-    for (int c0 = 0; c0 < C; c0 += kRowsInFlight) {
-      float r[kRowsInFlight];
+template <int R>
+size_t smem_bytes(int C) {
+  // the ring of C rows a stage, then the warps' (R, R) hi and L sums in
+  // its place
+  const size_t ring = sizeof(float) * kStages * C * stage_stride<R>();
+  const size_t red = sizeof(float) * 2 * kWarps * R * R;
+  return ring > red ? ring : red;
+}
+
+// Lane (g, tq)'s n pairs of values v[k][0..1] of row g (columns tq and
+// tq + 4 of the warp's k-steps in a stage) -> their big and small parts
+// on the row's grid there, 2^(e - 9) with 2^e above the quad's max |v|,
+// and small / 2; called by the whole warp.
+template <int N>
+__device__ __forceinline__ void grid_split(const float (&v)[N][2],
+                                           uint32_t (&big)[N][2],
+                                           uint32_t (&small)[N][2],
+                                           uint32_t (&half)[N][2]) {
+  float m = 0.0f;
 #pragma unroll
-      for (int u = 0; u < kRowsInFlight; ++u) {
-        const int c = c0 + u;
-        r[u] = c < C && col < P
-                   ? __ldg(x + static_cast<long long>(c) * P + col)
-                   : 0.0f;
-      }
+  for (int k = 0; k < N; ++k)
+    m = fmaxf(m, fmaxf(fabsf(v[k][0]), fabsf(v[k][1])));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 1));
+  m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, 2));
+  // e = m's biased exponent - 126, clamped so that the step and its
+  // inverse stay normal
+  const int q =
+      min(max(static_cast<int>(__float_as_uint(m) >> 23) - 135, -116), 117);
+  const float step = __uint_as_float(static_cast<uint32_t>(q + 127) << 23);
+  const float inv = __uint_as_float(static_cast<uint32_t>(127 - q) << 23);
 #pragma unroll
-      for (int u = 0; u < kRowsInFlight; ++u)
-        if (c0 + u < C) tile[(c0 + u) * kTile + t] = r[u];
+  for (int k = 0; k < N; ++k)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float b = __fmul_rn(rintf(__fmul_rn(v[k][e], inv)), step);
+      const float sm = __fsub_rn(v[k][e], b);
+      big[k][e] = __float_as_uint(b);
+      small[k][e] = __float_as_uint(sm);
+      half[k][e] = __float_as_uint(__fmul_rn(sm, 0.5f));
     }
-    __syncthreads();
-    // pair q = (i, j), i <= j, walked in row-major upper-triangle order
-    int i = 0, j = 0;
-    for (int q = 0; q < npairs; ++q) {
-      if (q % kWarps == warp) {
-        float s = 0.0f;
+}
+
+// G[e] for the entries e of `es` (-1: none), each sum_b part[b][e] in
+// f64, lane l taking blocks l, l + 32, ... in order (kBatch of them a
+// round, all loads in flight), then a butterfly; every lane gets the
+// values.
+template <int N>
+__device__ __forceinline__ void gram_entries(const double* part, int cc,
+                                             int nb, const int (&es)[N],
+                                             double (&g)[N]) {
+  constexpr int kBatch = 8;
+  const int lane = threadIdx.x % 32;
 #pragma unroll
-        for (int u = 0; u < kTile / 32; ++u) {
-          const int cc = u * 32 + lane;
-          s = fmaf(tile[i * kTile + cc], tile[j * kTile + cc], s);
-        }
+  for (int k = 0; k < N; ++k) g[k] = 0.0;
+  for (int b0 = lane; b0 < nb; b0 += 32 * kBatch) {
+    double v[kBatch][N];
 #pragma unroll
-        for (int off = 16; off > 0; off /= 2)
-          s += __shfl_xor_sync(0xffffffffu, s, off);
-        if (lane == 0) acc[q] += s;
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int k = 0; k < N; ++k) {
+        const int b = b0 + 32 * j;
+        v[j][k] = b < nb && es[k] >= 0
+                      ? __ldg(part + static_cast<long long>(b) * cc + es[k])
+                      : 0.0;
       }
-      if (++j == C) j = ++i;
+#pragma unroll
+    for (int j = 0; j < kBatch; ++j)
+#pragma unroll
+      for (int k = 0; k < N; ++k) g[k] = __dadd_rn(g[k], v[j][k]);
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off /= 2)
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      g[k] = __dadd_rn(g[k], __shfl_xor_sync(0xffffffffu, g[k], off));
+}
+
+template <int R, bool kVec>
+__global__ void __launch_bounds__(kThreads)
+gram_partial_kernel(const float* __restrict__ x, double* __restrict__ part,
+                    int C, long long P) {
+  constexpr int kTiles = num_tiles<R>();
+  constexpr int kGroups = R / 8;  // row groups of 8
+  constexpr int kCols = stage_cols<R>(), kStride = stage_stride<R>();
+  constexpr int kSteps = kCols / 8 / kWarps;  // k-steps a warp a stage
+  extern __shared__ __align__(16) float smem[];  // [kStages][C][kStride]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  const long long base = static_cast<long long>(blockIdx.x) * kChunk;
+  const long long end = base + kChunk < P ? base + kChunk : P;
+  const int nst = static_cast<int>((end - base + kCols - 1) / kCols);
+
+  // stage s's columns of rows 0..C-1; past `end` zero-filled
+  auto load_stage = [&](int s) {
+    constexpr int V = kVec ? 4 : 1, kPacks = kCols / V;
+    float* dst = smem + (s % kStages) * C * kStride;
+    const long long c0 = base + static_cast<long long>(s) * kCols;
+    for (int i = threadIdx.x; i < C * kPacks; i += kThreads) {
+      const int r = i / kPacks, k = i % kPacks;
+      const long long col = c0 + k * V;
+      const bool in = col < end;  // with kVec, end - base is a multiple of 4
+      const float* src = in ? x + r * P + col : x;
+      const uint32_t at = smem_addr(dst + r * kStride + k * V);
+      if (kVec)
+        cp_async16(at, src, in);
+      else
+        cp_async4(at, src, in);
+    }
+  };
+
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < nst) load_stage(s);
+    cp_async_commit();
+  }
+  float acc_hi[kTiles][4] = {}, acc_l[kTiles][4] = {};
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // stage s landed; stage s - 1's slot is free
+    if (s + kStages - 1 < nst) load_stage(s + kStages - 1);
+    cp_async_commit();
+    const float* tile = smem + (s % kStages) * C * kStride;
+    // the warp's k-steps kk kWarps + warp of this stage, each row group's
+    // values split on one grid (rows C..R-1 are zeros, never stored)
+    uint32_t big[kGroups][kSteps][2], small[kGroups][kSteps][2],
+        half[kGroups][kSteps][2];
+#pragma unroll
+    for (int h = 0; h < kGroups; ++h) {
+      const int r = 8 * h + g;
+      float v[kSteps][2];
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        const float* at = tile + r * kStride + (kk * kWarps + warp) * 8 + tq;
+        v[kk][0] = r < C ? at[0] : 0.0f;
+        v[kk][1] = r < C ? at[4] : 0.0f;
+      }
+      grid_split(v, big[h], small[h], half[h]);
+    }
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t) {
+      const int m = t / 4, n = t % 4;
+      if (8 * n >= C) continue;  // all padding (the warp agrees)
+      // hi: big.big over the warp's k-steps, exact (see above); L: small
+      // against big + small / 2; both from zero each stage
+      float hi[4] = {}, l[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kSteps; ++kk) {
+        // A's a0..a3: (g, tq), (g + 8, tq), (g, tq + 4), (g + 8, tq + 4)
+        // of rows 16 m..; B's b0, b1: rows tq, tq + 4 of column g = X's
+        // row 8 n + g at those columns
+        const uint32_t as[4] = {small[2 * m][kk][0], small[2 * m + 1][kk][0],
+                                small[2 * m][kk][1], small[2 * m + 1][kk][1]};
+        if (upper(t)) {
+          const uint32_t ab[4] = {big[2 * m][kk][0], big[2 * m + 1][kk][0],
+                                  big[2 * m][kk][1], big[2 * m + 1][kk][1]};
+          mma_tf32(hi, ab, big[n][kk][0], big[n][kk][1]);
+        }
+        mma_tf32(l, as, big[n][kk][0], big[n][kk][1]);
+        mma_tf32(l, as, half[n][kk][0], half[n][kk][1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_hi[t][e] = __fadd_rn(acc_hi[t][e], hi[e]);
+        acc_l[t][e] = __fadd_rn(acc_l[t][e], l[e]);
+      }
+    }
+  }
+
+  // the block's G_b: the warps' hi_ij + (L_ij + L_ji), in warp order, in
+  // f64
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red_hi = smem;                // [kWarps][R][R]
+  float* red_l = smem + kWarps * R * R;  // [kWarps][R][R]
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t) {
+    const int m = t / 4, n = t % 4;
+    if (8 * n >= C) continue;
+    const int o = (warp * R + 16 * m + g) * R + 8 * n + 2 * tq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = o + (e / 2) * 8 * R + e % 2;
+      if (upper(t)) red_hi[at] = acc_hi[t][e];
+      red_l[at] = acc_l[t][e];
     }
   }
   __syncthreads();
-  // expansion form of this block's columns, full (C, C)
-  float* out = part + static_cast<long long>(blockIdx.x) * C * C;
-  for (int e = t; e < C * C; e += kThreads) {
-    const int r = e / C, s = e % C;
-    const int lo = r < s ? r : s, hi = r < s ? s : r;
-    // index of (a, b), a <= b, in the row-major upper triangle
-    const int ab = lo * C - lo * (lo - 1) / 2 + (hi - lo);
-    const int aa = r * C - r * (r - 1) / 2;
-    const int bb = s * C - s * (s - 1) / 2;
-    out[e] = acc[aa] + acc[bb] - 2.0f * acc[ab];
+  const int cc = C * C;
+  for (int e = threadIdx.x; e < cc; e += kThreads) {
+    const int i = e / C, j = e % C;
+    if (i > j) continue;  // the upper triangle is what the finish reads
+    double s = 0.0;
+    for (int w = 0; w < kWarps; ++w) {
+      const double l = __dadd_rn(red_l[(w * R + i) * R + j],
+                                 red_l[(w * R + j) * R + i]);
+      s = __dadd_rn(s, __dadd_rn(red_hi[(w * R + i) * R + j], l));
+    }
+    part[static_cast<long long>(blockIdx.x) * cc + e] = s;
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-pairwise_finish_kernel(const float* __restrict__ part,
-                       float* __restrict__ out, int CC, int nb) {
-  const int e = blockIdx.x * kWarps + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (e >= CC) return;  // the whole warp leaves together
-  float s = 0.0f;
-#pragma unroll 4
-  for (int b = lane; b < nb; b += 32)
-    s += __ldg(part + static_cast<long long>(b) * CC + e);
-#pragma unroll
-  for (int off = 16; off > 0; off /= 2)
-    s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) out[e] = fmaxf(s, 0.0f);
+// one warp per pair i <= j: G_ii, G_jj and G_ij from every block's
+// partial in one fixed order (an entry gets the same bits in every warp),
+// then d from G's own diagonal, written at (i, j) and (j, i)
+__global__ void __launch_bounds__(256)
+gram_finish_kernel(const double* __restrict__ part, float* __restrict__ out,
+                   int C, int nb) {
+  int u = blockIdx.x * 8 + threadIdx.x / 32;
+  if (u >= C * (C + 1) / 2) return;  // the whole warp leaves together
+  int i = 0;  // pair u = (i, j), i <= j, in row-major upper-triangle order
+  for (; u >= C - i; ++i) u -= C - i;
+  const int j = i + u;
+  double g[3];  // G_ii, G_jj, G_ij
+  gram_entries(part, C * C, nb, {i * C + i, j * C + j, i * C + j}, g);
+  const double d = __dsub_rn(__dadd_rn(g[0], g[1]), __dmul_rn(2.0, g[2]));
+  if (threadIdx.x % 32 == 0) {
+    const float v = static_cast<float>(d > 0.0 ? d : 0.0);
+    out[i * C + j] = v;
+    out[j * C + i] = v;
+  }
+}
+
+template <int R, bool kVec>
+int launch_partial(const float* x, double* part, int C, long long P, int nb,
+                   cudaStream_t st) {
+  const auto kern = gram_partial_kernel<R, kVec>;
+  const size_t smem = smem_bytes<R>(C);
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (err != 0) return err;
+  kern<<<static_cast<unsigned>(nb), kThreads, smem, st>>>(x, part, C, P);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
 // C entry, bound with ctypes: both launches on `stream` (PyTorch's current
-// stream). part holds nb * C * C floats, nb = ceil(P / kChunk), which the
-// wrapper computes from the same chunk (1024 columns) and passes for a
+// stream). part holds nb * C * C doubles, nb = ceil(P / kChunk), which the
+// wrapper computes from the same chunk (4096 columns) and passes for a
 // check. Allocates nothing, does not synchronise; returns
 // cudaGetLastError(), or cudaErrorInvalidValue for a C above the cap or a
 // scratch of another size.
-extern "C" int pairwise_dists_launch(const float* x, float* part, float* out,
+extern "C" int pairwise_dists_launch(const float* x, double* part, float* out,
                                      int C, long long P, long long nb,
                                      void* stream) {
   if (C < 1 || C > kMaxClients || P < 1 || nb != (P + kChunk - 1) / kChunk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const size_t smem =
-      (static_cast<size_t>(C) * kTile + C * (C + 1) / 2) * sizeof(float);
-  pairwise_partial_kernel<<<static_cast<unsigned>(nb), kThreads, smem, st>>>(
-      x, part, C, P);
-  const int err = static_cast<int>(cudaGetLastError());
+  const bool vec = P % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int n = static_cast<int>(nb);
+  int err;
+  if (C <= 16)
+    err = vec ? launch_partial<16, true>(x, part, C, P, n, st)
+              : launch_partial<16, false>(x, part, C, P, n, st);
+  else
+    err = vec ? launch_partial<32, true>(x, part, C, P, n, st)
+              : launch_partial<32, false>(x, part, C, P, n, st);
   if (err != 0) return err;
-  const int cc = C * C;
-  pairwise_finish_kernel<<<(cc + kWarps - 1) / kWarps, kThreads, 0, st>>>(
-      part, out, cc, static_cast<int>(nb));
+  const int pairs = C * (C + 1) / 2;
+  gram_finish_kernel<<<(pairs + 7) / 8, 256, 0, st>>>(part, out, C, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -35,6 +35,12 @@ from repro_torch.configs import (
 from repro_torch.core import compression as cx
 from repro_torch.core.aggregation import make_aggregator
 from repro_torch.kernels import agg_quant_clip_reduce, agg_topk_reduce
+from repro_torch.kernels.agg_reduce import (
+    QUANT_SPLIT,
+    quant_design_for,
+    quant_smem_bytes,
+    quant_split,
+)
 from repro_torch.kernels.ref import (
     ref_quant_clip_reduce,
     ref_topk_mask_reduce,
@@ -114,6 +120,49 @@ def test_quant_clip_reduce_matches_jax(c, p, variant):
         k: (_t(v) if isinstance(v, np.ndarray) else v)
         for k, v in kw.items()})
     assert torch.equal(out, pout)
+
+
+# an H100 SXM's multiprocessors and opt-in shared memory a block
+SXM = (132, 232448)
+
+
+@pytest.mark.parametrize("c,p,card,want", [
+    (10, 534016, SXM, "on_chip"),  # the quickstart's (C, P): 128 blocks
+    (32, 534016, SXM, "three_pass"),  # 68 MB of u
+    (48, 534016, SXM, "three_pass"),
+    (10, 534016, (114, 232448), "three_pass"),  # H100 PCIe: 114 SMs
+    (3, 2049, (114, 232448), "on_chip"),  # 103 blocks fit there
+    (13, 534016, SXM, "on_chip"),  # the last C that fits at this P
+    (14, 534016, SXM, "three_pass"),
+    (10, 534016, (128, 232448), "on_chip"),  # one block an SM, exactly
+    (10, 534016, (127, 232448), "three_pass"),
+    # the block's shared memory, exactly and a byte short
+    (10, 534016, (132, quant_smem_bytes(10, 4172)), "on_chip"),
+    (10, 534016, (132, quant_smem_bytes(10, 4172) - 1), "three_pass"),
+])
+def test_quant_design_choice(c, p, card, want):
+    """On chip where the blocks fit at once, one a multiprocessor, each
+    with its (C, width) tile of u; three passes elsewhere."""
+    assert quant_design_for(c, p, *card) == want
+
+
+@pytest.mark.parametrize("p", [1, 7, 8, 2049, 5001, 534016, 534017,
+                               10 ** 8])
+def test_quant_column_split_depends_on_p_alone(p):
+    """The split is a function of P: the same width and blocks whatever
+    card runs it (the design differs, the bits do not), at most
+    QUANT_SPLIT blocks of a multiple of 4 columns that cover P."""
+    width, blocks = quant_split(p)
+    assert width % 4 == 0 and blocks <= QUANT_SPLIT
+    assert (blocks - 1) * width < p <= blocks * width
+    designs = {sms: quant_design_for(10, p, sms, 232448)
+               for sms in (114, 132, 10 ** 4)}
+    assert designs[10 ** 4] == "on_chip" or quant_smem_bytes(
+        10, width) > 232448
+    if p == 534016:
+        assert (width, blocks) == (4172, 128)
+        assert designs == {114: "three_pass", 132: "on_chip",
+                           10 ** 4: "on_chip"}
 
 
 def test_quant_clip_reduce_rejects_noise_without_clip():
