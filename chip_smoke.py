@@ -24,7 +24,9 @@ the card, raising on any mismatch:
    distances (exactly symmetric, and their mean error against float64
    within ``PAIRWISE_F64_RATIO`` of the f32 expansion form's, which a
    planted control rebuilt with one TF32 pass must exceed), the DP clip
-   reduce (with and without noise), the fused int8 quant-clip reduce
+   reduce (with and without noise, the design that ran printed: on chip
+   at the quickstart's shape, two launches at
+   ``QUANT_THREE_PASS_SHAPE``), the fused int8 quant-clip reduce
    (every operand combination of the reference's tests, the design that
    ran printed: on chip at the quickstart's shape, three passes at
    ``QUANT_THREE_PASS_SHAPE``) and the top-k reduce (zero and tied
@@ -69,8 +71,13 @@ the card, raising on any mismatch:
    plain-aggregation card run (the same device generator draws the
    noise and the uniforms), two of them against a CPU run that replays
    draws made once on the CPU, and the cumulative ε against the port's
-   accountant; one round each of dp_int8_ef (which must run the on-chip
-   quant kernel and no three-pass one) and topk_ef under the profiler.
+   accountant; one round each of dp_noise and dp_int8_ef (which must run
+   the on-chip clip and quant kernels once and no two-launch or
+   three-pass one) and topk_ef under the profiler; then one round each of
+   dp_noise and int8_ef with every survey group a client (17), which
+   must run the clip's two launches and the quant's three passes,
+   against the plain-aggregation card run and the CPU run of the same
+   draws.
    4d. LM serving: ``serve_lm``'s path (``make_prefill_step``, then
    ``greedy_decode``) for qwen2-0.5b and mamba2-780m at full width and
    depth in bf16, random weights from the seed, batch 4, prompt 2048,
@@ -91,7 +98,9 @@ the card, raising on any mismatch:
    qwen3-32b's widths (B 1, H 64, KV 8, S 2048, hd 128), int8 also at
    (1280, 256) x (256, 256); SSD also at batch 1, in f32, and beside
    the chunked plain branch (``ssd_chunked``), after its bf16 check and
-   planted faults at the prefill shape.
+   planted faults at the prefill shape; the DP clip reduce also in its
+   other design (two launches) and, on chip, by phase from a build that
+   stamps each block's clock (tile load, barrier wait, reduce).
 
 Launch counters are set to 0 right before each main-path phase and read
 right after it. The last eight lines of standard output are the
@@ -167,13 +176,17 @@ from repro_torch.data import (  # noqa: E402
 )
 from repro_torch.kernels import backend, quantize_linear  # noqa: E402
 from repro_torch.kernels.agg_reduce import (  # noqa: E402
+    _CLIP_ARGTYPES,
     _PAIRWISE_ARGTYPES,
     PAIRWISE_CHUNK,
+    ROW_CHUNK,
     clip_reduce_flat,
     fedavg_reduce_flat,
     momentum_reduce_flat,
     pairwise_dists_flat,
+    QUANT_SPLIT,
     quant_clip_reduce_flat,
+    quant_split,
     topk_reduce_flat,
     trimmed_reduce_flat,
 )
@@ -317,6 +330,44 @@ _SPLIT_3X_EDITS = (
           for (int e = 0; e < 4; ++e) hi[e] = __fadd_rn(hi[e], t3[e]);
         }
 """))
+# a reading, not a control: the on-chip clip kernel with thread 0 of each
+# block stamping %globaltimer at its start, after its tile and partial
+# norms, after the grid barrier and at its end, into a device array the
+# added clip_stamps_read entry copies out (phase 5, beside row 7)
+_STAMP_EDITS = (
+    ("using namespace client_rows;\n", """using namespace client_rows;
+
+__device__ unsigned long long g_clip_stamps[4 * kOcSplit];
+
+__device__ __forceinline__ void clip_stamp(int k) {
+  if (threadIdx.x == 0) {
+    unsigned long long t;
+    asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+    g_clip_stamps[k * kOcSplit + blockIdx.x] = t;
+  }
+}
+"""),
+    ("  const Blk blk(oc_buf, C, P, width);\n",
+     "  const Blk blk(oc_buf, C, P, width);\n  clip_stamp(0);\n"),
+    ("  grid_barrier();\n", """  __syncthreads();
+  clip_stamp(1);
+  grid_barrier();
+  clip_stamp(2);
+"""),
+    ("    st<V>(out + blk.col0 + k * V, acc);\n  }\n}\n",
+     """    st<V>(out + blk.col0 + k * V, acc);
+  }
+  __syncthreads();
+  clip_stamp(3);
+}
+"""),
+    ('extern "C" int clip_reduce_launch(',
+     """extern "C" int clip_stamps_read(unsigned long long* host) {
+  return static_cast<int>(
+      cudaMemcpyFromSymbol(host, g_clip_stamps, sizeof(g_clip_stamps)));
+}
+
+extern "C" int clip_reduce_launch("""))
 HEAD_DIM = 32
 HEAD_DIMS = (32, 24)  # GPOConfig() and benchmarks/paper_experiment.py
 # (C, P): the quickstart's 10 clients x 534,016 GPOConfig() params, then
@@ -325,8 +376,9 @@ FEDAVG_SHAPES = [(10, 534016), (3, 2049), (1, 7)]
 # the other aggregation kernels: the quickstart's shape, ragged P, and
 # the kernels' cap of 32 clients (bench_round.py's aggregation section)
 AGG_SHAPES = [(10, 534016), (3, 2049), (1, 7), (32, 5001)]
-# the quant reduce also above its on-chip capacity (48 clients' u is
-# 103 MB), where the three-pass design runs
+# the clip and quant reduces also above their on-chip capacity (48
+# clients' x or u is 103 MB), where the two-launch and three-pass designs
+# run
 QUANT_THREE_PASS_SHAPE = (48, 534016)
 # the registry's strategies on the training path: AGG_SWEEP of
 # benchmarks/bench_round.py:217-228 (its hyperparameters), krum and
@@ -380,9 +432,15 @@ PRIVATE_KERNEL = {"dp_clip": "clip_reduce", "dp_noise": "clip_reduce",
                   "dp_int8_ef": "quant_clip_reduce",
                   "topk_ef": "topk_reduce", "dp_median": "trimmed_reduce"}
 CPU_PRIVATE = ("dp_noise", "int8_ef")
-# one more round of these under the profiler: the heaviest transport
-# kernel, and the top-k selection outside its kernel
-PROFILED_PRIVATE = ("dp_int8_ef", "topk_ef")
+# one more round of these under the profiler: the DP clip's on-chip
+# kernel, the heaviest transport kernel, and the top-k selection outside
+# its kernel
+PROFILED_PRIVATE = ("dp_noise", "dp_int8_ef", "topk_ef")
+# and one replayed round of these with every survey group a client (17 at
+# SurveyConfig()), past the on-chip designs' 13 clients at the
+# quickstart's P: the clip's two launches and the quant's three passes,
+# against the CPU run of the same draws
+WIDE_PRIVATE = {"dp_noise": "two_launch", "int8_ef": "three_pass"}
 # coordinates of params and EF residual that may lie beyond 1e-4 of the
 # other run after 3 rounds (flipped int8 levels, swapped top-k near-ties;
 # train_private): 0.02% of the 5.3 M, a bound against a systematic error
@@ -676,6 +734,7 @@ _CONTROLS = {
                           {"pairwise_dists.cu": _ONE_PASS_EDITS}),
     "pairwise_3xtf32": (("pairwise_dists",),
                         {"pairwise_dists.cu": _SPLIT_3X_EDITS}),
+    "clip_stamps": (("clip_reduce",), {"clip_reduce.cu": _STAMP_EDITS}),
 }
 _BUILDS = {}  # control -> {source: (library, nvcc process)}
 _CONTROL_LIBS = {}  # (control, source) -> the loaded library
@@ -708,6 +767,16 @@ def _start_control_builds() -> None:
         _BUILDS[ctl] = builds
 
 
+def _wait_control_builds() -> None:
+    """Wait for every control build no phase loaded (a card that runs
+    the clip's two launches skips the stamped build), so that no nvcc
+    outlives the script."""
+    for builds in _BUILDS.values():
+        for _, proc in builds.values():
+            if proc.returncode is None:
+                proc.communicate(timeout=600)
+
+
 def _control_fn(ctl: str, name: str, symbol: str, argtypes):
     """The C entry ``symbol`` of control ``ctl``'s build of ``name``,
     bound as the wrappers bind theirs."""
@@ -725,6 +794,50 @@ def _control_fn(ctl: str, name: str, symbol: str, argtypes):
     fn.argtypes = argtypes
     fn.restype = ctypes.c_int
     return fn
+
+
+def _clip_entry(fn, x, n, w, clip: float, design: str) -> torch.Tensor:
+    """One call of a clip_reduce C entry (the build's or a control's) in
+    ``design``, as the wrapper makes it; uncounted (no wrapper)."""
+    c, p = x.shape
+    width, nb = quant_split(p) if design == "on_chip" else (
+        0, -(-p // ROW_CHUNK))
+    part = torch.empty((nb * c,), dtype=torch.float32, device=x.device)
+    out = torch.empty((p,), dtype=torch.float32, device=x.device)
+    backend.check(fn(x.data_ptr(), None if n is None else n.data_ptr(),
+                     w.data_ptr(), part.data_ptr(), out.data_ptr(),
+                     float(clip), c, p, nb, width,
+                     backend.stream_ptr(x.device)), f"clip_reduce {design}")
+    return out
+
+
+def _clip_phases(sets, w, clip: float, noise: bool) -> dict:
+    """The on-chip clip kernel's phases from the stamped build
+    (``_STAMP_EDITS``), µs: each block's tile load (start to its partial
+    norms written), barrier wait and reduce (the scales, the noise and
+    the weighted sum), the median over the blocks, then over 20 calls on
+    the rotated sets after 3 more; and the span, first start to last
+    end."""
+    fn = _control_fn("clip_stamps", "clip_reduce", "clip_reduce_launch",
+                     _CLIP_ARGTYPES)
+    read = _control_fn("clip_stamps", "clip_reduce", "clip_stamps_read",
+                       [ctypes.c_void_p])
+    rows = []
+    for i in range(23):
+        x, n = sets[i % len(sets)][:2]
+        _clip_entry(fn, x, n if noise else None, w, clip, "on_chip")
+        torch.cuda.synchronize()
+        host = np.zeros(4 * QUANT_SPLIT, dtype=np.uint64)
+        backend.check(read(host.ctypes.data), "clip_stamps_read")
+        if i < 3:
+            continue
+        t = host.reshape(4, QUANT_SPLIT)[:, :quant_split(x.shape[1])[1]]
+        t = t.astype(np.int64)
+        rows.append([np.median(t[k + 1] - t[k]) for k in range(3)]
+                    + [t[3].max() - t[0].min()])
+    m = np.median(np.array(rows), axis=0) / 1e3
+    return dict(zip(("tile_us", "barrier_us", "reduce_us", "span_us"),
+                    map(float, m)))
 
 
 def _chained_fwd(q, k, v, nc) -> tuple:
@@ -1103,24 +1216,30 @@ def _transport_inputs(c, p, g, dev):
 def _check_transport_kernels(g, dev, worst) -> None:
     """clip_reduce, quant_clip_reduce and topk_reduce against their
     plain versions, and two calls on the same input bit-equal (norm and
-    absmax partials finished in a fixed order, no atomics); the quant
-    reduce also at ``QUANT_THREE_PASS_SHAPE``, and its design asserted
-    there and at the quickstart's shape."""
+    absmax partials finished in a fixed order, no atomics); the clip and
+    quant reduces also at ``QUANT_THREE_PASS_SHAPE``, and their designs
+    asserted there and at the quickstart's shape."""
     for c, p in AGG_SHAPES + [QUANT_THREE_PASS_SHAPE]:
         (x, w, noise, resid, uniform), clip = _transport_inputs(c, p, g,
                                                                 dev)
-        for n in (None, noise) if (c, p) in AGG_SHAPES else ():
+        for n in (None, noise):
             out = clip_reduce_flat(x, w, clip=clip, noise=n)
             again = clip_reduce_flat(x, w, clip=clip, noise=n)
             plain = ref_clip_reduce(x, w, clip=clip, noise=n)
             torch.cuda.synchronize()
             err, ok = _close(out, plain, 1e-5)
             same = torch.equal(out, again)
+            design = clip_reduce_flat.design
             print(f"  clip_reduce C={c:2d} P={p:7d} noise={n is not None!s:5}"
-                  f"  max_abs_err={err:.3e}  tol=1e-5*(1+|plain|)  repeat "
-                  f"bit-equal: {same}")
+                  f" {design:10s}  max_abs_err={err:.3e}  tol=1e-5*(1+|plain|)"
+                  f"  repeat bit-equal: {same}")
             if not (ok and same):
                 raise AssertionError(f"clip_reduce mismatch at {(c, p)}")
+            want = {AGG_SHAPES[0]: "on_chip",
+                    QUANT_THREE_PASS_SHAPE: "two_launch"}.get((c, p), design)
+            if design != want:
+                raise AssertionError(f"clip_reduce ran {design} at {(c, p)}, "
+                                     f"want {want}")
             worst["clip_reduce"] = max(worst["clip_reduce"], err)
 
         # one quantization level bounds |u| / 127: a scale an ulp off
@@ -1979,7 +2098,8 @@ def train_private(dev, data, tr, ev) -> dict:
         if label in PROFILED_PRIVATE:
             prof = _profile(lambda: fed.run(rounds=1),
                             f"private_{label}_trace.json",
-                            match=("quant_on_chip", "row_sumsq",
+                            match=("clip_on_chip", "clip_reduce_kernel",
+                                   "quant_on_chip", "row_sumsq",
                                    "row_absmax", "quant_reduce",
                                    "topk_reduce_kernel", "gatherTopK",
                                    "kth", "sort"))
@@ -1993,6 +2113,12 @@ def train_private(dev, data, tr, ev) -> dict:
                 print(f"    {t['ms']:.4f}ms  {t['launches']:5d}x  "
                       f"{t['name']}")
             seen = {m: v["launches"] for m, v in prof["matched"].items()}
+            if label == "dp_noise" and (
+                    seen["clip_on_chip"] != 1 or seen["row_sumsq"]
+                    or seen["clip_reduce_kernel"]):
+                raise AssertionError(f"dp_noise's profiled round ran "
+                                     f"{seen}: want the on-chip clip kernel "
+                                     f"once and no two-launch one")
             if label == "dp_int8_ef" and (
                     seen["quant_on_chip"] != 1 or seen["row_sumsq"]
                     or seen["row_absmax"] or seen["quant_reduce"]):
@@ -2035,6 +2161,81 @@ def train_private(dev, data, tr, ev) -> dict:
         if (fed.ef_resid is None) != (not kern.compression.enabled
                                       or not kern.compression.error_feedback):
             raise AssertionError(f"{label}: EF residual carried wrongly")
+    return out
+
+
+def train_private_wide(dev, data, tr, ev) -> dict:
+    """Phase 4c, continued: one round of each ``WIDE_PRIVATE``
+    configuration with every survey group a client (the 10 training
+    groups, then the 7 held-out ones; eval still on the held-out), past
+    the on-chip designs' capacity: through the kernels (launch counts and
+    the design asserted), against the same round with the aggregation's
+    plain versions on the card and against the port's CPU run, all three
+    replaying draws made once on the CPU, held as ``train_private``
+    holds its rounds (the level allowance from the plain run)."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    groups = np.concatenate([np.asarray(tr), np.asarray(ev)])
+    base = FedConfig(num_clients=len(groups), local_epochs=6, lr=3e-4,
+                     eval_every=1, use_pallas_attention=True,
+                     use_pallas_aggregation=True)
+    out = {}
+    for label, design_want in WIDE_PRIVATE.items():
+        kern = _private_cfg(base, label)
+        kernel = PRIVATE_KERNEL[label]
+        shape = (len(groups), tree_count_params(
+            init_gpo_params(gcfg, _gen(0), device="cpu")))
+        draws = _cpu_draws(kern, shape, 1)
+
+        def run(cfg, d):
+            fed = FederatedGPO(gcfg, cfg, data, groups, ev, device=d,
+                               release_draws=lambda r: draws[r])
+            return fed.run(rounds=1), fed
+
+        _zero_counts()
+        card = run(kern, dev)
+        torch.cuda.synchronize()
+        launches = _counts()
+        design = _COUNTED[kernel].design
+        levels: list = []
+        real = _spy_levels(levels)
+        try:
+            plain = run(replace(kern, use_pallas_aggregation=False), dev)
+        finally:
+            cx.quantize_int8, cx.topk_thresholds = real
+        cpu = run(kern, "cpu")
+        w_max = float(card[1].weights.max())
+        allowance = {"levels": levels, "params_allowance": w_max * sum(levels),
+                     "resid_allowance": sum(levels)}
+        agree = {k: _private_agreement(*card, *other, allowance)
+                 for k, other in (("plain", plain), ("cpu", cpu))}
+        want = {**dict.fromkeys(_COUNTED, 0),
+                **_attention_launches(gcfg, kern, 1), kernel: 1}
+        out[label] = {"clients": len(groups), "kernel": kernel,
+                      "design": design,
+                      "launches": {k: v for k, v in launches.items() if v},
+                      "round_loss": card[0].round_loss, "agreement": agree}
+        print(f"  {label:10s} {len(groups)} clients, one replayed round: "
+              f"{kernel} x{launches[kernel]} ({design}); "
+              + "; ".join(f"vs {k}: loss rel {a['round_loss_rel']:.2e} "
+                          f"eval {a['eval_abs']:.2e} params "
+                          f"{a['params_max_abs']:.2e} (allowance "
+                          f"{a['params_allowance']:.2e}) resid "
+                          f"{a.get('ef_resid_max_abs', 0.0):.2e} coords>1e-4 "
+                          f"{a['coords_beyond_1e-4']}"
+                          for k, a in agree.items()))
+        if launches != want:
+            raise AssertionError(f"{label} at {len(groups)} clients: "
+                                 f"launches {launches}, want {want}")
+        if design != design_want:
+            raise AssertionError(f"{label} at {len(groups)} clients ran "
+                                 f"{kernel}'s {design} design, want "
+                                 f"{design_want}")
+        for k, a in agree.items():
+            if not _private_within(a):
+                raise AssertionError(f"{label} at {len(groups)} clients: the "
+                                     f"kernel run is off the {k} run "
+                                     f"(tolerance {TRAIN_TOL} plus the level "
+                                     f"allowance)")
     return out
 
 
@@ -2783,11 +2984,24 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
                 "bound_ms": bound, "bound_by": by, "library_call": None,
                 **extra}
 
-    # with noise (dp_noise, dp_median's release); the clip alone beside
+    # with noise (dp_noise, dp_median's release); the clip alone beside;
+    # the design the card picks there, the other design of the same
+    # source (its C entry called with width 0: two launches) and, on
+    # chip, its phases from the stamped build
     clip_only = _timed(
         rotating_sets(lambda x, n, r, u: clip_reduce_flat(x, w, clip=clip)),
         rotating_sets(lambda x, n, r, u: ref_clip_reduce(x, w, clip=clip)),
         None)
+    clip_design = clip_reduce_flat.design
+    clip_fn = backend.kernel("clip_reduce", "clip_reduce_launch",
+                             _CLIP_ARGTYPES)
+    two_launch = {label: _time_ms(rotating_sets(
+        lambda x, n, r, u, k=k: _clip_entry(clip_fn, x, n if k else None, w,
+                                            clip, "two_launch")))[0]
+        for label, k in (("ms", True), ("clip_only_ms", False))}
+    phases = None if clip_design != "on_chip" else {
+        label: _clip_phases(sets, w, clip, k)
+        for label, k in (("noise", True), ("clip_only", False))}
     out.append(private_row(
         "clip_reduce", 211,
         "_clip_reduce_kernel / _clip_reduce_noise_kernel (clip_reduce_flat)",
@@ -2796,6 +3010,7 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
             rotating_sets(lambda x, n, r, u: ref_clip_reduce(
                 x, w, clip=clip, noise=n)), None),
         4 * (2 * c * p + p + c), 6 * c * p,
+        design=clip_design, two_launch=two_launch, phases=phases,
         clip_only={"kernel_ms": clip_only["ms"],
                    "plain_ms": clip_only["plain_ms"],
                    "bound_ms": _bound_ms(4 * (c * p + p + c), 5 * c * p,
@@ -2863,6 +3078,16 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
         print(f"  {label}, device: kernel {extra['kernel_ms'] * 1e3:.2f}us  "
               f"plain {extra['plain_ms'] * 1e3:.2f}us  bound "
               f"{extra['bound_ms'] * 1e3:.3f}us")
+    print(f"  clip_reduce's design {clip_row['design']}; its two launches at "
+          f"the same inputs, device: with noise "
+          f"{clip_row['two_launch']['ms'] * 1e3:.2f}us, clip only "
+          f"{clip_row['two_launch']['clip_only_ms'] * 1e3:.2f}us")
+    for label, ph in (clip_row["phases"] or {}).items():
+        print(f"  clip_reduce on chip, {label}, phases (stamped build, median "
+              f"per block over 20 calls): tile load {ph['tile_us']:.2f}us "
+              f"({4 * c * p / ph['tile_us'] * 1e-6:.2f} TB/s of x), barrier "
+              f"wait {ph['barrier_us']:.2f}us, reduce {ph['reduce_us']:.2f}us;"
+              f" span {ph['span_us']:.2f}us")
     print(f"  top-k thresholds ({topk_row['thresholds']['call']}): "
           f"{topk_row['thresholds']['ms'] * 1e3:.2f}us")
     print(f"  gpo_attention_fwd at predict's {predict_row['shape']}, device: "
@@ -2924,6 +3149,9 @@ def main() -> int:
     print("[4c] the DP and codec stages, 3 rounds each, through the "
           "kernels")
     priv_rec = train_private(dev, data, tr, held_out)
+    print("[4c] every survey group a client: one replayed DP and one int8 "
+          "round through the designs past the on-chip capacity")
+    wide_rec = train_private_wide(dev, data, tr, held_out)
     print("[4d] LM serving: qwen2-0.5b and mamba2-780m at full width and "
           "depth, bf16, through the flash-attention and SSD kernels")
     lm_rec = serve_lm(dev)
@@ -2931,6 +3159,7 @@ def main() -> int:
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, name, worst)
     kernels += _backbone_rows(dev, lm_rec, name, worst)
+    _wait_control_builds()
 
     print(json.dumps({"engine": {
         k: serve_rec[k] for k in ("steps", "launches", "prefill_requests",
@@ -2938,7 +3167,7 @@ def main() -> int:
                                   "profile_f32")}}))
     print(json.dumps({"train": train_rec}))
     print(json.dumps({"strategies": strat_rec}))
-    print(json.dumps({"private": priv_rec}))
+    print(json.dumps({"private": priv_rec, "private_wide": wide_rec}))
     print(json.dumps({"lm": lm_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)

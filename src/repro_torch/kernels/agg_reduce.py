@@ -39,10 +39,20 @@ by bytes on the H100. Shapes and times at the quickstart's
 * ``clip_reduce_flat`` (``csrc/clip_reduce.cu``, replaces
   ``_clip_reduce_kernel`` and ``_clip_reduce_noise_kernel``): the DP
   release and reduce, Σ_c w_c · (x_c · min(1, S/max(‖x_c‖, 1e-12)) +
-  n_c). The TPU kernel's norm sweep becomes per-chunk partial squared
-  norms on a (nb, C) grid (``csrc/client_rows.cuh``), finished in a fixed
-  order by every block of the reduce. 4·(2·C·P + P + C) bytes with noise,
-  44.9 MB, about 13.4 µs; 23.5 MB, 7.0 µs without.
+  n_c). The norm must be whole before any column is scaled. Two designs,
+  picked before the launch by ``clip_design_for`` from (C, P) and the
+  card, the pick recorded in the wrapper's ``design``: "on_chip" where x
+  fits in shared memory, one cooperative launch on the on-chip quant
+  design's grid (``quant_split``, ``csrc/on_chip_rows.cuh``), each block
+  holding its columns of all C rows, per-block partial norms, one grid
+  barrier, every block finishing the C scales in a fixed order, then the
+  noise streamed once and the reduce from the tile: x and the noise read
+  once (C ≤ 13 at P = 534016 on an H100 SXM; no H100 PCIe part holds
+  128 blocks); "two_launch" elsewhere, per-chunk partial squared norms
+  on a (nb, C) grid (``csrc/client_rows.cuh``) finished in a fixed
+  order by every block of the reduce, which reads x again.
+  4·(2·C·P + P + C) bytes with noise, 44.9 MB, about 13.4 µs; 23.5 MB,
+  7.0 µs without.
 * ``quant_clip_reduce_flat`` (``csrc/quant_clip_reduce.cu``, replaces
   ``_quant_clip_reduce_kernel``): the optional clip and noise, the EF
   residual, the per-client int8 round trip (stochastic or
@@ -112,9 +122,10 @@ PAIRWISE_CHUNK = 4096
 # columns of one client row per partial block of the norm and absmax
 # passes (kChunk in csrc/client_rows.cuh)
 ROW_CHUNK = 8192
-# the on-chip quant design's column split: ceil(P / QUANT_SPLIT) columns
-# a block, rounded up to 4, and the columns a warp takes at a time in its
-# row passes (kOcSplit, kSegCols in csrc/quant_clip_reduce.cu)
+# the on-chip designs' column split (the quant and clip kernels'):
+# ceil(P / QUANT_SPLIT) columns a block, rounded up to 4, and the columns
+# a warp takes at a time in their row passes (kOcSplit, kSegCols in
+# csrc/on_chip_rows.cuh)
 QUANT_SPLIT = 128
 QUANT_SEG = 512
 
@@ -128,8 +139,8 @@ _PAIRWISE_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
 _CLIP_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
-    ctypes.c_void_p]
-_QUANT_ARGTYPES = [ctypes.c_void_p] * 10 + [
+    ctypes.c_longlong, ctypes.c_void_p]
+_QUANT_ARGTYPES = [ctypes.c_void_p] * 9 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_void_p]
 _TOPK_ARGTYPES = [ctypes.c_void_p] * 5 + [
@@ -287,7 +298,8 @@ def clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
     σ-scaled noise (C, P) f32 -> (P,) f32:
     Σ_c w_c · (x_c · min(1, clip / ‖x_c‖₂) + n_c), the DP-FedAvg reduce.
     ``clip`` must be > 0. CPU tensors take the plain version; CUDA
-    tensors launch the kernel (without noise, one that reads none)."""
+    tensors launch the kernel of the design ``clip_design_for`` picks,
+    recorded in ``.design`` (without noise, one that reads none)."""
     if clip <= 0.0:
         raise ValueError(f"clip={clip} must be > 0 (clip_norm == 0 means "
                          "the privacy pipeline is disabled; callers must "
@@ -298,20 +310,28 @@ def clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
         return ref_clip_reduce(stacked, weights, clip=clip, noise=noise)
     fn = backend.kernel("clip_reduce", "clip_reduce_launch", _CLIP_ARGTYPES)
     c, p = stacked.shape
-    out = torch.empty((p,), dtype=torch.float32, device=stacked.device)
+    dev = stacked.device
+    out = torch.empty((p,), dtype=torch.float32, device=dev)
     if p == 0:
         return out
-    nb = -(-p // ROW_CHUNK)
-    part = torch.empty((nb, c), dtype=torch.float32, device=stacked.device)
+    props = torch.cuda.get_device_properties(dev)
+    design = clip_design_for(c, p, props.multi_processor_count,
+                             props.shared_memory_per_block_optin)
+    width, nb = quant_split(p) if design == "on_chip" else (
+        0, -(-p // ROW_CHUNK))
+    part = torch.empty((nb * c,), dtype=torch.float32, device=dev)
     err = fn(stacked.data_ptr(), _ptr(noise), weights.data_ptr(),
-             part.data_ptr(), out.data_ptr(), float(clip), c, p, nb,
-             backend.stream_ptr(stacked.device))
+             part.data_ptr(), out.data_ptr(), float(clip), c, p, nb, width,
+             backend.stream_ptr(dev))
     backend.check(err, "clip_reduce")
     clip_reduce_flat.launches += 1
+    clip_reduce_flat.design = design
     return out
 
 
 clip_reduce_flat.launches = 0
+# the design of the last launch: "on_chip" or "two_launch"
+clip_reduce_flat.design = None
 
 
 def quant_split(p: int) -> tuple:
@@ -324,11 +344,30 @@ def quant_split(p: int) -> tuple:
     return width, -(-p // width)
 
 
+def _on_chip_smem(c: int, width: int, per_row: int) -> int:
+    """Shared memory of one on-chip block (oc_smem in
+    csrc/on_chip_rows.cuh): the (C, width) tile, the per-row partials of
+    its QUANT_SEG-column segments, and ``per_row`` arrays of C floats."""
+    return 4 * (c * width + c * -(-width // QUANT_SEG) + per_row * c)
+
+
 def quant_smem_bytes(c: int, width: int) -> int:
-    """Shared memory of one on-chip block: the (C, width) tile of u, the
-    per-row partials of its QUANT_SEG-column segments, and the clip
-    scales, quantization scales and weights."""
-    return 4 * (c * width + c * -(-width // QUANT_SEG) + 3 * c)
+    """An on-chip quant block's: the tile of u, and the clip scales,
+    quantization scales and weights."""
+    return _on_chip_smem(c, width, 3)
+
+
+def clip_smem_bytes(c: int, width: int) -> int:
+    """An on-chip clip block's: the tile of x, the clip scales and the
+    weights."""
+    return _on_chip_smem(c, width, 2)
+
+
+def _fits_on_chip(p: int, smem: int, sms: int, smem_optin: int) -> bool:
+    """All ``quant_split(p)`` blocks resident at once, one a
+    multiprocessor (``sms`` of them), ``smem`` bytes of shared memory
+    each within ``smem_optin``."""
+    return quant_split(p)[1] <= sms and smem <= smem_optin
 
 
 def quant_design_for(c: int, p: int, sms: int, smem_optin: int) -> str:
@@ -338,9 +377,20 @@ def quant_design_for(c: int, p: int, sms: int, smem_optin: int) -> str:
     blocks of 4172 columns, 167.4 KB each: on chip on an H100 SXM (132
     SMs, 227 KB), three passes on a PCIe part's 114 SMs and from 14
     clients at that P."""
-    width, blocks = quant_split(p)
-    fits = blocks <= sms and quant_smem_bytes(c, width) <= smem_optin
-    return "on_chip" if fits else "three_pass"
+    smem = quant_smem_bytes(c, quant_split(p)[0])
+    return "on_chip" if _fits_on_chip(p, smem, sms, smem_optin) else (
+        "three_pass")
+
+
+def clip_design_for(c: int, p: int, sms: int, smem_optin: int) -> str:
+    """"on_chip" when the on-chip clip's blocks (the quant design's
+    split) fit the card at once, else "two_launch". At (10, 534016) 128
+    blocks of 4172 columns, 167.3 KB each: on chip on an H100 SXM,
+    two launches on a PCIe part's 114 SMs and from 14 clients at that
+    P."""
+    smem = clip_smem_bytes(c, quant_split(p)[0])
+    return "on_chip" if _fits_on_chip(p, smem, sms, smem_optin) else (
+        "two_launch")
 
 
 def quant_clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
@@ -382,14 +432,13 @@ def quant_clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
                               props.shared_memory_per_block_optin)
     width, nb = quant_split(p) if design == "on_chip" else (
         0, -(-p // ROW_CHUNK))
-    # norm and absmax partials, then the on-chip design's barrier counter
-    scratch = torch.empty((2 * nb * c + 1,), dtype=torch.float32,
-                          device=dev)
+    # norm and absmax partials
+    scratch = torch.empty((2 * nb * c,), dtype=torch.float32, device=dev)
     err = fn(stacked.data_ptr(), _ptr(noise), _ptr(resid), _ptr(uniform),
              weights.data_ptr(), scratch.data_ptr(),
-             scratch[nb * c:].data_ptr(), scratch[2 * nb * c:].data_ptr(),
-             out.data_ptr(), _ptr(new_resid), float(max(clip, 0.0)), c, p,
-             nb, width, backend.stream_ptr(dev))
+             scratch[nb * c:].data_ptr(), out.data_ptr(), _ptr(new_resid),
+             float(max(clip, 0.0)), c, p, nb, width,
+             backend.stream_ptr(dev))
     backend.check(err, "quant_clip_reduce")
     quant_clip_reduce_flat.launches += 1
     quant_clip_reduce_flat.design = design

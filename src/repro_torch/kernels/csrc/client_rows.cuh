@@ -1,6 +1,7 @@
 // Per-client reductions over the raveled (C, P) client-delta matrix,
 // shared by the DP clip kernel (clip_reduce.cu) and the quantized
-// transport kernels (quant_clip_reduce.cu).
+// transport kernels (quant_clip_reduce.cu): their two- and three-pass
+// designs (the on-chip ones: on_chip_rows.cuh).
 //
 // The TPU kernels keep a (C, 1) accumulator in scratch memory across a
 // sequential (sweeps, blocks) grid: the squared norms in one sweep, the
@@ -59,34 +60,23 @@ __device__ __forceinline__ float warp_max(float s) {
   return s;
 }
 
-// A partial: through the read-only path when an earlier launch wrote it,
-// through L2 (ld.global.cg) when other blocks of the running launch did,
-// before a grid barrier (the read-only path may hold stale lines then).
-template <bool kSameLaunch>
-__device__ __forceinline__ float load_part(const float* p) {
-  return kSameLaunch ? __ldcg(p) : __ldg(p);
-}
-
-// Row c's total from its nb partials part[b C + c]; called by a whole
-// warp, the result in every lane.
-template <bool kSameLaunch = false>
+// Row c's total from its nb partials part[b C + c], written by an earlier
+// launch; called by a whole warp, the result in every lane.
 __device__ __forceinline__ float finish_sum(const float* __restrict__ part,
                                             int nb, int C, int c) {
   const int lane = threadIdx.x % 32;
   float s = 0.0f;
   for (int b = lane; b < nb; b += 32)
-    s += load_part<kSameLaunch>(part + static_cast<long long>(b) * C + c);
+    s += __ldg(part + static_cast<long long>(b) * C + c);
   return warp_sum(s);
 }
 
-template <bool kSameLaunch = false>
 __device__ __forceinline__ float finish_max(const float* __restrict__ part,
                                             int nb, int C, int c) {
   const int lane = threadIdx.x % 32;
   float s = 0.0f;  // absolute values: 0 is the identity
   for (int b = lane; b < nb; b += 32)
-    s = fmaxf(s, load_part<kSameLaunch>(part +
-                                        static_cast<long long>(b) * C + c));
+    s = fmaxf(s, __ldg(part + static_cast<long long>(b) * C + c));
   return warp_max(s);
 }
 

@@ -42,11 +42,11 @@
 //      read once, resid_out written once, t kept in place; then each
 //      column's out = sum_c w_c t_c, clients 0..C-1 in order.
 // Reads and writes each operand once: exactly the bound's bytes. One
-// barrier without the clip. The barrier is this file's own (an arrival
-// counter zeroed by a memset on the stream before the launch, one thread
-// a block spinning on it); the cooperative launch guarantees that every
-// block is resident and refuses a grid that is not, and there is no
-// retry with the other design.
+// barrier without the clip. Step 1, the partials' layout, the barrier
+// and the launch are on_chip_rows.cuh's, shared with the DP clip kernel;
+// the cooperative launch guarantees that every block is resident and
+// refuses a grid that is not, and there is no retry with the other
+// design.
 //
 // Three passes, for every (C, P) whose u does not fit (C = 32 at P =
 // 534016 is 68 MB), with no grid order and no atomics (client_rows.cuh):
@@ -68,15 +68,13 @@
 // another order by each design, so the two may differ by an ulp there.
 //
 // Inputs x (C, P), noise, resid and uniform (C, P) or null, w (C,), all
-// f32 contiguous; scratch norm_part (nb, C) (unused without the clip),
-// amax_part (nb, C) and a barrier counter (on chip only), outputs out
+// f32 contiguous; scratch norm_part and amax_part, nb * C floats each
+// (norm_part unused without the clip), outputs out
 // (P,) and resid_out (C, P) (with a residual only), allocated by the
 // wrapper.
 #include <cuda_runtime.h>
 
-#include <cstdint>
-
-#include "client_rows.cuh"
+#include "on_chip_rows.cuh"
 
 namespace {
 
@@ -90,7 +88,6 @@ struct Args {
   const float* w;
   float* norm_part;
   float* amax_part;
-  unsigned* bar;
   float* out;
   float* resid_out;
   float clip;
@@ -101,127 +98,7 @@ struct Args {
   cudaStream_t stream;
 };
 
-// ---- on chip ----
-
-constexpr int kOcThreads = 512;  // 16 warps, one block an SM
-constexpr int kOcWarps = kOcThreads / 32;
-// the column split: ceil(P / kOcSplit) columns a block, rounded up to 4
-constexpr long long kOcSplit = 128;
-// columns of a row a warp takes at a time in the row passes: 4 float4 (16
-// floats) a lane of each operand, all loads issued before their use, and
-// the next segment's in flight meanwhile
-constexpr int kSegCols = 512;
-
-inline long long oc_width(long long P) {
-  const long long w = (P + kOcSplit - 1) / kOcSplit;
-  return (w + 3) / 4 * 4;
-}
-
-inline size_t oc_smem(int C, long long width) {
-  const long long segs = (width + kSegCols - 1) / kSegCols;
-  // the (C, width) tile, (C, segs) partials, clip and quantization scales
-  // and the weights
-  return sizeof(float) * (static_cast<size_t>(C) * width +
-                          static_cast<size_t>(C) * segs + 3 * C);
-}
-
-// V floats: one float4 (V = 4) or one float
-template <int V>
-struct Pack {
-  float v[V];
-};
-
-template <int V>
-__device__ __forceinline__ Pack<V> ld_global(const float* __restrict__ p) {
-  Pack<V> r;
-  if constexpr (V == 4) {
-    const float4 f = __ldg(reinterpret_cast<const float4*>(p));
-    r.v[0] = f.x, r.v[1] = f.y, r.v[2] = f.z, r.v[3] = f.w;
-  } else {
-    r.v[0] = __ldg(p);
-  }
-  return r;
-}
-
-template <int V>
-__device__ __forceinline__ Pack<V> ld_shared(const float* p) {
-  Pack<V> r;
-  if constexpr (V == 4) {
-    const float4 f = *reinterpret_cast<const float4*>(p);
-    r.v[0] = f.x, r.v[1] = f.y, r.v[2] = f.z, r.v[3] = f.w;
-  } else {
-    r.v[0] = *p;
-  }
-  return r;
-}
-
-template <int V>
-__device__ __forceinline__ void st(float* p, const Pack<V>& r) {
-  if constexpr (V == 4)
-    *reinterpret_cast<float4*>(p) = make_float4(r.v[0], r.v[1], r.v[2],
-                                                r.v[3]);
-  else
-    *p = r.v[0];
-}
-
-// Every block waits here until all nb blocks have arrived: thread 0
-// publishes the block's writes (fence), counts its arrival and spins on
-// the counter (acquire); `target` is nb times the barrier's number in the
-// call. The counter is zeroed before each launch.
-__device__ __forceinline__ void grid_barrier(unsigned* bar, unsigned target) {
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    __threadfence();
-    atomicAdd(bar, 1u);
-    unsigned seen;
-    do {
-      asm volatile("ld.acquire.gpu.global.u32 %0, [%1];\n"
-                   : "=r"(seen)
-                   : "l"(bar)
-                   : "memory");
-    } while (seen < target);
-    __threadfence();
-  }
-  __syncthreads();
-}
-
-// A row pass over the block's segments (row c, columns [s kSegCols,
-// (s + 1) kSegCols) of its wb), warp w taking segments w, w + kOcWarps,
-// ... in turn, software-pipelined: the loads of a warp's next segment are
-// in flight while it uses the current one. `load(q, buf)` fills buf with
-// segment q's S operand streams, `use(q, buf)` consumes them; the caller
-// has loaded the warp's first segment into `a` already (possibly before a
-// grid barrier, so that its loads overlap the wait).
-template <typename Buf, typename Load, typename Use>
-__device__ __forceinline__ void run_segments(int nseg, Buf& a, Buf& b,
-                                             Load load, Use use) {
-  for (int q = threadIdx.x / 32; q < nseg; q += 2 * kOcWarps) {
-    const int q1 = q + kOcWarps;
-    if (q1 < nseg) load(q1, b);
-    use(q, a);
-    if (q1 >= nseg) break;
-    if (q1 + kOcWarps < nseg) load(q1 + kOcWarps, a);
-    use(q1, b);
-  }
-}
-
-// The block's segments of kW columns, row-major over the C rows: segment
-// q is row q / segs, columns [(q % segs) kW, (q % segs + 1) kW) of the
-// block's wb; lane l's k-th pack of V floats starts at col(q, k) (-1 past
-// wb).
-template <int kW, int V>
-struct SegMap {
-  static constexpr int kPacks = kW / (32 * V);
-  int segs, nseg, wb, lane;
-  __device__ SegMap(int C, int wb_)
-      : segs((wb_ + kW - 1) / kW), nseg(C * segs), wb(wb_),
-        lane(threadIdx.x % 32) {}
-  __device__ int row(int q) const { return q / segs; }
-  __device__ int col(int q, int k) const {
-    const int c = (q % segs) * kW + (k * 32 + lane) * V;
-    return c < wb ? c : -1;
-  }
-};
+// ---- on chip (on_chip_rows.cuh) ----
 
 template <bool kClip, bool kNoise, bool kResid, bool kUniform, int V>
 __global__ void __launch_bounds__(kOcThreads, 1)
@@ -231,10 +108,11 @@ quant_on_chip_kernel(const float* __restrict__ x,
                      const float* __restrict__ uniform,
                      const float* __restrict__ w,
                      float* __restrict__ norm_part,
-                     float* __restrict__ amax_part, unsigned* bar,
+                     float* __restrict__ amax_part,
                      float* __restrict__ out, float* __restrict__ resid_out,
                      float clip, int C, long long P, int width) {
-  using Segs = SegMap<kSegCols, V>;
+  using Blk = OnChip<V>;
+  using Seg1 = typename Blk::Seg1;
   // the release pass's operand streams: x (without the clip), noise,
   // resid; at most two are present
   constexpr int kStreams = (!kClip) + kNoise + kResid > 0
@@ -242,86 +120,31 @@ quant_on_chip_kernel(const float* __restrict__ x,
                                : 1;
   // each stream's index in the release pass's buffers
   constexpr int kXi = 0, kNi = kClip ? 0 : 1, kRi = kNi + kNoise;
-  using Seg1 = Pack<V>[1][Segs::kPacks];
-  using SegS = Pack<V>[kStreams][Segs::kPacks];
+  using SegS = Pack<V>[kStreams][Blk::Segs::kPacks];
   extern __shared__ __align__(16) float oc_buf[];
-  const int segs_max = (width + kSegCols - 1) / kSegCols;
-  float* tile = oc_buf;                                    // [C][width]
-  float* seg = tile + static_cast<size_t>(C) * width;       // [C][segs]
-  float* scale = seg + static_cast<size_t>(C) * segs_max;   // [C]
-  float* qscale = scale + C;                                // [C]
-  float* wsm = qscale + C;                                  // [C]
-  const int nb = gridDim.x, b = blockIdx.x;
+  const Blk blk(oc_buf, C, P, width);
+  const auto& sg = blk.sg;
+  float* scale = blk.rows;   // [C]
+  float* qscale = scale + C;  // [C]
+  float* wsm = qscale + C;    // [C]
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long col0 = static_cast<long long>(b) * width;
-  const int wb = static_cast<int>(P - col0 < width ? P - col0 : width);
-  const Segs sg(C, wb);
-  auto at = [&](auto* base, int c, int col) {
-    return base + static_cast<long long>(c) * P + col0 + col;
-  };
-  auto in_tile = [&](int c, int col) {
-    return tile + static_cast<size_t>(c) * width + col;
-  };
-  // stream `st` of segment q from `base` into buf[st]
-  auto load_stream = [&](auto& buf, int st, const float* base, int q) {
-    const int c = sg.row(q);
-#pragma unroll
-    for (int k = 0; k < Segs::kPacks; ++k) {
-      const int col = sg.col(q, k);
-      if (col >= 0) buf[st][k] = ld_global<V>(at(base, c, col));
-    }
-  };
-  // a row's partial over its segments, in order, to part[b C + c]
-  auto row_partials = [&](float* part, bool is_max) {
-    __syncthreads();
-    for (int c = threadIdx.x; c < C; c += kOcThreads) {
-      float t = 0.0f;
-      for (int s = 0; s < sg.segs; ++s)
-        t = is_max ? fmaxf(t, seg[c * segs_max + s])
-                   : t + seg[c * segs_max + s];
-      part[static_cast<long long>(b) * C + c] = t;
-    }
-  };
 
   for (int c = threadIdx.x; c < C; c += kOcThreads) wsm[c] = __ldg(w + c);
-  unsigned barriers = 0;
   SegS ua, ub;  // the release pass's buffers
   auto load_release = [&](int q, SegS& buf) {
-    if constexpr (!kClip) load_stream(buf, kXi, x, q);
-    if constexpr (kNoise) load_stream(buf, kNi, noise, q);
-    if constexpr (kResid) load_stream(buf, kRi, resid, q);
+    if constexpr (!kClip) blk.load_stream(buf, kXi, x, q);
+    if constexpr (kNoise) blk.load_stream(buf, kNi, noise, q);
+    if constexpr (kResid) blk.load_stream(buf, kRi, resid, q);
   };
 
   if constexpr (kClip) {
-    // 1. x into the tile, and the rows' squared norms
-    Seg1 xa, xb;
-    if (warp < sg.nseg) load_stream(xa, 0, x, warp);
-    run_segments(sg.nseg, xa, xb, [&](int q, Seg1& buf) {
-      load_stream(buf, 0, x, q);
-    }, [&](int q, Seg1& buf) {
-      const int c = sg.row(q);
-      float acc = 0.0f;
-#pragma unroll
-      for (int k = 0; k < Segs::kPacks; ++k) {
-        const int col = sg.col(q, k);
-        if (col >= 0) {
-          st<V>(in_tile(c, col), buf[0][k]);
-#pragma unroll
-          for (int e = 0; e < V; ++e)
-            acc = fmaf(buf[0][k].v[e], buf[0][k].v[e], acc);
-        }
-      }
-      acc = warp_sum(acc);
-      if (lane == 0) seg[c * segs_max + q % sg.segs] = acc;
+    // 1. x into the tile, and the rows' squared norms; the release pass's
+    // first loads in flight in the wait
+    blk.tile_norms(x, norm_part, [&] {
+      if (warp < sg.nseg) load_release(warp, ua);
     });
-    row_partials(norm_part, false);
-    if (warp < sg.nseg) load_release(warp, ua);  // in flight in the wait
-    grid_barrier(bar, ++barriers * nb);
-    for (int c = warp; c < C; c += kOcWarps) {
-      const float sc = clip_scale(finish_sum<true>(norm_part, nb, C, c), clip);
-      if (lane == 0) scale[c] = sc;
-    }
-    __syncthreads();
+    grid_barrier();
+    blk.clip_scales(norm_part, clip, scale);
   } else {
     if (warp < sg.nseg) load_release(warp, ua);
   }
@@ -333,12 +156,12 @@ quant_on_chip_kernel(const float* __restrict__ x,
     const float sc = kClip ? scale[c] : 1.0f;
     float m = 0.0f;
 #pragma unroll
-    for (int k = 0; k < Segs::kPacks; ++k) {
+    for (int k = 0; k < Blk::Segs::kPacks; ++k) {
       const int col = sg.col(q, k);
       if (col < 0) continue;
       Pack<V> y;
       if constexpr (kClip)
-        y = ld_shared<V>(in_tile(c, col));
+        y = ld_shared<V>(blk.in_tile(c, col));
       else
         y = buf[kXi][k];
 #pragma unroll
@@ -352,32 +175,32 @@ quant_on_chip_kernel(const float* __restrict__ x,
         y.v[e] = v;
         m = fmaxf(m, fabsf(v));
       }
-      st<V>(in_tile(c, col), y);
+      st<V>(blk.in_tile(c, col), y);
     }
     m = warp_max(m);
-    if (lane == 0) seg[c * segs_max + q % sg.segs] = m;
+    if (lane == 0) blk.seg[c * blk.segs_max + q % sg.segs] = m;
   });
-  row_partials(amax_part, true);
+  blk.row_partials(amax_part, true);
   Seg1 fa, fb;  // the uniforms, the first in flight in the wait
-  if (kUniform && warp < sg.nseg) load_stream(fa, 0, uniform, warp);
-  grid_barrier(bar, ++barriers * nb);
+  if (kUniform && warp < sg.nseg) blk.load_stream(fa, 0, uniform, warp);
+  grid_barrier();
   for (int c = warp; c < C; c += kOcWarps) {
-    const float amax = finish_max<true>(amax_part, nb, C, c);
+    const float amax = finish_row<true>(blk.part_row(amax_part, c), gridDim.x);
     if (lane == 0) qscale[c] = fmaxf(__fdiv_rn(amax, kInt8Levels), kScaleFloor);
   }
   __syncthreads();
 
   // 3. t = dequant(Q(u)) in place, the new residual out
   run_segments(sg.nseg, fa, fb, [&](int q, Seg1& buf) {
-    if (kUniform) load_stream(buf, 0, uniform, q);
+    if (kUniform) blk.load_stream(buf, 0, uniform, q);
   }, [&](int q, Seg1& buf) {
     const int c = sg.row(q);
     const float sq = qscale[c];
 #pragma unroll
-    for (int k = 0; k < Segs::kPacks; ++k) {
+    for (int k = 0; k < Blk::Segs::kPacks; ++k) {
       const int col = sg.col(q, k);
       if (col < 0) continue;
-      float* u = in_tile(c, col);
+      float* u = blk.in_tile(c, col);
       const Pack<V> y = ld_shared<V>(u);
       Pack<V> t, e;
 #pragma unroll
@@ -389,61 +212,32 @@ quant_on_chip_kernel(const float* __restrict__ x,
         e.v[i] = __fsub_rn(y.v[i], t.v[i]);
       }
       st<V>(u, t);
-      if (kResid) st<V>(at(resid_out, c, col), e);
+      if (kResid) st<V>(blk.at(resid_out, c, col), e);
     }
   });
   __syncthreads();
   // out = sum_c w_c t_c, clients in order from 0
-  for (int k = threadIdx.x; k < wb / V; k += kOcThreads) {
+  for (int k = threadIdx.x; k < blk.wb / V; k += kOcThreads) {
     Pack<V> acc;
 #pragma unroll
     for (int i = 0; i < V; ++i) acc.v[i] = 0.0f;
     for (int c = 0; c < C; ++c) {
-      const Pack<V> t = ld_shared<V>(in_tile(c, k * V));
+      const Pack<V> t = ld_shared<V>(blk.in_tile(c, k * V));
 #pragma unroll
       for (int i = 0; i < V; ++i) acc.v[i] = fmaf(wsm[c], t.v[i], acc.v[i]);
     }
-    st<V>(out + col0 + k * V, acc);
+    st<V>(out + blk.col0 + k * V, acc);
   }
 }
 
 template <bool kClip, bool kNoise, bool kResid, bool kUniform, int V>
 int launch_on_chip(const Args& a) {
-  const auto kern = quant_on_chip_kernel<kClip, kNoise, kResid, kUniform, V>;
-  const size_t smem = oc_smem(a.C, a.width);
-  int dev = 0, sms = 0, per_sm = 0;
-  int err = static_cast<int>(cudaGetDevice(&dev));
-  if (err == 0)
-    err = static_cast<int>(
-        cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev));
-  if (err == 0)
-    err = static_cast<int>(cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem)));
-  if (err == 0)
-    err = static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, kern, kOcThreads, smem));
-  if (err != 0) return err;
-  if (static_cast<long long>(per_sm) * sms < a.nb)
-    return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
-  err = static_cast<int>(cudaMemsetAsync(a.bar, 0, sizeof(unsigned),
-                                         a.stream));
-  if (err != 0) return err;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeCooperative;
-  attr[0].val.cooperative = 1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(static_cast<unsigned>(a.nb));
-  cfg.blockDim = dim3(kOcThreads);
-  cfg.dynamicSmemBytes = smem;
-  cfg.stream = a.stream;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  err = static_cast<int>(cudaLaunchKernelEx(
-      &cfg, kern, a.x, a.noise, a.resid, a.uniform, a.w, a.norm_part,
-      a.amax_part, a.bar, a.out, a.resid_out, a.clip, a.C, a.P, a.width));
-  if (err != 0) return err;
-  return static_cast<int>(cudaGetLastError());
+  // the clip scales, quantization scales and weights
+  return launch_on_chip_grid(
+      quant_on_chip_kernel<kClip, kNoise, kResid, kUniform, V>, a.nb,
+      oc_smem(a.C, a.width, 3), a.stream, a.x, a.noise, a.resid, a.uniform,
+      a.w, a.norm_part, a.amax_part, a.out, a.resid_out, a.clip, a.C, a.P,
+      a.width);
 }
 
 // ---- three passes ----
@@ -593,10 +387,6 @@ constexpr Designs kLaunch[16] = {
     designs<true, true, false, false>(),   designs<true, true, false, true>(),
     designs<true, true, true, false>(),    designs<true, true, true, true>()};
 
-bool aligned16(const void* p) {
-  return p == nullptr || reinterpret_cast<uintptr_t>(p) % 16 == 0;
-}
-
 }  // namespace
 
 // C entry, bound with ctypes, on `stream` (PyTorch's current stream).
@@ -606,7 +396,7 @@ bool aligned16(const void* p) {
 // amax_part hold nb * C floats each, nb = ceil(P / 8192)), else the
 // on-chip launch, width the columns a block owns, which must be
 // 4 ceil(ceil(P / 128) / 4), and nb = ceil(P / width) blocks, the
-// partials nb * C floats each and bar one zeroed counter; the wrapper
+// partials C * nb floats each; the wrapper
 // computes both from the same rules and passes them for a check. The
 // on-chip launch returns cudaErrorCooperativeLaunchTooLarge when its grid
 // cannot be resident at once. Allocates nothing, does not synchronise;
@@ -615,8 +405,8 @@ bool aligned16(const void* p) {
 extern "C" int quant_clip_reduce_launch(
     const float* x, const float* noise, const float* resid,
     const float* uniform, const float* w, float* norm_part, float* amax_part,
-    unsigned* bar, float* out, float* resid_out, float clip, int C,
-    long long P, long long nb, long long width, void* stream) {
+    float* out, float* resid_out, float clip, int C, long long P,
+    long long nb, long long width, void* stream) {
   const bool has_clip = clip > 0.0f;
   const bool on_chip = width != 0;
   if (C < 1 || C > kMaxRows || P < 1 ||
@@ -625,10 +415,10 @@ extern "C" int quant_clip_reduce_launch(
       (noise != nullptr && !has_clip) ||
       (resid != nullptr) != (resid_out != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const Args a{x,         noise, resid,    uniform,
-               w,         norm_part, amax_part, bar,
-               out,       resid_out, clip,  C,
-               P,         static_cast<int>(nb), static_cast<int>(width),
+  const Args a{x,    noise,     resid,     uniform,
+               w,    norm_part, amax_part, out,
+               resid_out, clip, C,         P,
+               static_cast<int>(nb), static_cast<int>(width),
                static_cast<cudaStream_t>(stream)};
   const int idx = (has_clip ? 8 : 0) + (noise != nullptr ? 4 : 0) +
                   (resid != nullptr ? 2 : 0) + (uniform != nullptr ? 1 : 0);

@@ -39,6 +39,12 @@ from repro_torch.core.aggregation import make_aggregator
 from repro_torch.core.pipeline import make_pipeline
 from repro_torch.data import SurveyConfig, make_survey_data, split_groups
 from repro_torch.kernels import agg_clip_reduce
+from repro_torch.kernels.agg_reduce import (
+    clip_design_for,
+    clip_smem_bytes,
+    quant_design_for,
+    quant_split,
+)
 from repro_torch.kernels.ref import ref_clip_reduce
 from repro_torch.utils.pytree import tree_count_params
 
@@ -87,6 +93,47 @@ def test_clip_reduce_rejects_a_disabled_clip_and_bad_shapes():
             agg_clip_reduce(x, w, clip=clip)
     with pytest.raises(ValueError, match="shapes"):
         agg_clip_reduce(x, w, clip=1.0, noise=torch.zeros((3, 7)))
+
+
+# an H100 SXM's and an H100 PCIe's multiprocessors and opt-in shared
+# memory a block
+SXM, PCIE = (132, 232448), (114, 232448)
+
+
+@pytest.mark.parametrize("c,p,card,want", [
+    (10, 534016, SXM, "on_chip"),  # the quickstart's (C, P): 128 blocks
+    (10, 534016, PCIE, "two_launch"),  # 114 SMs hold 114 of them
+    (3, 2049, PCIE, "on_chip"),  # 103 blocks fit there
+    (13, 534016, SXM, "on_chip"),  # the last C whose x fits at this P
+    (14, 534016, SXM, "two_launch"),
+    (48, 534016, SXM, "two_launch"),
+    (10, 534016, (128, 232448), "on_chip"),  # one block an SM, exactly
+    (10, 534016, (127, 232448), "two_launch"),
+    # the block's shared memory, exactly and a byte short
+    (10, 534016, (132, clip_smem_bytes(10, 4172)), "on_chip"),
+    (10, 534016, (132, clip_smem_bytes(10, 4172) - 1), "two_launch"),
+])
+def test_clip_design_choice(c, p, card, want):
+    """On chip where the blocks fit at once, one a multiprocessor, each
+    with its (C, width) tile of x; two launches elsewhere."""
+    assert clip_design_for(c, p, *card) == want
+
+
+@pytest.mark.parametrize("p", [1, 7, 2049, 5001, 534016, 534017])
+def test_clip_split_is_the_quant_split_on_any_card(p):
+    """The on-chip clip runs the quant design's column split, a function
+    of P alone, so its bits do not depend on the card; a clip tile (two
+    floats a client) never needs more than a quant tile (three), so the
+    clip is on chip wherever the quant is."""
+    width, blocks = quant_split(p)
+    assert (blocks - 1) * width < p <= blocks * width
+    for c in (1, 10, 13, 14, 48):
+        for card in (SXM, PCIE, (10 ** 4, 232448)):
+            if quant_design_for(c, p, *card) == "on_chip":
+                assert clip_design_for(c, p, *card) == "on_chip"
+    assert clip_design_for(10, p, 10 ** 4, 10 ** 9) == "on_chip"
+    assert clip_smem_bytes(10, width) == 4 * (10 * width
+                                              + 10 * -(-width // 512) + 20)
 
 
 @pytest.mark.parametrize("clip_norm,z", [(0.5, 0.0), (0.5, 0.8),
