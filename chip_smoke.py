@@ -87,6 +87,16 @@ the card, raising on any mismatch:
    branch on the card, prefill and decode times, one profiled prefill;
    then an f32 run at full width, 4 layers, prompt 512, against the
    same run on the CPU.
+   4e. The paper's experiment: one seed of
+   ``repro_torch.benchmarks.paper_experiment``'s pair at the reference's
+   widths and ``FedConfig`` (17 groups, 10 clients, d_model 96, head_dim
+   24, 6 local epochs at 3e-4, 12+12 questions) through the kernels, 30
+   federated rounds and 30 centralized epochs: the launch counts of
+   every round and epoch, the first 3 of each against the same pair on
+   the CPU, the falling loss, ``summarize``, the wall per round and
+   epoch; then 3 rounds of 3 clients a round (``batch_groups``), once
+   with ``reset_opt_each_round``: the cohorts equal to the CPU's and
+   the run within the training tolerance of the CPU's.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -100,16 +110,19 @@ the card, raising on any mismatch:
    the chunked plain branch (``ssd_chunked``), after its bf16 check and
    planted faults at the prefill shape; the DP clip reduce also in its
    other design (two launches) and, on chip, by phase from a build that
-   stamps each block's clock (tile load, barrier wait, reduce).
+   stamps each block's clock (tile load, barrier wait, reduce); the
+   attention kernels and the FedAvg reduce also at phase 4e's shapes.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last eight lines of standard output are the
+right after it. The last nine lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
 round), the ``private`` JSON line (the same per DP and codec
 configuration, with ε), the ``lm`` JSON line (per architecture:
-launches, times, agreement, profile), the ``kernels`` JSON line, the
+launches, times, agreement, profile), the ``experiment`` JSON line
+(launches, walls, agreement, ``summarize``, the partial-participation
+runs), the ``kernels`` JSON line, the
 card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
@@ -135,6 +148,12 @@ import torch.nn.functional as F
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+from repro_torch.benchmarks.paper_experiment import (  # noqa: E402
+    FED_SETTINGS,
+    make_pair,
+    result_from_histories,
+    summarize,
+)
 from repro_torch.checkpoint import (  # noqa: E402
     latest_checkpoint,
     restore_checkpoint,
@@ -445,6 +464,13 @@ WIDE_PRIVATE = {"dp_noise": "two_launch", "int8_ef": "three_pass"}
 # other run after 3 rounds (flipped int8 levels, swapped top-k near-ties;
 # train_private): 0.02% of the 5.3 M, a bound against a systematic error
 MAX_FLIPPED = 1000
+# phase 4e, the paper's experiment (benchmarks/paper_experiment.py): one
+# seed of the pair, EXP_ROUNDS federated rounds and as many centralized
+# epochs, its first EXP_CPU_ROUNDS against the CPU run; then SUB_ROUNDS
+# at batch_groups=SUB_GROUPS (with and without reset_opt_each_round)
+# against the CPU run
+EXP_ROUNDS, EXP_CPU_ROUNDS = 30, 3
+SUB_GROUPS, SUB_ROUNDS = 3, 3
 # FederatedGPO against its CPU run and its dense run after 3 rounds
 TRAIN_ROUNDS, MORE_ROUNDS = 3, 20
 TRAIN_TOL = {"round_loss_rtol": 1e-4, "eval_atol": 1e-4,
@@ -577,6 +603,19 @@ def _timed(kernel_fn, plain_fn, library_fn) -> dict:
     return {"ms": ms, "kernel_ms": ms, "plain_ms": plain, "library_ms": lib,
             "eager_ms": {"kernel": eager, "plain": plain_eager,
                          "library": lib_eager}}
+
+
+def _bwd_alone(forward, leaf, do) -> tuple:
+    """(device, eager) ms of the backward alone of ``forward(*leaf)``,
+    replayed from one retained graph. A backward op runs on its forward's
+    stream, so the forward runs on the capture stream."""
+    stream = torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        out_ = forward(*leaf)
+    return _time_ms(lambda: torch.autograd.grad(out_, leaf, do,
+                                                retain_graph=True),
+                    stream=stream)
 
 
 def _profile(fn, trace: str = "engine_trace.json", match=()) -> dict:
@@ -2239,6 +2278,163 @@ def train_private_wide(dev, data, tr, ev) -> dict:
     return out
 
 
+def _evals(rounds: int, every: int) -> int:
+    """Evaluations in ``rounds``: every ``every``-th round and the last."""
+    return len(set(range(0, rounds, every)) | {rounds - 1})
+
+
+def _first_rounds_agree(hist, cpu) -> dict:
+    """The kernel run's first rounds (epochs) against a shorter CPU run
+    of the same trainer: their round losses (relative) and the round-0
+    eval (AS / FI / CoV and each group's score, absolute)."""
+    n = len(cpu.round_loss)
+    loss = np.abs(np.asarray(hist.round_loss[:n]) - cpu.round_loss) / \
+        np.abs(cpu.round_loss)
+    ev = max([abs(getattr(hist, k)[0] - getattr(cpu, k)[0])
+              for k in ("eval_mean_as", "eval_fi", "eval_cov")]
+             + [float(np.abs(np.asarray(hist.eval_scores[0])
+                             - cpu.eval_scores[0]).max())])
+    return {"rounds": n, "round_loss_rel": float(loss.max()),
+            "eval0_abs": float(ev)}
+
+
+def experiment(dev) -> dict:
+    """Phase 4e: the paper's experiment through the port's
+    ``benchmarks/paper_experiment.py`` at the reference's widths and
+    FedConfig (17 groups, 10 clients, d_model 96, head_dim 24, 6 local
+    epochs), through the kernels: the launch counts of every federated
+    round and centralized epoch, the first rounds against the CPU, the
+    falling loss, ``summarize``, the wall per round and epoch; then
+    partial participation, once with per-round optimizer resets, against
+    the CPU with the same cohorts."""
+    fed, cen = make_pair(EXP_ROUNDS, SEED, device=dev)
+    gcfg, fcfg = fed.gpo_cfg, fed.fed_cfg
+    layers, epochs, clients = (gcfg.num_layers, fcfg.local_epochs,
+                               len(fed.train_groups))
+    evals = _evals(EXP_ROUNDS, fcfg.eval_every)
+    zero = dict.fromkeys(_COUNTED, 0)
+
+    def want(steps_per_round: int, reduces: int) -> dict:
+        steps = layers * steps_per_round * EXP_ROUNDS
+        return {**zero, "gpo_attention_fwd": steps + layers * evals,
+                "gpo_attention_bwd_dq": steps,
+                "gpo_attention_bwd_dkdv": steps, "fedavg_reduce": reduces}
+
+    runs = {}
+    for label, trainer, kw, expected in (
+            ("fed", fed, {"rounds": EXP_ROUNDS}, want(epochs, EXP_ROUNDS)),
+            ("cen", cen, {"epochs": EXP_ROUNDS}, want(clients, 0))):
+        _zero_counts()
+        t0 = time.perf_counter()
+        hist = trainer.run(**kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = _counts()
+        if launches != expected:
+            raise AssertionError(f"{label} launches {launches}, want "
+                                 f"{expected}")
+        losses = np.asarray(hist.round_loss)
+        first, last = float(losses[:3].mean()), float(losses[-5:].mean())
+        ok = (np.isfinite(losses).all() and last < first
+              and all(0.0 < a <= 1.0 for a in hist.eval_mean_as)
+              and all(0.0 < f <= 1.0 for f in hist.eval_fi))
+        unit = "round" if label == "fed" else "epoch"
+        print(f"  {label}: {EXP_ROUNDS} {unit}s in {wall:.3f}s "
+              f"({wall / EXP_ROUNDS * 1e3:.1f} ms per {unit}); launches "
+              f"{({k: v for k, v in launches.items() if v})} ({evals} "
+              f"evals); mean loss of the first 3 {first:.5f}, of the last "
+              f"5 {last:.5f}; final AS {hist.eval_mean_as[-1]:.4f} FI "
+              f"{hist.eval_fi[-1]:.4f}")
+        if not ok:
+            raise AssertionError(f"{label}: the loss did not fall, or a "
+                                 "value is off its range")
+        runs[label] = {"hist": hist, "wall_ms_per_" + unit:
+                       wall / EXP_ROUNDS * 1e3, "launches": launches,
+                       "loss_first3_mean": first, "loss_last5_mean": last}
+    # where a round's and an epoch's time goes (a one-round run evaluates)
+    for label, fn in (("fed", lambda: fed.run(rounds=1)),
+                      ("cen", lambda: cen.run(epochs=1))):
+        prof = _profile(fn, f"experiment_{label}_trace.json")
+        runs[label]["profile"] = prof
+        print(f"  one {label} {'round' if label == 'fed' else 'epoch'} "
+              f"under the profiler: wall {prof['wall_ms']:.3f}ms, "
+              f"{prof['kernels']} kernels, device busy "
+              f"{prof['kernel_ms']:.3f}ms ({100 * prof['busy_share']:.2f}%)")
+    result = result_from_histories(runs["fed"]["hist"], runs["cen"]["hist"])
+    summary = summarize([result])
+    print(f"  summarize (1 seed, {EXP_ROUNDS} rounds): "
+          + ", ".join(f"{k} {v:.4f}" for k, v in summary.items()))
+
+    # the first rounds and epochs against the same pair on the CPU (the
+    # batches come from CPU generators on both devices)
+    cpu_f, cpu_c = make_pair(EXP_CPU_ROUNDS, SEED, device="cpu")
+    agree = {"fed": _first_rounds_agree(runs["fed"]["hist"],
+                                        cpu_f.run(rounds=EXP_CPU_ROUNDS)),
+             "cen": _first_rounds_agree(runs["cen"]["hist"],
+                                        cpu_c.run(epochs=EXP_CPU_ROUNDS))}
+    for label, a in agree.items():
+        print(f"  {label} vs the CPU over the first {a['rounds']}: "
+              f"round_loss rel {a['round_loss_rel']:.3e} (tol "
+              f"{TRAIN_TOL['round_loss_rtol']:g}); round-0 eval abs "
+              f"{a['eval0_abs']:.3e} (tol {TRAIN_TOL['eval_atol']:g})")
+        if not (a["round_loss_rel"] <= TRAIN_TOL["round_loss_rtol"]
+                and a["eval0_abs"] <= TRAIN_TOL["eval_atol"]):
+            raise AssertionError(f"the {label} kernel run is off the CPU")
+
+    # partial participation: SUB_GROUPS of the 10 clients a round, the
+    # cohort drawn from the CPU training generator on both devices
+    sub = {}
+    for reset in (False, True):
+        settings = {**FED_SETTINGS, "eval_every": 1,
+                    "batch_groups": SUB_GROUPS,
+                    "reset_opt_each_round": reset}
+        made = {d: make_pair(SUB_ROUNDS, SEED, device=d,
+                             settings=settings)[0] for d in ("cpu", dev)}
+        cpu_hist = made["cpu"].run(rounds=SUB_ROUNDS)
+        _zero_counts()
+        hist = made[dev].run(rounds=SUB_ROUNDS)
+        launches = _counts()
+        steps = layers * epochs * SUB_ROUNDS
+        expected = {**zero, "gpo_attention_fwd": steps + layers * SUB_ROUNDS,
+                    "gpo_attention_bwd_dq": steps,
+                    "gpo_attention_bwd_dkdv": steps,
+                    "fedavg_reduce": SUB_ROUNDS}
+        a = _agreement(hist, made[dev].global_params, cpu_hist,
+                       made["cpu"].global_params)
+        label = "reset_opt" if reset else "subsampled"
+        print(f"  {label} ({SUB_GROUPS} of {clients} a round): cohorts "
+              f"{hist.round_participants} (CPU {cpu_hist.round_participants})"
+              f"; launches {({k: v for k, v in launches.items() if v})}; vs "
+              f"the CPU: round_loss rel {a['round_loss_rel']:.3e}, eval abs "
+              f"{a['eval_abs']:.3e}, params max_abs "
+              f"{a['params_max_abs']:.3e}")
+        if launches != expected:
+            raise AssertionError(f"{label} launches {launches}, want "
+                                 f"{expected}")
+        if (hist.round_participants != cpu_hist.round_participants
+                or [len(set(c)) for c in hist.round_participants]
+                != [SUB_GROUPS] * SUB_ROUNDS):
+            raise AssertionError(f"{label}: the cohorts differ from the "
+                                 "CPU's, or are not of SUB_GROUPS clients")
+        if not _within(a):
+            raise AssertionError(f"the {label} kernel run is off the CPU")
+        sub[label] = {"participants": hist.round_participants,
+                      "launches": launches, "agreement": a}
+
+    return {"config": {"clients": clients, "eval_groups":
+                       len(fed.eval_groups), "d_model": gcfg.d_model,
+                       "layers": layers, "heads": gcfg.num_heads,
+                       "head_dim": gcfg.d_model // gcfg.num_heads,
+                       "d_ff": gcfg.d_ff, "d_embed": gcfg.d_embed,
+                       "params": tree_count_params(fed.global_params),
+                       **FED_SETTINGS},
+            "rounds": EXP_ROUNDS, "evals": evals,
+            **{label: {k: v for k, v in r.items() if k != "hist"}
+               for label, r in runs.items()},
+            "summary": summary, "cpu_agreement": agree,
+            "tolerance": TRAIN_TOL, "partial": sub}
+
+
 def _lm_cfg(arch: str, **kw) -> ModelConfig:
     return override(get_arch(arch), **kw) if kw else get_arch(arch)
 
@@ -2620,7 +2816,7 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
 
 
 def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
-           card_name, worst) -> list:
+           exp_rec, card_name, worst) -> list:
     """Phase 5: kernel, plain and library times at main-path shapes."""
     peaks = _peaks(card_name)
     g = _gen(SEED + 2)
@@ -2774,24 +2970,13 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
     def fwd_bwd(forward):
         return lambda: torch.autograd.grad(forward(*leaf), leaf, do)
 
-    def bwd_alone(forward) -> tuple:
-        """(device, eager) ms of the backward alone. A backward op runs on
-        its forward's stream, so the forward runs on the capture stream."""
-        stream = torch.cuda.Stream()
-        stream.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(stream):
-            out_ = forward(*leaf)
-        return _time_ms(lambda: torch.autograd.grad(out_, leaf, do,
-                                                    retain_graph=True),
-                        stream=stream)
-
     chain = {
         "kernels_ms": _time_ms(fwd_bwd(gpo_forward))[0],
         "plain_ms": _time_ms(fwd_bwd(
             lambda *a: ref_gpo_attention(*a, num_ctx=nc)[0]))[0],
         "library_ms": _time_ms(fwd_bwd(sdpa_forward))[0]}
-    backward = {"gpo_attention_ms": bwd_alone(gpo_forward)[0]}
-    sdpa_bwd = bwd_alone(sdpa_forward)
+    backward = {"gpo_attention_ms": _bwd_alone(gpo_forward, leaf, do)[0]}
+    sdpa_bwd = _bwd_alone(sdpa_forward, leaf, do)
     backward["library_ms"] = sdpa_bwd[0]
     print(f"  attention backward alone at {[bh, s_len, nc, HEAD_DIM]}, "
           f"device (CUDA graph): GPOAttention (delta, dq, dk/dv) "
@@ -3058,6 +3243,7 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
                             f"k = ceil({TOPK_FRAC}·P), eager",
                     "ms": thresholds_ms}))
 
+    _experiment_timings(out, exp_rec, peaks, attn_bounds, g, dev)
     for r in out:
         e = r["eager_ms"]
         lib = ("n/a" if r["library_ms"] is None
@@ -3101,6 +3287,100 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
           f"{chain['plain_ms'] * 1e3:.2f}us  SDPA fwd+bwd "
           f"{chain['library_ms'] * 1e3:.2f}us")
     return out
+
+
+def _experiment_timings(out, exp_rec, peaks, attn_bounds, g, dev) -> None:
+    """Phase 5 at the paper experiment's shapes (phase 4e): the attention
+    kernels at S 120, num_ctx 60, head_dim 24, with BH = clients x heads
+    (a federated step), heads (a centralized step) and held-out groups x
+    heads (an eval, the forward only), and the FedAvg reduce at (clients,
+    P); each beside its plain version, SDPA (or cuBLAS's gemv) and its
+    bound, added to the kernel's row as ``experiment_path`` with phase
+    4e's launches."""
+    cfg = exp_rec["config"]
+    hd, heads, nc = cfg["head_dim"], cfg["heads"], cfg["num_context"] * 5
+    s_len = (cfg["num_context"] + cfg["num_target"]) * 5
+    band = s_len * nc + (s_len - nc)
+    pos = torch.arange(s_len, device=dev)
+    mask = (pos[None, :] < nc) | (pos[None, :] == pos[:, None])
+    rows = {r["name"]: r for r in out}
+    bhs = {"fed": cfg["clients"] * heads, "cen": heads,
+           "eval": cfg["eval_groups"] * heads}
+    kernels = (("gpo_attention_fwd", None, 0, 4),
+               ("gpo_attention_bwd_dq", gpo_attention_bwd_dq, 1, 6),
+               ("gpo_attention_bwd_dkdv", gpo_attention_bwd_dkdv, 2, 8))
+    for name, bwd, n_out, per_pair in kernels:
+        shapes = []
+        for path, bh in bhs.items():
+            if bwd is not None and path == "eval":
+                continue  # no backward in an eval
+            q, k, v, do = _attn_inputs(bh, s_len, g, dev, hd=hd, n=4)
+            if bwd is None:
+                times = _timed(
+                    lambda: gpo_attention_fwd(q, k, v, num_ctx=nc),
+                    lambda: ref_gpo_attention(q, k, v, num_ctx=nc),
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask))
+                nbytes = 4 * bh * (4 * s_len * hd + s_len)
+            else:
+                o, lse = gpo_attention_fwd(q, k, v, num_ctx=nc)
+                ops = (q, k, v, do, lse, (do * o).sum(-1))
+                plain = (ref_gpo_attention_bwd_dq if n_out == 1
+                         else ref_gpo_attention_bwd_dkdv)
+                times = _timed(lambda: bwd(*ops, num_ctx=nc),
+                               lambda: plain(*ops, num_ctx=nc), None)
+                times["library_ms"] = _bwd_alone(
+                    lambda *a: F.scaled_dot_product_attention(
+                        *a, attn_mask=mask),
+                    [t.clone().requires_grad_() for t in (q, k, v)], do)[0]
+                nbytes = 4 * bh * ((4 + n_out) * s_len * hd + 2 * s_len)
+            shapes.append({"path": path, "shape": [bh, s_len, nc, hd],
+                           **times, **attn_bounds(
+                               f"{name} BH={bh} S={s_len} hd={hd}", nbytes,
+                               per_pair * bh * band * hd)})
+        rows[name]["experiment_path"] = {
+            "launches": {p: exp_rec[p]["launches"][name]
+                         for p in ("fed", "cen")},
+            "rounds": exp_rec["rounds"], "shapes": shapes,
+            "library_call": rows[name]["library_call"]}
+
+    # the reduce at (clients, P): 8 rotated copies (73 MB, beyond the 50
+    # MB L2), so each call reads its deltas from device memory
+    c, p = cfg["clients"], cfg["params"]
+    xs = [torch.randn((c, p), generator=g).to(dev) for _ in range(8)]
+    w = torch.rand((c,), generator=g) + 0.1
+    w = (w / w.sum()).to(dev)
+    turn = [0]
+
+    def rotating(fn):
+        def call():
+            turn[0] += 1
+            return fn(xs[turn[0] % len(xs)])
+        return call
+
+    times = _timed(rotating(lambda x: fedavg_reduce_flat(x, w)),
+                   rotating(lambda x: ref_fedavg_flat(x, w)),
+                   rotating(lambda x: w @ x))
+    bound, by = _bound_ms(4 * (c * p + p + c), 2 * c * p, peaks)
+    rows["fedavg_reduce"]["experiment_path"] = {
+        "launches": {"fed": exp_rec["fed"]["launches"]["fedavg_reduce"],
+                     "cen": 0},
+        "rounds": exp_rec["rounds"],
+        "shapes": [{"path": "fed", "shape": [c, p], **times,
+                    "bound_ms": bound, "bound_by": by}],
+        "library_call": rows["fedavg_reduce"]["library_call"]}
+    for name in ("gpo_attention_fwd", "gpo_attention_bwd_dq",
+                 "gpo_attention_bwd_dkdv", "fedavg_reduce"):
+        xp = rows[name]["experiment_path"]
+        for sh in xp["shapes"]:
+            lib = ("n/a" if sh["library_ms"] is None
+                   else f"{sh['library_ms'] * 1e3:.2f}us")
+            print(f"  {name} at the experiment's {sh['path']} shape "
+                  f"{sh['shape']}, device (CUDA graph): kernel "
+                  f"{sh['ms'] * 1e3:.2f}us  plain {sh['plain_ms'] * 1e3:.2f}"
+                  f"us  library {lib}  bound {sh['bound_ms'] * 1e3:.3f}us "
+                  f"({sh['bound_by']}); launches in phase 4e "
+                  f"{xp['launches']}")
 
 
 def main() -> int:
@@ -3155,9 +3435,13 @@ def main() -> int:
     print("[4d] LM serving: qwen2-0.5b and mamba2-780m at full width and "
           "depth, bf16, through the flash-attention and SSD kernels")
     lm_rec = serve_lm(dev)
+    print("[4e] the paper's experiment: FedAvg vs centralized at the "
+          "reference's widths through the kernels, then partial "
+          "participation and optimizer resets")
+    exp_rec = experiment(dev)
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
-                     priv_rec, name, worst)
+                     priv_rec, exp_rec, name, worst)
     kernels += _backbone_rows(dev, lm_rec, name, worst)
     _wait_control_builds()
 
@@ -3169,6 +3453,7 @@ def main() -> int:
     print(json.dumps({"strategies": strat_rec}))
     print(json.dumps({"private": priv_rec, "private_wide": wide_rec}))
     print(json.dumps({"lm": lm_rec}))
+    print(json.dumps({"experiment": exp_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -4,8 +4,9 @@ serving, and the federated runtime.
 Every class copies the JAX package's class of the same name field for
 field: same names, same defaults, same ``validate()`` (a test holds the
 two field lists equal). Configs are frozen dataclasses so they hash and
-compare by value. The federated runtime of the port runs the default
-round (full participation, FedAvg); the other stages' configs are
+compare by value. The federated runtime of the port runs the round
+with every strategy, the DP and codec stages and partial participation;
+the other stages' configs (availability, adversary, hierarchy) are
 carried so that a config moves between the packages unchanged, and the
 trainers refuse what they do not run yet.
 """
@@ -236,9 +237,9 @@ class PrivacyConfig:
     §9): per-client L2 clip of the flat delta to ``clip_norm`` and
     Gaussian noise of std ``noise_multiplier * clip_norm``, with Rényi-DP
     accounting (``core/privacy.py::RdpAccountant``, one sampled Gaussian
-    mechanism a round, q = 1 under full participation; the per-round ε
-    at ``target_delta`` lands in ``History.round_eps``). ``clip_norm ==
-    0`` disables it."""
+    mechanism a round at q = m/C, 1 under full participation; the
+    per-round ε at ``target_delta`` lands in ``History.round_eps``).
+    ``clip_norm == 0`` disables it."""
 
     clip_norm: float = 0.0
     noise_multiplier: float = 0.0

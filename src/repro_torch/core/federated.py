@@ -1,16 +1,22 @@
 """PluralLLM federated runtime (paper §3, §4.3): the PyTorch port of
 ``repro/core/federated.py``'s ``FederatedGPO`` for the paper's round.
 
-A round, with every training client participating:
+A round:
 
-  1. the server broadcasts the global GPO params to the C clients;
+  0. with ``FedConfig.batch_groups`` = m < C (partial participation, a
+     beyond-paper ablation) the round's cohort of m clients is drawn
+     first, without replacement; else all C clients take part and
+     nothing is drawn. The Eq. 2 weights renormalize over the cohort;
+  1. the server broadcasts the global GPO params to the m clients;
   2. every client runs ``local_epochs`` Adam steps (Eq. 1), all clients
-     at once: the params are client-stacked (leaves (C, ...)), each
+     at once: the params are client-stacked (leaves (m, ...)), each
      epoch draws one ICL batch per client, and one batched forward and
      backward serves them all (the reference's ``jax.vmap(local_train)``
-     written out; one attention launch per layer covers C·H client-
+     written out; one attention launch per layer covers m·H client-
      heads). The loss differentiated is the SUM of the clients' mean
-     losses, so each client's gradient is its own;
+     losses, so each client's gradient is its own. Each client's Adam
+     state is gathered from the C-stacked states and scattered back, or,
+     with ``reset_opt_each_round``, starts fresh every round;
      With ``AggConfig.prox_mu > 0`` each client's objective gains the
      FedProx term (μ/2)·‖θ − θ_broadcast‖²; the reported loss stays the
      task loss;
@@ -21,7 +27,8 @@ A round, with every training client participating:
      ``FedConfig.compression`` enabled the released delta is then int8-
      quantized or top-k-sparsified with an EF21 error-feedback residual
      carried per client in ``ef_resid`` (DESIGN.md §10,
-     ``core/compression.py``);
+     ``core/compression.py``; the cohort's rows are gathered and
+     scattered back), and the accountant composes at q = m/C;
   4. the aggregate stage (``core/pipeline.py``): the configured strategy
      of the registry (``core/aggregation.py``) reduces the deltas with
      w_g = |D_g| / Σ|D_g'| (Eq. 2-3) and applies its server update,
@@ -33,27 +40,29 @@ A round, with every training client participating:
 
 ``engine="scan"`` and ``engine="loop"`` both run this per-round driver:
 the fused multi-round driver (a captured round replayed as a CUDA graph)
-is ROADMAP.md queue A.2. Partial participation, per-round optimizer
-resets, and the availability, adversary and hierarchy stages are not
-ported yet; a config that asks for one raises ``NotImplementedError``
-naming its ROADMAP item.
+is ROADMAP.md queue A.2. The availability, adversary and hierarchy
+stages are not ported yet; a config that asks for one raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Randomness: the initial params come from a CPU ``torch.Generator``
-seeded with ``FedConfig.seed``, the training batches and the eval
-batches from two CPU generators restarted from ``FedConfig.seed`` at
-every ``run`` call (as the reference restarts its key chain); batches
-move to the trainer's device after sampling, so a seed gives the same
-inputs on every device. The release draws (the σ-scaled DP noise, then
-the int8 rounding uniforms, (C, P) each, drawn only where the config
+seeded with ``FedConfig.seed``, the cohorts and the training batches
+(the cohort first, then the round's batches) and the eval batches from
+two CPU generators restarted from ``FedConfig.seed`` at every ``run``
+call (as the reference restarts its key chain); batches move to the
+trainer's device after sampling, so a seed gives the same inputs and
+cohorts on every device. The release draws (the σ-scaled DP noise, then
+the int8 rounding uniforms, (m, P) each, drawn only where the config
 uses them) come from a third generator, on the trainer's device,
 restarted from ``FedConfig.seed`` at every ``run`` call too: the card's
 draws differ from the CPU's, but runs on one device with and without the
 kernels see the same noise. JAX's keys cannot be reproduced in torch, so
 for parity with the reference ``FederatedGPO`` takes replay hooks:
-``init_params`` (the reference's params as numpy arrays), ``batches``
-((round, epoch) -> client-stacked ICLBatch), ``eval_batches`` (round ->
-ICLBatch stacked over the held-out groups) and ``release_draws`` (round
--> (noise or None, uniform or None) as numpy arrays).
+``init_params`` (the reference's params as numpy arrays), ``participants``
+(round -> the cohort's client indices, in the reference's order; read
+only when m < C), ``batches`` ((round, epoch) -> the ICLBatch stacked
+over the cohort in that order), ``eval_batches`` (round -> ICLBatch
+stacked over the held-out groups) and ``release_draws`` (round ->
+(noise or None, uniform or None) as numpy arrays, (m, P) each).
 """
 from __future__ import annotations
 
@@ -81,6 +90,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.optim import adam
 from repro_torch.utils.pytree import (
     tree_count_params,
+    tree_index,
     tree_leaves,
     tree_map,
     tree_sq_norm,
@@ -91,6 +101,7 @@ from repro_torch.utils.pytree import (
 BatchHook = Callable[[int, int], ICLBatch]
 EvalHook = Callable[[int], ICLBatch]
 DrawsHook = Callable[[int], tuple]
+CohortHook = Callable[[int], "np.ndarray"]
 # the release generator's seed offset (any constant apart from the batch
 # generators' seeds): the reference's DP noise key tag
 _RELEASE_TAG = 0x5A11CE
@@ -167,6 +178,9 @@ class History:
     # the trainer. Empty when the privacy pipeline is disabled; inf per
     # round for clip-only runs (clipping alone carries no DP guarantee).
     round_eps: list = field(default_factory=list)
+    # partial participation: each round's cohort (client indices, in the
+    # order their batches are stacked). Empty under full participation.
+    round_participants: list = field(default_factory=list)
 
     def append_eval(self, r: int, scores: np.ndarray, log_every: int,
                     label: str = "[fed] round") -> None:
@@ -186,9 +200,6 @@ def _refuse_unported(fed_cfg: FedConfig) -> None:
     """Raise for any round feature the port does not run yet, naming its
     ROADMAP.md item, rather than running a different round."""
     todo = [
-        (fed_cfg.batch_groups > 0, "batch_groups > 0 (partial "
-         "participation)", "A.2"),
-        (fed_cfg.reset_opt_each_round, "reset_opt_each_round", "A.2"),
         (fed_cfg.avail.enabled, "the availability stage", "A.5"),
         (fed_cfg.adversary.enabled, "the adversary stage", "A.4"),
         (fed_cfg.hierarchy.enabled, "the hierarchy stage", "A.6"),
@@ -197,8 +208,7 @@ def _refuse_unported(fed_cfg: FedConfig) -> None:
         if on:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP.md queue {item}); "
-                "the port runs the full-participation "
-                "round")
+                "the port runs the round without it")
 
 
 def _generators(seed: int):
@@ -217,6 +227,7 @@ class FederatedGPO:
     def __init__(self, gpo_cfg: GPOConfig, fed_cfg: FedConfig,
                  data: SurveyData, train_groups, eval_groups, *,
                  device=None, init_params=None,
+                 participants: Optional[CohortHook] = None,
                  batches: Optional[BatchHook] = None,
                  eval_batches: Optional[EvalHook] = None,
                  release_draws: Optional[DrawsHook] = None):
@@ -236,8 +247,11 @@ class FederatedGPO:
         self.train_groups = np.asarray(train_groups)
         self.eval_groups = np.asarray(eval_groups)
         num_clients = len(self.train_groups)
-        self.weights = normalize_weights(
-            data.sizes[torch.as_tensor(self.train_groups)]).to(self.device)
+        # partial participation (beyond-paper ablation): m clients a round
+        self.num_participants = min(fed_cfg.batch_groups or num_clients,
+                                    num_clients)
+        # the Eq. 2 weights of full participation
+        self.weights = self._weights(self.train_groups)
         self.opt = adam(fed_cfg.lr)
         self.agg = make_aggregator(
             fed_cfg.agg, num_clients=num_clients,
@@ -258,16 +272,36 @@ class FederatedGPO:
             device=self.device)
             if comp.enabled and comp.error_feedback else None)
         # DP accounting: one sampled Gaussian mechanism a round, at the
-        # sampling rate q = 1 of full participation
-        self._accountant = dp.make_accountant(fed_cfg.privacy, 1.0)
+        # sampling rate q = m/C
+        self._accountant = dp.make_accountant(
+            fed_cfg.privacy, self.num_participants / num_clients)
         self._rounds_elapsed = 0
         self.opt_states = self.opt.init(
             broadcast_to_clients(self.global_params, num_clients),
             num_clients=num_clients)
         self._local_train = _make_local_train(gpo_cfg, fed_cfg, self.opt)
         self._eval = _make_eval_group(gpo_cfg, data.num_options)
+        self._participants = participants
         self._batches, self._eval_batches = batches, eval_batches
         self._release_draws = release_draws
+
+    def _weights(self, groups) -> torch.Tensor:
+        """w_g = |D_g| / Σ|D_g'| over ``groups`` (Eq. 2), on the device."""
+        return normalize_weights(
+            self.data.sizes[torch.as_tensor(groups)]).to(self.device)
+
+    def _cohort(self, r: int, gen: torch.Generator):
+        """The round's participants, (m,) int64 on the CPU in the order
+        their batches and draws stack: replayed from the hook, or the
+        first m of a permutation drawn from ``gen``. None under full
+        participation, which draws nothing."""
+        c, m = len(self.train_groups), self.num_participants
+        if m == c:
+            return None
+        if self._participants is not None:
+            return torch.as_tensor(np.array(self._participants(r)),
+                                   dtype=torch.int64)
+        return torch.randperm(c, generator=gen)[:m]
 
     def _eval_mask(self, rounds: int) -> np.ndarray:
         """Rounds that evaluate: every ``eval_every``-th and the last."""
@@ -276,8 +310,8 @@ class FederatedGPO:
         mask[rounds - 1] = True
         return mask
 
-    def _draws(self, r: int, gen: torch.Generator):
-        """The round's (noise, uniform) release operands, each (C, P) or
+    def _draws(self, r: int, gen: torch.Generator, m: int):
+        """The round's (noise, uniform) release operands, each (m, P) or
         None: replayed from the hook, or drawn from ``gen`` (noise
         first) where the config uses them."""
         if self._release_draws is not None:
@@ -286,35 +320,56 @@ class FederatedGPO:
                                          device=self.device)
                          for a in self._release_draws(r))
         priv, comp = self.fed_cfg.privacy, self.fed_cfg.compression
-        shape = (len(self.train_groups),
-                 tree_count_params(self.global_params))
+        shape = (m, tree_count_params(self.global_params))
         noise = (dp.client_noise(gen, shape, priv.sigma)
                  if priv.enabled and priv.noise_multiplier > 0.0 else None)
         uniform = cx.client_uniform(gen, shape) if comp.needs_rng else None
         return noise, uniform
 
     def _round(self, r: int, gen: torch.Generator,
-               gen_release: torch.Generator) -> float:
+               gen_release: torch.Generator, hist: History) -> float:
         """One round; returns the mean client loss."""
         fed = self.fed_cfg
-        clients = broadcast_to_clients(self.global_params,
-                                       len(self.train_groups))
+        cohort = self._cohort(r, gen)
+        if cohort is None:
+            groups, weights, idx = self.train_groups, self.weights, None
+        else:
+            hist.round_participants.append(cohort.tolist())
+            groups = self.train_groups[cohort.numpy()]
+            weights = self._weights(groups)
+            idx = cohort.to(self.device)
+        m = len(groups)
+        clients = broadcast_to_clients(self.global_params, m)
+        if fed.reset_opt_each_round:
+            opt_in = self.opt.init(clients, num_clients=m)
+        else:
+            opt_in = (self.opt_states if idx is None
+                      else tree_index(self.opt_states, idx))
 
         def batches(e: int) -> ICLBatch:
             b = (self._batches(r, e) if self._batches is not None else
-                 sample_icl_batches(gen, self.data, self.train_groups,
+                 sample_icl_batches(gen, self.data, groups,
                                     fed.num_context, fed.num_target))
             return b.to(self.device)
 
-        trained, self.opt_states, losses = self._local_train(
-            clients, self.opt_states, batches)
+        trained, opt_out, losses = self._local_train(clients, opt_in,
+                                                     batches)
+        self.opt_states = opt_out if idx is None else tree_map(
+            lambda full, sub: full.index_copy(0, idx, sub),
+            self.opt_states, opt_out)
         deltas = tree_sub(trained, clients)
-        noise, uniform = self._draws(r, gen_release)
-        (self.global_params, self.server_state,
-         self.ef_resid) = self._pipe.reduce_apply(
-            self.server_state, self.global_params, deltas, self.weights,
-            losses=losses, idx=None, resid=self.ef_resid, noise=noise,
-            uniform=uniform)
+        noise, uniform = self._draws(r, gen_release, m)
+        resid = self.ef_resid
+        if resid is not None and idx is not None:
+            resid = resid[idx]
+        self.global_params, self.server_state, resid = \
+            self._pipe.reduce_apply(
+                self.server_state, self.global_params, deltas, weights,
+                losses=losses, idx=idx, resid=resid, noise=noise,
+                uniform=uniform)
+        if resid is not None and idx is not None:
+            resid = self.ef_resid.index_copy(0, idx, resid)
+        self.ef_resid = resid
         return float(losses.mean())
 
     def _note_privacy(self, hist: History) -> None:
@@ -351,7 +406,8 @@ class FederatedGPO:
         gen_release = _release_generator(fed.seed + 1, self.device)
         eval_mask = self._eval_mask(rounds)
         for r in range(rounds):
-            hist.round_loss.append(self._round(r, gen_train, gen_release))
+            hist.round_loss.append(self._round(r, gen_train, gen_release,
+                                               hist))
             self._note_privacy(hist)
             if eval_mask[r]:
                 b = (self._eval_batches(r) if self._eval_batches is not None

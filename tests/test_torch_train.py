@@ -362,24 +362,44 @@ def _stack(batches) -> ICLBatch:
                     num_options=batches[0].num_options)
 
 
+def _jax_cohorts(fcfg, num_clients, rounds):
+    """The reference's cohort of each round, rebuilt from its key chain:
+    PRNGKey(seed+1) split 3 per round (_dispatch_round), the round key
+    into (subsample, train) (round_step), then jax.random.choice(k_sub,
+    C, (m,), replace=False) when m = min(batch_groups or C, C) < C, else
+    arange(C). Returns {round: (cohort, the round's train key)}."""
+    m = min(fcfg.batch_groups or num_clients, num_clients)
+    key = jax.random.PRNGKey(fcfg.seed + 1)
+    out = {}
+    for r in range(rounds):
+        key, k_round, _ = jax.random.split(key, 3)
+        k_sub, k_train = jax.random.split(k_round)
+        idx = (np.asarray(jax.random.choice(k_sub, num_clients, (m,),
+                                            replace=False))
+               if m < num_clients else np.arange(num_clients))
+        out[r] = (idx, k_train)
+    return out
+
+
 def _fed_draws(data, fcfg, tr, ev, rounds):
     """The reference FederatedGPO's batches, rebuilt from its key chain:
-    PRNGKey(seed+1) split 3 per round (_dispatch_round), the round key
-    split into (subsample, train) (round_step), the train key into one
-    key per client, each client key into one per local epoch
-    (_make_local_train), the eval key into one per held-out group."""
+    the round's cohort and train key (_jax_cohorts), the train key split
+    into one key per participant, each client key into one per local
+    epoch (_make_local_train), the eval key (the round key's third
+    sibling) into one per held-out group."""
     key = jax.random.PRNGKey(fcfg.seed + 1)
     m, t, epochs = fcfg.num_context, fcfg.num_target, fcfg.local_epochs
+    cohorts = _jax_cohorts(fcfg, len(tr), rounds)
     train, evals = {}, {}
     for r in range(rounds):
-        key, k_round, k_eval = jax.random.split(key, 3)
-        _, k_train = jax.random.split(k_round)
+        key, _, k_eval = jax.random.split(key, 3)
+        idx, k_train = cohorts[r]
         ekeys = [jax.random.split(ck, epochs)
-                 for ck in jax.random.split(k_train, len(tr))]
+                 for ck in jax.random.split(k_train, len(idx))]
         for e in range(epochs):
             train[r, e] = _stack([
-                jax_sample_icl_batch(ekeys[c][e], data, int(g), m, t)
-                for c, g in enumerate(tr)])
+                jax_sample_icl_batch(ekeys[c][e], data, int(tr[i]), m, t)
+                for c, i in enumerate(idx)])
         evals[r] = _stack([
             jax_sample_icl_batch(k, data, int(g), m, t)
             for k, g in zip(jax.random.split(k_eval, len(ev)), ev)])
@@ -475,18 +495,18 @@ def test_federated_rounds_match_jax_on_replayed_draws(kernels, agg,
 
 
 def _jax_release_draws(jfed, rounds):
-    """The reference's DP noise and rounding uniforms, rebuilt from its
-    key chain as in _fed_draws: the round's per-client training keys
-    fold them out (privacy.client_noise, compression.client_uniform)."""
+    """The reference's DP noise and rounding uniforms, (m, P) each,
+    rebuilt from its key chain as in _fed_draws: the round's per-
+    participant training keys fold them out (privacy.client_noise,
+    compression.client_uniform)."""
     fcfg, priv, comp = jfed.fed_cfg, jfed.fed_cfg.privacy, \
         jfed.fed_cfg.compression
-    c = len(jfed.train_groups)
-    shape = (c, tree_count_params(_np_tree(jfed.global_params)))
-    key = jax.random.PRNGKey(fcfg.seed + 1)
+    p = tree_count_params(_np_tree(jfed.global_params))
     draws = {}
-    for r in range(rounds):
-        key, k_round, _ = jax.random.split(key, 3)
-        keys = jax.random.split(jax.random.split(k_round)[1], c)
+    for r, (idx, k_train) in _jax_cohorts(
+            fcfg, len(jfed.train_groups), rounds).items():
+        keys = jax.random.split(k_train, len(idx))
+        shape = (len(idx), p)
         noise = (np.asarray(jax_dp.client_noise(keys, shape, priv.sigma))
                  if priv.enabled and priv.noise_multiplier > 0 else None)
         uniform = (np.asarray(jax_cx.client_uniform(keys, shape))
@@ -603,17 +623,15 @@ def test_adaptive_scores_after_a_round_match_jax():
     assert float(scores["ema"].min()) > 0.0
 
 
-def test_centralized_epochs_match_jax_on_replayed_draws():
-    data, port_data, tr, ev = _jax_setup()
-    jcfg = JaxFedConfig(num_clients=len(tr), **FED)
-    jcen = JaxCentralizedGPO(JaxGPOConfig(**SMALL), jcfg, data, tr, ev)
-    init = _np_tree(jcen.params)
-    # the reference's chain: PRNGKey(seed+2) split 3 per epoch, the epoch
-    # key into (permutation, steps), the step key into one per group
-    key = jax.random.PRNGKey(jcfg.seed + 2)
-    m, t = jcfg.num_context, jcfg.num_target
+def _cen_draws(data, fcfg, tr, ev, epochs):
+    """The reference CentralizedGPO's batches, rebuilt from its key
+    chain: PRNGKey(seed+2) split 3 per epoch, the epoch key into
+    (permutation, steps), the step key into one per group. Returns
+    ({(epoch, step): ICLBatch}, {epoch: eval ICLBatch})."""
+    key = jax.random.PRNGKey(fcfg.seed + 2)
+    m, t = fcfg.num_context, fcfg.num_target
     steps, evals = {}, {}
-    for e in range(2):
+    for e in range(epochs):
         key, k_epoch, k_eval = jax.random.split(key, 3)
         k_perm, k_steps = jax.random.split(k_epoch)
         order = jax.random.permutation(k_perm, jnp.asarray(tr, jnp.int32))
@@ -624,6 +642,15 @@ def test_centralized_epochs_match_jax_on_replayed_draws():
         evals[e] = _stack([
             jax_sample_icl_batch(k, data, int(g), m, t)
             for k, g in zip(jax.random.split(k_eval, len(ev)), ev)])
+    return steps, evals
+
+
+def test_centralized_epochs_match_jax_on_replayed_draws():
+    data, port_data, tr, ev = _jax_setup()
+    jcfg = JaxFedConfig(num_clients=len(tr), **FED)
+    jcen = JaxCentralizedGPO(JaxGPOConfig(**SMALL), jcfg, data, tr, ev)
+    init = _np_tree(jcen.params)
+    steps, evals = _cen_draws(data, jcfg, tr, ev, epochs=2)
     cen = CentralizedGPO(GPOConfig(**SMALL), FedConfig(num_clients=len(tr),
                                                        **FED),
                          port_data, tr, ev, device="cpu", init_params=init,
@@ -647,7 +674,6 @@ def test_unreplayed_runs_are_seeded_and_device_independent_of_hooks():
 
 
 @pytest.mark.parametrize("change", [
-    dict(batch_groups=2), dict(reset_opt_each_round=True),
     dict(avail=AvailabilityConfig(online_prob=0.5)),
     dict(adversary=AdversaryConfig(kind="sign_flip", num_attackers=1)),
     dict(hierarchy=HierarchyConfig(num_edges=2))])
