@@ -97,6 +97,19 @@ the card, raising on any mismatch:
    epoch; then 3 rounds of 3 clients a round (``batch_groups``), once
    with ``reset_opt_each_round``: the cohorts equal to the CPU's and
    the run within the training tolerance of the CPU's.
+   4f. The round's adversary, availability and hierarchy stages at the
+   quickstart's ``FedConfig``: five attacks (f = 3: sign_flip × krum,
+   scaled λ 30 × multi_krum, alie × median, gaussian × FedAvg with the
+   norm bound, label_flip × FedAvg), four fault configurations (online
+   0.8, stragglers 0.7 up to 4 rounds late: FedAvg, FedBuff, median with
+   crashes 0.2, int8 with error feedback) and two edges (median, FedAvg),
+   3 rounds each through the kernels with the launch counts asserted
+   (Krum's distances, the trimmed reduce and the FedAvg reduce), against
+   the plain-aggregation card run; sign_flip × krum, faulted FedAvg and
+   the median hierarchy also against a CPU run replaying attacker masks
+   and fault draws made once on the CPU; a straggler buffered and landed
+   in one round; a zero-survivor round that leaves params and server
+   state bit for bit; one attacked and one faulted round profiled.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -114,7 +127,7 @@ the card, raising on any mismatch:
    attention kernels and the FedAvg reduce also at phase 4e's shapes.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last nine lines of standard output are the
+right after it. The last ten lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
@@ -122,7 +135,9 @@ round), the ``private`` JSON line (the same per DP and codec
 configuration, with ε), the ``lm`` JSON line (per architecture:
 launches, times, agreement, profile), the ``experiment`` JSON line
 (launches, walls, agreement, ``summarize``, the partial-participation
-runs), the ``kernels`` JSON line, the
+runs), the ``stages`` JSON line (per phase 4f configuration: launches,
+agreement, wall per round, survivors per round), the ``kernels`` JSON
+line, the
 card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
@@ -160,16 +175,21 @@ from repro_torch.checkpoint import (  # noqa: E402
     save_checkpoint,
 )
 from repro_torch.configs import (  # noqa: E402
+    AdversaryConfig,
     AggConfig,
+    AvailabilityConfig,
     CompressionConfig,
     FedConfig,
     GPOConfig,
+    HierarchyConfig,
     ModelConfig,
     PrivacyConfig,
     ServeConfig,
     get_arch,
     override,
 )
+from repro_torch.core import adversary as byz  # noqa: E402
+from repro_torch.core import availability as av  # noqa: E402
 from repro_torch.core import compression as cx  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core import privacy as dp  # noqa: E402
@@ -464,6 +484,62 @@ WIDE_PRIVATE = {"dp_noise": "two_launch", "int8_ef": "three_pass"}
 # other run after 3 rounds (flipped int8 levels, swapped top-k near-ties;
 # train_private): 0.02% of the 5.3 M, a bound against a systematic error
 MAX_FLIPPED = 1000
+# phase 4f, the round's adversary, availability and hierarchy stages
+# (DESIGN.md §11, §13, §14) at the quickstart's FedConfig: the attacks of
+# BENCH_byz.json (f = 3 of the 10 clients, λ 30; benchmarks/
+# bench_round.py:918-928) against its defenses, the gaussian attack at
+# AdversaryConfig's default σ under phase 4's norm bound; the faults of
+# BENCH_async.json at dropout 0.2 (bench_round.py:845-849: online 0.8,
+# crash 0.05, stragglers 0.7 delayed up to 4 rounds, rejoin after 1;
+# fedbuff at its buffer_k 2),
+# median with crash_prob 0.2; two edges
+STAGE_ROUNDS = 3
+_BYZ = {"num_attackers": 3}
+_FAULTS = {"online_prob": 0.8, "crash_prob": 0.05, "straggler_prob": 0.7,
+           "max_staleness": 4, "rejoin_rounds": 1}
+STAGE_RUNS = {
+    "sign_flip-krum": {"adversary": {"kind": "sign_flip", **_BYZ},
+                       "agg": {"name": "krum", "num_malicious": 3}},
+    "scaled-multi_krum": {"adversary": {"kind": "scaled", "scale": 30.0,
+                                        **_BYZ},
+                          "agg": {"name": "multi_krum", "num_malicious": 3,
+                                  "multi_krum_m": 3}},
+    "alie-median": {"adversary": {"kind": "alie", **_BYZ},
+                    "agg": {"name": "median"}},
+    "gaussian-fedavg-norm_bound": {"adversary": {"kind": "gaussian", **_BYZ},
+                                   "agg": {"norm_bound": NORM_BOUND}},
+    "label_flip-fedavg": {"adversary": {"kind": "label_flip", **_BYZ}},
+    "faults-fedavg": {"avail": _FAULTS},
+    "faults-fedbuff": {"avail": _FAULTS,
+                       "agg": {"name": "fedbuff", "buffer_k": 2}},
+    "faults-median": {"avail": {**_FAULTS, "crash_prob": 0.2},
+                      "agg": {"name": "median"}},
+    "faults-int8_ef": {"avail": _FAULTS, "compression": {"kind": "int8"}},
+    "hier-median": {"hierarchy": {"num_edges": 2},
+                    "agg": {"name": "median"}},
+    "hier-fedavg": {"hierarchy": {"num_edges": 2}},
+}
+# (the aggregation kernel a run launches, launches a round): Krum's
+# distances once; the trimmed reduce once, or once an edge (the server's
+# 2-candidate median trims k = 0, the weighted mean, which never reaches
+# the kernel, in the reference too); the FedAvg reduce once, once an
+# edge, or once a faulted round that absorbed a row; median's masked
+# reduce under faults is plain torch (the reference has no kernel for it)
+STAGE_KERNEL = {"sign_flip-krum": ("pairwise_dists", 1),
+                "scaled-multi_krum": ("pairwise_dists", 1),
+                "alie-median": ("trimmed_reduce", 1),
+                "gaussian-fedavg-norm_bound": ("fedavg_reduce", 1),
+                "label_flip-fedavg": ("fedavg_reduce", 1),
+                "faults-fedavg": ("fedavg_reduce", 1),
+                "faults-fedbuff": ("fedavg_reduce", 1),
+                "faults-median": (None, 0),
+                "faults-int8_ef": ("fedavg_reduce", 1),
+                "hier-median": ("trimmed_reduce", 2),
+                "hier-fedavg": ("fedavg_reduce", 2)}
+# one of each family against the CPU, the schedules and the noise
+# replayed through the hooks; one attacked and one faulted round profiled
+STAGE_CPU = ("sign_flip-krum", "faults-fedavg", "hier-median")
+STAGE_PROFILED = ("sign_flip-krum", "faults-fedavg")
 # phase 4e, the paper's experiment (benchmarks/paper_experiment.py): one
 # seed of the pair, EXP_ROUNDS federated rounds and as many centralized
 # epochs, its first EXP_CPU_ROUNDS against the CPU run; then SUB_ROUNDS
@@ -1773,10 +1849,13 @@ def _attention_launches(gcfg, fcfg, rounds) -> dict:
 
 
 def _agreement(hist, params, other, other_params) -> dict:
-    """How far two 3-round runs are apart: round losses (relative),
-    eval AS / FI / CoV (absolute), final global params (max abs)."""
-    loss = np.abs(np.asarray(hist.round_loss) - other.round_loss) / np.abs(
-        other.round_loss)
+    """How far two 3-round runs are apart: round losses (relative; 0
+    where they are equal, as in a faulted round where no client kept its
+    work and both report 0), eval AS / FI / CoV (absolute), final global
+    params (max abs)."""
+    a, b = np.asarray(hist.round_loss), np.asarray(other.round_loss)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        loss = np.where(a == b, 0.0, np.abs(a - b) / np.abs(b))
     ev = max(float(np.abs(np.asarray(getattr(hist, k))
                           - getattr(other, k)).max())
              for k in ("eval_mean_as", "eval_fi", "eval_cov"))
@@ -2275,6 +2354,233 @@ def train_private_wide(dev, data, tr, ev) -> dict:
                                      f"kernel run is off the {k} run "
                                      f"(tolerance {TRAIN_TOL} plus the level "
                                      f"allowance)")
+    return out
+
+
+def _stage_cfg(base: FedConfig, label: str) -> FedConfig:
+    spec = STAGE_RUNS[label]
+    return replace(
+        base, agg=AggConfig(**spec.get("agg", {})),
+        adversary=AdversaryConfig(**spec.get("adversary", {})),
+        avail=AvailabilityConfig(**spec.get("avail", {})),
+        hierarchy=HierarchyConfig(**spec.get("hierarchy", {})),
+        compression=CompressionConfig(**spec.get("compression", {})))
+
+
+def _stage_launches(label: str, survivors: list) -> dict:
+    """The aggregation kernel launches of a phase 4f run: one a round
+    (one an edge under the hierarchy); under faults one FedAvg reduce a
+    round that absorbed a row, none for median's masked reduce (plain
+    torch, as in the reference), none for the codec (the fault round
+    releases per row in plain torch)."""
+    kernel, per_round = STAGE_KERNEL[label]
+    if kernel is None:
+        return {}
+    if label.startswith("faults"):
+        return {kernel: sum(1 for n in survivors if n > 0)}
+    return {kernel: per_round * STAGE_ROUNDS}
+
+
+def _stage_draws(fcfg: FedConfig, c: int, p: int, rounds: int) -> tuple:
+    """Attacker masks and gaussian noise, and fault draws, made once on
+    the CPU from a seed, as numpy, for a card run and a CPU run to replay
+    (``attack_draws=``, ``fault_draws=``). None for a stage that is
+    off."""
+    g = _gen(SEED + 13)
+    adv, attack, faults = fcfg.adversary, None, None
+    if adv.enabled:
+        attack = {r: (byz.attacker_mask(byz.attacker_draws(g, c),
+                                        adv.num_attackers).numpy(),
+                      torch.randn((c, p), generator=g).numpy()
+                      if adv.kind == "gaussian" else None)
+                  for r in range(rounds)}
+    if fcfg.avail.enabled:
+        faults = {r: tuple(a.numpy() for a in av.fault_draws(
+            g, c, fcfg.avail)) for r in range(rounds)}
+    return attack, faults
+
+
+def _spy_schedules(seen: list):
+    """Record each fault round's (stragglers buffered, arrivals landed).
+    Returns the original to put back."""
+    real = av.round_schedule
+
+    def spy(draws, state):
+        sched = real(draws, state)
+        seen.append((int(sched.straggle.sum()), int(sched.arrive.sum())))
+        return sched
+
+    av.round_schedule = spy
+    return real
+
+
+def _zero_survivor_check(dev, data, tr, ev, base) -> dict:
+    """A faulted fedavgm run whose first round releases every client and
+    whose second has every client offline: the second leaves params and
+    server state (momentum, step) bit for bit, and launches no FedAvg
+    reduce."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    c = len(tr)
+    kern = replace(base, agg=AggConfig(name="fedavgm"),
+                   avail=AvailabilityConfig(online_prob=0.5))
+    fresh = ([True] * c, [False] * c, [False] * c, [1] * c)
+    offline = ([False] * c, [False] * c, [False] * c, [1] * c)
+    calls: list = []
+
+    def draws(r):
+        calls.append(r)
+        return fresh if len(calls) == 1 else offline
+
+    fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev,
+                       fault_draws=draws)
+    first = fed.run(rounds=1)
+    before = [t.clone() for t in tree_leaves(fed.global_params)
+              + tree_leaves(fed.server_state)]
+    _zero_counts()
+    second = fed.run(rounds=1)
+    torch.cuda.synchronize()
+    launches = _counts()
+    after = tree_leaves(fed.global_params) + tree_leaves(fed.server_state)
+    same = len(before) == len(after) and all(
+        torch.equal(a, b) for a, b in zip(before, after))
+    rec = {"survivors": [first.round_survivors, second.round_survivors],
+           "bit_equal": same, "fedavg_reduce": launches["fedavg_reduce"],
+           "server_step": int(fed.server_state.step)}
+    print(f"  zero-survivor round: survivors {rec['survivors']}, params and "
+          f"server state bit-equal {same}, fedavg_reduce "
+          f"x{rec['fedavg_reduce']}, server step {rec['server_step']}")
+    if not (same and first.round_survivors == [c]
+            and second.round_survivors == [0]
+            and rec["fedavg_reduce"] == 0 and rec["server_step"] == 1):
+        raise AssertionError(f"the zero-survivor round was not a no-op: "
+                             f"{rec}")
+    return rec
+
+
+def train_stages(dev, data, tr, ev) -> dict:
+    """Phase 4f: the round's adversary, availability and hierarchy stages,
+    each configuration of ``STAGE_RUNS`` for 3 rounds through the kernels
+    (launch counts asserted), against the same run with the aggregation's
+    plain versions on the card (the same generators draw the schedules
+    and the noise); ``STAGE_CPU`` also as a card run and a CPU run that
+    replay attacker masks, fault draws and noise made once on the CPU
+    (the hooks); a zero-survivor round; one attacked and one faulted
+    round under the profiler. Held as ``train_private`` holds its runs:
+    ``_private_within``, with a level allowance only for the codec."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    base = FedConfig(num_clients=len(tr), local_epochs=6, lr=3e-4,
+                     eval_every=1, use_pallas_attention=True,
+                     use_pallas_aggregation=True)
+    c = len(tr)
+    p = tree_count_params(init_gpo_params(gcfg, _gen(0), device="cpu"))
+    out, schedules = {}, {}
+    for label in STAGE_RUNS:
+        kern = _stage_cfg(base, label)
+        plain = replace(kern, use_pallas_aggregation=False)
+        seen: list = []
+        real = _spy_schedules(seen)
+        try:
+            fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev)
+            _zero_counts()
+            t0 = time.perf_counter()
+            hist = fed.run(rounds=STAGE_ROUNDS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = _counts()
+        finally:
+            av.round_schedule = real
+        levels: list = []
+        real_levels = _spy_levels(levels)
+        try:
+            t0 = time.perf_counter()
+            den = FederatedGPO(gcfg, plain, data, tr, ev, device=dev)
+            den_hist = den.run(rounds=STAGE_ROUNDS)
+            torch.cuda.synchronize()
+            den_wall = time.perf_counter() - t0
+        finally:
+            cx.quantize_int8, cx.topk_thresholds = real_levels
+        w_max = float(fed.weights.max())
+        allowance = {"levels": levels, "params_allowance": w_max * sum(levels),
+                     "resid_allowance": sum(levels)}
+        agree = {"plain": _private_agreement(hist, fed, den_hist, den,
+                                             allowance)}
+        if label in STAGE_CPU:
+            attack, faults = _stage_draws(kern, c, p, STAGE_ROUNDS)
+            runs = []
+            for d in (dev, "cpu"):
+                f = FederatedGPO(
+                    gcfg, kern, data, tr, ev, device=d,
+                    attack_draws=None if attack is None
+                    else attack.__getitem__,
+                    fault_draws=None if faults is None
+                    else faults.__getitem__)
+                runs.append((f.run(rounds=STAGE_ROUNDS), f))
+            agree["cpu"] = _private_agreement(*runs[0], *runs[1], allowance)
+            if runs[0][0].round_survivors != runs[1][0].round_survivors:
+                raise AssertionError(f"{label}: survivors differ from the "
+                                     f"CPU run's")
+        want = {**dict.fromkeys(_COUNTED, 0),
+                **_attention_launches(gcfg, kern, STAGE_ROUNDS),
+                **_stage_launches(label, hist.round_survivors)}
+        rec = {"config": STAGE_RUNS[label],
+               "kernel": STAGE_KERNEL[label][0],
+               "launches": {k: v for k, v in launches.items() if v},
+               "wall_ms_per_round": wall / STAGE_ROUNDS * 1e3,
+               "plain_wall_ms_per_round": den_wall / STAGE_ROUNDS * 1e3,
+               "round_loss": hist.round_loss,
+               "eval_mean_as": hist.eval_mean_as,
+               "survivors": hist.round_survivors, "agreement": agree}
+        if seen:
+            rec["stragglers_arrivals"] = seen
+            schedules[label] = seen
+        out[label] = rec
+        kernel = STAGE_KERNEL[label][0]
+        print(f"  {label:26s} {wall / STAGE_ROUNDS * 1e3:8.2f} ms/round "
+              f"(plain aggregation {den_wall / STAGE_ROUNDS * 1e3:8.2f}); "
+              f"{kernel or 'no aggregation kernel'} "
+              f"x{launches.get(kernel, 0) if kernel else 0}; survivors "
+              f"{hist.round_survivors}; "
+              + (f"(stragglers, arrivals) {seen}; " if seen else "")
+              + "; ".join(f"vs {k}: loss rel {a['round_loss_rel']:.2e} "
+                          f"eval {a['eval_abs']:.2e} params "
+                          f"{a['params_max_abs']:.2e} (allowance "
+                          f"{a['params_allowance']:.2e}) coords>1e-4 "
+                          f"{a['coords_beyond_1e-4']}"
+                          for k, a in agree.items())
+              + f"; loss {np.round(hist.round_loss, 5).tolist()}")
+        if launches != want:
+            raise AssertionError(f"{label}: launches {launches}, want "
+                                 f"{want}")
+        if hist.round_survivors != den_hist.round_survivors:
+            raise AssertionError(f"{label}: survivors differ from the plain "
+                                 f"run's")
+        for k, a in agree.items():
+            if not _private_within(a):
+                raise AssertionError(f"{label}: the kernel run is off the "
+                                     f"{k} run (tolerance {TRAIN_TOL} plus "
+                                     f"the level allowance)")
+        if not all(np.isfinite(hist.round_loss)):
+            raise AssertionError(f"{label}: a round loss is not finite")
+    if not any(s > 0 and a > 0 for seen in schedules.values()
+               for s, a in seen):
+        raise AssertionError(f"no fault round both buffered and landed a "
+                             f"straggler: {schedules}")
+    out["zero_survivor"] = _zero_survivor_check(dev, data, tr, ev, base)
+    # where an attacked and a faulted round's time goes
+    for label in STAGE_PROFILED:
+        fed = FederatedGPO(gcfg, _stage_cfg(base, label), data, tr, ev,
+                           device=dev)
+        fed.run(rounds=1)
+        prof = _profile(lambda: fed.run(rounds=1),
+                        f"stages_{label}_trace.json",
+                        match=("gram_", "fedavg_reduce", "sort"))
+        out[label]["profile_round"] = prof
+        print(f"  {label}: one round under the profiler: wall "
+              f"{prof['wall_ms']:.3f}ms, {prof['kernels']} kernels, device "
+              f"busy {prof['kernel_ms']:.3f}ms "
+              f"({100 * prof['busy_share']:.2f}%); by name: "
+              + ", ".join(f"{m} {v['ms']:.4f}ms x{v['launches']}"
+                          for m, v in prof["matched"].items()))
     return out
 
 
@@ -2816,16 +3122,20 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
 
 
 def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
-           exp_rec, card_name, worst) -> list:
+           exp_rec, stage_rec, card_name, worst) -> list:
     """Phase 5: kernel, plain and library times at main-path shapes."""
     peaks = _peaks(card_name)
     g = _gen(SEED + 2)
     out = []
     train_launches, rounds = train_rec["launches"], train_rec["rounds"]
     # each aggregation kernel's launches over the strategies phase's
-    # kernel runs
+    # kernel runs, and over phase 4f's
     strat_launches = {k: sum(r["launches"].get(k, 0)
                              for r in strat_rec.values())
+                      for k in _COUNTED}
+    stage_launches = {k: sum(r["launches"].get(k, 0)
+                             for label, r in stage_rec.items()
+                             if label in STAGE_RUNS)
                       for k in _COUNTED}
 
     # every layer's shape at the largest decode and prefill of the run:
@@ -3072,7 +3382,8 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
         "launches": train_launches["fedavg_reduce"],
         "launches_per_round": train_launches["fedavg_reduce"] / rounds,
         "launches_by_path": {"train": train_launches["fedavg_reduce"],
-                             "strategies": strat_launches["fedavg_reduce"]},
+                             "strategies": strat_launches["fedavg_reduce"],
+                             "stages": stage_launches["fedavg_reduce"]},
         "max_abs_err": worst["fedavg_reduce"],
         "shape": [c, p], **times, "bound_ms": bound, "bound_by": by,
         "library_call": "weights @ stacked (cuBLAS gemv)"})
@@ -3087,6 +3398,8 @@ def timing(dev, serve_rec, pred_rec, train_rec, strat_rec, priv_rec,
                 "tpu_kernel": f"src/repro/kernels/agg_reduce.py::{fn}",
                 "launches": strat_launches[name],
                 "launches_per_round": strat_launches[name] / rounds,
+                "launches_by_path": {"strategies": strat_launches[name],
+                                     "stages": stage_launches[name]},
                 "max_abs_err": worst[name], "shape": [c, p], **times,
                 "bound_ms": bound, "bound_by": by, **extra}
 
@@ -3432,6 +3745,9 @@ def main() -> int:
     print("[4c] every survey group a client: one replayed DP and one int8 "
           "round through the designs past the on-chip capacity")
     wide_rec = train_private_wide(dev, data, tr, held_out)
+    print("[4f] the adversary, availability and hierarchy stages, 3 rounds "
+          "each, through the kernels")
+    stage_rec = train_stages(dev, data, tr, held_out)
     print("[4d] LM serving: qwen2-0.5b and mamba2-780m at full width and "
           "depth, bf16, through the flash-attention and SSD kernels")
     lm_rec = serve_lm(dev)
@@ -3441,7 +3757,7 @@ def main() -> int:
     exp_rec = experiment(dev)
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
-                     priv_rec, exp_rec, name, worst)
+                     priv_rec, exp_rec, stage_rec, name, worst)
     kernels += _backbone_rows(dev, lm_rec, name, worst)
     _wait_control_builds()
 
@@ -3454,6 +3770,7 @@ def main() -> int:
     print(json.dumps({"private": priv_rec, "private_wide": wide_rec}))
     print(json.dumps({"lm": lm_rec}))
     print(json.dumps({"experiment": exp_rec}))
+    print(json.dumps({"stages": stage_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

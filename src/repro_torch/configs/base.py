@@ -2,13 +2,12 @@
 serving, and the federated runtime.
 
 Every class copies the JAX package's class of the same name field for
-field: same names, same defaults, same ``validate()`` (a test holds the
-two field lists equal). Configs are frozen dataclasses so they hash and
-compare by value. The federated runtime of the port runs the round
-with every strategy, the DP and codec stages and partial participation;
-the other stages' configs (availability, adversary, hierarchy) are
-carried so that a config moves between the packages unchanged, and the
-trainers refuse what they do not run yet.
+field: same names, same defaults, same ``validate()`` and the same
+public properties and methods (a test holds them equal). Configs are
+frozen dataclasses so they hash and compare by value. The federated
+runtime of the port runs the round with every strategy and every stage:
+partial participation, the DP and codec stages, the adversary, the
+availability faults and the edge hierarchy.
 """
 from __future__ import annotations
 
@@ -271,8 +270,8 @@ class PrivacyConfig:
 @dataclass(frozen=True)
 class AvailabilityConfig:
     """Client availability / failure simulator (DESIGN.md §11): per-round
-    offline, crash-after-training and straggler draws. The benign default
-    disables it (the port runs only that case so far)."""
+    offline, crash-after-training and straggler draws
+    (``core/availability.py``). The benign default disables it."""
 
     online_prob: float = 1.0
     crash_prob: float = 0.0
@@ -284,6 +283,15 @@ class AvailabilityConfig:
     def enabled(self) -> bool:
         return (self.online_prob < 1.0 or self.crash_prob > 0.0
                 or self.straggler_prob > 0.0)
+
+    def release_rate(self) -> float:
+        """Per-round probability that a sampled client's update is
+        eventually released: online and no crash (stragglers release
+        late and count). An upper bound, the conservative side for the
+        RDP accountant. 1.0 when the simulator is off."""
+        if not self.enabled:
+            return 1.0
+        return self.online_prob * (1.0 - self.crash_prob)
 
     def validate(self) -> None:
         if not 0.0 <= self.online_prob <= 1.0:
@@ -305,8 +313,8 @@ class AvailabilityConfig:
 class AdversaryConfig:
     """Byzantine adversarial-client simulator (DESIGN.md §13):
     ``num_attackers`` clients per round corrupt their deltas (or, for
-    ``label_flip``, their training data). ``kind="none"`` disables it
-    (the port runs only that case so far)."""
+    ``label_flip``, their training data; ``core/adversary.py``).
+    ``kind="none"`` disables it."""
 
     # none | sign_flip | scaled | gaussian | alie | label_flip
     kind: str = "none"
@@ -318,6 +326,12 @@ class AdversaryConfig:
     @property
     def enabled(self) -> bool:
         return self.kind != "none" and self.num_attackers > 0
+
+    @property
+    def data_level(self) -> bool:
+        """The attack corrupts the local training data, not the released
+        delta (the delta-stage transform is the identity)."""
+        return self.kind == "label_flip"
 
     def validate(self) -> None:
         kinds = ("none", "sign_flip", "scaled", "gaussian", "alie",
@@ -393,9 +407,9 @@ class AggConfig:
 
 @dataclass(frozen=True)
 class HierarchyConfig:
-    """Two-level client→edge→server aggregation (DESIGN.md §14).
-    ``num_edges == 1`` disables it (the port runs only that case so
-    far)."""
+    """Two-level client→edge→server aggregation (DESIGN.md §14,
+    ``core/pipeline.py::RoundPipeline.hier_reduce_flat``).
+    ``num_edges == 1`` disables it."""
 
     num_edges: int = 1
 

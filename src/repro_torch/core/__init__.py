@@ -1,13 +1,35 @@
 # The PyTorch port's core: the GPO preference predictor, its federated
-# trainer (with the server-aggregation registry, the DP release and the
-# delta codecs) and centralized trainer, the multi-tenant serving
-# engine, the alignment and fairness metrics, and the LM backbones'
-# serving steps.
+# trainer (with the server-aggregation registry, the round's stage
+# pipeline: the Byzantine adversary, the DP release, the delta codecs,
+# the availability faults and the edge hierarchy) and centralized
+# trainer, the multi-tenant serving engine, the alignment and fairness
+# metrics, and the LM backbones' serving steps.
+from repro_torch.core.adversary import (  # noqa: F401
+    apply_attack,
+    attacker_draws,
+    attacker_mask,
+    check_defense_composition,
+    flip_preferences,
+    honest_stats,
+    norm_clip_rows,
+)
 from repro_torch.core.aggregation import (  # noqa: F401
     AGGREGATORS,
     AggState,
     ServerAggregator,
     make_aggregator,
+)
+from repro_torch.core.availability import (  # noqa: F401
+    FaultDraws,
+    FaultState,
+    RoundSchedule,
+    advance_fault_state,
+    fault_draws,
+    init_fault_state,
+    masked_mean_weights,
+    masked_robust_reduce_flat,
+    round_schedule,
+    staleness_discount,
 )
 from repro_torch.core.centralized import CentralizedGPO  # noqa: F401
 from repro_torch.core.fedavg import (  # noqa: F401
@@ -26,6 +48,12 @@ from repro_torch.core.gpo import (  # noqa: F401
     init_gpo_params,
     params_from_numpy,
     predict_preferences,
+)
+from repro_torch.core.pipeline import (  # noqa: F401
+    STAGE_NAMES,
+    AttackDraws,
+    RoundPipeline,
+    make_pipeline,
 )
 from repro_torch.core.serving import (  # noqa: F401
     BatchRecord,

@@ -349,7 +349,10 @@ def _make_adaptive(cfg, *, num_clients, use_pallas):
         return w / w.sum()
 
     def apply(state: AggState, global_params, delta, losses=None, idx=None,
-              **kw):
+              mask=None, **kw):
+        """``mask`` (rows,) bool, in the fault round: only the clients
+        whose update was released this round observed a loss; the other
+        rows keep their previous ``ema`` and ``seen``."""
         new_g, state = base_apply(state, global_params, delta)
         if losses is not None:
             losses = losses.float()
@@ -359,9 +362,14 @@ def _make_adaptive(cfg, *, num_clients, use_pallas):
             new_ema = torch.where(seen[idx] > 0,
                                   decay * ema[idx] + (1 - decay) * losses,
                                   losses)
+            new_seen = 1.0
+            if mask is not None:
+                mask = mask.to(losses.device)
+                new_ema = torch.where(mask, new_ema, ema[idx])
+                new_seen = torch.where(mask, 1.0, seen[idx])
             ema, seen = ema.clone(), seen.clone()
             ema[idx] = new_ema
-            seen[idx] = 1.0
+            seen[idx] = new_seen
             state = state._replace(scores={"ema": ema, "seen": seen})
         return new_g, state
 
@@ -388,10 +396,11 @@ def _make_fedbuff(cfg, *, num_clients, use_pallas):
     reduced update accumulates into a buffer (``AggState.m``) with its
     weight mass and released-client count (``AggState.scores``), and
     θ += server_lr · buffer / mass is applied once at least ``buffer_k``
-    client updates have been absorbed since the last flush. The
-    synchronous round releases every participant with mass 1, so
-    buffer_k <= C flushes every round (fedbuff is fedavg there); the
-    fault-aware round that passes other masses is ROADMAP.md queue A.5."""
+    client updates have been absorbed since the last flush. The fault
+    round passes the realized ``mass`` (the survivors' discounted weight)
+    and ``released`` count; without them the round released every
+    participant with mass 1, so buffer_k <= C flushes every round
+    (fedbuff is fedavg there)."""
     reduce, reduce_flat = _linear_reduce(use_pallas)
     base_lr, buffer_k = cfg.server_lr, cfg.buffer_k
 
@@ -402,9 +411,12 @@ def _make_fedbuff(cfg, *, num_clients, use_pallas):
         return state._replace(scores={"count": zero, "mass": zero.clone()})
 
     def apply(state: AggState, global_params, delta, losses=None, idx=None,
-              **kw):
-        mass = 1.0  # the weights are normalised
-        released = float(idx.shape[0] if idx is not None else num_clients)
+              mass=None, released=None, **kw):
+        if mass is None:
+            mass = 1.0  # the weights are normalised
+        if released is None:
+            released = float(idx.shape[0] if idx is not None
+                             else num_clients)
         buf = tree_map(lambda m, d: m + mass * d.float(), state.m, delta)
         count = state.scores["count"] + released
         total = state.scores["mass"] + mass

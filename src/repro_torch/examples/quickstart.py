@@ -45,8 +45,11 @@ def main(argv=None) -> float:
     #    (privacy=PrivacyConfig(clip_norm=0.5, noise_multiplier=0.8);
     #    hist.round_eps tracks ε), the int8 or top-k delta codec
     #    (compression=CompressionConfig(kind="int8")) and partial
-    #    participation (batch_groups=3). Faults, attacks and the edge
-    #    hierarchy are not ported yet (ROADMAP.md queue A.4-A.6).
+    #    participation (batch_groups=3), Byzantine attackers
+    #    (adversary=AdversaryConfig(kind="sign_flip", num_attackers=3)),
+    #    client faults (avail=AvailabilityConfig(online_prob=0.8,
+    #    straggler_prob=0.3, max_staleness=4)) and the edge hierarchy
+    #    (hierarchy=HierarchyConfig(num_edges=2)).
     gpo_cfg = GPOConfig(d_embed=data.phi.shape[-1])
     fed_cfg = FedConfig(num_clients=len(train_groups), rounds=args.rounds,
                         local_epochs=6, lr=3e-4, eval_every=25,

@@ -12,8 +12,11 @@ questions), and with ``--ckpt-dir`` saves the final global params as an
 ``--agg`` picks the server-aggregation strategy from the registry
 (DESIGN.md §7, §13), with the reference's flags for its
 hyperparameters; ``--norm-bound`` clips each client's delta on the
-server. ``--clip-norm`` and ``--noise-multiplier`` turn on the DP
-release (DESIGN.md §9; the final ε is printed), ``--compress int8`` or
+server. ``--attack`` simulates ``--attackers`` Byzantine clients a
+round (DESIGN.md §13; ``--attack-scale`` for ``scaled``), and
+``--attackers`` is also the defenses' assumed f. ``--clip-norm`` and
+``--noise-multiplier`` turn on the DP release (DESIGN.md §9; the final
+ε is printed), ``--compress int8`` or
 ``topk`` the delta codec with error feedback (DESIGN.md §10). The
 attention (forward and backward) and the aggregation's client-axis work,
 the DP clip and the codec included, always go through the hand-written
@@ -29,6 +32,7 @@ import time
 
 from repro_torch.checkpoint import save_checkpoint
 from repro_torch.configs import (
+    AdversaryConfig,
     AggConfig,
     CompressionConfig,
     FedConfig,
@@ -63,10 +67,18 @@ def main(argv=None) -> None:
                     help="trimmed_mean per-side trim fraction")
     ap.add_argument("--fair-temp", type=float, default=1.0,
                     help="adaptive fairness-weight temperature")
+    # Byzantine attack simulation (DESIGN.md §13). --attack none
+    # (default) disables the stage; pick a defense with --agg
+    # krum/multi_krum/geomedian/median and/or --norm-bound.
+    ap.add_argument("--attack", default="none",
+                    choices=["none", "sign_flip", "scaled", "gaussian",
+                             "alie", "label_flip"],
+                    help="per-round Byzantine client attack")
     ap.add_argument("--attackers", type=int, default=0,
-                    help="the defenses' assumed number f of Byzantine "
-                         "clients (krum, multi_krum); the attack "
-                         "simulation is not ported yet")
+                    help="number of Byzantine clients per round (also "
+                         "the defenses' assumed f)")
+    ap.add_argument("--attack-scale", type=float, default=10.0,
+                    help="model-replacement factor for --attack scaled")
     ap.add_argument("--norm-bound", type=float, default=0.0,
                     help="server-side per-client L2 norm bound on "
                          "received deltas (0 = off)")
@@ -100,6 +112,9 @@ def main(argv=None) -> None:
     comp = CompressionConfig(kind=args.compress, topk_frac=args.topk_frac,
                              error_feedback=not args.no_error_feedback)
     comp.validate()
+    adv = AdversaryConfig(kind=args.attack, num_attackers=args.attackers,
+                          scale=args.attack_scale)
+    adv.validate()
     device = resolve_device(args.device)
     data = make_survey_data(SurveyConfig(seed=args.seed))
     tr, ev = split_groups(data, seed=args.seed)
@@ -112,7 +127,7 @@ def main(argv=None) -> None:
                     norm_bound=args.norm_bound)
     fcfg = FedConfig(num_clients=len(tr), rounds=args.rounds,
                      eval_every=args.eval_every, seed=args.seed, agg=agg,
-                     privacy=priv, compression=comp,
+                     privacy=priv, compression=comp, adversary=adv,
                      use_pallas_attention=True,
                      use_pallas_aggregation=True)
     fed = FederatedGPO(gcfg, fcfg, data, tr, ev, device=device)

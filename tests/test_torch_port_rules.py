@@ -71,6 +71,18 @@ def test_no_jax_or_reference_import_in_the_port_sources():
     assert not hits, hits
 
 
+# a non-default instance of each round-stage config whose members the
+# field test also compares
+STAGE_SAMPLES = {
+    "PrivacyConfig": dict(clip_norm=1.0, noise_multiplier=0.8),
+    "AvailabilityConfig": dict(online_prob=0.8, crash_prob=0.25,
+                               straggler_prob=0.5, max_staleness=2),
+    "AdversaryConfig": dict(kind="label_flip", num_attackers=2),
+    "CompressionConfig": dict(kind="int8"),
+    "HierarchyConfig": dict(num_edges=2),
+}
+
+
 @pytest.mark.parametrize("name", [
     "GPOConfig", "ServeConfig", "FedConfig", "AggConfig", "PrivacyConfig",
     "AvailabilityConfig", "AdversaryConfig", "CompressionConfig",
@@ -84,6 +96,22 @@ def test_configs_copy_the_reference_field_for_field(name):
                 for f in dataclasses.fields(cls)]
 
     assert spec(port) == spec(ref)
+    if name in STAGE_SAMPLES:  # the round stages' members and their values
+        def members(cls):
+            return sorted(k for k, v in vars(cls).items()
+                          if not k.startswith("_") and (
+                              isinstance(v, property) or callable(v)))
+
+        assert members(port) == members(ref)
+        for kw in ({}, STAGE_SAMPLES[name]):
+            p, r = port(**kw), ref(**kw)
+            for k in members(port):
+                if k == "validate":
+                    continue
+                pv, rv = getattr(p, k), getattr(r, k)
+                if callable(pv):
+                    pv, rv = pv(), rv()
+                assert pv == rv, (name, kw, k)
     if name == "GPOConfig":
         assert port(d_model=96, num_heads=3).head_dim == 32
     if name == "ModelConfig":  # the ported archs, their properties too

@@ -26,6 +26,7 @@ wrappers their plain versions. Tolerances:
   params take w_max times that a round, the residual that a round.
 """
 import importlib
+from dataclasses import replace
 
 import jax
 import jax.numpy as jnp
@@ -33,6 +34,8 @@ import numpy as np
 import pytest
 import torch
 
+import repro.configs as jax_configs
+import repro_torch.configs as port_configs
 from repro.configs import AggConfig as JaxAggConfig
 from repro.configs import CompressionConfig as JaxCompressionConfig
 from repro.configs import FedConfig as JaxFedConfig
@@ -40,6 +43,8 @@ from repro.configs import GPOConfig as JaxGPOConfig
 from repro.configs import PrivacyConfig as JaxPrivacyConfig
 from repro.core import CentralizedGPO as JaxCentralizedGPO
 from repro.core import FederatedGPO as JaxFederatedGPO
+from repro.core import adversary as jax_byz
+from repro.core import availability as jax_av
 from repro.core import compression as jax_cx
 from repro.core import fairness as jax_fairness
 from repro.core import gpo as jax_gpo
@@ -676,13 +681,112 @@ def test_unreplayed_runs_are_seeded_and_device_independent_of_hooks():
 @pytest.mark.parametrize("change", [
     dict(avail=AvailabilityConfig(online_prob=0.5)),
     dict(adversary=AdversaryConfig(kind="sign_flip", num_attackers=1)),
-    dict(hierarchy=HierarchyConfig(num_edges=2))])
-def test_unported_round_features_raise(change):
+    dict(hierarchy=HierarchyConfig(num_edges=2), agg=AggConfig(
+        name="median"))])
+def test_round_features_run(change):
+    """Each of the round's last three stages runs a round on the CPU:
+    finite, and off the same round without the stage (median under the
+    hierarchy: a linear rule at E = 2 is the flat reduce)."""
     _, port_data, tr, ev = _jax_setup()
-    fcfg = FedConfig(num_clients=len(tr), **FED, **change)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue A"):
-        FederatedGPO(GPOConfig(**SMALL), fcfg, port_data, tr, ev,
-                     device="cpu")
+    base = FedConfig(num_clients=len(tr), **FED,
+                     agg=change.get("agg", AggConfig()))
+    runs = []
+    for fcfg in (base, replace(base, **change)):
+        fed = FederatedGPO(GPOConfig(**SMALL), fcfg, port_data, tr, ev,
+                           device="cpu")
+        fed.run(rounds=1)
+        runs.append(torch.cat([p.flatten() for p in tree_leaves(
+            fed.global_params)]))
+    assert torch.isfinite(runs[1]).all()
+    assert not torch.equal(runs[0], runs[1])
+
+
+# ---------------------------------------------------------------------------
+# the adversary, availability and hierarchy stages on the reference's draws
+# ---------------------------------------------------------------------------
+# a stage spec's sub-config classes, by FedConfig field
+_STAGE_CLASSES = {"agg": "AggConfig", "privacy": "PrivacyConfig",
+                  "compression": "CompressionConfig",
+                  "avail": "AvailabilityConfig",
+                  "adversary": "AdversaryConfig",
+                  "hierarchy": "HierarchyConfig"}
+
+
+def _stage_cfg(module, spec: dict, num_clients: int, **flags):
+    """``module``'s FedConfig (the reference's or the port's) of a stage
+    spec: sub-config fields as dicts by FedConfig field, other
+    FedConfig fields as they are."""
+    kw = {k: (getattr(module, _STAGE_CLASSES[k])(**v)
+              if k in _STAGE_CLASSES else v) for k, v in spec.items()}
+    return module.FedConfig(num_clients=num_clients, **FED, **flags, **kw)
+
+
+def _jax_round_keys(seed: int, rounds: int) -> list:
+    """The reference's round keys: PRNGKey(seed + 1) split 3 a round,
+    the second of each split (_dispatch_round)."""
+    key, out = jax.random.PRNGKey(seed + 1), []
+    for _ in range(rounds):
+        key, k_round, _ = jax.random.split(key, 3)
+        out.append(k_round)
+    return out
+
+
+def _jax_stage_draws(jfcfg, num_clients: int, num_params: int,
+                     rounds: int):
+    """The reference's attacker masks and gaussian attack noise, and its
+    fault draws, each round, from its key chain: the round key folded
+    with the stage's tag (adversary.fold_byz_key,
+    availability.fold_fault_key), then the reference's own
+    attacker_mask / attack_noise / fault_draws over all C clients.
+    Returns ({round: (mask, noise or None)} or None, {round: (online,
+    crash, straggle, delay)} or None)."""
+    adv, avail = jfcfg.adversary, jfcfg.avail
+    attack = {} if adv.enabled else None
+    faults = {} if avail.enabled else None
+    gids = jnp.arange(num_clients)
+    for r, k in enumerate(_jax_round_keys(jfcfg.seed, rounds)):
+        if adv.enabled:
+            bk = jax_byz.fold_byz_key(k)
+            noise = (np.asarray(jax_byz.attack_noise(bk, gids, num_params))
+                     if adv.kind == "gaussian" else None)
+            attack[r] = (np.asarray(jax_byz.attacker_mask(
+                bk, num_clients, adv.num_attackers)), noise)
+        if avail.enabled:
+            faults[r] = tuple(np.asarray(a) for a in jax_av.fault_draws(
+                jax_av.fold_fault_key(k), num_clients, avail))
+    return attack, faults
+
+
+def _stage_pair(spec: dict, rounds: int):
+    """The reference FederatedGPO (engine="loop", its dense path) and the
+    port's (through its kernel wrappers: their plain versions on CPU
+    tensors) with the stage spec, the port replaying the reference's
+    init, cohorts, batches, release draws, attacker masks and noise, and
+    fault draws; both run ``rounds`` rounds. Returns (port trainer,
+    reference trainer, port History, reference History, the replayed
+    fault draws or None)."""
+    data, port_data, tr, ev = _jax_setup()
+    c = len(tr)
+    jfcfg = _stage_cfg(jax_configs, spec, c, engine="loop")
+    jfed = JaxFederatedGPO(JaxGPOConfig(**SMALL), jfcfg, data, tr, ev)
+    fcfg = _stage_cfg(port_configs, spec, c, use_pallas_attention=True,
+                      use_pallas_aggregation=True)
+    train, evals = _fed_draws(data, fcfg, tr, ev, rounds=rounds)
+    cohorts = _jax_cohorts(fcfg, c, rounds)
+    release = _jax_release_draws(jfed, rounds)
+    init = _np_tree(jfed.global_params)
+    attack, faults = _jax_stage_draws(jfcfg, c, tree_count_params(init),
+                                      rounds)
+    fed = FederatedGPO(
+        GPOConfig(**SMALL), fcfg, port_data, tr, ev, device="cpu",
+        init_params=init, participants=lambda r: cohorts[r][0],
+        batches=lambda r, e: train[r, e], eval_batches=lambda r: evals[r],
+        release_draws=lambda r: release[r],
+        attack_draws=None if attack is None else attack.__getitem__,
+        fault_draws=None if faults is None else faults.__getitem__)
+    jh = jfed.run(rounds=rounds)
+    h = fed.run(rounds=rounds)
+    return fed, jfed, h, jh, faults
 
 
 def test_train_launcher_checkpoint_is_served(tmp_path, capsys):
