@@ -110,6 +110,24 @@ the card, raising on any mismatch:
    and fault draws made once on the CPU; a straggler buffered and landed
    in one round; a zero-survivor round that leaves params and server
    state bit for bit; one attacked and one faulted round profiled.
+   4g. The sharded round (``make_sharded_round`` through ``ShardedGPO``)
+   on processes that ``repro_torch.launch.mesh.spawn`` starts, each
+   loading the kernels this process built, at the quickstart's
+   ``FedConfig``, 3 rounds a configuration, each held to the stacked
+   card run from the same seed: (a) one NCCL process, 10 clients,
+   FedAvg and median, bit for bit; (b) two processes of 5 clients (NCCL
+   on two cards; on one, gloo over CUDA tensors, staged through the
+   host, since NCCL refuses two processes on one device): FedAvg with
+   and without the kernels, fedavgm, adaptive, fedbuff, median, krum,
+   dp_noise, int8_ef, topk_ef, dp_int8_ef, alie × median, sign_flip ×
+   krum, gaussian with the norm bound, label_flip, faulted FedAvg and
+   faulted median, within ``TRAIN_TOL`` (codec runs with their level
+   allowance, ``_private_within``); (c) four processes on
+   ``make_edge_mesh(2, 2)``, 8 clients: FedAvg, median and int8 under
+   the median at two edges. Every process's params digest equal each
+   round; each process's launches asserted (``_shard_launches``); its
+   wall per round, collective time (synchronized) and ledger bytes
+   printed beside the stacked run's wall.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -127,7 +145,7 @@ the card, raising on any mismatch:
    attention kernels and the FedAvg reduce also at phase 4e's shapes.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last ten lines of standard output are the
+right after it. The last eleven lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
@@ -136,8 +154,11 @@ configuration, with ε), the ``lm`` JSON line (per architecture:
 launches, times, agreement, profile), the ``experiment`` JSON line
 (launches, walls, agreement, ``summarize``, the partial-participation
 runs), the ``stages`` JSON line (per phase 4f configuration: launches,
-agreement, wall per round, survivors per round), the ``kernels`` JSON
-line, the
+agreement, wall per round, survivors per round), the ``sharded`` JSON
+line (per phase 4g part: backend, devices; per configuration each
+process's launches, walls and collective ms, the ledger's calls and
+bytes, agreement), the ``kernels`` JSON line (4g's launches in each
+row's ``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
@@ -147,7 +168,9 @@ cuDNN; the LM phase serves the configs' bf16 (and one f32 run).
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import json
+import os
 import re
 import shutil
 import subprocess
@@ -205,6 +228,7 @@ from repro_torch.core import (  # noqa: E402
     predict_preferences,
     quantize_gpo_params,
 )
+from repro_torch.core import ShardedGPO  # noqa: E402
 from repro_torch.core.fairness import alignment_score  # noqa: E402
 from repro_torch.core.gpo import map_params  # noqa: E402
 from repro_torch.data import (  # noqa: E402
@@ -265,6 +289,11 @@ from repro_torch.kernels.ref import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import (  # noqa: E402
     p_width_for,
     ssd_scan_bhsp,
+)
+from repro_torch.launch.mesh import (  # noqa: E402
+    make_edge_mesh,
+    make_host_mesh,
+    spawn,
 )
 from repro_torch.models import init_params  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
@@ -540,6 +569,62 @@ STAGE_KERNEL = {"sign_flip-krum": ("pairwise_dists", 1),
 # replayed through the hooks; one attacked and one faulted round profiled
 STAGE_CPU = ("sign_flip-krum", "faults-fedavg", "hier-median")
 STAGE_PROFILED = ("sign_flip-krum", "faults-fedavg")
+# phase 4g, the sharded round (core/federated.py::make_sharded_round,
+# driven by ShardedGPO) at the quickstart's FedConfig, SHARD_ROUNDS
+# rounds a configuration, each process's counters, walls and collective
+# ledger returned to the parent and held to the stacked card run from
+# the same seed (the same generators draw the same values for the whole
+# population; each process keeps its rows): (a) one NCCL process, C 10,
+# bit for bit; (b) two processes of 5 clients (NCCL on two cards, gloo
+# over CUDA tensors on one), every configuration of SHARD_RUNS: the
+# strategies, the DP and codec stages and phase 4f's attacks and faults;
+# (c) make_edge_mesh(2, 2), C 8
+SHARD_ROUNDS = 3
+SHARD_RUNS = {
+    "fedavg": {},
+    "fedavg-plain": {"plain": True},
+    "fedavgm": {"agg": {"name": "fedavgm", **STRATEGIES["fedavgm"]}},
+    "adaptive": {"agg": {"name": "adaptive", **STRATEGIES["adaptive"]}},
+    "fedbuff": {"agg": {"name": "fedbuff"}},
+    "median": {"agg": {"name": "median"}},
+    "krum": {"agg": {"name": "krum", **STRATEGIES["krum"]}},
+    "dp_noise": PRIVATE["dp_noise"],
+    "int8_ef": PRIVATE["int8_ef"],
+    "topk_ef": PRIVATE["topk_ef"],
+    "dp_int8_ef": PRIVATE["dp_int8_ef"],
+    **{k: STAGE_RUNS[k] for k in (
+        "alie-median", "sign_flip-krum", "gaussian-fedavg-norm_bound",
+        "label_flip-fedavg", "faults-fedavg", "faults-median")},
+}
+SHARD_ONE = ("fedavg", "median")
+SHARD_EDGE = {
+    "hier-fedavg": STAGE_RUNS["hier-fedavg"],
+    "hier-median": STAGE_RUNS["hier-median"],
+    "hier-int8-median": {**STAGE_RUNS["hier-median"],
+                         "compression": {"kind": "int8"}},
+}
+SHARD_EDGE_CLIENTS = 8
+# the aggregation kernel each process launches once a round (under
+# faults once a round that absorbed a row): the linear family's on its
+# own rows before the all-reduce (fedavgm too: the fused momentum step
+# is the stacked round's), the robust family's on the gathered (C, P)
+# matrix, the two hops' on the edge's rows (the server's 2-candidate
+# median trims k = 0: no kernel); none for the dense run and for faulted
+# median's masked reduce (plain torch, as in the reference)
+SHARD_KERNEL = {"fedavg": "fedavg_reduce", "fedavg-plain": None,
+                "fedavgm": "fedavg_reduce", "adaptive": "fedavg_reduce",
+                "fedbuff": "fedavg_reduce", "median": "trimmed_reduce",
+                "krum": "pairwise_dists", "dp_noise": "clip_reduce",
+                "int8_ef": "quant_clip_reduce", "topk_ef": "topk_reduce",
+                "dp_int8_ef": "quant_clip_reduce",
+                "alie-median": "trimmed_reduce",
+                "sign_flip-krum": "pairwise_dists",
+                "gaussian-fedavg-norm_bound": "fedavg_reduce",
+                "label_flip-fedavg": "fedavg_reduce",
+                "faults-fedavg": "fedavg_reduce", "faults-median": None,
+                "hier-fedavg": "fedavg_reduce",
+                "hier-median": "trimmed_reduce",
+                "hier-int8-median": "trimmed_reduce"}
 # phase 4e, the paper's experiment (benchmarks/paper_experiment.py): one
 # seed of the pair, EXP_ROUNDS federated rounds and as many centralized
 # epochs, its first EXP_CPU_ROUNDS against the CPU run; then SUB_ROUNDS
@@ -2584,6 +2669,281 @@ def train_stages(dev, data, tr, ev) -> dict:
     return out
 
 
+def _shard_cfg(label: str, c: int) -> FedConfig:
+    spec = {**SHARD_RUNS, **SHARD_EDGE}[label]
+    base = FedConfig(num_clients=c, local_epochs=6, lr=3e-4,
+                     eval_every=SHARD_ROUNDS,
+                     use_pallas_attention=not spec.get("plain"),
+                     use_pallas_aggregation=not spec.get("plain"))
+    return replace(
+        base, agg=AggConfig(**spec.get("agg", {})),
+        privacy=PrivacyConfig(**spec.get("privacy", {})),
+        compression=CompressionConfig(**spec.get("compression", {})),
+        adversary=AdversaryConfig(**spec.get("adversary", {})),
+        avail=AvailabilityConfig(**spec.get("avail", {})),
+        hierarchy=HierarchyConfig(**spec.get("hierarchy", {})))
+
+
+def _shard_launches(label: str, gcfg, fcfg, survivors: list) -> dict:
+    """One process's launches in a phase 4g run: the attention kernels
+    once a layer and local epoch (no eval), at BH (C/W)·heads, and
+    ``SHARD_KERNEL``'s once a round (under faults once a round that
+    absorbed a row)."""
+    steps = (gcfg.num_layers * fcfg.local_epochs * SHARD_ROUNDS
+             if fcfg.use_pallas_attention else 0)
+    want = {**dict.fromkeys(_COUNTED, 0), "gpo_attention_fwd": steps,
+            "gpo_attention_bwd_dq": steps, "gpo_attention_bwd_dkdv": steps}
+    kernel = SHARD_KERNEL[label]
+    if kernel:
+        want[kernel] = (sum(1 for n in survivors if n > 0)
+                        if fcfg.avail.enabled else SHARD_ROUNDS)
+    return want
+
+
+def _digest(params) -> str:
+    return hashlib.sha256(torch.cat([t.reshape(-1) for t in tree_leaves(
+        params)]).cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _shard_rank(rank, device, data, tr, labels, edges):
+    """One process of a phase 4g group: each configuration of ``labels``
+    for SHARD_ROUNDS rounds through the kernels on this process's
+    clients. Returns per configuration its launches, its walls (the run
+    per round; each round's ``round_fn`` call, synchronized), each
+    round's params digest, its collective ledger and its final state on
+    the CPU."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    world = torch.distributed.get_world_size()
+    # the host's cores shared out: each process's own intra-op pool the
+    # size of the machine would oversubscribe them world times
+    torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))
+    mesh = (make_edge_mesh(edges, world // edges, device=device)
+            if edges > 1 else make_host_mesh(device=device))
+    # one round of the first configuration, not recorded: the process's
+    # first kernel loads, cuBLAS handles and first collective (NCCL's
+    # communicator) would otherwise land in the first run's walls
+    ShardedGPO(gcfg, _shard_cfg(labels[0], len(tr)), data, tr, mesh).run(1)
+    out = {}
+    for label in labels:
+        fcfg = _shard_cfg(label, len(tr))
+        run = ShardedGPO(gcfg, fcfg, data, tr, mesh)
+        real, walls, digests = run._round_fn, [], []
+
+        def timed(*a, real=real, walls=walls, digests=digests, **k):
+            torch.cuda.synchronize(device)
+            t0 = time.perf_counter()
+            res = real(*a, **k)
+            torch.cuda.synchronize(device)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            digests.append(_digest(res.params))
+            return res
+
+        run._round_fn = timed
+        _zero_counts()
+        t0 = time.perf_counter()
+        hist = run.run(SHARD_ROUNDS)
+        torch.cuda.synchronize(device)
+        wall = (time.perf_counter() - t0) / SHARD_ROUNDS * 1e3
+        launches = _counts()
+        fault = run.fault_state
+        out[label] = {
+            "device": str(device), "backend": mesh.backend,
+            "rows": [run.rows.start, run.rows.stop],
+            "launches": launches, "wall_ms_per_round": wall,
+            "round_fn_ms": walls, "digests": digests,
+            "ledger": [tuple(c) for c in run.comm.ledger],
+            "survivors": hist.round_survivors, "eps": hist.round_eps,
+            "losses": [x.tolist() for x in hist.client_losses],
+            "params": [t.cpu() for t in tree_leaves(run.global_params)],
+            "server": [t.cpu() for t in tree_leaves(run.server_state)],
+            "resid": None if run.ef_resid is None else run.ef_resid.cpu(),
+            "pending": None if fault is None else fault.pending.cpu()}
+    return out
+
+
+def _shard_stacked(dev, data, tr, ev, labels) -> dict:
+    """The stacked card runs phase 4g holds its processes to: each
+    configuration from the same seed, its final state on the CPU, its
+    History and, under a codec, its level a round (``_spy_levels`` on
+    the same run with the aggregation's plain versions, as phase 4f)."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    out = {}
+    for label in labels:
+        fcfg = _shard_cfg(label, len(tr))
+        fed = FederatedGPO(gcfg, fcfg, data, tr, ev, device=dev)
+        t0 = time.perf_counter()
+        hist = fed.run(rounds=SHARD_ROUNDS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / SHARD_ROUNDS * 1e3
+        levels: list = []
+        if fcfg.compression.enabled:
+            real = _spy_levels(levels)
+            try:
+                FederatedGPO(gcfg, replace(fcfg, use_pallas_aggregation=False),
+                             data, tr, ev, device=dev).run(SHARD_ROUNDS)
+            finally:
+                cx.quantize_int8, cx.topk_thresholds = real
+        torch.cuda.synchronize()
+        fault = fed.fault_state
+        out[label] = {
+            "hist": hist, "levels": levels, "wall_ms_per_round": wall,
+            "w_max": float(fed.weights.max()),
+            "params": [t.cpu() for t in tree_leaves(fed.global_params)],
+            "server": [t.cpu() for t in tree_leaves(fed.server_state)],
+            "resid": None if fed.ef_resid is None else fed.ef_resid.cpu(),
+            "pending": None if fault is None else fault.pending.cpu()}
+    return out
+
+
+def _shard_check(part: str, label: str, ranks: list, want: dict,
+                 gcfg, c: int, bit: bool, dev) -> dict:
+    """A phase 4g run against its stacked card run: every process's
+    digest equal each round, its launches as ``_shard_launches``
+    predicts, survivors and ε equal, and the state bit for bit
+    (``bit``) or within TRAIN_TOL's 1e-4 (``_private_within``, with the
+    codec's level allowance a round: the int8 scale or top-k threshold
+    of the stacked run; with int8 at two edges also the cross-edge
+    candidates' own rounding). Returns the record it prints."""
+    first, fcfg = ranks[0][label], _shard_cfg(label, c)
+    if any(r[label]["digests"] != first["digests"] for r in ranks):
+        raise AssertionError(f"4g {part} {label}: the processes' params "
+                             f"differ: {[r[label]['digests'] for r in ranks]}")
+    hist = want["hist"]
+    predicted = _shard_launches(label, gcfg, fcfg, hist.round_survivors)
+    for r in ranks:
+        if r[label]["launches"] != predicted:
+            raise AssertionError(f"4g {part} {label}: launches "
+                                 f"{r[label]['launches']}, want {predicted}")
+    if first["survivors"] != hist.round_survivors or \
+            first["eps"] != hist.round_eps:
+        raise AssertionError(f"4g {part} {label}: survivors or eps differ "
+                             f"from the stacked run's")
+    got = {"params": first["params"], "server": first["server"]}
+    for key in ("resid", "pending"):
+        if want[key] is not None:
+            got[key] = torch.cat([r[label][key] for r in ranks])
+    diffs = {k: [(a - b).abs() for a, b in zip(
+        got[k] if isinstance(got[k], list) else [got[k]],
+        want[k] if isinstance(want[k], list) else [want[k]])]
+        for k in got}
+    rec = {k: max(d.max().item() for d in v) for k, v in diffs.items()}
+    # each round's mean over the C clients, taken as the stacked round
+    # takes it (a (C,) float32 mean on the card)
+    losses = np.asarray([float(torch.tensor(sum(
+        (r[label]["losses"][i] for r in ranks), []), device=dev).mean())
+        for i in range(SHARD_ROUNDS)])
+    rec["round_loss_rel"] = (0.0 if fcfg.avail.enabled else float(np.max(
+        np.abs(losses - hist.round_loss) / np.abs(hist.round_loss))))
+    if bit:
+        if any(v != 0.0 for k, v in rec.items()):
+            raise AssertionError(f"4g {part} {label}: not bit-equal to the "
+                                 f"stacked run: {rec}")
+        return rec
+    level = sum(want["levels"])
+    a = {"round_loss_rel": rec["round_loss_rel"], "eval_abs": 0.0,
+         "params_max_abs": max(rec["params"], rec["server"]),
+         "coords_beyond_1e-4": int(sum((d > 1e-4).sum().item()
+                                       for v in diffs.values() for d in v)),
+         # int8 at two edges: the cross-edge candidates' own rounding
+         # (half a level a round at most) and the later rounds' training
+         # from the params it moved (PR 24's first card run: 3.88e-5
+         # against one level a round, 4.04e-5)
+         "params_allowance": (2 * level if label == "hier-int8-median"
+                              else want["w_max"] * level),
+         "resid_allowance": level}
+    if "resid" in rec:
+        a["ef_resid_max_abs"] = rec["resid"]
+    if "pending" in rec:
+        a["ef_resid_max_abs"] = max(a.get("ef_resid_max_abs", 0.0),
+                                    rec["pending"])
+    if label == "hier-int8-median":  # later rounds train apart (4g doc)
+        a["round_loss_rel"] = 0.0
+    rec.update(a)
+    if not _private_within(a):
+        raise AssertionError(f"4g {part} {label}: off the stacked card run "
+                             f"(tolerance {TRAIN_TOL} plus the level "
+                             f"allowance): {rec}")
+    return rec
+
+
+def _shard_part(part: str, world: int, backend: str, device, data, tr,
+                labels, edges: int, stacked: dict, bit: bool, dev) -> dict:
+    """One spawned group of phase 4g: every configuration of ``labels``
+    on ``world`` processes; prints and returns each one's record."""
+    t0 = time.perf_counter()
+    ranks = spawn(world, _shard_rank, data, tr, labels, edges,
+                  backend=backend, device=device, timeout=300, deadline=600)
+    span = time.perf_counter() - t0
+    out = {"world": world, "backend": backend,
+           "devices": [r[labels[0]]["device"] for r in ranks],
+           "spawn_s": span, "runs": {}}
+    print(f"  ({part}) {world} process(es), backend {backend}, devices "
+          f"{out['devices']}, {span:.1f}s for the group")
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    for label in labels:
+        agree = _shard_check(part, label, ranks, stacked[label], gcfg,
+                             len(tr), bit, dev)
+        per_rank = [r[label] for r in ranks]
+        rec = {
+            "launches": [{k: v for k, v in r["launches"].items() if v}
+                         for r in per_rank],
+            "wall_ms_per_round": [r["wall_ms_per_round"] for r in per_rank],
+            "stacked_wall_ms_per_round": stacked[label]["wall_ms_per_round"],
+            "round_fn_ms": [r["round_fn_ms"] for r in per_rank],
+            "collective_ms": [sum(c[3] for c in r["ledger"])
+                              for r in per_rank],
+            "collectives": [[c[0], list(c[1]), c[2], c[4]]
+                            for c in per_rank[0]["ledger"]],
+            "collective_bytes": sum(c[2] for c in per_rank[0]["ledger"]),
+            "staged": any(c[4] for c in per_rank[0]["ledger"]),
+            "survivors": per_rank[0]["survivors"], "agreement": agree}
+        out["runs"][label] = rec
+        kernel = SHARD_KERNEL[label]
+        print(f"  ({part}) {label:26s} wall/round "
+              + " ".join(f"{w:8.2f}" for w in rec["wall_ms_per_round"])
+              + f" ms (stacked {rec['stacked_wall_ms_per_round']:8.2f}); "
+              "collectives "
+              + " ".join(f"{m:7.2f}" for m in rec["collective_ms"])
+              + f" ms, {rec['collective_bytes']} B a process in "
+              f"{len(rec['collectives'])} calls"
+              + (" (staged through the host)" if rec["staged"] else "")
+              + f"; {kernel or 'no aggregation kernel'} "
+              f"x{[r['launches'].get(kernel, 0) if kernel else 0 for r in per_rank]}"
+              f", attention fwd x"
+              f"{[r['launches']['gpo_attention_fwd'] for r in per_rank]}; "
+              + ("bit-equal" if bit else
+                 f"params {agree['params_max_abs']:.2e} (allowance "
+                 f"{agree['params_allowance']:.2e}) loss rel "
+                 f"{agree['round_loss_rel']:.2e}"))
+    return out
+
+
+def train_sharded(dev, data, tr, ev) -> dict:
+    """Phase 4g: the sharded round on processes (see SHARD_ROUNDS):
+    (a) one NCCL process, bit for bit; (b) two processes, every
+    configuration of SHARD_RUNS; (c) four processes on
+    ``make_edge_mesh(2, 2)``. The parent built the kernels already; the
+    processes load them from build/."""
+    cards = torch.cuda.device_count()
+    torch.cuda.empty_cache()
+    stacked = _shard_stacked(dev, data, tr, ev, list(SHARD_RUNS))
+    tr8 = tr[:SHARD_EDGE_CLIENTS]
+    stacked_edge = _shard_stacked(dev, data, tr8, ev, list(SHARD_EDGE))
+    out = {"a": _shard_part("a", 1, "nccl", "cuda:0", data, tr,
+                            list(SHARD_ONE), 1, stacked, True, dev)}
+    # NCCL refuses two processes on one device: gloo over CUDA tensors
+    # (staged through the host) where there is one card
+    two = ("nccl", ["cuda:0", "cuda:1"]) if cards >= 2 else ("gloo",
+                                                             "cuda:0")
+    out["b"] = _shard_part("b", 2, *two, data, tr, list(SHARD_RUNS), 1,
+                           stacked, False, dev)
+    four = ("nccl", [f"cuda:{i}" for i in range(4)]) if cards >= 4 \
+        else ("gloo", "cuda:0")
+    out["c"] = _shard_part("c", 4, *four, data, tr8, list(SHARD_EDGE), 2,
+                           stacked_edge, False, dev)
+    return out
+
+
 def _evals(rounds: int, every: int) -> int:
     """Evaluations in ``rounds``: every ``every``-th round and the last."""
     return len(set(range(0, rounds, every)) | {rounds - 1})
@@ -3748,6 +4108,9 @@ def main() -> int:
     print("[4f] the adversary, availability and hierarchy stages, 3 rounds "
           "each, through the kernels")
     stage_rec = train_stages(dev, data, tr, held_out)
+    print("[4g] the sharded round on processes (torch.distributed), 3 "
+          "rounds each, through the kernels")
+    shard_rec = train_sharded(dev, data, tr, held_out)
     print("[4d] LM serving: qwen2-0.5b and mamba2-780m at full width and "
           "depth, bf16, through the flash-attention and SSD kernels")
     lm_rec = serve_lm(dev)
@@ -3759,6 +4122,17 @@ def main() -> int:
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, exp_rec, stage_rec, name, worst)
     kernels += _backbone_rows(dev, lm_rec, name, worst)
+    # phase 4g's launches, over its processes and configurations
+    sharded = {}
+    for part in shard_rec.values():
+        for run in part["runs"].values():
+            for per_rank in run["launches"]:
+                for k, n in per_rank.items():
+                    sharded[k] = sharded.get(k, 0) + n
+    for row in kernels:
+        if row["name"] in sharded:
+            row.setdefault("launches_by_path", {})["sharded"] = \
+                sharded[row["name"]]
     _wait_control_builds()
 
     print(json.dumps({"engine": {
@@ -3771,6 +4145,7 @@ def main() -> int:
     print(json.dumps({"lm": lm_rec}))
     print(json.dumps({"experiment": exp_rec}))
     print(json.dumps({"stages": stage_rec}))
+    print(json.dumps({"sharded": shard_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,8 @@
 # The PyTorch port's core: the GPO preference predictor, its federated
-# trainer (with the server-aggregation registry, the round's stage
-# pipeline: the Byzantine adversary, the DP release, the delta codecs,
-# the availability faults and the edge hierarchy) and centralized
-# trainer, the multi-tenant serving engine, the alignment and fairness
+# trainers (the stacked one and the sharded round over processes, with
+# the server-aggregation registry, the round's stage pipeline: the
+# Byzantine adversary, the DP release, the delta codecs, the
+# availability faults and the edge hierarchy) and centralized trainer, the multi-tenant serving engine, the alignment and fairness
 # metrics, and the LM backbones' serving steps.
 from repro_torch.core.adversary import (  # noqa: F401
     apply_attack,
@@ -11,6 +11,7 @@ from repro_torch.core.adversary import (  # noqa: F401
     check_defense_composition,
     flip_preferences,
     honest_stats,
+    honest_stats_sharded,
     norm_clip_rows,
 )
 from repro_torch.core.aggregation import (  # noqa: F401
@@ -34,11 +35,18 @@ from repro_torch.core.availability import (  # noqa: F401
 from repro_torch.core.centralized import CentralizedGPO  # noqa: F401
 from repro_torch.core.fedavg import (  # noqa: F401
     broadcast_to_clients,
+    fedavg_allreduce,
     fedavg_flat,
     fedavg_stacked,
     normalize_weights,
 )
-from repro_torch.core.federated import FederatedGPO, History  # noqa: F401
+from repro_torch.core.federated import (  # noqa: F401
+    FederatedGPO,
+    History,
+    ShardedGPO,
+    ShardedOut,
+    make_sharded_round,
+)
 from repro_torch.core.gpo import (  # noqa: F401
     GPOPrefix,
     gpo_apply,

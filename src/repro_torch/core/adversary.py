@@ -70,13 +70,31 @@ def honest_stats(vecs: torch.Tensor, mask: torch.Tensor
     return mean, torch.sqrt(var)
 
 
+def honest_stats_sharded(vecs: torch.Tensor, mask: torch.Tensor, axes,
+                         comm) -> tuple[torch.Tensor, torch.Tensor]:
+    """``honest_stats`` over a client-sharded (rows, P) matrix: the masked
+    moment sums are summed over the client mesh ``axes`` on ``comm``
+    (``launch.collectives.Collectives``), so colluding attackers on
+    different processes agree on the honest spread."""
+    h = (~mask).float()[:, None]
+    x = vecs.float()
+    n = torch.clamp(comm.psum(h.sum().reshape(1), axes)[0], min=1.0)
+    mean = comm.psum((h * x).sum(dim=0), axes) / n
+    var = torch.clamp(comm.psum((h * x * x).sum(dim=0), axes) / n
+                      - mean * mean, min=0.0)
+    return mean, torch.sqrt(var)
+
+
 def apply_attack(vecs: torch.Tensor, mask: torch.Tensor,
                  adv: AdversaryConfig,
-                 noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 noise: Optional[torch.Tensor] = None, *,
+                 stats: Optional[tuple] = None) -> torch.Tensor:
     """Corrupt the attacked rows (``mask``, (rows,) bool, on any device)
     of the raw flat (rows, P) delta matrix; ``noise`` is the rows' (rows,
-    P) standard normals of the ``gaussian`` attack. Identity for ``none``
-    and ``label_flip``. Returns float32."""
+    P) standard normals of the ``gaussian`` attack; ``stats`` replaces
+    ALIE's honest (mean, std) (the sharded round passes the ones summed
+    over its processes). Identity for ``none`` and ``label_flip``.
+    Returns float32."""
     if not adv.enabled or adv.data_level:
         return vecs
     x = vecs.float()
@@ -88,7 +106,7 @@ def apply_attack(vecs: torch.Tensor, mask: torch.Tensor,
     elif adv.kind == "gaussian":
         bad = x + adv.noise_std * noise
     elif adv.kind == "alie":
-        mean, std = honest_stats(x, mask)
+        mean, std = honest_stats(x, mask) if stats is None else stats
         bad = (mean + adv.alie_z * std).expand_as(x)
     else:  # AdversaryConfig.validate rejects it earlier
         raise ValueError(f"unknown delta-level attack {adv.kind!r}")

@@ -28,7 +28,7 @@ PyTorch port of the reference's ``core/availability.py``.
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -127,16 +127,20 @@ def staleness_discount(staleness: torch.Tensor,
 
 def advance_fault_state(state: FaultState, sched: RoundSchedule,
                         sent: torch.Tensor, send_weight: torch.Tensor,
-                        rejoin_rounds: int = 0) -> FaultState:
+                        rejoin_rounds: int = 0,
+                        rows: Optional[torch.Tensor] = None) -> FaultState:
     """Next round's fault state: the stragglers' rows of ``sent`` (the
     full (C, P) released matrix, on the device) enter the buffer with
     their ``send_weight`` (C,), arrivals clear their slot, and crashed
-    clients stay offline ``rejoin_rounds`` rounds after this one."""
+    clients stay offline ``rejoin_rounds`` rounds after this one.
+    ``rows``: the clients whose rows ``sent`` and ``state.pending`` hold
+    (the sharded round's own; None: all C)."""
     r = state.round
     strag, arr = sched.straggle, sched.arrive
     dev = state.pending.device
-    pending = torch.where(strag.to(dev)[:, None], sent,
-                          torch.where(arr.to(dev)[:, None], 0.0,
+    sl = slice(None) if rows is None else rows
+    pending = torch.where(strag[sl].to(dev)[:, None], sent,
+                          torch.where(arr[sl].to(dev)[:, None], 0.0,
                                       state.pending))
     due = torch.where(strag, r + sched.delay,
                       torch.where(arr, NO_PENDING, state.pending_due))

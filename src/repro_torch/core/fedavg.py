@@ -4,6 +4,9 @@
 * ``fedavg_stacked`` — Eq. 3 per leaf over the leading client axis;
 * ``fedavg_flat`` — the same through the aggregator's flat reduce on the
   raveled (C, P) matrix, the ``fedavg_reduce`` kernel's contract;
+* ``fedavg_allreduce`` — the sharded round's form: each process weighs
+  its own clients' params and one sum over the client mesh axes is the
+  aggregation server (``launch/collectives.py``);
 * ``broadcast_to_clients`` — the server's redistribution.
 
 The strategy layer on top (the delta contract and the server update)
@@ -16,6 +19,7 @@ from typing import Any
 import torch
 
 from repro_torch.utils.pytree import (
+    tree_flatten_to_vector,
     tree_index,
     tree_map,
     tree_ravel_clients,
@@ -49,6 +53,20 @@ def broadcast_to_clients(params: PyTree, num_clients: int) -> PyTree:
     not views, since each client trains its own."""
     return tree_map(lambda x: x.unsqueeze(0).expand(
         num_clients, *x.shape).clone(), params)
+
+
+def fedavg_allreduce(local_params: PyTree, weight, axis_names,
+                     comm) -> PyTree:
+    """The weighted sum over the client mesh axes ``axis_names`` of
+    every process's ``local_params`` (already summed over its clients
+    with weights normalized over all of them) times ``weight``, on
+    ``comm`` (``launch.collectives.Collectives``). The leaves travel
+    coalesced in one (P,) float32 buffer, so the round makes one
+    all-reduce where the reference makes one psum a leaf (which XLA
+    combines); each comes back in its dtype on every process."""
+    vec = tree_flatten_to_vector(local_params) * weight
+    return tree_unflatten_from_vector(comm.psum(vec, axis_names),
+                                      local_params)
 
 
 def fedavg_flat(stacked_params: PyTree, weights: torch.Tensor) -> PyTree:

@@ -59,6 +59,20 @@ reference.
 the fused multi-round driver (a captured round replayed as a CUDA graph)
 is ROADMAP.md queue A.2.
 
+The second engine, ``make_sharded_round``, lays the clients out over
+processes (``torch.distributed``, a client mesh of ``launch/mesh.py``):
+each process trains its own C/W clients with no collective, and the
+round ends in ONE all-reduce of the (P,) partial sum for the linear
+family, or an all-gather of the rows for the robust one, two hops on an
+edge mesh (``RoundPipeline.sharded_delta``); the server update then runs
+on every process alike. Its fault round keeps the schedule on every
+process and only the in-flight payloads of its own clients.
+``ShardedGPO`` drives it with the draws ``FederatedGPO`` makes for the
+whole population, each process keeping its own rows, so an unreplayed
+run equals the stacked run with the same seed at any W. Partial
+participation stays with ``FederatedGPO``, as in the reference, whose
+sharded round trains every client it is handed.
+
 Randomness: the initial params come from a CPU ``torch.Generator``
 seeded with ``FedConfig.seed``, the cohorts and the training batches
 (the cohort first, then the round's batches) and the eval batches from
@@ -112,6 +126,9 @@ from repro_torch.core.gpo import (
 from repro_torch.core.pipeline import make_pipeline
 from repro_torch.data.surveys import ICLBatch, SurveyData, sample_icl_batches
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.collectives import Collectives
+from repro_torch.launch.mesh import ClientMesh
+from repro_torch.launch.mesh import client_axes as mesh_client_axes
 from repro_torch.optim import adam
 from repro_torch.utils.pytree import (
     tree_count_params,
@@ -228,6 +245,10 @@ class History:
     # each round (fresh releases and buffered arrivals). Empty when
     # AvailabilityConfig is disabled.
     round_survivors: list = field(default_factory=list)
+    # the sharded round: each round's (C/W,) losses of the clients this
+    # process trained (their mean over all C would take a collective the
+    # round does not make). Empty for FederatedGPO.
+    client_losses: list = field(default_factory=list)
 
     def append_eval(self, r: int, scores: np.ndarray, log_every: int,
                     label: str = "[fed] round") -> None:
@@ -266,7 +287,91 @@ class _Streams(NamedTuple):
     fault: Optional[torch.Generator] = None  # fault draws (CPU)
 
 
-class FederatedGPO:
+class _RoundSource:
+    """What a round draws and records, the same in both engines: the
+    run's generators, the release draws, the attack's and the fault
+    draws for the whole population (each replayed from its hook where
+    one is given), and the cumulative ε. Its users set ``fed_cfg``,
+    ``device``, ``train_groups``, ``global_params``, the hooks and the
+    accountant."""
+
+    def _streams(self, seed: int) -> _Streams:
+        """A run's generators, restarted from ``seed`` (the stages' only
+        while the stage is on)."""
+        fed, dev = self.fed_cfg, self.device
+        gen_train, gen_eval = _generators(seed)
+        s = _Streams(gen_train, gen_eval, _release_generator(seed, dev))
+        adv = fed.adversary
+        if adv.enabled and self._attack_draws is None:
+            tag = 2 * (byz.BYZ_TAG + seed)
+            s = s._replace(byz=torch.Generator().manual_seed(tag))
+            if adv.kind == "gaussian":
+                s = s._replace(attack_noise=torch.Generator(
+                    device=dev).manual_seed(tag + 1))
+        if fed.avail.enabled and self._fault_draws is None:
+            s = s._replace(fault=torch.Generator().manual_seed(
+                av.FAULT_TAG + seed))
+        return s
+
+    def _draws(self, r: int, gen: torch.Generator, m: int):
+        """The round's (noise, uniform) release operands, each (m, P) or
+        None: replayed from the hook, or drawn from ``gen`` (noise
+        first) where the config uses them."""
+        if self._release_draws is not None:
+            return tuple(None if a is None else
+                         torch.as_tensor(np.array(a, np.float32),
+                                         device=self.device)
+                         for a in self._release_draws(r))
+        priv, comp = self.fed_cfg.privacy, self.fed_cfg.compression
+        shape = (m, tree_count_params(self.global_params))
+        noise = (dp.client_noise(gen, shape, priv.sigma)
+                 if priv.enabled and priv.noise_multiplier > 0.0 else None)
+        uniform = cx.client_uniform(gen, shape) if comp.needs_rng else None
+        return noise, uniform
+
+    def _attack(self, r: int, s: _Streams):
+        """The round's attacker mask over the population ((C,) bool on the
+        host) and the gaussian attack's (C, P) normals (or None), replayed
+        from the hook or drawn; None while the adversary is off."""
+        if not self.fed_cfg.adversary.enabled:
+            return None
+        if self._attack_draws is not None:
+            mask, noise = self._attack_draws(r)
+            return (torch.as_tensor(np.array(mask, np.bool_)),
+                    None if noise is None else torch.as_tensor(
+                        np.array(noise, np.float32), device=self.device))
+        c, adv = len(self.train_groups), self.fed_cfg.adversary
+        mask = byz.attacker_mask(byz.attacker_draws(s.byz, c),
+                                 adv.num_attackers)
+        noise = None
+        if adv.kind == "gaussian":
+            noise = torch.randn(
+                (c, tree_count_params(self.global_params)),
+                generator=s.attack_noise, device=self.device)
+        return mask, noise
+
+    def _faults(self, r: int, s: _Streams) -> av.FaultDraws:
+        """The round's fault draws for the population, replayed from the
+        hook or drawn."""
+        if self._fault_draws is not None:
+            online, crash, straggle, delay = (
+                torch.as_tensor(np.array(a)) for a in self._fault_draws(r))
+            return av.FaultDraws(online.bool(), crash.bool(),
+                                 straggle.bool(), delay.to(torch.int32))
+        return av.fault_draws(s.fault, len(self.train_groups),
+                              self.fed_cfg.avail)
+
+    def _note_privacy(self, hist: History) -> None:
+        """Record the cumulative ε after a finished round (host-side;
+        the accountant composes RDP linearly over rounds)."""
+        self._rounds_elapsed += 1
+        if self.fed_cfg.privacy.enabled:
+            hist.round_eps.append(
+                self._accountant.epsilon(self._rounds_elapsed)
+                if self._accountant else float("inf"))
+
+
+class FederatedGPO(_RoundSource):
     def __init__(self, gpo_cfg: GPOConfig, fed_cfg: FedConfig,
                  data: SurveyData, train_groups, eval_groups, *,
                  device=None, init_params=None,
@@ -371,54 +476,6 @@ class FederatedGPO:
         mask[:: self.fed_cfg.eval_every] = True
         mask[rounds - 1] = True
         return mask
-
-    def _draws(self, r: int, gen: torch.Generator, m: int):
-        """The round's (noise, uniform) release operands, each (m, P) or
-        None: replayed from the hook, or drawn from ``gen`` (noise
-        first) where the config uses them."""
-        if self._release_draws is not None:
-            return tuple(None if a is None else
-                         torch.as_tensor(np.array(a, np.float32),
-                                         device=self.device)
-                         for a in self._release_draws(r))
-        priv, comp = self.fed_cfg.privacy, self.fed_cfg.compression
-        shape = (m, tree_count_params(self.global_params))
-        noise = (dp.client_noise(gen, shape, priv.sigma)
-                 if priv.enabled and priv.noise_multiplier > 0.0 else None)
-        uniform = cx.client_uniform(gen, shape) if comp.needs_rng else None
-        return noise, uniform
-
-    def _attack(self, r: int, s: _Streams):
-        """The round's attacker mask over the population ((C,) bool on the
-        host) and the gaussian attack's (C, P) normals (or None), replayed
-        from the hook or drawn; None while the adversary is off."""
-        if not self.fed_cfg.adversary.enabled:
-            return None
-        if self._attack_draws is not None:
-            mask, noise = self._attack_draws(r)
-            return (torch.as_tensor(np.array(mask, np.bool_)),
-                    None if noise is None else torch.as_tensor(
-                        np.array(noise, np.float32), device=self.device))
-        c, adv = len(self.train_groups), self.fed_cfg.adversary
-        mask = byz.attacker_mask(byz.attacker_draws(s.byz, c),
-                                 adv.num_attackers)
-        noise = None
-        if adv.kind == "gaussian":
-            noise = torch.randn(
-                (c, tree_count_params(self.global_params)),
-                generator=s.attack_noise, device=self.device)
-        return mask, noise
-
-    def _faults(self, r: int, s: _Streams) -> av.FaultDraws:
-        """The round's fault draws for the population, replayed from the
-        hook or drawn."""
-        if self._fault_draws is not None:
-            online, crash, straggle, delay = (
-                torch.as_tensor(np.array(a)) for a in self._fault_draws(r))
-            return av.FaultDraws(online.bool(), crash.bool(),
-                                 straggle.bool(), delay.to(torch.int32))
-        return av.fault_draws(s.fault, len(self.train_groups),
-                              self.fed_cfg.avail)
 
     def _participants_of(self, r: int, s: _Streams, hist: History):
         """(groups, Eq. 2 weights on the device, the cohort on the host
@@ -571,15 +628,6 @@ class FederatedGPO:
         n_train = max(float(keep.sum()), 1.0)
         return float(torch.where(keep_d, losses, 0.0).sum() / n_train)
 
-    def _note_privacy(self, hist: History) -> None:
-        """Record the cumulative ε after a finished round (host-side;
-        the accountant composes RDP linearly over rounds)."""
-        self._rounds_elapsed += 1
-        if self.fed_cfg.privacy.enabled:
-            hist.round_eps.append(
-                self._accountant.epsilon(self._rounds_elapsed)
-                if self._accountant else float("inf"))
-
     def evaluate(self, batch: ICLBatch) -> np.ndarray:
         """Per-group AS (K,) of the global model on a batch stacked over
         the held-out groups."""
@@ -617,20 +665,307 @@ class FederatedGPO:
                 hist.append_eval(r, self.evaluate(b), log_every)
         return hist
 
-    def _streams(self, seed: int) -> _Streams:
-        """A run's generators, restarted from ``seed`` (the stages' only
-        while the stage is on)."""
-        fed, dev = self.fed_cfg, self.device
-        gen_train, gen_eval = _generators(seed)
-        s = _Streams(gen_train, gen_eval, _release_generator(seed, dev))
-        adv = fed.adversary
-        if adv.enabled and self._attack_draws is None:
-            tag = 2 * (byz.BYZ_TAG + seed)
-            s = s._replace(byz=torch.Generator().manual_seed(tag))
-            if adv.kind == "gaussian":
-                s = s._replace(attack_noise=torch.Generator(
-                    device=dev).manual_seed(tag + 1))
-        if fed.avail.enabled and self._fault_draws is None:
-            s = s._replace(fault=torch.Generator().manual_seed(
-                av.FAULT_TAG + seed))
-        return s
+
+# ---------------------------------------------------------------------------
+# Engine 2: clients laid out over processes (torch.distributed)
+# ---------------------------------------------------------------------------
+class ShardedOut(NamedTuple):
+    """One sharded round's results on one process."""
+
+    params: dict  # the new global params, the same on every process
+    opt_states: object  # this process's clients' Adam states
+    losses: torch.Tensor  # (C/W,) its clients' mean task losses
+    server_state: object  # AggState, the same on every process
+    resid: Optional[torch.Tensor] = None  # (C/W, P) EF residual rows
+    fault: Optional[av.FaultState] = None  # pending (C/W, P), rest (C,)
+    survivors: Optional[int] = None  # rows the fault round absorbed
+
+
+def _shard_rows(mesh: ClientMesh, axes, num_clients: int) -> torch.Tensor:
+    """This process's global client ids: shard s of the W along ``axes``
+    owns [s·C/W, (s+1)·C/W)."""
+    w = mesh.size(axes)
+    if num_clients % w:
+        raise ValueError(f"{num_clients} clients do not split over the "
+                         f"{w} processes along {tuple(axes)}")
+    c_local = num_clients // w
+    return mesh.index(axes) * c_local + torch.arange(c_local)
+
+
+def make_sharded_round(gpo_cfg: GPOConfig, fed_cfg: FedConfig,
+                       mesh: ClientMesh, client_axes=("data",), opt=None,
+                       agg=None, *, comm: Optional[Collectives] = None
+                       ) -> Callable:
+    """Returns ``round_fn(global_params, opt_states, batches, weights,
+    server_state, *, noise=None, uniform=None, resid=None, attack=None,
+    fault=None, fault_draws=None) -> ShardedOut`` for this process.
+
+    ``global_params`` and ``server_state`` are replicated: every process
+    holds the same and applies the same server update. ``weights`` are
+    the population's (C,) Eq. 2 weights (``agg.weigh`` runs on them
+    first, outside the per-process body, as ``adaptive`` needs all C).
+    ``opt_states``, ``batches(epoch)`` (an ICLBatch over the process's
+    clients), ``noise``, ``uniform`` and ``resid`` are this process's
+    C/W rows: shard s of the W processes along ``client_axes`` owns the
+    clients [s·C/W, (s+1)·C/W). ``attack`` is the population's attacker
+    mask (C,) and gaussian normals (C, P) or None, as ``FederatedGPO``
+    draws them. Local training makes no collective; the round ends in
+    ``RoundPipeline.sharded_delta``'s (one all-reduce for the linear
+    family, an all-gather of rows for the robust one; two hops with
+    ``client_axes=("edge", "data")`` under ``HierarchyConfig``), plus
+    an all-gather of the losses where the strategy takes them. All go
+    through ``comm`` (a ``Collectives`` on ``mesh`` when None), whose
+    ledger records each.
+
+    With ``FedConfig.avail`` on, the fault round: ``fault`` is the
+    ``FaultState`` with its (C,) schedule state on every process and
+    only this process's in-flight rows in ``pending``, ``fault_draws``
+    the round's draws for the population. The schedule and the survivor
+    weights are computed on every process alike; the opt states and the
+    EF rows advance only where the client's work survived; the linear
+    family keeps its one all-reduce, the robust family gathers the
+    blended rows; a zero-survivor round leaves params and server state
+    as they are and makes no collective."""
+    gpo_cfg = fed_cfg.resolve_gpo(gpo_cfg)
+    fed_cfg.privacy.validate()
+    fed_cfg.compression.validate()
+    fed_cfg.avail.validate()
+    fed_cfg.adversary.validate()
+    num_clients = fed_cfg.num_clients
+    fed_cfg.hierarchy.validate(num_clients)
+    axes = tuple(client_axes)
+    if fed_cfg.hierarchy.enabled and (
+            len(axes) < 2
+            or mesh.shape[axes[0]] != fed_cfg.hierarchy.num_edges):
+        # the two hops need a leading "edge" axis of exactly num_edges
+        # processes in front of the intra-edge axes (make_edge_mesh)
+        raise ValueError(
+            f"hierarchy.num_edges={fed_cfg.hierarchy.num_edges} requires "
+            f"client_axes=('edge', ...) with a leading axis of that size; "
+            f"got {axes} on mesh {mesh.shape}")
+    if fed_cfg.hierarchy.enabled and fed_cfg.avail.enabled:
+        raise ValueError(
+            "hierarchy.num_edges > 1 does not compose with the §11 fault "
+            "simulator: the buffered/masked reduce aggregates flat")
+    byz.check_defense_composition(fed_cfg)
+    gids = _shard_rows(mesh, axes, num_clients)
+    c_local, dev = len(gids), mesh.device
+    gids_dev = gids.to(dev)
+    opt = opt or adam(fed_cfg.lr)
+    if agg is None:
+        agg = make_aggregator(fed_cfg.agg, num_clients=num_clients,
+                              use_pallas=fed_cfg.use_pallas_aggregation)
+    pipe = make_pipeline(fed_cfg, agg=agg, num_clients=num_clients)
+    local_train = _make_local_train(gpo_cfg, fed_cfg, opt)
+    comm = comm or Collectives(mesh)
+    comp, avail = fed_cfg.compression, fed_cfg.avail
+    ef = comp.enabled and comp.error_feedback
+
+    def train(global_params, opt_states, batches, attack):
+        """This process's clients' local epochs: (deltas, opt states,
+        losses). No collective."""
+        flags = None if attack is None else pipe.attacked_flags(attack[0],
+                                                                gids)
+        clients = broadcast_to_clients(global_params, c_local)
+        trained, opt_out, losses = local_train(
+            clients, opt_states, batches,
+            None if flags is None else flags.to(dev))
+        return tree_sub(trained, clients), opt_out, losses
+
+    def all_losses(losses):
+        return comm.all_gather(losses, axes) if agg.needs_losses else None
+
+    def round_body(global_params, opt_states, batches, weights,
+                   server_state, noise, uniform, resid, attack):
+        deltas, opt_out, losses = train(global_params, opt_states,
+                                        batches, attack)
+        delta, new_resid = pipe.sharded_delta(
+            deltas, weights[gids_dev], global_params, axes=axes, comm=comm,
+            resid=resid, noise=noise, uniform=uniform,
+            attack=None if attack is None else pipe.attack_draws(*attack,
+                                                                 gids))
+        new_global, server_state = agg.apply(
+            server_state, global_params, delta, losses=all_losses(losses),
+            idx=None)
+        return ShardedOut(new_global, opt_out, losses, server_state,
+                          new_resid)
+
+    def fault_body(global_params, opt_states, batches, weights,
+                   server_state, noise, uniform, resid, attack, fault,
+                   draws):
+        # the schedule over the population, the same on every process
+        sched = av.round_schedule(draws, fault)
+        w_full = weights.float().cpu()
+        deltas, opt_out, losses = train(global_params, opt_states,
+                                        batches, attack)
+        # the local work survives where the client is fresh or straggles
+        keep = (sched.fresh | sched.straggle)[gids].to(dev)
+        opt_out = tree_map(lambda new, old: torch.where(
+            keep.reshape((-1,) + (1,) * (new.dim() - 1)), new, old),
+            opt_out, opt_states)
+        rel, new_r = pipe.release_rows(
+            tree_ravel_clients(deltas), noise, uniform, resid,
+            attack=None if attack is None else pipe.attack_draws(*attack,
+                                                                 gids),
+            axes=axes, comm=comm)
+        if ef:
+            resid = torch.where(keep[:, None], new_r, resid)
+        disc = av.staleness_discount(sched.staleness,
+                                     fed_cfg.agg.staleness_power)
+        w_fresh = torch.where(sched.fresh, w_full, 0.0)
+        w_arr = torch.where(sched.arrive, fault.pending_weight * disc, 0.0)
+        w_c = w_fresh + w_arr
+        mask_c = w_c > 0.0
+        n_released = int(sched.fresh.sum()) + int(sched.arrive.sum())
+        if n_released > 0:  # else params and server state stay
+            wf, wa, wc = (t[gids].to(dev)[:, None]
+                          for t in (w_fresh, w_arr, w_c))
+            contrib = torch.where(
+                mask_c[gids].to(dev)[:, None],
+                (wf * rel + wa * fault.pending)
+                / torch.clamp(wc, min=1e-12), 0.0)
+            delta = tree_unflatten_from_vector(
+                pipe.masked_reduce_sharded(
+                    contrib, w_c, mask_c, gids, axes, comm,
+                    trim_frac=fed_cfg.agg.trim_frac), global_params)
+            kw = {}
+            if agg.buffered:
+                kw = dict(mass=w_c.sum().to(dev), released=float(n_released))
+            if agg.needs_losses:
+                kw["mask"] = sched.fresh
+            global_params, server_state = agg.apply(
+                server_state, global_params, delta,
+                losses=all_losses(losses), idx=None, **kw)
+        fault = av.advance_fault_state(fault, sched, rel, w_full,
+                                       avail.rejoin_rounds, rows=gids)
+        return ShardedOut(global_params, opt_out, losses, server_state,
+                          resid, fault, n_released)
+
+    def round_fn(global_params, opt_states, batches, weights, server_state,
+                 *, noise=None, uniform=None, resid=None, attack=None,
+                 fault=None, fault_draws=None) -> ShardedOut:
+        weights = agg.weigh(server_state, weights, None)
+        if avail.enabled:
+            return fault_body(global_params, opt_states, batches, weights,
+                              server_state, noise, uniform, resid, attack,
+                              fault, fault_draws)
+        return round_body(global_params, opt_states, batches, weights,
+                          server_state, noise, uniform, resid, attack)
+
+    return round_fn
+
+
+def _batch_rows(batch: ICLBatch, rows: slice) -> ICLBatch:
+    """The rows ``rows`` of a client-stacked batch."""
+    return ICLBatch(*(f[rows] for f in batch[:-1]),
+                    num_options=batch.num_options)
+
+
+class ShardedGPO(_RoundSource):
+    """``make_sharded_round`` driven on this process's clients, round
+    after round, with what ``FederatedGPO`` draws for the whole
+    population (its generators, seeded from ``FedConfig.seed``, or its
+    replay hooks, which take the same arguments and return the same
+    population-wide values): each process keeps its own rows of the
+    training batches, the release noise and uniforms, and the gaussian
+    attack's normals. So at any W, an unreplayed run equals
+    ``FederatedGPO``'s with the same seed, up to the order of the
+    round's sums. Runs on ``mesh.device``; full participation only.
+
+    ``global_params`` and ``server_state`` are the same on every
+    process; ``opt_states``, ``ef_resid`` and ``fault_state.pending``
+    hold this process's rows; ``comm.ledger`` records the collectives.
+    ``run`` returns a ``History`` with ``client_losses`` (this process's
+    clients' losses each round), ``round_survivors`` under faults and
+    ``round_eps`` under DP; it evaluates nothing."""
+
+    def __init__(self, gpo_cfg: GPOConfig, fed_cfg: FedConfig,
+                 data: SurveyData, train_groups, mesh: ClientMesh, *,
+                 client_axes=None, init_params=None,
+                 batches: Optional[BatchHook] = None,
+                 release_draws: Optional[DrawsHook] = None,
+                 attack_draws: Optional[DrawsHook] = None,
+                 fault_draws: Optional[DrawsHook] = None):
+        self.device = mesh.device
+        gpo_cfg = fed_cfg.resolve_gpo(gpo_cfg)
+        if gpo_cfg.d_embed != data.phi.shape[-1]:
+            raise ValueError(f"GPOConfig.d_embed={gpo_cfg.d_embed} but the "
+                             f"survey embeds in {data.phi.shape[-1]}")
+        self.train_groups = np.asarray(train_groups)
+        c = len(self.train_groups)
+        if c != fed_cfg.num_clients:
+            raise ValueError(f"{c} training groups for "
+                             f"FedConfig.num_clients={fed_cfg.num_clients}")
+        if (fed_cfg.batch_groups and fed_cfg.batch_groups < c) \
+                or fed_cfg.reset_opt_each_round:
+            raise ValueError("partial participation and per-round "
+                             "optimizer resets run on FederatedGPO: the "
+                             "sharded round trains every client it holds")
+        self.gpo_cfg, self.fed_cfg, self.data = gpo_cfg, fed_cfg, data
+        axes = tuple(client_axes or mesh_client_axes(mesh))
+        gids = _shard_rows(mesh, axes, c)
+        self.rows = slice(int(gids[0]), int(gids[-1]) + 1)
+        self.opt = adam(fed_cfg.lr)
+        self.agg = make_aggregator(fed_cfg.agg, num_clients=c,
+                                   use_pallas=fed_cfg.use_pallas_aggregation)
+        self.comm = Collectives(mesh)
+        self._round_fn = make_sharded_round(gpo_cfg, fed_cfg, mesh, axes,
+                                            opt=self.opt, agg=self.agg,
+                                            comm=self.comm)
+        if init_params is None:
+            self.global_params = init_gpo_params(
+                gpo_cfg, torch.Generator().manual_seed(fed_cfg.seed),
+                device=self.device)
+        else:
+            self.global_params = params_from_numpy(init_params, self.device)
+        self.server_state = self.agg.init(self.global_params)
+        self.weights = normalize_weights(
+            data.sizes[torch.as_tensor(self.train_groups)]).to(self.device)
+        p, c_local = tree_count_params(self.global_params), len(gids)
+        comp = fed_cfg.compression
+        self.ef_resid = (torch.zeros((c_local, p), device=self.device)
+                         if comp.enabled and comp.error_feedback else None)
+        self.fault_state = (av.init_fault_state(c, 0)._replace(
+            pending=torch.zeros((c_local, p), device=self.device))
+            if fed_cfg.avail.enabled else None)
+        self.opt_states = self.opt.init(
+            broadcast_to_clients(self.global_params, c_local),
+            num_clients=c_local)
+        self._accountant = dp.make_accountant(fed_cfg.privacy,
+                                              fed_cfg.avail.release_rate())
+        self._rounds_elapsed = 0
+        self._batches, self._release_draws = batches, release_draws
+        self._attack_draws, self._fault_draws = attack_draws, fault_draws
+
+    def run(self, rounds: int) -> History:
+        """Run ``rounds`` rounds (the generators restart from the seed at
+        every call, as ``FederatedGPO.run``'s do)."""
+        fed, hist, rows = self.fed_cfg, History(), self.rows
+        s = self._streams(fed.seed + 1)
+        for r in range(rounds):
+            attack = self._attack(r, s)
+            draws = self._faults(r, s) if fed.avail.enabled else None
+
+            def batches(e: int, r=r) -> ICLBatch:
+                b = (self._batches(r, e) if self._batches is not None else
+                     sample_icl_batches(s.train, self.data,
+                                        self.train_groups, fed.num_context,
+                                        fed.num_target))
+                return _batch_rows(b, rows).to(self.device)
+
+            noise, uniform = (None if a is None else a[rows] for a in
+                              self._draws(r, s.release,
+                                          len(self.train_groups)))
+            out = self._round_fn(
+                self.global_params, self.opt_states, batches, self.weights,
+                self.server_state, noise=noise, uniform=uniform,
+                resid=self.ef_resid, attack=attack, fault=self.fault_state,
+                fault_draws=draws)
+            self.global_params, self.opt_states = out.params, out.opt_states
+            self.server_state, self.ef_resid = out.server_state, out.resid
+            self.fault_state = out.fault
+            hist.client_losses.append(out.losses.cpu().numpy())
+            if out.survivors is not None:
+                hist.round_survivors.append(out.survivors)
+            self._note_privacy(hist)
+        return hist

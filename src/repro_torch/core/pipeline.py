@@ -1,6 +1,5 @@
 """The round's stage pipeline (DESIGN.md §13): the PyTorch port of the
-reference's ``core/pipeline.py::RoundPipeline``, without its sharded
-methods (the multi-process engine is ROADMAP.md queue A.7).
+reference's ``core/pipeline.py::RoundPipeline``.
 
 Every round is the five declared stages ``[local_train, attack, privacy,
 codec, aggregate]``. ``FederatedGPO`` keeps local training (with the
@@ -27,6 +26,15 @@ The fault round (``FederatedGPO`` with ``FedConfig.avail`` on) releases
 per row (``release_rows``), blends fresh and buffered rows, and reduces
 with ``masked_reduce``.
 
+The sharded round (``core/federated.py::make_sharded_round``) holds
+only its own clients' rows and ends its stages in collectives over the
+client mesh ``axes`` on ``comm`` (``launch/collectives.py``):
+``sharded_delta`` (one all-reduce of the (P,) partial sum for the
+linear family, an all-gather of the rows for the robust one, the two
+hops of ``_two_hop_reduce`` on an edge mesh), ``masked_reduce_sharded``
+under faults, and ALIE's honest moments summed over the processes
+(``attack_rows`` with ``axes``).
+
 ``losses`` and ``idx`` pass through to the strategy. The randomness
 comes in as operands: the attack's mask and noise rows
 (``AttackDraws``), the release's σ-scaled noise and rounding uniforms,
@@ -51,7 +59,9 @@ from repro_torch.core import compression as cx
 from repro_torch.core import privacy as dp
 from repro_torch.core.adversary import norm_clip_rows
 from repro_torch.core.aggregation import ServerAggregator
+from repro_torch.core.fedavg import fedavg_allreduce
 from repro_torch.utils.pytree import (
+    tree_map,
     tree_ravel_clients,
     tree_unflatten_from_vector,
 )
@@ -137,22 +147,31 @@ class RoundPipeline:
         return mask_full if idx is None else mask_full[idx]
 
     def attack_rows(self, vecs: torch.Tensor,
-                    attack: Optional[AttackDraws]) -> torch.Tensor:
+                    attack: Optional[AttackDraws], *, axes=None,
+                    comm=None) -> torch.Tensor:
         """The attack stage on the raw flat (rows, P) delta matrix; the
-        identity unless a delta attack is configured."""
+        identity unless a delta attack is configured. ``axes``: the
+        client mesh axes when the rows are one process's shard (with
+        ``comm``, its collectives): ALIE's honest moments are then
+        summed over the processes, so colluding attackers agree."""
         if not self.attack_delta:
             return vecs
+        stats = None
+        if axes is not None and self.adversary.kind == "alie":
+            stats = byz.honest_stats_sharded(
+                vecs, attack.mask.to(vecs.device), axes, comm)
         return byz.apply_attack(vecs, attack.mask, self.adversary,
-                                attack.noise)
+                                attack.noise, stats=stats)
 
-    def release_rows(self, vecs, noise, uniform, resid, *, attack=None):
+    def release_rows(self, vecs, noise, uniform, resid, *, attack=None,
+                     axes=None, comm=None):
         """Attack, privacy and codec on per-client rows, no reduction: the
         fault round buffers and masks the individual wire values, so an
         attacker's row that straggles is buffered corrupted. Returns
         (released rows, carry-out residual)."""
-        return cx.release_flat(self.attack_rows(vecs, attack), noise,
-                               uniform, self.privacy, self.compression,
-                               resid)
+        return cx.release_flat(
+            self.attack_rows(vecs, attack, axes=axes, comm=comm), noise,
+            uniform, self.privacy, self.compression, resid)
 
     # -- aggregate stage ---------------------------------------------------
     def _bound_rows(self, rel: torch.Tensor) -> torch.Tensor:
@@ -188,6 +207,34 @@ class RoundPipeline:
                                  for e in range(e_count)])
         return self.agg.reduce_flat(edge_rows, mass)
 
+    def _two_hop_reduce(self, rel: torch.Tensor, weights: torch.Tensor,
+                        axes, comm) -> torch.Tensor:
+        """The robust reduce of the sharded round on an ("edge", …) mesh
+        (DESIGN.md §14): hop 1 all-gathers the released rows within the
+        edge (``axes[1:]``) and every process of the edge reduces its C/E
+        rows to the edge's candidate (against within-edge normalised
+        weights, as ``hier_reduce_flat``); hop 2 all-gathers only the E
+        candidates across the edges (``axes[0]``), as int8 with f32
+        scales when the int8 codec is on (round to nearest: the candidate
+        is an edge's value, with no client's rounding draw), and the
+        rule runs over the (E, P) candidates weighted by edge mass. The
+        largest collective shrinks from C rows to E."""
+        agg, comp = self.agg, self.compression
+        edge_ax, intra = axes[0], axes[1:]
+        edge_vecs = comm.all_gather(rel, intra)
+        edge_w = comm.all_gather(weights.float(), intra)
+        mass = edge_w.sum()
+        cand = agg.reduce_flat(
+            edge_vecs, edge_w / torch.clamp(mass, min=1e-12))[None, :]
+        if comp.enabled and comp.kind == "int8":
+            q, scales = cx.quantize_int8(cand)
+            all_cand = cx.dequantize_int8(comm.all_gather(q, edge_ax),
+                                          comm.all_gather(scales, edge_ax))
+        else:
+            all_cand = comm.all_gather(cand, edge_ax)
+        return agg.reduce_flat(all_cand,
+                               comm.all_gather(mass.reshape(1), edge_ax))
+
     def masked_reduce(self, contrib: torch.Tensor, w_c: torch.Tensor,
                       mask_c: torch.Tensor, *,
                       trim_frac: float) -> torch.Tensor:
@@ -206,6 +253,29 @@ class RoundPipeline:
             return av.masked_robust_reduce_flat(
                 contrib, w_c, mask_c, name=agg.name, trim_frac=trim_frac)
         return agg.reduce_flat(contrib,
+                               torch.where(mask_c, w_c, 0.0).to(dev))
+
+    def masked_reduce_sharded(self, contrib_l: torch.Tensor,
+                              w_c: torch.Tensor, mask_c: torch.Tensor,
+                              gids: torch.Tensor, axes, comm, *,
+                              trim_frac: float) -> torch.Tensor:
+        """``masked_reduce`` for the sharded fault round: ``contrib_l`` are
+        this process's blended rows (clients ``gids``), ``w_c`` and
+        ``mask_c`` the population's (C,) weights and survivors (host).
+        The linear family sums its rows against the survivors'
+        renormalised weights and makes one all-reduce; the robust rules
+        and the defenses all-gather the rows and reduce the (C, P)
+        matrix as ``masked_reduce`` does, on every process."""
+        agg, dev = self.agg, contrib_l.device
+        contrib_l = self._bound_rows(contrib_l)
+        if agg.linear:
+            wn_l = av.masked_mean_weights(w_c, mask_c)[gids].to(dev)
+            return comm.psum(agg.reduce_flat(contrib_l, wn_l), axes)
+        all_vecs = comm.all_gather(contrib_l, axes)
+        if agg.name in ("median", "trimmed_mean"):
+            return av.masked_robust_reduce_flat(
+                all_vecs, w_c, mask_c, name=agg.name, trim_frac=trim_frac)
+        return agg.reduce_flat(all_vecs,
                                torch.where(mask_c, w_c, 0.0).to(dev))
 
     # -- the stacked round's tail --------------------------------------------
@@ -241,6 +311,86 @@ class RoundPipeline:
         new_global, server_state = agg.apply(
             server_state, global_params, delta, losses=losses, idx=idx)
         return new_global, server_state, resid
+
+    # -- the sharded round's middle -------------------------------------------
+    def sharded_delta(self, deltas, weights, global_prev, *, axes, comm,
+                      resid=None, noise=None, uniform=None,
+                      attack: Optional[AttackDraws] = None):
+        """One process's client-stacked delta trees (its C/W clients) in,
+        (the round's reduced delta tree, the new residual rows) out, the
+        same on every process. ``weights`` are the rows' Eq. 2 weights
+        (normalised over all C, after ``agg.weigh``); ``resid``,
+        ``noise``, ``uniform`` and ``attack`` the rows' residual and
+        draws. The linear family ends in ONE all-reduce of its (P,)
+        partial sum, the robust family all-gathers its rows (under the
+        int8 codec the int8 payload and the f32 scales). With neither an
+        attack, a norm bound nor edges, the branches of the stacked
+        round's fused dispatch; otherwise (``restructured``) the rows are
+        attacked (ALIE's moments summed over the processes), released and
+        bounded where they are, and the linear family keeps its one
+        all-reduce while the robust family gathers the released f32 rows
+        (two hops on an edge mesh)."""
+        agg, priv, comp = self.agg, self.privacy, self.compression
+        ef = comp.enabled and comp.error_feedback
+        w = weights.float()
+        if self.restructured:
+            vecs = self.attack_rows(tree_ravel_clients(deltas), attack,
+                                    axes=axes, comm=comm)
+            rel, new_resid = cx.release_flat(vecs, noise, uniform, priv,
+                                             comp, resid)
+            rel = self._bound_rows(rel)
+            if agg.linear:
+                # on an ("edge", "data") mesh this one sum IS the composed
+                # two-hop partial-sum schedule (DESIGN.md §14)
+                delta_vec = comm.psum(agg.reduce_flat(rel, w), axes)
+            elif self.hierarchy.enabled and len(axes) > 1:
+                delta_vec = self._two_hop_reduce(rel, w, axes, comm)
+            else:
+                delta_vec = agg.reduce_flat(comm.all_gather(rel, axes),
+                                            comm.all_gather(w, axes))
+            return (tree_unflatten_from_vector(delta_vec, global_prev),
+                    new_resid if ef else None)
+        new_resid = None
+        if not (comp.enabled or priv.enabled) and agg.linear \
+                and not self.use_pallas:
+            # the leafwise path: each leaf's weighted sum over the rows,
+            # then one all-reduce of them all
+            local = tree_map(lambda x: (x.float() * w.reshape(
+                (-1,) + (1,) * (x.dim() - 1))).sum(dim=0), deltas)
+            return fedavg_allreduce(local, 1.0, axes, comm), None
+        vecs = tree_ravel_clients(deltas)
+        if agg.linear:
+            if comp.enabled:
+                local_vec, new_resid = cx.transport_delta_flat(
+                    vecs, w, noise, uniform, priv, comp, agg, resid,
+                    use_pallas=self.use_pallas)
+            elif priv.enabled:
+                local_vec = dp.clip_noise_reduce(vecs, w, noise, priv,
+                                                 use_pallas=self.use_pallas)
+            else:
+                local_vec = agg.reduce_flat(vecs, w)  # fedavg_reduce
+            delta_vec = comm.psum(local_vec, axes)
+        elif comp.enabled:
+            x = dp.privatize_flat(vecs, noise, priv) if priv.enabled \
+                else vecs
+            u = x + resid if ef else x
+            if comp.kind == "int8":
+                q, scales = cx.quantize_int8(
+                    u, uniform=uniform if comp.stochastic else None)
+                t_local = cx.dequantize_int8(q, scales)
+                all_vecs = cx.dequantize_int8(comm.all_gather(q, axes),
+                                              comm.all_gather(scales, axes))
+            else:  # top-k: the dense f32 layout of the sparse rows
+                t_local = cx.sparsify_topk(u, comp.topk_frac)[0]
+                all_vecs = comm.all_gather(t_local, axes)
+            new_resid = u - t_local if ef else None
+            delta_vec = agg.reduce_flat(all_vecs, comm.all_gather(w, axes))
+        else:
+            x = dp.privatize_flat(vecs, noise, priv) if priv.enabled \
+                else vecs
+            delta_vec = agg.reduce_flat(comm.all_gather(x, axes),
+                                        comm.all_gather(w, axes))
+        return tree_unflatten_from_vector(delta_vec, global_prev), new_resid
 
 
 def make_pipeline(fed_cfg, *, agg: ServerAggregator,
