@@ -128,6 +128,25 @@ the card, raising on any mismatch:
    round; each process's launches asserted (``_shard_launches``); its
    wall per round, collective time (synchronized) and ledger bytes
    printed beside the stacked run's wall.
+   4h. ``engine="scan"`` on the card (``core/federated.py::
+   _CapturedRound``: the round body and the eval replayed from two CUDA
+   graphs) against the eager card run (``engine="loop"``) from one
+   seed, at the quickstart's ``FedConfig`` with eval every round: FedAvg
+   (also 3 of 10 clients a round with optimizer resets), every other
+   strategy of the registry, every DP and codec configuration of phase
+   4b, every attack of phase 4f, median and FedAvg at 2 edges, and
+   FedAvg, median, dp_int8_ef and the gaussian attack with the kernels
+   off, 3 rounds, 3 more and 3 profiled under each engine, bit
+   for bit (``CAPTURED_BOUND`` names none); the graphs replayed once a
+   round and once an eval round; the wrappers called once by the
+   warm-up and once by the capture, never by a replay; the replayed
+   kernels in the profile, counted by name (``KERNEL_NAMES``), equal
+   to the loop's launches; one staged round of each under
+   ``torch.cuda.set_sync_debug_mode("error")``; FedAvg 20 more rounds in
+   blocks of 5 (the same graphs); the paper experiment's configuration
+   for 30 rounds, 30 more and 10 profiled. Phases 4, 4b, 4c, 4e, 4f and
+   4g's stacked runs pass ``engine="loop"``, so their launch counts
+   count what they counted before.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -145,7 +164,7 @@ the card, raising on any mismatch:
    attention kernels and the FedAvg reduce also at phase 4e's shapes.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last eleven lines of standard output are the
+right after it. The last twelve lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
@@ -157,8 +176,11 @@ runs), the ``stages`` JSON line (per phase 4f configuration: launches,
 agreement, wall per round, survivors per round), the ``sharded`` JSON
 line (per phase 4g part: backend, devices; per configuration each
 process's launches, walls and collective ms, the ledger's calls and
-bytes, agreement), the ``kernels`` JSON line (4g's launches in each
-row's ``launches_by_path``), the
+bytes, agreement), the ``captured`` JSON line (per phase 4h
+configuration: the loop's launches, the replayed kernels in the
+profile, walls under both engines, the host's draw, stage and replay
+ms, warm-up and capture ms, deviation), the ``kernels`` JSON line (4g's
+and 4h's launches in each row's ``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
@@ -228,7 +250,7 @@ from repro_torch.core import (  # noqa: E402
     predict_preferences,
     quantize_gpo_params,
 )
-from repro_torch.core import ShardedGPO  # noqa: E402
+from repro_torch.core import History, ShardedGPO, federated  # noqa: E402
 from repro_torch.core.fairness import alignment_score  # noqa: E402
 from repro_torch.core.gpo import map_params  # noqa: E402
 from repro_torch.data import (  # noqa: E402
@@ -632,6 +654,63 @@ SHARD_KERNEL = {"fedavg": "fedavg_reduce", "fedavg-plain": None,
 # against the CPU run
 EXP_ROUNDS, EXP_CPU_ROUNDS = 30, 3
 SUB_GROUPS, SUB_ROUNDS = 3, 3
+# phase 4h, the captured round (engine="scan" on the card: the round body
+# replayed from a CUDA graph, core/federated.py::_CapturedRound) at the
+# quickstart's FedConfig with eval every round: each configuration
+# CAPTURED_ROUNDS rounds under both engines from one seed, then as many
+# more under each, the captured run held to the eager card run
+# (engine="loop"), then CAPTURED_ROUNDS more captured under the profiler;
+# FedAvg also CAPTURED_MORE more rounds with log_every 5 (blocks longer
+# than the first run's, replayed from the same graphs); and the paper
+# experiment's configuration for CAPTURED_PAPER_ROUNDS rounds. Every
+# strategy of the registry, every DP and codec configuration of phase 4b
+# and every attack of phase 4f run through the kernels; "dense" runs
+# with use_pallas_attention and use_pallas_aggregation off
+CAPTURED = {
+    "fedavg": {},
+    "fedavg-sub3-reset": {"batch_groups": 3, "reset_opt_each_round": True},
+    **{name: {"agg": {"name": name, **STRATEGIES[name]}} for name in (
+        "fedprox", "fedavgm", "fedadam", "fedyogi", "trimmed_mean",
+        "median", "adaptive", "fedbuff", "krum", "multi_krum",
+        "geomedian")},
+    **{name: PRIVATE[name] for name in (
+        "dp_clip", "dp_noise", "int8_ef", "dp_int8_ef", "topk_ef",
+        "dp_median")},
+    **{name: STAGE_RUNS[name] for name in (
+        "sign_flip-krum", "scaled-multi_krum", "alie-median",
+        "gaussian-fedavg-norm_bound", "label_flip-fedavg")},
+    "median-2-edges": STAGE_RUNS["hier-median"],
+    "fedavg-2-edges": STAGE_RUNS["hier-fedavg"],
+    "dense-fedavg": {"dense": True},
+    "dense-median": {"dense": True, "agg": {"name": "median"}},
+    "dense-dp_int8_ef": {"dense": True, **PRIVATE["dp_int8_ef"]},
+    "dense-gaussian-fedavg-norm_bound": {
+        "dense": True, **STAGE_RUNS["gaussian-fedavg-norm_bound"]},
+}
+CAPTURED_ROUNDS, CAPTURED_MORE, CAPTURED_PAPER_ROUNDS = 3, 20, 30
+# the graph replays the eager round's kernels on the same operands, so
+# the captured run must equal the eager card run bit for bit; a
+# configuration named here may differ by at most its bound (≤ 1e-6), for
+# the cause PERF.md gives. None is named.
+CAPTURED_BOUND: dict = {}
+# the device kernels of one wrapper call, by name in a profile (at the
+# quickstart's 10 clients the clip and quant reduces run on chip, one
+# kernel a call; Krum's distances end in one finish kernel a call)
+KERNEL_NAMES = {
+    "gpo_attention_fwd": ("gpo_attention_fwd_kernel",),
+    "gpo_attention_bwd_dq": ("gpo_attention_bwd_dq_kernel",),
+    "gpo_attention_bwd_dkdv": ("gpo_attention_bwd_dkdv_kernel",),
+    "fedavg_reduce": ("fedavg_reduce_",),
+    "momentum_reduce": ("momentum_reduce_",),
+    "trimmed_reduce": ("trimmed_reduce_kernel",),
+    "pairwise_dists": ("gram_finish_kernel",),
+    "clip_reduce": ("clip_on_chip_kernel", "clip_reduce_kernel"),
+    "quant_clip_reduce": ("quant_on_chip_kernel", "quant_reduce_kernel"),
+    "topk_reduce": ("topk_reduce_kernel",),
+    "int8_matmul": ("int8_matmul_kernel",),
+    "flash_attention": ("flash_attention_fwd",),
+    "ssd_scan": ("ssd_scan",),
+}
 # FederatedGPO against its CPU run and its dense run after 3 rounds
 TRAIN_ROUNDS, MORE_ROUNDS = 3, 20
 TRAIN_TOL = {"round_loss_rtol": 1e-4, "eval_atol": 1e-4,
@@ -1975,7 +2054,7 @@ def train(dev, data, tr, ev) -> dict:
     # the main path: 3 rounds through the kernels, eval every round
     _zero_counts()
     t0 = time.perf_counter()
-    hist = fed.run(rounds=TRAIN_ROUNDS)
+    hist = fed.run(rounds=TRAIN_ROUNDS, engine="loop")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = _counts()
@@ -1992,9 +2071,9 @@ def train(dev, data, tr, ev) -> dict:
     # the same trainer on the CPU (plain versions) and on the card's
     # dense path: same init and batches, drawn from the same seeds
     cpu = FederatedGPO(gcfg, kern, data, tr, ev, device="cpu")
-    cpu_hist = cpu.run(rounds=TRAIN_ROUNDS)
+    cpu_hist = cpu.run(rounds=TRAIN_ROUNDS, engine="loop")
     den = FederatedGPO(gcfg, dense, data, tr, ev, device=dev)
-    den_hist = den.run(rounds=TRAIN_ROUNDS)
+    den_hist = den.run(rounds=TRAIN_ROUNDS, engine="loop")
     agree = {"cpu": _agreement(hist, fed.global_params, cpu_hist,
                                cpu.global_params),
              "dense": _agreement(hist, fed.global_params, den_hist,
@@ -2010,7 +2089,7 @@ def train(dev, data, tr, ev) -> dict:
 
     # training goes on: the loss falls
     t0 = time.perf_counter()
-    more = fed.run(rounds=MORE_ROUNDS, log_every=5)
+    more = fed.run(rounds=MORE_ROUNDS, log_every=5, engine="loop")
     more_wall = time.perf_counter() - t0
     first, last = float(np.mean(hist.round_loss)), float(
         np.mean(more.round_loss[-5:]))
@@ -2054,7 +2133,8 @@ def train(dev, data, tr, ev) -> dict:
         raise AssertionError("the trained checkpoint was not served right")
 
     # where a round's time goes (its eval included)
-    prof = _profile(lambda: fed.run(rounds=1), "train_trace.json")
+    prof = _profile(lambda: fed.run(rounds=1, engine="loop"),
+                    "train_trace.json")
     print(f"  one round under the profiler: wall {prof['wall_ms']:.3f}ms, "
           f"{prof['kernels']} kernels, device busy {prof['kernel_ms']:.3f}ms "
           f"({100 * prof['busy_share']:.2f}%)")
@@ -2101,13 +2181,13 @@ def train_strategies(dev, data, tr, ev) -> dict:
             fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev)
             _zero_counts()
             t0 = time.perf_counter()
-            hist = fed.run(rounds=TRAIN_ROUNDS)
+            hist = fed.run(rounds=TRAIN_ROUNDS, engine="loop")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = _counts()
             t0 = time.perf_counter()
             den = FederatedGPO(gcfg, plain, data, tr, ev, device=dev)
-            den_hist = den.run(rounds=TRAIN_ROUNDS)
+            den_hist = den.run(rounds=TRAIN_ROUNDS, engine="loop")
             torch.cuda.synchronize()
             den_wall = time.perf_counter() - t0
         finally:
@@ -2139,7 +2219,7 @@ def train_strategies(dev, data, tr, ev) -> dict:
                                      "round 0")
         if label in CPU_STRATEGIES:
             cpu = FederatedGPO(gcfg, kern, data, tr, ev, device="cpu")
-            cpu_hist = cpu.run(rounds=TRAIN_ROUNDS)
+            cpu_hist = cpu.run(rounds=TRAIN_ROUNDS, engine="loop")
             agree["cpu"] = _agreement(hist, fed.global_params, cpu_hist,
                                       cpu.global_params)
         rec["agreement"] = agree
@@ -2259,7 +2339,7 @@ def train_private(dev, data, tr, ev) -> dict:
         fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev)
         _zero_counts()
         t0 = time.perf_counter()
-        hist = fed.run(rounds=TRAIN_ROUNDS)
+        hist = fed.run(rounds=TRAIN_ROUNDS, engine="loop")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = _counts()
@@ -2268,7 +2348,7 @@ def train_private(dev, data, tr, ev) -> dict:
         try:
             t0 = time.perf_counter()
             den = FederatedGPO(gcfg, plain, data, tr, ev, device=dev)
-            den_hist = den.run(rounds=TRAIN_ROUNDS)
+            den_hist = den.run(rounds=TRAIN_ROUNDS, engine="loop")
             torch.cuda.synchronize()
             den_wall = time.perf_counter() - t0
         finally:
@@ -2295,11 +2375,11 @@ def train_private(dev, data, tr, ev) -> dict:
             for d in (dev, "cpu"):
                 f = FederatedGPO(gcfg, kern, data, tr, ev, device=d,
                                  release_draws=lambda r: draws[r])
-                runs.append((f.run(rounds=TRAIN_ROUNDS), f))
+                runs.append((f.run(rounds=TRAIN_ROUNDS, engine="loop"), f))
             agree["cpu"] = _private_agreement(*runs[0], *runs[1],
                                               allowance)
         if label in PROFILED_PRIVATE:
-            prof = _profile(lambda: fed.run(rounds=1),
+            prof = _profile(lambda: fed.run(rounds=1, engine="loop"),
                             f"private_{label}_trace.json",
                             match=("clip_on_chip", "clip_reduce_kernel",
                                    "quant_on_chip", "row_sumsq",
@@ -2392,7 +2472,7 @@ def train_private_wide(dev, data, tr, ev) -> dict:
         def run(cfg, d):
             fed = FederatedGPO(gcfg, cfg, data, groups, ev, device=d,
                                release_draws=lambda r: draws[r])
-            return fed.run(rounds=1), fed
+            return fed.run(rounds=1, engine="loop"), fed
 
         _zero_counts()
         card = run(kern, dev)
@@ -2518,11 +2598,11 @@ def _zero_survivor_check(dev, data, tr, ev, base) -> dict:
 
     fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev,
                        fault_draws=draws)
-    first = fed.run(rounds=1)
+    first = fed.run(rounds=1, engine="loop")
     before = [t.clone() for t in tree_leaves(fed.global_params)
               + tree_leaves(fed.server_state)]
     _zero_counts()
-    second = fed.run(rounds=1)
+    second = fed.run(rounds=1, engine="loop")
     torch.cuda.synchronize()
     launches = _counts()
     after = tree_leaves(fed.global_params) + tree_leaves(fed.server_state)
@@ -2568,7 +2648,7 @@ def train_stages(dev, data, tr, ev) -> dict:
             fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev)
             _zero_counts()
             t0 = time.perf_counter()
-            hist = fed.run(rounds=STAGE_ROUNDS)
+            hist = fed.run(rounds=STAGE_ROUNDS, engine="loop")
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
             launches = _counts()
@@ -2579,7 +2659,7 @@ def train_stages(dev, data, tr, ev) -> dict:
         try:
             t0 = time.perf_counter()
             den = FederatedGPO(gcfg, plain, data, tr, ev, device=dev)
-            den_hist = den.run(rounds=STAGE_ROUNDS)
+            den_hist = den.run(rounds=STAGE_ROUNDS, engine="loop")
             torch.cuda.synchronize()
             den_wall = time.perf_counter() - t0
         finally:
@@ -2599,7 +2679,7 @@ def train_stages(dev, data, tr, ev) -> dict:
                     else attack.__getitem__,
                     fault_draws=None if faults is None
                     else faults.__getitem__)
-                runs.append((f.run(rounds=STAGE_ROUNDS), f))
+                runs.append((f.run(rounds=STAGE_ROUNDS, engine="loop"), f))
             agree["cpu"] = _private_agreement(*runs[0], *runs[1], allowance)
             if runs[0][0].round_survivors != runs[1][0].round_survivors:
                 raise AssertionError(f"{label}: survivors differ from the "
@@ -2655,8 +2735,8 @@ def train_stages(dev, data, tr, ev) -> dict:
     for label in STAGE_PROFILED:
         fed = FederatedGPO(gcfg, _stage_cfg(base, label), data, tr, ev,
                            device=dev)
-        fed.run(rounds=1)
-        prof = _profile(lambda: fed.run(rounds=1),
+        fed.run(rounds=1, engine="loop")
+        prof = _profile(lambda: fed.run(rounds=1, engine="loop"),
                         f"stages_{label}_trace.json",
                         match=("gram_", "fedavg_reduce", "sort"))
         out[label]["profile_round"] = prof
@@ -2772,7 +2852,7 @@ def _shard_stacked(dev, data, tr, ev, labels) -> dict:
         fcfg = _shard_cfg(label, len(tr))
         fed = FederatedGPO(gcfg, fcfg, data, tr, ev, device=dev)
         t0 = time.perf_counter()
-        hist = fed.run(rounds=SHARD_ROUNDS)
+        hist = fed.run(rounds=SHARD_ROUNDS, engine="loop")
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / SHARD_ROUNDS * 1e3
         levels: list = []
@@ -2780,7 +2860,8 @@ def _shard_stacked(dev, data, tr, ev, labels) -> dict:
             real = _spy_levels(levels)
             try:
                 FederatedGPO(gcfg, replace(fcfg, use_pallas_aggregation=False),
-                             data, tr, ev, device=dev).run(SHARD_ROUNDS)
+                             data, tr, ev, device=dev).run(SHARD_ROUNDS,
+                                                     engine="loop")
             finally:
                 cx.quantize_int8, cx.topk_thresholds = real
         torch.cuda.synchronize()
@@ -2988,7 +3069,8 @@ def experiment(dev) -> dict:
 
     runs = {}
     for label, trainer, kw, expected in (
-            ("fed", fed, {"rounds": EXP_ROUNDS}, want(epochs, EXP_ROUNDS)),
+            ("fed", fed, {"rounds": EXP_ROUNDS, "engine": "loop"},
+             want(epochs, EXP_ROUNDS)),
             ("cen", cen, {"epochs": EXP_ROUNDS}, want(clients, 0))):
         _zero_counts()
         t0 = time.perf_counter()
@@ -3018,7 +3100,7 @@ def experiment(dev) -> dict:
                        wall / EXP_ROUNDS * 1e3, "launches": launches,
                        "loss_first3_mean": first, "loss_last5_mean": last}
     # where a round's and an epoch's time goes (a one-round run evaluates)
-    for label, fn in (("fed", lambda: fed.run(rounds=1)),
+    for label, fn in (("fed", lambda: fed.run(rounds=1, engine="loop")),
                       ("cen", lambda: cen.run(epochs=1))):
         prof = _profile(fn, f"experiment_{label}_trace.json")
         runs[label]["profile"] = prof
@@ -3035,7 +3117,8 @@ def experiment(dev) -> dict:
     # batches come from CPU generators on both devices)
     cpu_f, cpu_c = make_pair(EXP_CPU_ROUNDS, SEED, device="cpu")
     agree = {"fed": _first_rounds_agree(runs["fed"]["hist"],
-                                        cpu_f.run(rounds=EXP_CPU_ROUNDS)),
+                                        cpu_f.run(rounds=EXP_CPU_ROUNDS,
+                                                  engine="loop")),
              "cen": _first_rounds_agree(runs["cen"]["hist"],
                                         cpu_c.run(epochs=EXP_CPU_ROUNDS))}
     for label, a in agree.items():
@@ -3056,9 +3139,9 @@ def experiment(dev) -> dict:
                     "reset_opt_each_round": reset}
         made = {d: make_pair(SUB_ROUNDS, SEED, device=d,
                              settings=settings)[0] for d in ("cpu", dev)}
-        cpu_hist = made["cpu"].run(rounds=SUB_ROUNDS)
+        cpu_hist = made["cpu"].run(rounds=SUB_ROUNDS, engine="loop")
         _zero_counts()
-        hist = made[dev].run(rounds=SUB_ROUNDS)
+        hist = made[dev].run(rounds=SUB_ROUNDS, engine="loop")
         launches = _counts()
         steps = layers * epochs * SUB_ROUNDS
         expected = {**zero, "gpo_attention_fwd": steps + layers * SUB_ROUNDS,
@@ -3099,6 +3182,254 @@ def experiment(dev) -> dict:
                for label, r in runs.items()},
             "summary": summary, "cpu_agreement": agree,
             "tolerance": TRAIN_TOL, "partial": sub}
+
+
+def _captured_cfg(base: FedConfig, label: str) -> FedConfig:
+    spec = CAPTURED[label]
+    kernels = not spec.get("dense", False)
+    return replace(
+        base, use_pallas_attention=kernels, use_pallas_aggregation=kernels,
+        batch_groups=spec.get("batch_groups", 0),
+        reset_opt_each_round=spec.get("reset_opt_each_round", False),
+        agg=AggConfig(**spec.get("agg", {})),
+        privacy=PrivacyConfig(**spec.get("privacy", {})),
+        compression=CompressionConfig(**spec.get("compression", {})),
+        adversary=AdversaryConfig(**spec.get("adversary", {})),
+        hierarchy=HierarchyConfig(**spec.get("hierarchy", {})))
+
+
+def _run_values(fed, hist) -> tuple:
+    """A run's History and the trainer's state as flat float64 arrays
+    (compared exactly), and its eval rounds and cohorts."""
+    vals = [np.asarray(hist.round_loss, np.float64),
+            np.asarray(hist.eval_scores, np.float64).reshape(-1),
+            np.asarray(hist.eval_mean_as + hist.eval_fi + hist.eval_cov
+                       + hist.round_eps, np.float64)]
+    for x in tree_leaves((fed.global_params, fed.opt_states,
+                          fed.server_state, fed.ef_resid)):
+        if x is not None:
+            vals.append(x.detach().double().cpu().reshape(-1).numpy())
+    return vals, (hist.eval_rounds, hist.round_participants)
+
+
+def _captured_deviation(label: str, a, b) -> float:
+    """The largest difference between two runs' values (``_run_values``):
+    0.0 when they are equal bit for bit. Raises where the eval rounds or
+    cohorts differ, or where the difference passes the configuration's
+    bound in ``CAPTURED_BOUND`` (no bound: they must be equal)."""
+    (va, ka), (vb, kb) = a, b
+    if ka != kb or len(va) != len(vb) or any(
+            x.shape != y.shape for x, y in zip(va, vb)):
+        raise AssertionError(f"{label}: the captured run's eval rounds, "
+                             "cohorts or shapes differ from the loop's")
+    bits = all(np.array_equal(x, y) for x, y in zip(va, vb))
+    dev = 0.0 if bits else max(float(np.abs(x - y).max(initial=0.0))
+                               for x, y in zip(va, vb))
+    bound = CAPTURED_BOUND.get(label, (0.0,))[0]
+    if not bits and not dev <= bound:
+        raise AssertionError(f"{label}: the captured run is {dev:.3e} off "
+                             f"the eager card run (bound {bound:g})")
+    return dev
+
+
+def _sync_free_round(make, dev) -> None:
+    """One staged round and one eval, the round body run eagerly on a
+    fresh trainer under ``torch.cuda.set_sync_debug_mode("error")``: a
+    call that synchronizes the host with the card raises. The operands
+    are staged on the card first."""
+    fed = make()
+    s = fed._streams(fed.fed_cfg.seed + 1)
+    ops = federated._on(fed._stage(0, s, History()), dev)
+    batch = fed._eval_host(0, s).to(dev)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        state, loss = fed._round_body(fed._state(), ops, s)
+        fed._eval(state.params, batch)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    if not torch.isfinite(loss).item():
+        raise AssertionError("the sync-free round's loss is not finite")
+
+
+def _captured_pair(label: str, make, rounds: int, prof_rounds: int) -> tuple:
+    """Phase 4h for one configuration: two trainers from ``make()``, one
+    an engine. ``rounds`` under each (the loop's launch counts; the
+    captured run's warm-up and capture, whose wrapper calls are one
+    round and one eval each), ``rounds`` more (the walls), each captured
+    run held to the loop's (``_captured_deviation``); then
+    ``prof_rounds`` captured under the profiler, whose kernels, counted
+    by name (``KERNEL_NAMES``), must be the loop's (its counts a round
+    and an eval) with no wrapper call, and as many under the loop, the
+    two held to each other once more. Returns (record, the loop trainer,
+    the captured one, each after the same rounds)."""
+    loop, cap = make(), make()
+    zero = dict.fromkeys(_COUNTED, 0)
+    _zero_counts()
+    t0 = time.perf_counter()
+    hist_l = loop.run(rounds=rounds, engine="loop")
+    torch.cuda.synchronize()
+    first_loop = (time.perf_counter() - t0) * 1e3
+    launches = _counts()
+    _zero_counts()
+    t0 = time.perf_counter()
+    hist_c = cap.run(rounds=rounds, engine="scan")
+    torch.cuda.synchronize()
+    first_cap = (time.perf_counter() - t0) * 1e3
+    counted = _counts()
+    graph = cap.captured_round
+    # an eval launches the forward once a layer (through the kernel);
+    # the rest is the rounds'
+    n_eval = len(hist_l.eval_rounds)
+    per_eval = {**zero, "gpo_attention_fwd": (
+        loop.gpo_cfg.num_layers if loop.fed_cfg.use_pallas_attention
+        else 0)}
+    per_round = {k: (v - n_eval * per_eval[k]) / rounds
+                 for k, v in launches.items()}
+    want = {k: round(2 * (per_round[k] + per_eval[k])) for k in zero}
+    if counted != want:
+        raise AssertionError(f"{label}: the captured run's wrapper calls "
+                             f"{counted}, want {want} (warm-up and capture)")
+    if graph is None or (graph.replays, graph.eval_replays) != (
+            rounds, len(hist_c.eval_rounds)):
+        raise AssertionError(f"{label}: the graphs did not replay once a "
+                             "round and once an eval round")
+    dev_first = _captured_deviation(label, _run_values(cap, hist_c),
+                                    _run_values(loop, hist_l))
+    # the next rounds: the same graphs replay, the state copied in
+    t0 = time.perf_counter()
+    hist_l = loop.run(rounds=rounds, engine="loop")
+    torch.cuda.synchronize()
+    wall_loop = (time.perf_counter() - t0) * 1e3 / rounds
+    host0 = (graph.draw_s, graph.stage_s, graph.replay_s)
+    t0 = time.perf_counter()
+    hist_c = cap.run(rounds=rounds, engine="scan")
+    torch.cuda.synchronize()
+    wall_cap = (time.perf_counter() - t0) * 1e3 / rounds
+    if cap.captured_round is not graph:
+        raise AssertionError(f"{label}: a block that fits was captured "
+                             "again")
+    draw, stage, replay = ((now - was) * 1e3 / rounds for now, was in zip(
+        (graph.draw_s, graph.stage_s, graph.replay_s), host0))
+    dev_more = _captured_deviation(label, _run_values(cap, hist_c),
+                                   _run_values(loop, hist_l))
+    # the replayed kernels, read from the profiler's trace by name
+    _zero_counts()
+    names = [n for ns in KERNEL_NAMES.values() for n in ns]
+    held = []
+    prof = _profile(lambda: held.append(cap.run(rounds=prof_rounds,
+                                                engine="scan")),
+                    f"captured_{label}_trace.json", match=names)
+    if _counts() != zero:
+        raise AssertionError(f"{label}: a replayed run called a wrapper")
+    dev_prof = _captured_deviation(
+        label, _run_values(cap, held[0]),
+        _run_values(loop, loop.run(rounds=prof_rounds, engine="loop")))
+    replayed = {k: sum(prof["matched"][n]["launches"] for n in ns)
+                for k, ns in KERNEL_NAMES.items()}
+    n_prof = _evals(prof_rounds, cap.fed_cfg.eval_every)
+    expect = {k: round(prof_rounds * per_round[k] + n_prof * per_eval[k])
+              for k in zero}
+    if replayed != expect:
+        raise AssertionError(f"{label}: the captured rounds' trace holds "
+                             f"{replayed} of the kernels; the loop's "
+                             f"counts give {expect}")
+    rec = {"launches_loop": {k: v for k, v in launches.items() if v},
+           "replayed_in_profile": {k: v for k, v in replayed.items() if v},
+           "profile_rounds": prof_rounds,
+           "wrapper_calls_warmup_and_capture": {
+               k: v for k, v in counted.items() if v},
+           "first_run_ms": {"loop": first_loop, "captured": first_cap},
+           "warmup_ms": graph.warmup_ms, "capture_ms": graph.capture_ms,
+           "wall_ms_per_round": {"loop": wall_loop, "captured": wall_cap},
+           "host_ms_per_round": {"draw": draw, "stage": stage,
+                                 "replay_call": replay},
+           "deviation": {"first": dev_first, "more": dev_more,
+                         "profiled": dev_prof},
+           "bit_equal": dev_first == dev_more == dev_prof == 0.0,
+           "kernels_per_round": prof["kernels"] / prof_rounds,
+           "profile": prof}
+    print(f"  {label:18s} loop {wall_loop:8.2f} ms/round, captured "
+          f"{wall_cap:7.2f} (host: draw {draw:.2f}, stage {stage:.2f}, "
+          f"replay call {replay:.2f}); "
+          f"first {rounds}: loop {first_loop:.1f} ms, captured "
+          f"{first_cap:.1f} (warm-up {graph.warmup_ms:.1f}, capture "
+          f"{graph.capture_ms:.1f}); "
+          + ("bit-equal" if rec["bit_equal"] else
+             f"off by {max(dev_first, dev_more, dev_prof):.3e}")
+          + f"; profiled {prof['kernels'] / prof_rounds:.0f} kernels a "
+          f"round, busy {100 * prof['busy_share']:.2f}%, replayed "
+          f"{rec['replayed_in_profile']}")
+    return rec, loop, cap
+
+
+def train_captured(dev, data, tr, ev) -> dict:
+    """Phase 4h: ``engine="scan"`` on the card, the round replayed from
+    a CUDA graph, against the eager card run (``engine="loop"``) from
+    the same seed, for every configuration of ``CAPTURED``; FedAvg's
+    longer blocks; the paper experiment's configuration; and one staged
+    round of each under the sync debug mode."""
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    base = FedConfig(num_clients=len(tr), local_epochs=6, lr=3e-4,
+                     eval_every=1, use_pallas_attention=True,
+                     use_pallas_aggregation=True)
+    out = {}
+    for label in CAPTURED:
+        cfg = _captured_cfg(base, label)
+
+        def make(cfg=cfg):
+            return FederatedGPO(gcfg, cfg, data, tr, ev, device=dev)
+
+        _sync_free_round(make, dev)
+        rec, loop, cap = _captured_pair(label, make, CAPTURED_ROUNDS,
+                                        CAPTURED_ROUNDS)
+        if label == "fedavg":  # blocks longer than the first run's
+            first = cap.captured_round
+            replays = first.replays
+            t0 = time.perf_counter()
+            more_l = loop.run(rounds=CAPTURED_MORE, log_every=5,
+                              engine="loop")
+            t1 = time.perf_counter()
+            more_c = cap.run(rounds=CAPTURED_MORE, log_every=5)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            if cap.captured_round is not first \
+                    or first.replays - replays != CAPTURED_MORE:
+                raise AssertionError("fedavg: the 5-round blocks did not "
+                                     "replay the first capture once a "
+                                     "round")
+            last = float(np.mean(more_c.round_loss[-5:]))
+            if not last < float(np.mean(more_c.round_loss[:5])):
+                raise AssertionError("fedavg: the captured loss did not "
+                                     "fall")
+            rec["more"] = {
+                "rounds": CAPTURED_MORE, "log_every": 5,
+                "wall_ms_per_round": {
+                    "loop": (t1 - t0) * 1e3 / CAPTURED_MORE,
+                    "captured": (t2 - t1) * 1e3 / CAPTURED_MORE},
+                "deviation": _captured_deviation(
+                    label, _run_values(cap, more_c),
+                    _run_values(loop, more_l)),
+                "loss_last5_mean": last}
+            walls = rec["more"]["wall_ms_per_round"]
+            print(f"  fedavg, {CAPTURED_MORE} more rounds in blocks of 5: "
+                  f"loop {walls['loop']:.2f} ms/round, captured "
+                  f"{walls['captured']:.2f} (the same graphs); deviation "
+                  f"{rec['more']['deviation']:.3e}")
+        out[label] = rec
+
+    # the paper experiment's configuration (phase 4e's trainer and its
+    # FedConfig: eval every 10 rounds), 10 rounds profiled
+    def make_paper():
+        return make_pair(CAPTURED_PAPER_ROUNDS, SEED, device=dev)[0]
+
+    _sync_free_round(make_paper, dev)
+    out["paper"], _, _ = _captured_pair(
+        "paper", make_paper, CAPTURED_PAPER_ROUNDS,
+        min(10, CAPTURED_PAPER_ROUNDS))
+    return {"rounds": CAPTURED_ROUNDS, "more_rounds": CAPTURED_MORE,
+            "paper_rounds": CAPTURED_PAPER_ROUNDS, "bounds": CAPTURED_BOUND,
+            "runs": out}
 
 
 def _lm_cfg(arch: str, **kw) -> ModelConfig:
@@ -4118,6 +4449,9 @@ def main() -> int:
           "reference's widths through the kernels, then partial "
           "participation and optimizer resets")
     exp_rec = experiment(dev)
+    print("[4h] engine=\"scan\" on the card: the round replayed from a CUDA "
+          "graph, against the eager card run")
+    cap_rec = train_captured(dev, data, tr, held_out)
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, exp_rec, stage_rec, name, worst)
@@ -4129,10 +4463,18 @@ def main() -> int:
             for per_rank in run["launches"]:
                 for k, n in per_rank.items():
                     sharded[k] = sharded.get(k, 0) + n
+    # phase 4h's replayed launches, read from its profiles by name
+    captured = {}
+    for run in cap_rec["runs"].values():
+        for k, n in run["replayed_in_profile"].items():
+            captured[k] = captured.get(k, 0) + n
     for row in kernels:
         if row["name"] in sharded:
             row.setdefault("launches_by_path", {})["sharded"] = \
                 sharded[row["name"]]
+        if row["name"] in captured:
+            row.setdefault("launches_by_path", {})["captured"] = \
+                captured[row["name"]]
     _wait_control_builds()
 
     print(json.dumps({"engine": {
@@ -4146,6 +4488,7 @@ def main() -> int:
     print(json.dumps({"experiment": exp_rec}))
     print(json.dumps({"stages": stage_rec}))
     print(json.dumps({"sharded": shard_rec}))
+    print(json.dumps({"captured": cap_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

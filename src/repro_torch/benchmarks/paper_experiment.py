@@ -83,8 +83,9 @@ def run_pair_timed(rounds: int, seed: int, num_groups: int = 17,
                    num_questions: int = 120, d_embed: int = 48, *,
                    device=None) -> tuple:
     """``run_pair``'s result and the host's wall milliseconds per
-    federated round and per centralized epoch (evals included; each
-    round's loss is read back, so the clock covers the card's work)."""
+    federated round and per centralized epoch (evals included; a run
+    reads its losses back before it returns, so the clock covers the
+    card's work)."""
     fed, cen = make_pair(rounds, seed, num_groups, num_questions, d_embed,
                          device=device)
     t0 = time.perf_counter()

@@ -362,15 +362,16 @@ def _make_adaptive(cfg, *, num_clients, use_pallas):
             new_ema = torch.where(seen[idx] > 0,
                                   decay * ema[idx] + (1 - decay) * losses,
                                   losses)
-            new_seen = 1.0
+            new_seen = torch.ones_like(new_ema)
             if mask is not None:
                 mask = mask.to(losses.device)
                 new_ema = torch.where(mask, new_ema, ema[idx])
                 new_seen = torch.where(mask, 1.0, seen[idx])
-            ema, seen = ema.clone(), seen.clone()
-            ema[idx] = new_ema
-            seen[idx] = new_seen
-            state = state._replace(scores={"ema": ema, "seen": seen})
+            # index_copy on the device: assigning a Python number through
+            # an index would copy it from pageable host memory
+            state = state._replace(scores={
+                "ema": ema.index_copy(0, idx, new_ema),
+                "seen": seen.index_copy(0, idx, new_seen)})
         return new_g, state
 
     def init(global_params):
@@ -488,7 +489,9 @@ def _make_krum(multi: bool):
             x = vecs.float()
             scores = krum_scores(x, weights, f, use_pallas=use_pallas)
             if not multi:
-                return x[torch.argmin(scores)]
+                # the row gathered on the device: indexing with a 0-d
+                # tensor would read the index back to the host
+                return x.index_select(0, torch.argmin(scores).reshape(1))[0]
             # multi-Krum: the weighted mean of the m_sel best-scored rows
             # (weights renormalised over the selection)
             rank = torch.argsort(torch.argsort(scores, stable=True),

@@ -55,9 +55,33 @@ round leaves params and server state unchanged, and
 hierarchy does not compose with it (``ValueError``), as in the
 reference.
 
-``engine="scan"`` and ``engine="loop"`` both run this per-round driver:
-the fused multi-round driver (a captured round replayed as a CUDA graph)
-is ROADMAP.md queue A.2.
+A round is two halves. The host half (``_stage``) makes every draw the
+round takes on the CPU, in the order above: the cohort, the attackers,
+the E epochs' batches, and the replay hooks' values (``RoundOperands``).
+The device half (``_round_body``) takes only tensors and the device
+generators: it draws the release noise and uniforms and the gaussian
+attack's normals there, trains, releases, reduces and applies, and
+calls nothing that reads a tensor back to the host. The two drivers run
+the same halves:
+
+* ``engine="loop"``: one round at a time, the operands copied to the
+  device, the loss read back every round (one host sync a round).
+* ``engine="scan"`` (the default; the reference's fused driver,
+  DESIGN.md §3), on a CUDA device (``_CapturedRound``): the round body
+  is captured once a trainer into a CUDA graph and the eval into a
+  second graph on the first one's memory pool; each round copies its
+  operands through pinned, double-buffered host memory into the graph's
+  static operands and replays the graph, and the device generators are
+  registered with the graph (``register_generator_state``) and re-seeded
+  in place at every ``run``. The losses and eval scores stay on the
+  device for a block of rounds (the whole run, or ``log_every`` rounds)
+  and reach the host once a block. A capture or replay that fails
+  raises; no round falls back to the loop. Off CUDA there are no
+  graphs, and ``"scan"`` runs the per-round driver of ``"loop"``.
+
+The fault round keeps its schedule on the host (it reads the survivors'
+count and weights there every round), so under ``FedConfig.avail`` both
+engines run the per-round driver (ROADMAP.md queue A.2).
 
 The second engine, ``make_sharded_round``, lays the clients out over
 processes (``torch.distributed``, a client mesh of ``launch/mesh.py``):
@@ -81,10 +105,12 @@ call (as the reference restarts its key chain); batches move to the
 trainer's device after sampling, so a seed gives the same inputs and
 cohorts on every device. The release draws (the σ-scaled DP noise, then
 the int8 rounding uniforms, (m, P) each, drawn only where the config
-uses them) come from a third generator, on the trainer's device,
-restarted from ``FedConfig.seed`` at every ``run`` call too: the card's
-draws differ from the CPU's, but runs on one device with and without the
-kernels see the same noise. The adversary and the availability stage
+uses them) come from a third generator, on the trainer's device, which
+the trainer keeps and re-seeds in place from ``FedConfig.seed`` at every
+``run`` call (a captured round draws from the generator it was captured
+with): the card's draws differ from the CPU's, but runs on one device
+with and without the kernels, and under either engine, see the same
+noise. The adversary and the availability stage
 each draw from generators of their own, created only when the stage is
 on, so they move no other stream: the attackers' C uniforms a round on
 the CPU, the ``gaussian`` attack's (C, P) normals on the device, and the
@@ -103,6 +129,7 @@ each).
 """
 from __future__ import annotations
 
+import time
 from dataclasses import dataclass, field
 from typing import Callable, NamedTuple, Optional
 
@@ -270,12 +297,6 @@ def _generators(seed: int):
             torch.Generator().manual_seed(2 * seed + 1))
 
 
-def _release_generator(seed: int, device: torch.device) -> torch.Generator:
-    """The generator of the DP noise and the rounding uniforms, on the
-    trainer's device."""
-    return torch.Generator(device=device).manual_seed(_RELEASE_TAG + seed)
-
-
 class _Streams(NamedTuple):
     """A run's generators; a stage's are None while the stage is off."""
 
@@ -287,6 +308,38 @@ class _Streams(NamedTuple):
     fault: Optional[torch.Generator] = None  # fault draws (CPU)
 
 
+class RoundState(NamedTuple):
+    """What a round carries to the next: the global params, the C
+    clients' Adam states, the server state and the EF residual (None
+    without error feedback)."""
+
+    params: dict
+    opt_states: object
+    server_state: object
+    ef_resid: Optional[torch.Tensor]
+
+
+class RoundOperands(NamedTuple):
+    """A round's inputs, drawn by the host half (``FederatedGPO._stage``)
+    as CPU tensors and then staged on the device. The device generators'
+    draws are not here: the round body makes them."""
+
+    batches: tuple  # E client-stacked ICLBatches, one a local epoch
+    weights: torch.Tensor  # (m,) Eq. 2 weights over the cohort
+    idx: Optional[torch.Tensor] = None  # (m,) int64 cohort; None: all C
+    attack_mask: Optional[torch.Tensor] = None  # (C,) bool attackers
+    attack_noise: Optional[torch.Tensor] = None  # (C, P), replayed
+    noise: Optional[torch.Tensor] = None  # (m, P) DP noise, replayed
+    uniform: Optional[torch.Tensor] = None  # (m, P) uniforms, replayed
+
+
+def _on(tree, device):
+    """``tree`` with every tensor leaf moved to ``device``."""
+    return tree_unflatten(tree, [
+        x.to(device) if isinstance(x, torch.Tensor) else x
+        for x in tree_leaves(tree)])
+
+
 class _RoundSource:
     """What a round draws and records, the same in both engines: the
     run's generators, the release draws, the attack's and the fault
@@ -295,33 +348,47 @@ class _RoundSource:
     ``device``, ``train_groups``, ``global_params``, the hooks and the
     accountant."""
 
+    def _device_generator(self, name: str, seed: int) -> torch.Generator:
+        """The trainer's generator ``name`` on its device, made once and
+        re-seeded in place with ``seed``: a captured round keeps drawing
+        from the generator objects it was captured with."""
+        gens = self.__dict__.setdefault("_device_gens", {})
+        if name not in gens:
+            gens[name] = torch.Generator(device=self.device)
+        return gens[name].manual_seed(seed)
+
     def _streams(self, seed: int) -> _Streams:
         """A run's generators, restarted from ``seed`` (the stages' only
-        while the stage is on)."""
-        fed, dev = self.fed_cfg, self.device
+        while the stage is on). The device ones are the trainer's own
+        (``_device_generator``)."""
+        fed = self.fed_cfg
         gen_train, gen_eval = _generators(seed)
-        s = _Streams(gen_train, gen_eval, _release_generator(seed, dev))
+        s = _Streams(gen_train, gen_eval,
+                     self._device_generator("release", _RELEASE_TAG + seed))
         adv = fed.adversary
         if adv.enabled and self._attack_draws is None:
             tag = 2 * (byz.BYZ_TAG + seed)
             s = s._replace(byz=torch.Generator().manual_seed(tag))
             if adv.kind == "gaussian":
-                s = s._replace(attack_noise=torch.Generator(
-                    device=dev).manual_seed(tag + 1))
+                s = s._replace(attack_noise=self._device_generator(
+                    "attack_noise", tag + 1))
         if fed.avail.enabled and self._fault_draws is None:
             s = s._replace(fault=torch.Generator().manual_seed(
                 av.FAULT_TAG + seed))
         return s
 
-    def _draws(self, r: int, gen: torch.Generator, m: int):
-        """The round's (noise, uniform) release operands, each (m, P) or
-        None: replayed from the hook, or drawn from ``gen`` (noise
-        first) where the config uses them."""
-        if self._release_draws is not None:
-            return tuple(None if a is None else
-                         torch.as_tensor(np.array(a, np.float32),
-                                         device=self.device)
-                         for a in self._release_draws(r))
+    def _release_host(self, r: int) -> tuple:
+        """The round's replayed (noise, uniform) release operands as CPU
+        tensors, (m, P) each or None; (None, None) without the hook."""
+        if self._release_draws is None:
+            return None, None
+        return tuple(None if a is None else
+                     torch.as_tensor(np.array(a, np.float32))
+                     for a in self._release_draws(r))
+
+    def _release_drawn(self, gen: torch.Generator, m: int) -> tuple:
+        """(noise, uniform), each (m, P) or None, drawn from ``gen`` on
+        its device (noise first) where the config uses them."""
         priv, comp = self.fed_cfg.privacy, self.fed_cfg.compression
         shape = (m, tree_count_params(self.global_params))
         noise = (dp.client_noise(gen, shape, priv.sigma)
@@ -329,26 +396,50 @@ class _RoundSource:
         uniform = cx.client_uniform(gen, shape) if comp.needs_rng else None
         return noise, uniform
 
-    def _attack(self, r: int, s: _Streams):
-        """The round's attacker mask over the population ((C,) bool on the
-        host) and the gaussian attack's (C, P) normals (or None), replayed
-        from the hook or drawn; None while the adversary is off."""
+    def _draws(self, r: int, gen: torch.Generator, m: int):
+        """The round's (noise, uniform) release operands on the device,
+        each (m, P) or None: replayed from the hook, or drawn from
+        ``gen``."""
+        if self._release_draws is not None:
+            return tuple(None if a is None else a.to(self.device)
+                         for a in self._release_host(r))
+        return self._release_drawn(gen, m)
+
+    def _attack_host(self, r: int, s: _Streams):
+        """The round's attacker mask over the population ((C,) bool) and
+        the hook's gaussian (C, P) normals (or None), on the host,
+        replayed from the hook or drawn; None while the adversary is
+        off."""
         if not self.fed_cfg.adversary.enabled:
             return None
         if self._attack_draws is not None:
             mask, noise = self._attack_draws(r)
             return (torch.as_tensor(np.array(mask, np.bool_)),
                     None if noise is None else torch.as_tensor(
-                        np.array(noise, np.float32), device=self.device))
+                        np.array(noise, np.float32)))
         c, adv = len(self.train_groups), self.fed_cfg.adversary
-        mask = byz.attacker_mask(byz.attacker_draws(s.byz, c),
-                                 adv.num_attackers)
-        noise = None
-        if adv.kind == "gaussian":
-            noise = torch.randn(
-                (c, tree_count_params(self.global_params)),
-                generator=s.attack_noise, device=self.device)
-        return mask, noise
+        return byz.attacker_mask(byz.attacker_draws(s.byz, c),
+                                 adv.num_attackers), None
+
+    def _attack_noise_drawn(self, s: _Streams) -> Optional[torch.Tensor]:
+        """The gaussian attack's (C, P) standard normals drawn on the
+        device; None unless the attack is gaussian and unreplayed."""
+        if s.attack_noise is None:
+            return None
+        return torch.randn((len(self.train_groups),
+                            tree_count_params(self.global_params)),
+                           generator=s.attack_noise, device=self.device)
+
+    def _attack(self, r: int, s: _Streams):
+        """The round's attacker mask ((C,) bool on the host) and the
+        gaussian attack's (C, P) normals on the device (or None); None
+        while the adversary is off."""
+        attack = self._attack_host(r, s)
+        if attack is None:
+            return None
+        mask, noise = attack
+        return mask, (self._attack_noise_drawn(s) if noise is None
+                      else noise.to(self.device))
 
     def _faults(self, r: int, s: _Streams) -> av.FaultDraws:
         """The round's fault draws for the population, replayed from the
@@ -408,8 +499,10 @@ class FederatedGPO(_RoundSource):
         self.gpo_cfg, self.fed_cfg, self.data = gpo_cfg, fed_cfg, data
         self.train_groups = np.asarray(train_groups)
         self.eval_groups = np.asarray(eval_groups)
-        # the Eq. 2 weights of full participation
-        self.weights = self._weights(self.train_groups)
+        # the Eq. 2 weights of full participation, on the host and the
+        # device
+        self._full_weights = self._host_weights(self.train_groups)
+        self.weights = self._full_weights.to(self.device)
         self.opt = adam(fed_cfg.lr)
         self.agg = make_aggregator(
             fed_cfg.agg, num_clients=num_clients,
@@ -451,11 +544,13 @@ class FederatedGPO(_RoundSource):
         self._batches, self._eval_batches = batches, eval_batches
         self._release_draws = release_draws
         self._attack_draws, self._fault_draws = attack_draws, fault_draws
+        # the scan engine's captured round on a CUDA device, made by the
+        # first run that needs it (_CapturedRound)
+        self.captured_round: Optional[_CapturedRound] = None
 
-    def _weights(self, groups) -> torch.Tensor:
-        """w_g = |D_g| / Σ|D_g'| over ``groups`` (Eq. 2), on the device."""
-        return normalize_weights(
-            self.data.sizes[torch.as_tensor(groups)]).to(self.device)
+    def _host_weights(self, groups) -> torch.Tensor:
+        """w_g = |D_g| / Σ|D_g'| over ``groups`` (Eq. 2), on the host."""
+        return normalize_weights(self.data.sizes[torch.as_tensor(groups)])
 
     def _cohort(self, r: int, gen: torch.Generator):
         """The round's participants, (m,) int64 on the CPU in the order
@@ -477,69 +572,113 @@ class FederatedGPO(_RoundSource):
         mask[rounds - 1] = True
         return mask
 
-    def _participants_of(self, r: int, s: _Streams, hist: History):
-        """(groups, Eq. 2 weights on the device, the cohort on the host
-        and on the device, or None and None) of the round's cohort
-        (``_cohort``), recorded in ``hist``."""
+    def _host_batch(self, r: int, e: int, s: _Streams, groups) -> ICLBatch:
+        """Epoch ``e``'s client-stacked batch over ``groups`` on the host:
+        replayed from the hook or drawn from the training generator."""
+        fed = self.fed_cfg
+        b = (self._batches(r, e) if self._batches is not None else
+             sample_icl_batches(s.train, self.data, groups,
+                                fed.num_context, fed.num_target))
+        return b.to("cpu")
+
+    def _eval_host(self, r: int, s: _Streams) -> ICLBatch:
+        """Round ``r``'s eval batch over the held-out groups on the host:
+        replayed from the hook or drawn from the eval generator."""
+        fed = self.fed_cfg
+        b = (self._eval_batches(r) if self._eval_batches is not None
+             else sample_icl_batches(s.eval, self.data, self.eval_groups,
+                                     fed.num_context, fed.num_target))
+        return b.to("cpu")
+
+    def _stage(self, r: int, s: _Streams, hist: History) -> RoundOperands:
+        """The host half of a round: every host draw it takes, from the
+        generators and in the order of the per-round driver (the cohort,
+        the attackers, the E epochs' batches) and the hooks' values, as
+        CPU tensors. Records the cohort in ``hist``."""
         cohort = self._cohort(r, s.train)
         if cohort is None:
-            return self.train_groups, self.weights, None, None
-        hist.round_participants.append(cohort.tolist())
-        groups = self.train_groups[cohort.numpy()]
-        return (groups, self._weights(groups), cohort,
-                cohort.to(self.device))
+            groups, weights = self.train_groups, self._full_weights
+        else:
+            hist.round_participants.append(cohort.tolist())
+            groups = self.train_groups[cohort.numpy()]
+            weights = self._host_weights(groups)
+        mask, attack_noise = self._attack_host(r, s) or (None, None)
+        batches = tuple(self._host_batch(r, e, s, groups)
+                        for e in range(self.fed_cfg.local_epochs))
+        noise, uniform = self._release_host(r)
+        return RoundOperands(batches, weights, cohort, mask, attack_noise,
+                             noise, uniform)
 
-    def _train(self, r: int, s: _Streams, groups, idx, attacked):
+    def _state(self) -> RoundState:
+        return RoundState(self.global_params, self.opt_states,
+                          self.server_state, self.ef_resid)
+
+    def _set_state(self, state: RoundState) -> None:
+        (self.global_params, self.opt_states, self.server_state,
+         self.ef_resid) = state
+
+    def _attack_ops(self, ops: RoundOperands, s: _Streams):
+        """The attack stage's operands for the participants' rows: the
+        mask and the gaussian normals (replayed, or drawn from ``s``'s
+        device generator); None while the adversary is off."""
+        if ops.attack_mask is None:
+            return None
+        noise = (ops.attack_noise if ops.attack_noise is not None
+                 else self._attack_noise_drawn(s))
+        return self._pipe.attack_draws(ops.attack_mask, noise, ops.idx)
+
+    def _release_ops(self, ops: RoundOperands, s: _Streams) -> tuple:
+        """The release's (noise, uniform) for the participants' rows:
+        replayed, or drawn from ``s``'s device generator."""
+        if self._release_draws is not None:
+            return ops.noise, ops.uniform
+        return self._release_drawn(s.release, ops.weights.shape[0])
+
+    def _local_round(self, state: RoundState, ops: RoundOperands) -> tuple:
         """Local training of the round's participants from the global
-        params: (client params, trained params, their Adam states,
-        per-client losses). The caller scatters the states."""
-        fed, m = self.fed_cfg, len(groups)
-        clients = broadcast_to_clients(self.global_params, m)
-        if fed.reset_opt_each_round:
+        params, label_flip's attackers on flipped targets: (client
+        params, trained params, their Adam states, per-client losses).
+        The caller scatters the states."""
+        idx, m = ops.idx, ops.weights.shape[0]
+        clients = broadcast_to_clients(state.params, m)
+        if self.fed_cfg.reset_opt_each_round:
             opt_in = self.opt.init(clients, num_clients=m)
         else:
-            opt_in = (self.opt_states if idx is None
-                      else tree_index(self.opt_states, idx))
-
-        def batches(e: int) -> ICLBatch:
-            b = (self._batches(r, e) if self._batches is not None else
-                 sample_icl_batches(s.train, self.data, groups,
-                                    fed.num_context, fed.num_target))
-            return b.to(self.device)
-
-        if attacked is not None:
-            attacked = attacked.to(self.device)
-        trained, opt_out, losses = self._local_train(clients, opt_in,
-                                                     batches, attacked)
+            opt_in = (state.opt_states if idx is None
+                      else tree_index(state.opt_states, idx))
+        flags = (None if ops.attack_mask is None
+                 else self._pipe.attacked_flags(ops.attack_mask, idx))
+        trained, opt_out, losses = self._local_train(
+            clients, opt_in, ops.batches.__getitem__, flags)
         return clients, trained, opt_out, losses
 
-    def _round(self, r: int, s: _Streams, hist: History) -> float:
-        """One round; returns the mean client loss."""
-        groups, weights, cohort, idx = self._participants_of(r, s, hist)
-        m, pipe = len(groups), self._pipe
-        attack = self._attack(r, s)
-        clients, trained, opt_out, losses = self._train(
-            r, s, groups, idx,
-            None if attack is None else pipe.attacked_flags(attack[0],
-                                                            cohort))
-        self.opt_states = opt_out if idx is None else tree_map(
+    def _round_body(self, state: RoundState, ops: RoundOperands,
+                    s: _Streams) -> tuple:
+        """The device half of a round: ``state`` and ``ops`` (tensors on
+        one device) in, (the new ``RoundState``, the mean client loss as
+        a () tensor) out. It draws the release operands and the gaussian
+        attack's normals from ``s``'s device generators (where no hook
+        replays them) and reads nothing back to the host, so it can be
+        captured into a CUDA graph."""
+        pipe, idx = self._pipe, ops.idx
+        attack = self._attack_ops(ops, s)
+        clients, trained, opt_out, losses = self._local_round(state, ops)
+        opt_states = opt_out if idx is None else tree_map(
             lambda full, sub: full.index_copy(0, idx, sub),
-            self.opt_states, opt_out)
+            state.opt_states, opt_out)
         deltas = tree_sub(trained, clients)
-        noise, uniform = self._draws(r, s.release, m)
-        resid = self.ef_resid
+        noise, uniform = self._release_ops(ops, s)
+        resid = state.ef_resid
         if resid is not None and idx is not None:
             resid = resid[idx]
-        self.global_params, self.server_state, resid = pipe.reduce_apply(
-            self.server_state, self.global_params, deltas, weights,
+        params, server_state, resid = pipe.reduce_apply(
+            state.server_state, state.params, deltas, ops.weights,
             losses=losses, idx=idx, resid=resid, noise=noise,
-            uniform=uniform,
-            attack=None if attack is None else pipe.attack_draws(
-                *attack, cohort))
+            uniform=uniform, attack=attack)
         if resid is not None and idx is not None:
-            resid = self.ef_resid.index_copy(0, idx, resid)
-        self.ef_resid = resid
-        return float(losses.mean())
+            resid = state.ef_resid.index_copy(0, idx, resid)
+        return (RoundState(params, opt_states, server_state, resid),
+                losses.mean())
 
     def _fault_round(self, r: int, s: _Streams, hist: History) -> float:
         """One round under the fault simulator (the reference's
@@ -547,9 +686,11 @@ class FederatedGPO(_RoundSource):
         local round survived."""
         fed, agg, pipe, dev = self.fed_cfg, self.agg, self._pipe, self.device
         c = len(self.train_groups)
-        groups, weights, cohort, idx = self._participants_of(r, s, hist)
-        sub = torch.arange(c) if cohort is None else cohort
-        attack = self._attack(r, s)
+        host = self._stage(r, s, hist)
+        ops = _on(host, dev)
+        idx = ops.idx
+        sub = torch.arange(c) if host.idx is None else host.idx
+        attack = self._attack_ops(ops, s)
         # the schedule over the population, then restricted to the
         # sampled clients (sampling cannot know who will fail)
         state = self.fault_state
@@ -561,11 +702,10 @@ class FederatedGPO(_RoundSource):
             fresh=sched.fresh & sampled, crashed=sched.crashed & sampled,
             straggle=sched.straggle & sampled)
         w_full = torch.zeros((c,))
-        w_full[sub] = agg.weigh(self.server_state, weights,
+        w_full[sub] = agg.weigh(self.server_state, ops.weights,
                                 idx).float().cpu()
-        clients, trained, opt_out, losses = self._train(
-            r, s, groups, idx,
-            None if attack is None else pipe.attacked_flags(attack[0], sub))
+        clients, trained, opt_out, losses = self._local_round(self._state(),
+                                                              ops)
         # the local work survives where the client is fresh or straggles:
         # offline clients never trained, crashed ones lost it
         keep = (sched.fresh | sched.straggle)[sub]
@@ -580,14 +720,13 @@ class FederatedGPO(_RoundSource):
         self.opt_states = tree_map(merge, self.opt_states, opt_out)
         # per-row release: attack, DP, codec; the EF rows advance where
         # the client released (fresh or straggling)
-        noise, uniform = self._draws(r, s.release, len(groups))
+        noise, uniform = self._release_ops(ops, s)
         resid = self.ef_resid
         if resid is not None and idx is not None:
             resid = resid[idx]
         rel, new_resid = pipe.release_rows(
             tree_ravel_clients(tree_sub(trained, clients)), noise, uniform,
-            resid, attack=None if attack is None else pipe.attack_draws(
-                *attack, sub))
+            resid, attack=attack)
         if resid is not None:
             rows = torch.where(keep_d[:, None], new_resid, resid)
             self.ef_resid = (rows if idx is None
@@ -637,9 +776,10 @@ class FederatedGPO(_RoundSource):
     def run(self, rounds: int | None = None, log_every: int = 0,
             engine: str | None = None) -> History:
         """Run ``rounds`` rounds and return the metric ``History``.
-        ``engine`` ("scan" or "loop", default ``FedConfig.engine``) is
-        accepted for parity with the reference; both run the per-round
-        driver."""
+        ``engine`` ("scan" or "loop", default ``FedConfig.engine``) picks
+        the driver (the module docstring); off CUDA and under
+        ``FedConfig.avail`` both run the per-round driver. A run that
+        raises leaves the trainer at its last completed round."""
         rounds = rounds or self.fed_cfg.rounds
         engine = engine or self.fed_cfg.engine
         if engine not in ("scan", "loop"):
@@ -648,22 +788,297 @@ class FederatedGPO(_RoundSource):
         hist = History()
         if rounds <= 0:
             return hist
-        fed = self.fed_cfg
-        s = self._streams(fed.seed + 1)
-        round_fn = self._round if self.fault_state is None \
-            else self._fault_round
         eval_mask = self._eval_mask(rounds)
+        if (engine == "loop" or self.fault_state is not None
+                or not self._captures()):
+            self._run_loop(rounds, log_every, eval_mask, hist)
+        else:
+            self._run_blocks(rounds, log_every, eval_mask, hist)
+        return hist
+
+    def _run_loop(self, rounds: int, log_every: int, eval_mask,
+                  hist: History) -> None:
+        """The per-round driver: one host sync a round."""
+        s = self._streams(self.fed_cfg.seed + 1)
         for r in range(rounds):
-            hist.round_loss.append(round_fn(r, s, hist))
+            if self.fault_state is None:
+                state, loss = self._round_body(
+                    self._state(), _on(self._stage(r, s, hist),
+                                       self.device), s)
+                self._set_state(state)
+                loss = float(loss)
+            else:
+                loss = self._fault_round(r, s, hist)
+            hist.round_loss.append(loss)
             self._note_privacy(hist)
             if eval_mask[r]:
-                b = (self._eval_batches(r) if self._eval_batches is not None
-                     else sample_icl_batches(s.eval, self.data,
-                                             self.eval_groups,
-                                             fed.num_context,
-                                             fed.num_target))
-                hist.append_eval(r, self.evaluate(b), log_every)
-        return hist
+                hist.append_eval(r, self.evaluate(self._eval_host(r, s)),
+                                 log_every)
+
+    def _captures(self) -> bool:
+        """The scan engine captures its round where CUDA graphs exist."""
+        return self.device.type == "cuda"
+
+    def _run_blocks(self, rounds: int, log_every: int, eval_mask,
+                    hist: History) -> None:
+        """The scan driver on CUDA: the captured round (made by the
+        trainer's first such run) replayed in blocks of ``log_every``
+        rounds (the whole run without it), each read back once."""
+        chunk = min(log_every, rounds) if log_every else rounds
+        if self.captured_round is None:
+            self.captured_round = _CapturedRound(self)
+        block = self.captured_round
+        # re-seeds the device generators in place, after the warm-up
+        s = self._streams(self.fed_cfg.seed + 1)
+        block.load(s)
+        for start in range(0, rounds, chunk):
+            n, done, evals = min(chunk, rounds - start), 0, []
+            try:
+                for j in range(n):
+                    t0 = time.perf_counter()
+                    ops = self._stage(start + j, s, hist)
+                    block.draw_s += time.perf_counter() - t0
+                    block.round(ops)
+                    done += 1
+                    if eval_mask[start + j]:
+                        t0 = time.perf_counter()
+                        batch = self._eval_host(start + j, s)
+                        block.draw_s += time.perf_counter() - t0
+                        block.eval(batch)
+                        evals.append(start + j)
+                losses, scores = block.read()
+            except BaseException:
+                # the trainer keeps the rounds that completed, and the
+                # accountant counts them, as in the per-round driver
+                block.store()
+                self._rounds_elapsed += done
+                raise
+            block.store()
+            for loss in losses:
+                hist.round_loss.append(loss)
+                self._note_privacy(hist)
+            for i, r in enumerate(evals):
+                hist.append_eval(r, scores[i], log_every)
+
+
+def _clone(tree):
+    """``tree`` with every tensor leaf cloned."""
+    return tree_unflatten(tree, [
+        x.clone() if isinstance(x, torch.Tensor) else x
+        for x in tree_leaves(tree)])
+
+
+def _copy_into(dst, src) -> None:
+    """Copy every tensor leaf of ``src`` into ``dst``'s leaf of the same
+    place, which must have its shape (None leaves must match)."""
+    for d, x in zip(tree_leaves(dst), tree_leaves(src), strict=True):
+        if d is None and x is None:
+            continue
+        if not (isinstance(d, torch.Tensor) and isinstance(x, torch.Tensor)
+                and d.shape == x.shape):
+            raise ValueError("the trainer's state does not match the "
+                             "captured round's: a leaf of shape "
+                             f"{getattr(x, 'shape', x)} for "
+                             f"{getattr(d, 'shape', d)}")
+        if d is not x:
+            d.copy_(x)
+
+
+class _PinnedOperands:
+    """Static device copies of a fixed structure of CPU tensors (the
+    captured graph reads them), refilled through two pinned host buffers
+    in turn. A refill writes the next host buffer (waiting only for that
+    buffer's previous copy to finish) and copies it to the device with
+    ``non_blocking=True`` on the current stream, so the host draws the
+    next round while the card runs this one. The tensors lie in one flat
+    buffer, so a refill is one host-to-device copy."""
+
+    _ALIGN = 16
+
+    def __init__(self, like, device: torch.device):
+        spans, off = [], 0
+        for x in tree_leaves(like):
+            if isinstance(x, torch.Tensor):
+                n = x.numel() * x.element_size()
+                spans.append((off, n, x.dtype, tuple(x.shape)))
+                off += -(-n // self._ALIGN) * self._ALIGN
+            else:
+                spans.append(None)
+        self._like, self._spans = like, spans
+        self._cuda = device.type == "cuda"
+        size = max(off, self._ALIGN)
+        self._host = [torch.empty(size, dtype=torch.uint8,
+                                  pin_memory=self._cuda) for _ in range(2)]
+        self._flat = torch.empty(size, dtype=torch.uint8, device=device)
+        self._events = [None, None]
+        self._turn = 0
+        self.static = self._views(self._flat)
+        self._host_leaves = [tree_leaves(self._views(h)) for h in self._host]
+        self.put(like)
+
+    def _views(self, flat: torch.Tensor):
+        return tree_unflatten(self._like, [
+            x if span is None else
+            flat[span[0]:span[0] + span[1]].view(span[2]).view(span[3])
+            for x, span in zip(tree_leaves(self._like), self._spans)])
+
+    def put(self, tree) -> None:
+        """Stage ``tree`` (``like``'s structure, dtypes and shapes)."""
+        leaves = tree_leaves(tree)
+        if len(leaves) != len(self._spans):
+            raise ValueError("a round's operands differ in structure from "
+                             "the captured round's")
+        b, self._turn = self._turn, self._turn ^ 1
+        if self._events[b] is not None:
+            self._events[b].synchronize()
+        for i, (dst, x, like, span) in enumerate(zip(
+                self._host_leaves[b], leaves, tree_leaves(self._like),
+                self._spans)):
+            if span is None:
+                if isinstance(x, torch.Tensor) or x != like:
+                    raise ValueError(f"operand {i} is {x!r}, the captured "
+                                     f"round's {like!r}")
+                continue
+            if not (isinstance(x, torch.Tensor) and x.dtype == span[2]
+                    and tuple(x.shape) == span[3]):
+                raise ValueError(
+                    f"operand {i} is {getattr(x, 'dtype', x)} "
+                    f"{tuple(getattr(x, 'shape', ()))}, the captured "
+                    f"round's {span[2]} {span[3]}")
+            dst.copy_(x)
+        self._flat.copy_(self._host[b], non_blocking=True)
+        if self._cuda:
+            self._events[b] = torch.cuda.Event()
+            self._events[b].record()
+
+
+class _CapturedRound:
+    """The scan engine on a CUDA device: the round body captured once
+    into a CUDA graph, and the eval into a second graph on the first
+    one's memory pool, each replayed once a round (an eval round).
+
+    ``state`` is static: the global params, the Adam states, the server
+    state and the EF residual, copied in from the trainer at every
+    ``run`` (``load``) and out as new tensors after every block and on an
+    exception (``store``), so a caller that holds or replaces the
+    trainer's tensors between runs is honoured and a run that raises
+    leaves the trainer at its last completed round. The operands are
+    static too: a round's ``RoundOperands`` and an eval batch, refilled
+    through ``_PinnedOperands``. A replay writes its loss (an eval
+    replay its (K,) scores) into one static output, which is cloned on
+    the same stream right after it; ``read`` brings a block's clones to
+    the host in one transfer. The trainer's device generators are
+    registered with the round graph, so each replay draws the next
+    values of the streams that ``run`` re-seeds in place.
+
+    The warm-up (which also builds and loads the kernels) runs on a side
+    stream, on copies of the state, so the trainer does not advance; it
+    draws from the trainer's device generators, which every ``run``
+    re-seeds before its first replay. A kernel wrapper's ``launches``
+    counts the capture's call once and no replay; the graph's replays
+    are ``replays`` and ``eval_replays``. The host's seconds: ``draw_s``
+    in the host half (``_stage``, the eval batch), ``stage_s`` in the
+    refills (waits for a pinned buffer included), ``replay_s`` in the
+    replay calls; ``warmup_ms`` and ``capture_ms`` what the warm-up and
+    the two captures took."""
+
+    def __init__(self, fed: FederatedGPO):
+        dev = fed.device
+        self.fed = fed
+        self.draw_s = self.stage_s = self.replay_s = 0.0
+        self.replays = self.eval_replays = 0
+        self._losses, self._scores = [], []
+        self._gens = fed._streams(fed.fed_cfg.seed + 1)
+        self._train_in = _PinnedOperands(
+            fed._stage(0, self._gens, History()), dev)
+        self._eval_in = _PinnedOperands(fed._eval_host(0, self._gens), dev)
+        ops, batch = self._train_in.static, self._eval_in.static
+        self.state = _clone(fed._state())
+
+        def warm_up():
+            new, _ = fed._round_body(_clone(self.state), ops, self._gens)
+            fed._eval(new.params, batch)
+
+        def round_fn():
+            new, self.loss = fed._round_body(self.state, ops, self._gens)
+            _copy_into(self.state, new)
+
+        def eval_fn():
+            self.scores = fed._eval(self.state.params, batch)
+
+        self._sync()
+        t0 = time.perf_counter()
+        self._warm_up(warm_up)
+        self._sync()
+        t1 = time.perf_counter()
+        self.graph = self._capture(round_fn, gens=(self._gens.release,
+                                                   self._gens.attack_noise))
+        self.eval_graph = self._capture(eval_fn, pool=self.graph.pool())
+        self._sync()
+        self.warmup_ms = (t1 - t0) * 1e3
+        self.capture_ms = (time.perf_counter() - t1) * 1e3
+
+    def _sync(self) -> None:
+        torch.cuda.synchronize(self.fed.device)
+
+    def _warm_up(self, fn: Callable) -> None:
+        """``fn()`` on a side stream, which the current stream then
+        waits for."""
+        dev = self.fed.device
+        main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            fn()
+        main.wait_stream(side)
+
+    def _capture(self, fn: Callable, gens=(), pool=None):
+        """A CUDA graph of ``fn()``'s work (its memory from ``pool`` when
+        given), drawing from the generators ``gens`` (None skipped)."""
+        graph = torch.cuda.CUDAGraph()
+        for gen in gens:
+            if gen is not None:
+                graph.register_generator_state(gen)
+        with torch.cuda.graph(graph, pool=pool):
+            fn()
+        return graph
+
+    def load(self, s: _Streams) -> None:
+        if (s.release is not self._gens.release
+                or s.attack_noise is not self._gens.attack_noise):
+            raise RuntimeError("the run's device generators are not the "
+                               "ones the round was captured with")
+        _copy_into(self.state, self.fed._state())
+        self._losses, self._scores = [], []
+
+    def store(self) -> None:
+        self.fed._set_state(_clone(self.state))
+
+    def _replay(self, staged: _PinnedOperands, graph, operands) -> None:
+        t0 = time.perf_counter()
+        staged.put(operands)
+        t1 = time.perf_counter()
+        graph.replay()
+        self.stage_s += t1 - t0
+        self.replay_s += time.perf_counter() - t1
+
+    def round(self, ops: RoundOperands) -> None:
+        self._replay(self._train_in, self.graph, ops)
+        self._losses.append(self.loss.clone())
+        self.replays += 1
+
+    def eval(self, batch: ICLBatch) -> None:
+        self._replay(self._eval_in, self.eval_graph, batch)
+        self._scores.append(self.scores.clone())
+        self.eval_replays += 1
+
+    def read(self) -> tuple:
+        """The block's losses (a list) and eval scores ((evals, K)), in
+        one transfer."""
+        losses, scores = self._losses, self._scores
+        self._losses, self._scores = [], []
+        out = torch.cat([x.reshape(-1) for x in losses + scores]).cpu()
+        n, k = len(losses), len(self.fed.eval_groups)
+        return out[:n].tolist(), out[n:].reshape(len(scores), k).numpy()
 
 
 # ---------------------------------------------------------------------------

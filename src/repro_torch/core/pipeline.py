@@ -126,8 +126,9 @@ class RoundPipeline:
                      noise_full: Optional[torch.Tensor],
                      idx: Optional[torch.Tensor] = None) -> AttackDraws:
         """The participants' attack operands from the population's:
-        ``mask_full`` (C,) bool on the host and ``noise_full`` (C, P) or
-        None, their rows ``idx`` (None: all)."""
+        ``mask_full`` (C,) bool and ``noise_full`` (C, P) or None, their
+        rows ``idx`` (None: all), indexed where each lies (the captured
+        round holds all three on the device, so nothing is read back)."""
         if mask_full.shape != (self.num_clients,):
             raise ValueError(f"attacker mask of shape {tuple(mask_full.shape)}"
                              f" for a population of {self.num_clients}")
@@ -135,7 +136,7 @@ class RoundPipeline:
             return AttackDraws(mask_full, noise_full)
         rows = (None if noise_full is None
                 else noise_full[idx.to(noise_full.device)])
-        return AttackDraws(mask_full[idx.cpu()], rows)
+        return AttackDraws(mask_full[idx.to(mask_full.device)], rows)
 
     def attacked_flags(self, mask_full: Optional[torch.Tensor],
                        idx: Optional[torch.Tensor] = None):

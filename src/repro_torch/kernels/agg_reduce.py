@@ -83,7 +83,9 @@ memory of the three-pass kernels); the wrappers refuse more on both
 devices.
 Every wrapper holds the operand contract on both devices, runs the plain
 version on CPU tensors, launches on CUDA tensors or raises, and counts
-its launches (one call counts once, however many kernels it launches).
+its launches (one call counts once, however many kernels it launches;
+a call under a CUDA graph capture counts once, its replays not at all:
+``backend.py``).
 """
 from __future__ import annotations
 

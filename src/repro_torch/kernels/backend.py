@@ -14,6 +14,15 @@
   the kernel's plain PyTorch version, on a CUDA device it launches the
   kernel or raises. There is no fallback from a failed build or launch
   to the plain version.
+* **Counts.** Each wrapper's ``launches`` adds one for every call on
+  CUDA tensors, where it launches its kernel on PyTorch's current
+  stream. Under a CUDA graph capture that launch is recorded, not run,
+  and it still counts once; the graph's replays run the kernel again
+  without a call and count nothing. So a counter counts eager launches
+  and captures; the launches of a captured round are its replays
+  (``core/federated.py::_CapturedRound.replays``) times what the
+  capture counted, or what a profile of the replays shows by kernel
+  name (``chip_smoke.py`` phase 4h holds the two to each other).
 """
 from __future__ import annotations
 

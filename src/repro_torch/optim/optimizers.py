@@ -79,8 +79,11 @@ def adam(lr: float, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
         nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g.float().square(),
                       state.nu, grads)
         t = step.float()
-        bc1 = 1.0 - torch.pow(torch.tensor(b1, device=t.device), t)
-        bc2 = 1.0 - torch.pow(torch.tensor(b2, device=t.device), t)
+        # the bases filled on the device (a tensor made from a Python
+        # number would be copied from the host, which a captured round
+        # cannot do)
+        bc1 = 1.0 - torch.pow(torch.full((), b1, device=t.device), t)
+        bc2 = 1.0 - torch.pow(torch.full((), b2, device=t.device), t)
 
         def upd(p, m, v):
             mhat = m / _per_row(bc1, m)
