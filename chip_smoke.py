@@ -91,10 +91,13 @@ the card, raising on any mismatch:
    ``repro_torch.benchmarks.paper_experiment``'s pair at the reference's
    widths and ``FedConfig`` (17 groups, 10 clients, d_model 96, head_dim
    24, 6 local epochs at 3e-4, 12+12 questions) through the kernels, 30
-   federated rounds and 30 centralized epochs: the launch counts of
-   every round and epoch, the first 3 of each against the same pair on
-   the CPU, the falling loss, ``summarize``, the wall per round and
-   epoch; then 3 rounds of 3 clients a round (``batch_groups``), once
+   federated rounds and 30 centralized epochs under ``engine="loop"``:
+   the launch counts of every round and epoch, the first 3 of each
+   against the same pair on the CPU, the falling loss, ``summarize``,
+   the wall per round and epoch; the pair again under the default
+   engine, both halves replayed from CUDA graphs, each History bit for
+   bit the loop's, its walls a round and an epoch printed beside the
+   loop's; then 3 rounds of 3 clients a round (``batch_groups``), once
    with ``reset_opt_each_round``: the cohorts equal to the CPU's and
    the run within the training tolerance of the CPU's.
    4f. The round's adversary, availability and hierarchy stages at the
@@ -144,9 +147,20 @@ the card, raising on any mismatch:
    to the loop's launches; one staged round of each under
    ``torch.cuda.set_sync_debug_mode("error")``; FedAvg 20 more rounds in
    blocks of 5 (the same graphs); the paper experiment's configuration
-   for 30 rounds, 30 more and 10 profiled. Phases 4, 4b, 4c, 4e, 4f and
-   4g's stacked runs pass ``engine="loop"``, so their launch counts
-   count what they counted before.
+   for 30 rounds, 30 more and 10 profiled. The round's ICL draws are
+   staged as question indices and gathered in the graph. Then the
+   centralized epoch (``core/centralized.py``, the same capture machine)
+   in the same way: the quickstart's configuration 3 epochs, 3 more and
+   3 profiled, the paper experiment's 30, 30 and 10, each through the
+   kernels and dense, bit for bit its eager card epochs, one staged
+   epoch under the sync debug mode; the host's draws a round and an
+   epoch timed by part before and after index staging (the per-group
+   multinomials, gathers and stack against one multinomial), the bytes
+   staged a round and an eval in both layouts; and the 2-D
+   ``torch.multinomial`` against the per-row calls on this machine's
+   torch. Phases 4, 4b, 4c, 4e, 4f and 4g's stacked runs pass
+   ``engine="loop"``, so their launch counts count what they counted
+   before.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -177,9 +191,11 @@ agreement, wall per round, survivors per round), the ``sharded`` JSON
 line (per phase 4g part: backend, devices; per configuration each
 process's launches, walls and collective ms, the ledger's calls and
 bytes, agreement), the ``captured`` JSON line (per phase 4h
-configuration: the loop's launches, the replayed kernels in the
-profile, walls under both engines, the host's draw, stage and replay
-ms, warm-up and capture ms, deviation), the ``kernels`` JSON line (4g's
+configuration, the centralized ones too: the loop's launches, the
+replayed kernels in the profile, walls under both engines, the host's
+draw, stage and replay ms, warm-up and capture ms, staged bytes,
+deviation; the draws by part; the multinomial check), the ``kernels``
+JSON line (4g's
 and 4h's launches in each row's ``launches_by_path``), the
 card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
@@ -239,6 +255,7 @@ from repro_torch.core import compression as cx  # noqa: E402
 from repro_torch.core import pipeline  # noqa: E402
 from repro_torch.core import privacy as dp  # noqa: E402
 from repro_torch.core import (  # noqa: E402
+    CentralizedGPO,
     FederatedGPO,
     PreferenceServer,
     gpo_apply,
@@ -254,9 +271,12 @@ from repro_torch.core import History, ShardedGPO, federated  # noqa: E402
 from repro_torch.core.fairness import alignment_score  # noqa: E402
 from repro_torch.core.gpo import map_params  # noqa: E402
 from repro_torch.data import (  # noqa: E402
+    ICLDraw,
     SurveyConfig,
+    gather_icl_batch,
     make_survey_data,
     sample_icl_batch,
+    sample_icl_indices,
     split_groups,
 )
 from repro_torch.kernels import backend, quantize_linear  # noqa: E402
@@ -688,6 +708,19 @@ CAPTURED = {
         "dense": True, **STAGE_RUNS["gaussian-fedavg-norm_bound"]},
 }
 CAPTURED_ROUNDS, CAPTURED_MORE, CAPTURED_PAPER_ROUNDS = 3, 20, 30
+# the centralized epoch captured (core/centralized.py, through the same
+# _CapturedRound): the quickstart's configuration (GPOConfig() width, a
+# step for each of the 10 training groups an epoch, eval every epoch)
+# for CAPTURED_ROUNDS epochs and as many more, and the paper
+# experiment's (phase 4e's trainer, eval every 10) for
+# CAPTURED_PAPER_ROUNDS and as many more, each through the kernels and
+# dense, bit for bit as the federated configurations
+CAPTURED_CEN = ("quickstart", "quickstart-dense", "paper", "paper-dense")
+# the host half's ICL draws timed by part, before (one sample_icl_batch
+# a group: the multinomial, the gathers, the stack) and after (one
+# sample_icl_indices over every row, the gathers moved into the graph),
+# median of DRAW_REPS rounds or epochs
+DRAW_REPS = 20
 # the graph replays the eager round's kernels on the same operands, so
 # the captured run must equal the eager card run bit for bit; a
 # configuration named here may differ by at most its bound (≤ 1e-6), for
@@ -3071,7 +3104,8 @@ def experiment(dev) -> dict:
     for label, trainer, kw, expected in (
             ("fed", fed, {"rounds": EXP_ROUNDS, "engine": "loop"},
              want(epochs, EXP_ROUNDS)),
-            ("cen", cen, {"epochs": EXP_ROUNDS}, want(clients, 0))):
+            ("cen", cen, {"epochs": EXP_ROUNDS, "engine": "loop"},
+             want(clients, 0))):
         _zero_counts()
         t0 = time.perf_counter()
         hist = trainer.run(**kw)
@@ -3101,7 +3135,7 @@ def experiment(dev) -> dict:
                        "loss_first3_mean": first, "loss_last5_mean": last}
     # where a round's and an epoch's time goes (a one-round run evaluates)
     for label, fn in (("fed", lambda: fed.run(rounds=1, engine="loop")),
-                      ("cen", lambda: cen.run(epochs=1))):
+                      ("cen", lambda: cen.run(epochs=1, engine="loop"))):
         prof = _profile(fn, f"experiment_{label}_trace.json")
         runs[label]["profile"] = prof
         print(f"  one {label} {'round' if label == 'fed' else 'epoch'} "
@@ -3112,6 +3146,7 @@ def experiment(dev) -> dict:
     summary = summarize([result])
     print(f"  summarize (1 seed, {EXP_ROUNDS} rounds): "
           + ", ".join(f"{k} {v:.4f}" for k, v in summary.items()))
+    captured = _experiment_captured(dev, runs)
 
     # the first rounds and epochs against the same pair on the CPU (the
     # batches come from CPU generators on both devices)
@@ -3120,7 +3155,8 @@ def experiment(dev) -> dict:
                                         cpu_f.run(rounds=EXP_CPU_ROUNDS,
                                                   engine="loop")),
              "cen": _first_rounds_agree(runs["cen"]["hist"],
-                                        cpu_c.run(epochs=EXP_CPU_ROUNDS))}
+                                        cpu_c.run(epochs=EXP_CPU_ROUNDS,
+                                                  engine="loop"))}
     for label, a in agree.items():
         print(f"  {label} vs the CPU over the first {a['rounds']}: "
               f"round_loss rel {a['round_loss_rel']:.3e} (tol "
@@ -3181,7 +3217,50 @@ def experiment(dev) -> dict:
             **{label: {k: v for k, v in r.items() if k != "hist"}
                for label, r in runs.items()},
             "summary": summary, "cpu_agreement": agree,
-            "tolerance": TRAIN_TOL, "partial": sub}
+            "captured": captured, "tolerance": TRAIN_TOL, "partial": sub}
+
+
+def _history_values(hist) -> list:
+    """A History's losses, eval rounds and scores, compared exactly."""
+    return [list(hist.round_loss), list(hist.eval_rounds),
+            [np.asarray(x).tolist() for x in hist.eval_scores],
+            list(hist.eval_mean_as), list(hist.eval_fi)]
+
+
+def _experiment_captured(dev, runs: dict) -> dict:
+    """The pair from the same seed under the default engine ("scan"):
+    both halves replayed from CUDA graphs, each History bit for bit the
+    loop run's in ``runs``; the walls a round and an epoch (warm-up and
+    capture included, and without them) beside the loop's."""
+    fed, cen = make_pair(EXP_ROUNDS, SEED, device=dev)
+    out = {}
+    for label, trainer, unit in (("fed", fed, "round"),
+                                 ("cen", cen, "epoch")):
+        t0 = time.perf_counter()
+        hist = trainer.run(EXP_ROUNDS)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        graph = trainer.captured_round
+        if graph is None or graph.replays != EXP_ROUNDS:
+            raise AssertionError(f"the captured {label} run did not replay "
+                                 f"its graph once a {unit}")
+        if _history_values(hist) != _history_values(runs[label]["hist"]):
+            raise AssertionError(f"the captured {label} run's History "
+                                 "differs from the loop's")
+        setup = graph.warmup_ms + graph.capture_ms
+        loop = runs[label]["wall_ms_per_" + unit]
+        out[label] = {"wall_ms_per_" + unit: wall / EXP_ROUNDS,
+                      "after_capture_ms_per_" + unit:
+                      (wall - setup) / EXP_ROUNDS,
+                      "loop_ms_per_" + unit: loop,
+                      "warmup_ms": graph.warmup_ms,
+                      "capture_ms": graph.capture_ms,
+                      "bit_equal_to_loop": True}
+        print(f"  captured {label}: {wall / EXP_ROUNDS:.2f} ms per {unit} "
+              f"({(wall - setup) / EXP_ROUNDS:.2f} past its warm-up "
+              f"{graph.warmup_ms:.1f} and capture {graph.capture_ms:.1f} "
+              f"ms), loop {loop:.2f}; History bit for bit the loop's")
+    return out
 
 
 def _captured_cfg(base: FedConfig, label: str) -> FedConfig:
@@ -3198,15 +3277,15 @@ def _captured_cfg(base: FedConfig, label: str) -> FedConfig:
         hierarchy=HierarchyConfig(**spec.get("hierarchy", {})))
 
 
-def _run_values(fed, hist) -> tuple:
-    """A run's History and the trainer's state as flat float64 arrays
-    (compared exactly), and its eval rounds and cohorts."""
+def _run_values(trainer, hist) -> tuple:
+    """A run's History and the trainer's state (``FederatedGPO``'s or
+    ``CentralizedGPO``'s) as flat float64 arrays (compared exactly), and
+    its eval rounds and cohorts."""
     vals = [np.asarray(hist.round_loss, np.float64),
             np.asarray(hist.eval_scores, np.float64).reshape(-1),
             np.asarray(hist.eval_mean_as + hist.eval_fi + hist.eval_cov
                        + hist.round_eps, np.float64)]
-    for x in tree_leaves((fed.global_params, fed.opt_states,
-                          fed.server_state, fed.ef_resid)):
+    for x in tree_leaves(trainer._state()):
         if x is not None:
             vals.append(x.detach().double().cpu().reshape(-1).numpy())
     return vals, (hist.eval_rounds, hist.round_participants)
@@ -3233,19 +3312,21 @@ def _captured_deviation(label: str, a, b) -> float:
 
 
 def _sync_free_round(make, dev) -> None:
-    """One staged round and one eval, the round body run eagerly on a
-    fresh trainer under ``torch.cuda.set_sync_debug_mode("error")``: a
-    call that synchronizes the host with the card raises. The operands
-    are staged on the card first."""
-    fed = make()
-    s = fed._streams(fed.fed_cfg.seed + 1)
-    ops = federated._on(fed._stage(0, s, History()), dev)
-    batch = fed._eval_host(0, s).to(dev)
+    """One staged round (an epoch for ``CentralizedGPO``) and one eval,
+    the device halves run eagerly on a fresh trainer under
+    ``torch.cuda.set_sync_debug_mode("error")``: a call that
+    synchronizes the host with the card raises, the gathers of the
+    staged question indices included. The operands are staged on the
+    card first."""
+    trainer = make()
+    s = trainer._streams(trainer.fed_cfg.seed + 1)
+    ops = federated._on(trainer._stage(0, s, History()), dev)
+    batch = federated._on(trainer._eval_host(0, s), dev)
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, loss = fed._round_body(fed._state(), ops, s)
-        fed._eval(state.params, batch)
+        state, loss = trainer._round_body(trainer._state(), ops, s)
+        trainer._eval_body(state.params, batch)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     if not torch.isfinite(loss).item():
@@ -3267,13 +3348,13 @@ def _captured_pair(label: str, make, rounds: int, prof_rounds: int) -> tuple:
     zero = dict.fromkeys(_COUNTED, 0)
     _zero_counts()
     t0 = time.perf_counter()
-    hist_l = loop.run(rounds=rounds, engine="loop")
+    hist_l = loop.run(rounds, engine="loop")
     torch.cuda.synchronize()
     first_loop = (time.perf_counter() - t0) * 1e3
     launches = _counts()
     _zero_counts()
     t0 = time.perf_counter()
-    hist_c = cap.run(rounds=rounds, engine="scan")
+    hist_c = cap.run(rounds, engine="scan")
     torch.cuda.synchronize()
     first_cap = (time.perf_counter() - t0) * 1e3
     counted = _counts()
@@ -3298,12 +3379,12 @@ def _captured_pair(label: str, make, rounds: int, prof_rounds: int) -> tuple:
                                     _run_values(loop, hist_l))
     # the next rounds: the same graphs replay, the state copied in
     t0 = time.perf_counter()
-    hist_l = loop.run(rounds=rounds, engine="loop")
+    hist_l = loop.run(rounds, engine="loop")
     torch.cuda.synchronize()
     wall_loop = (time.perf_counter() - t0) * 1e3 / rounds
     host0 = (graph.draw_s, graph.stage_s, graph.replay_s)
     t0 = time.perf_counter()
-    hist_c = cap.run(rounds=rounds, engine="scan")
+    hist_c = cap.run(rounds, engine="scan")
     torch.cuda.synchronize()
     wall_cap = (time.perf_counter() - t0) * 1e3 / rounds
     if cap.captured_round is not graph:
@@ -3317,14 +3398,14 @@ def _captured_pair(label: str, make, rounds: int, prof_rounds: int) -> tuple:
     _zero_counts()
     names = [n for ns in KERNEL_NAMES.values() for n in ns]
     held = []
-    prof = _profile(lambda: held.append(cap.run(rounds=prof_rounds,
+    prof = _profile(lambda: held.append(cap.run(prof_rounds,
                                                 engine="scan")),
                     f"captured_{label}_trace.json", match=names)
     if _counts() != zero:
         raise AssertionError(f"{label}: a replayed run called a wrapper")
     dev_prof = _captured_deviation(
         label, _run_values(cap, held[0]),
-        _run_values(loop, loop.run(rounds=prof_rounds, engine="loop")))
+        _run_values(loop, loop.run(prof_rounds, engine="loop")))
     replayed = {k: sum(prof["matched"][n]["launches"] for n in ns)
                 for k, ns in KERNEL_NAMES.items()}
     n_prof = _evals(prof_rounds, cap.fed_cfg.eval_every)
@@ -3341,6 +3422,7 @@ def _captured_pair(label: str, make, rounds: int, prof_rounds: int) -> tuple:
                k: v for k, v in counted.items() if v},
            "first_run_ms": {"loop": first_loop, "captured": first_cap},
            "warmup_ms": graph.warmup_ms, "capture_ms": graph.capture_ms,
+           "staged_bytes": _staged_bytes(cap),
            "wall_ms_per_round": {"loop": wall_loop, "captured": wall_cap},
            "host_ms_per_round": {"draw": draw, "stage": stage,
                                  "replay_call": replay},
@@ -3363,16 +3445,150 @@ def _captured_pair(label: str, make, rounds: int, prof_rounds: int) -> tuple:
     return rec, loop, cap
 
 
+def check_multinomial() -> dict:
+    """On this machine's torch: one 2-D ``torch.multinomial`` without
+    replacement over n mask rows equals the n per-row calls stacked, and
+    leaves the generator where they leave it (what ``sample_icl_indices``
+    rests on), at ``SurveyConfig()``'s 120 questions and the paper's 24
+    a draw, over 10 rows and over 60."""
+    data = make_survey_data(SurveyConfig(), _gen(SEED))
+    out = {}
+    for n in (10, 60):
+        rows = data.mask[torch.arange(n) % data.num_groups].float()
+        g_rows, g_one = _gen(n), _gen(n)
+        per_row = torch.stack([torch.multinomial(
+            r, 24, replacement=False, generator=g_rows) for r in rows])
+        batched = torch.multinomial(rows, 24, replacement=False,
+                                    generator=g_one)
+        out[str(n)] = (torch.equal(per_row, batched)
+                       and torch.equal(g_rows.get_state(), g_one.get_state()))
+    print(f"  the 2-D multinomial against the per-row calls (torch "
+          f"{torch.__version__}): " + ", ".join(
+              f"{n} rows {'equal' if ok else 'DIFFERENT'}"
+              for n, ok in out.items()))
+    if not all(out.values()):
+        raise AssertionError("the 2-D multinomial differs from the per-row "
+                             "calls on this machine's torch")
+    return out
+
+
+def _staged_bytes(trainer) -> dict:
+    """The bytes a refill copies to the card a round (an epoch for
+    ``CentralizedGPO``) and an eval: as staged (question indices), and
+    as the whole gathered batches the host staged before (E client-
+    stacked batches a round, G a-group batches an epoch), each laid out
+    as ``_PinnedOperands`` lays it (16-byte aligned)."""
+    s = trainer._streams(trainer.fed_cfg.seed + 1)
+    ops, ev = trainer._stage(0, s, History()), trainer._eval_host(0, s)
+
+    def whole(x):
+        if isinstance(x, federated.RoundOperands):
+            return x._replace(batches=whole(x.batches))
+        if not isinstance(x, ICLDraw):
+            return x
+        b = gather_icl_batch(trainer.data.phi, trainer.data.prefs, x.groups,
+                             x.q, trainer.fed_cfg.num_context)
+        return b if x.q.dim() == 2 else tuple(
+            federated._batch_rows(b, e) for e in range(len(x.q)))
+
+    def nbytes(tree) -> int:
+        return federated._PinnedOperands(tree, torch.device("cpu")).nbytes
+
+    return {"round": nbytes(ops), "eval": nbytes(ev),
+            "round_whole": nbytes(whole(ops)), "eval_whole": nbytes(whole(ev))}
+
+
+def _draw_parts(trainer, reps: int = DRAW_REPS) -> dict:
+    """The host half's ICL draws of one round (epoch), by part, in ms on
+    the host's clock (median of ``reps``). Before: one
+    ``sample_icl_batch`` a group, as the host drew them until index
+    staging (its multinomial, its four gathers, and for a round the
+    stack of each epoch's batches), written out here with a clock
+    around each part. After: one ``sample_icl_indices`` over every row
+    (the gathers run on the card, inside the graph), and the whole host
+    half (``_stage``: the cohort, the draw, the hooks) as it runs now."""
+    fed, data = trainer.fed_cfg, trainer.data
+    nc, nt, d = fed.num_context, fed.num_target, data.phi.shape[-1]
+    rounds = isinstance(trainer, FederatedGPO)
+    groups = (trainer.train_groups[:trainer.num_participants] if rounds
+              else trainer.train_groups)
+    epochs = fed.local_epochs if rounds else 1
+    gen, s = _gen(SEED), trainer._streams(fed.seed + 1)
+    times = {k: [] for k in ("multinomial", "gather", "stack", "indices",
+                             "stage")}
+    for _ in range(reps):
+        mult = gath = stk = 0.0
+        for _e in range(epochs):
+            rows = []
+            for g in (int(x) for x in groups):
+                t0 = time.perf_counter()
+                qs = torch.multinomial(data.mask[g].float(), nc + nt,
+                                       replacement=False, generator=gen)
+                t1 = time.perf_counter()
+                ctx_q, tgt_q = qs[:nc], qs[nc:]
+                rows.append((data.phi[ctx_q].reshape(-1, d),
+                             data.prefs[g, ctx_q].reshape(-1),
+                             data.phi[tgt_q].reshape(-1, d),
+                             data.prefs[g, tgt_q].reshape(-1),
+                             tgt_q.repeat_interleave(data.num_options)))
+                t2 = time.perf_counter()
+                mult, gath = mult + t1 - t0, gath + t2 - t1
+            if rounds:
+                t0 = time.perf_counter()
+                [torch.stack(f) for f in zip(*rows)]
+                stk += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        sample_icl_indices(gen, data, np.tile(groups, epochs), nc, nt)
+        t1 = time.perf_counter()
+        trainer._stage(0, s, History())
+        t2 = time.perf_counter()
+        for k, v in (("multinomial", mult), ("gather", gath), ("stack", stk),
+                     ("indices", t1 - t0), ("stage", t2 - t1)):
+            times[k].append(v * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    before = med["multinomial"] + med["gather"] + med["stack"]
+    return {"rows": len(groups) * epochs,
+            "before_ms": {"multinomial": med["multinomial"],
+                          "gather": med["gather"], "stack": med["stack"],
+                          "total": before},
+            "after_ms": {"indices": med["indices"], "stage": med["stage"]}}
+
+
+def _cen_maker(label: str, dev, data, tr, ev, base: FedConfig):
+    """``make()`` for phase 4h's centralized configuration ``label``
+    (``CAPTURED_CEN``): the quickstart's (``base``, GPOConfig() width) or
+    the paper experiment's trainer, through the kernels or dense."""
+    kernels = not label.endswith("-dense")
+    if label.startswith("quickstart"):
+        gcfg, fcfg = GPOConfig(d_embed=data.phi.shape[-1]), base
+        args = (data, tr, ev)
+    else:
+        cen = make_pair(CAPTURED_PAPER_ROUNDS, SEED, device="cpu")[1]
+        gcfg, fcfg = cen.gpo_cfg, cen.fed_cfg
+        args = (cen.data, cen.train_groups, cen.eval_groups)
+    fcfg = replace(fcfg, use_pallas_attention=kernels,
+                   use_pallas_aggregation=kernels)
+
+    def make():
+        return CentralizedGPO(gcfg, fcfg, *args, device=dev)
+
+    return make
+
+
 def train_captured(dev, data, tr, ev) -> dict:
     """Phase 4h: ``engine="scan"`` on the card, the round replayed from
     a CUDA graph, against the eager card run (``engine="loop"``) from
     the same seed, for every configuration of ``CAPTURED``; FedAvg's
-    longer blocks; the paper experiment's configuration; and one staged
-    round of each under the sync debug mode."""
+    longer blocks; the paper experiment's configuration; the centralized
+    epoch replayed from a CUDA graph in the configurations of
+    ``CAPTURED_CEN``; one staged round or epoch of each under the sync
+    debug mode; the host's draws by part before and after index staging;
+    and the 2-D multinomial against the per-row calls."""
     gcfg = GPOConfig(d_embed=data.phi.shape[-1])
     base = FedConfig(num_clients=len(tr), local_epochs=6, lr=3e-4,
                      eval_every=1, use_pallas_attention=True,
                      use_pallas_aggregation=True)
+    multinomial = check_multinomial()
     out = {}
     for label in CAPTURED:
         cfg = _captured_cfg(base, label)
@@ -3427,9 +3643,40 @@ def train_captured(dev, data, tr, ev) -> dict:
     out["paper"], _, _ = _captured_pair(
         "paper", make_paper, CAPTURED_PAPER_ROUNDS,
         min(10, CAPTURED_PAPER_ROUNDS))
+
+    # the centralized epoch (an epoch is the baseline's round)
+    for label in CAPTURED_CEN:
+        make = _cen_maker(label, dev, data, tr, ev, base)
+        _sync_free_round(make, dev)
+        n = (CAPTURED_ROUNDS if label.startswith("quickstart")
+             else CAPTURED_PAPER_ROUNDS)
+        out["cen-" + label], _, _ = _captured_pair("cen-" + label, make, n,
+                                                   min(10, n))
+
+    # the host's ICL draws a round (epoch) by part, before and after
+    parts = {}
+    for label, make in (
+            ("fedavg", lambda: FederatedGPO(gcfg, base, data, tr, ev,
+                                            device=dev)),
+            ("paper", make_paper),
+            ("cen-quickstart", _cen_maker("quickstart", dev, data, tr, ev,
+                                          base)),
+            ("cen-paper", _cen_maker("paper", dev, data, tr, ev, base))):
+        parts[label] = p = _draw_parts(make())
+        b, a = p["before_ms"], p["after_ms"]
+        staged = out[label]["staged_bytes"]
+        print(f"  draws a {'epoch' if label.startswith('cen') else 'round'}"
+              f" of {label} ({p['rows']} rows): before {b['total']:.3f} ms "
+              f"(multinomial {b['multinomial']:.3f}, gather "
+              f"{b['gather']:.3f}, stack {b['stack']:.3f}); after: one "
+              f"multinomial {a['indices']:.3f}, the host half {a['stage']:.3f}"
+              f"; staged {staged['round']} bytes (whole batches "
+              f"{staged['round_whole']}), an eval {staged['eval']} "
+              f"({staged['eval_whole']})")
     return {"rounds": CAPTURED_ROUNDS, "more_rounds": CAPTURED_MORE,
             "paper_rounds": CAPTURED_PAPER_ROUNDS, "bounds": CAPTURED_BOUND,
-            "runs": out}
+            "centralized": list(CAPTURED_CEN), "multinomial": multinomial,
+            "draw_parts": parts, "runs": out}
 
 
 def _lm_cfg(arch: str, **kw) -> ModelConfig:

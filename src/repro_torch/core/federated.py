@@ -57,17 +57,23 @@ reference.
 
 A round is two halves. The host half (``_stage``) makes every draw the
 round takes on the CPU, in the order above: the cohort, the attackers,
-the E epochs' batches, and the replay hooks' values (``RoundOperands``).
-The device half (``_round_body``) takes only tensors and the device
-generators: it draws the release noise and uniforms and the gaussian
-attack's normals there, trains, releases, reduces and applies, and
-calls nothing that reads a tensor back to the host. The two drivers run
-the same halves:
+the E epochs' ICL draws, and the replay hooks' values
+(``RoundOperands``). The ICL draws are staged as question indices only
+(``ICLDraw``: the cohort's groups and one (E, m, nq) index tensor, from
+one ``sample_icl_indices`` call); replayed batches (the ``batches=``
+hook) are staged whole. The device half (``_round_body``) takes only
+tensors and the device generators: it gathers the round's batches from
+the trainer's device copies of ``phi`` and ``prefs`` in one advanced
+index, draws the release noise and uniforms and the gaussian attack's
+normals there, trains, releases, reduces and applies, and calls nothing
+that reads a tensor back to the host. The eval is staged and gathered
+the same way. The two drivers run the same halves:
 
 * ``engine="loop"``: one round at a time, the operands copied to the
   device, the loss read back every round (one host sync a round).
 * ``engine="scan"`` (the default; the reference's fused driver,
-  DESIGN.md §3), on a CUDA device (``_CapturedRound``): the round body
+  DESIGN.md §3), on a CUDA device (``_CapturedRound``, which
+  ``CentralizedGPO`` shares for its epoch): the round body
   is captured once a trainer into a CUDA graph and the eval into a
   second graph on the first one's memory pool; each round copies its
   operands through pinned, double-buffered host memory into the graph's
@@ -151,7 +157,14 @@ from repro_torch.core.gpo import (
     predict_preferences,
 )
 from repro_torch.core.pipeline import make_pipeline
-from repro_torch.data.surveys import ICLBatch, SurveyData, sample_icl_batches
+from repro_torch.data.surveys import (
+    ICLBatch,
+    ICLDraw,
+    SurveyData,
+    gather_icl_batch,
+    sample_icl_batches,
+    sample_icl_indices,
+)
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.launch.collectives import Collectives
 from repro_torch.launch.mesh import ClientMesh
@@ -324,7 +337,10 @@ class RoundOperands(NamedTuple):
     as CPU tensors and then staged on the device. The device generators'
     draws are not here: the round body makes them."""
 
-    batches: tuple  # E client-stacked ICLBatches, one a local epoch
+    # the E local epochs' batches: drawn, an ICLDraw of the cohort's (m,)
+    # groups and (E, m, nq) question indices, gathered by the round body;
+    # replayed (the batches= hook), E client-stacked ICLBatches, whole
+    batches: object
     weights: torch.Tensor  # (m,) Eq. 2 weights over the cohort
     idx: Optional[torch.Tensor] = None  # (m,) int64 cohort; None: all C
     attack_mask: Optional[torch.Tensor] = None  # (C,) bool attackers
@@ -462,7 +478,68 @@ class _RoundSource:
                 if self._accountant else float("inf"))
 
 
-class FederatedGPO(_RoundSource):
+class _StagedTrainer:
+    """What ``FederatedGPO`` and ``CentralizedGPO`` share around their
+    two halves: the eval schedule, whether the scan engine captures, and
+    the ICL batches, drawn on the host as question indices (``ICLDraw``)
+    from the CPU generators and gathered on the device from the
+    trainer's copies of ``phi`` and ``prefs`` (``_tables``, made once by
+    ``_init_tables``); replayed batches (the hooks) come whole. Its
+    users set ``fed_cfg``, ``data``, ``device``, ``eval_groups``,
+    ``_eval`` and ``_eval_batches``."""
+
+    def _eval_mask(self, rounds: int) -> np.ndarray:
+        """Rounds that evaluate: every ``eval_every``-th and the last."""
+        mask = np.zeros(rounds, np.bool_)
+        mask[:: self.fed_cfg.eval_every] = True
+        mask[rounds - 1] = True
+        return mask
+
+    def _captures(self) -> bool:
+        """The scan engine captures its round where CUDA graphs exist."""
+        return self.device.type == "cuda"
+
+    def _init_tables(self) -> None:
+        self._tables = (self.data.phi.to(self.device),
+                        self.data.prefs.to(self.device))
+
+    def _draw(self, gen: torch.Generator, groups, epochs: int = 0
+              ) -> ICLDraw:
+        """An ``ICLDraw`` over ``groups`` from ``gen``: (n, nq) indices,
+        or (E, n, nq) with ``epochs`` E > 0, epoch-major (the draws of E
+        ``sample_icl_batches`` calls in turn), from one multinomial."""
+        fed = self.fed_cfg
+        g = torch.as_tensor(np.asarray(groups), dtype=torch.int64)
+        q = sample_icl_indices(gen, self.data, g.repeat(max(epochs, 1)),
+                               fed.num_context, fed.num_target)
+        return ICLDraw(g, q.reshape(epochs, len(g), -1) if epochs else q)
+
+    def _device_batch(self, ops) -> ICLBatch:
+        """Staged batch operands as an ``ICLBatch`` on the device: an
+        ``ICLDraw`` gathered from ``_tables`` in one advanced index a
+        table, an ``ICLBatch`` as it is."""
+        if isinstance(ops, ICLDraw):
+            return gather_icl_batch(*self._tables, ops.groups, ops.q,
+                                    self.fed_cfg.num_context)
+        return ops
+
+    def _eval_host(self, r: int, s: _Streams):
+        """Round ``r``'s eval operands over the held-out groups on the
+        host: the hook's batch, or an ``ICLDraw`` ((K, nq) indices) from
+        the eval generator."""
+        if self._eval_batches is not None:
+            return self._eval_batches(r).to("cpu")
+        return self._draw(s.eval, self.eval_groups)
+
+    def _eval_body(self, params, ops) -> torch.Tensor:
+        """The held-out groups' (K,) scores of ``params`` on staged eval
+        operands (on the device): gathered, then scored."""
+        return self._eval(params, self._device_batch(ops))
+
+
+class FederatedGPO(_RoundSource, _StagedTrainer):
+    _LABEL = "[fed] round"  # a History eval line's label
+
     def __init__(self, gpo_cfg: GPOConfig, fed_cfg: FedConfig,
                  data: SurveyData, train_groups, eval_groups, *,
                  device=None, init_params=None,
@@ -540,6 +617,7 @@ class FederatedGPO(_RoundSource):
             num_clients=num_clients)
         self._local_train = _make_local_train(gpo_cfg, fed_cfg, self.opt)
         self._eval = _make_eval_group(gpo_cfg, data.num_options)
+        self._init_tables()
         self._participants = participants
         self._batches, self._eval_batches = batches, eval_batches
         self._release_draws = release_draws
@@ -565,35 +643,20 @@ class FederatedGPO(_RoundSource):
                                    dtype=torch.int64)
         return torch.randperm(c, generator=gen)[:m]
 
-    def _eval_mask(self, rounds: int) -> np.ndarray:
-        """Rounds that evaluate: every ``eval_every``-th and the last."""
-        mask = np.zeros(rounds, np.bool_)
-        mask[:: self.fed_cfg.eval_every] = True
-        mask[rounds - 1] = True
-        return mask
-
-    def _host_batch(self, r: int, e: int, s: _Streams, groups) -> ICLBatch:
-        """Epoch ``e``'s client-stacked batch over ``groups`` on the host:
-        replayed from the hook or drawn from the training generator."""
-        fed = self.fed_cfg
-        b = (self._batches(r, e) if self._batches is not None else
-             sample_icl_batches(s.train, self.data, groups,
-                                fed.num_context, fed.num_target))
-        return b.to("cpu")
-
-    def _eval_host(self, r: int, s: _Streams) -> ICLBatch:
-        """Round ``r``'s eval batch over the held-out groups on the host:
-        replayed from the hook or drawn from the eval generator."""
-        fed = self.fed_cfg
-        b = (self._eval_batches(r) if self._eval_batches is not None
-             else sample_icl_batches(s.eval, self.data, self.eval_groups,
-                                     fed.num_context, fed.num_target))
-        return b.to("cpu")
+    def _host_batches(self, r: int, s: _Streams, groups):
+        """The E local epochs' batches over ``groups`` on the host: the
+        hook's E client-stacked batches, or one ``ICLDraw`` ((E, m, nq)
+        indices) from the training generator."""
+        epochs = self.fed_cfg.local_epochs
+        if self._batches is not None:
+            return tuple(self._batches(r, e).to("cpu")
+                         for e in range(epochs))
+        return self._draw(s.train, groups, epochs)
 
     def _stage(self, r: int, s: _Streams, hist: History) -> RoundOperands:
         """The host half of a round: every host draw it takes, from the
         generators and in the order of the per-round driver (the cohort,
-        the attackers, the E epochs' batches) and the hooks' values, as
+        the attackers, the E epochs' ICL draws) and the hooks' values, as
         CPU tensors. Records the cohort in ``hist``."""
         cohort = self._cohort(r, s.train)
         if cohort is None:
@@ -603,8 +666,7 @@ class FederatedGPO(_RoundSource):
             groups = self.train_groups[cohort.numpy()]
             weights = self._host_weights(groups)
         mask, attack_noise = self._attack_host(r, s) or (None, None)
-        batches = tuple(self._host_batch(r, e, s, groups)
-                        for e in range(self.fed_cfg.local_epochs))
+        batches = self._host_batches(r, s, groups)
         noise, uniform = self._release_host(r)
         return RoundOperands(batches, weights, cohort, mask, attack_noise,
                              noise, uniform)
@@ -638,8 +700,14 @@ class FederatedGPO(_RoundSource):
         """Local training of the round's participants from the global
         params, label_flip's attackers on flipped targets: (client
         params, trained params, their Adam states, per-client losses).
-        The caller scatters the states."""
+        A drawn round's (E, m, ...) batches are gathered here at once,
+        each epoch's taken by a Python int. The caller scatters the
+        states."""
         idx, m = ops.idx, ops.weights.shape[0]
+        batches = ops.batches
+        if isinstance(batches, ICLDraw):
+            stack = self._device_batch(batches)
+            batches = [_batch_rows(stack, e) for e in range(len(batches.q))]
         clients = broadcast_to_clients(state.params, m)
         if self.fed_cfg.reset_opt_each_round:
             opt_in = self.opt.init(clients, num_clients=m)
@@ -649,7 +717,7 @@ class FederatedGPO(_RoundSource):
         flags = (None if ops.attack_mask is None
                  else self._pipe.attacked_flags(ops.attack_mask, idx))
         trained, opt_out, losses = self._local_train(
-            clients, opt_in, ops.batches.__getitem__, flags)
+            clients, opt_in, batches.__getitem__, flags)
         return clients, trained, opt_out, losses
 
     def _round_body(self, state: RoundState, ops: RoundOperands,
@@ -767,11 +835,15 @@ class FederatedGPO(_RoundSource):
         n_train = max(float(keep.sum()), 1.0)
         return float(torch.where(keep_d, losses, 0.0).sum() / n_train)
 
-    def evaluate(self, batch: ICLBatch) -> np.ndarray:
-        """Per-group AS (K,) of the global model on a batch stacked over
-        the held-out groups."""
-        return self._eval(self.global_params,
-                          batch.to(self.device)).cpu().numpy()
+    def _record(self, hist: History, loss: float) -> None:
+        """A finished round's loss and cumulative ε, into ``hist``."""
+        hist.round_loss.append(loss)
+        self._note_privacy(hist)
+
+    def _completed(self, n: int) -> None:
+        """``n`` rounds of a block that raised did complete: the
+        accountant counts them, as in the per-round driver."""
+        self._rounds_elapsed += n
 
     def run(self, rounds: int | None = None, log_every: int = 0,
             engine: str | None = None) -> History:
@@ -809,56 +881,23 @@ class FederatedGPO(_RoundSource):
                 loss = float(loss)
             else:
                 loss = self._fault_round(r, s, hist)
-            hist.round_loss.append(loss)
-            self._note_privacy(hist)
+            self._record(hist, loss)
             if eval_mask[r]:
-                hist.append_eval(r, self.evaluate(self._eval_host(r, s)),
-                                 log_every)
-
-    def _captures(self) -> bool:
-        """The scan engine captures its round where CUDA graphs exist."""
-        return self.device.type == "cuda"
+                hist.append_eval(r, self._eval_body(
+                    self.global_params,
+                    _on(self._eval_host(r, s), self.device)).cpu().numpy(),
+                    log_every)
 
     def _run_blocks(self, rounds: int, log_every: int, eval_mask,
                     hist: History) -> None:
         """The scan driver on CUDA: the captured round (made by the
-        trainer's first such run) replayed in blocks of ``log_every``
-        rounds (the whole run without it), each read back once."""
-        chunk = min(log_every, rounds) if log_every else rounds
+        trainer's first such run) replayed in blocks
+        (``_CapturedRound.run``)."""
         if self.captured_round is None:
             self.captured_round = _CapturedRound(self)
-        block = self.captured_round
         # re-seeds the device generators in place, after the warm-up
-        s = self._streams(self.fed_cfg.seed + 1)
-        block.load(s)
-        for start in range(0, rounds, chunk):
-            n, done, evals = min(chunk, rounds - start), 0, []
-            try:
-                for j in range(n):
-                    t0 = time.perf_counter()
-                    ops = self._stage(start + j, s, hist)
-                    block.draw_s += time.perf_counter() - t0
-                    block.round(ops)
-                    done += 1
-                    if eval_mask[start + j]:
-                        t0 = time.perf_counter()
-                        batch = self._eval_host(start + j, s)
-                        block.draw_s += time.perf_counter() - t0
-                        block.eval(batch)
-                        evals.append(start + j)
-                losses, scores = block.read()
-            except BaseException:
-                # the trainer keeps the rounds that completed, and the
-                # accountant counts them, as in the per-round driver
-                block.store()
-                self._rounds_elapsed += done
-                raise
-            block.store()
-            for loss in losses:
-                hist.round_loss.append(loss)
-                self._note_privacy(hist)
-            for i, r in enumerate(evals):
-                hist.append_eval(r, scores[i], log_every)
+        self.captured_round.run(self._streams(self.fed_cfg.seed + 1),
+                                rounds, log_every, eval_mask, hist)
 
 
 def _clone(tree):
@@ -891,7 +930,7 @@ class _PinnedOperands:
     buffer's previous copy to finish) and copies it to the device with
     ``non_blocking=True`` on the current stream, so the host draws the
     next round while the card runs this one. The tensors lie in one flat
-    buffer, so a refill is one host-to-device copy."""
+    buffer (``nbytes``), so a refill is one host-to-device copy."""
 
     _ALIGN = 16
 
@@ -906,7 +945,7 @@ class _PinnedOperands:
                 spans.append(None)
         self._like, self._spans = like, spans
         self._cuda = device.type == "cuda"
-        size = max(off, self._ALIGN)
+        size = self.nbytes = max(off, self._ALIGN)
         self._host = [torch.empty(size, dtype=torch.uint8,
                                   pin_memory=self._cuda) for _ in range(2)]
         self._flat = torch.empty(size, dtype=torch.uint8, device=device)
@@ -953,23 +992,33 @@ class _PinnedOperands:
 
 
 class _CapturedRound:
-    """The scan engine on a CUDA device: the round body captured once
-    into a CUDA graph, and the eval into a second graph on the first
-    one's memory pool, each replayed once a round (an eval round).
+    """The scan engine on a CUDA device: a trainer's round body captured
+    once into a CUDA graph, and its eval into a second graph on the
+    first one's memory pool, each replayed once a round (an eval round).
 
-    ``state`` is static: the global params, the Adam states, the server
-    state and the EF residual, copied in from the trainer at every
-    ``run`` (``load``) and out as new tensors after every block and on an
+    The trainer is ``FederatedGPO`` (a round) or ``CentralizedGPO`` (an
+    epoch, its round). It gives the two halves and their bookkeeping:
+    ``_stage(r, s, hist)`` and ``_eval_host(r, s)`` (the host's operands
+    as CPU tensors), ``_round_body(state, ops, s)`` -> (state, loss ())
+    and ``_eval_body(params, ops)`` -> (K,) scores (tensors only, no host
+    read), ``_state()`` / ``_set_state(state)`` (a NamedTuple with
+    ``params``), ``_streams(seed)`` (the run's generators; the device
+    ones ``release`` and ``attack_noise``, None where it has none),
+    ``_record(hist, loss)``, ``_completed(n)``, ``_LABEL``, ``device``,
+    ``fed_cfg`` and ``eval_groups``.
+
+    ``state`` is static: copied in from the trainer at every ``run``
+    (``load``) and out as new tensors after every block and on an
     exception (``store``), so a caller that holds or replaces the
     trainer's tensors between runs is honoured and a run that raises
     leaves the trainer at its last completed round. The operands are
-    static too: a round's ``RoundOperands`` and an eval batch, refilled
-    through ``_PinnedOperands``. A replay writes its loss (an eval
-    replay its (K,) scores) into one static output, which is cloned on
-    the same stream right after it; ``read`` brings a block's clones to
-    the host in one transfer. The trainer's device generators are
-    registered with the round graph, so each replay draws the next
-    values of the streams that ``run`` re-seeds in place.
+    static too: a round's and an eval's, refilled through
+    ``_PinnedOperands``. A replay writes its loss (an eval replay its
+    (K,) scores) into one static output, which is cloned on the same
+    stream right after it; ``read`` brings a block's clones to the host
+    in one transfer. The trainer's device generators are registered with
+    the round graph, so each replay draws the next values of the streams
+    that ``run`` re-seeds in place.
 
     The warm-up (which also builds and loads the kernels) runs on a side
     stream, on copies of the state, so the trainer does not advance; it
@@ -977,34 +1026,35 @@ class _CapturedRound:
     re-seeds before its first replay. A kernel wrapper's ``launches``
     counts the capture's call once and no replay; the graph's replays
     are ``replays`` and ``eval_replays``. The host's seconds: ``draw_s``
-    in the host half (``_stage``, the eval batch), ``stage_s`` in the
+    in the host half (``_stage``, ``_eval_host``), ``stage_s`` in the
     refills (waits for a pinned buffer included), ``replay_s`` in the
     replay calls; ``warmup_ms`` and ``capture_ms`` what the warm-up and
     the two captures took."""
 
-    def __init__(self, fed: FederatedGPO):
-        dev = fed.device
-        self.fed = fed
+    def __init__(self, trainer):
+        dev = trainer.device
+        self.trainer = trainer
         self.draw_s = self.stage_s = self.replay_s = 0.0
         self.replays = self.eval_replays = 0
         self._losses, self._scores = [], []
-        self._gens = fed._streams(fed.fed_cfg.seed + 1)
+        self._gens = trainer._streams(trainer.fed_cfg.seed + 1)
         self._train_in = _PinnedOperands(
-            fed._stage(0, self._gens, History()), dev)
-        self._eval_in = _PinnedOperands(fed._eval_host(0, self._gens), dev)
+            trainer._stage(0, self._gens, History()), dev)
+        self._eval_in = _PinnedOperands(trainer._eval_host(0, self._gens),
+                                        dev)
         ops, batch = self._train_in.static, self._eval_in.static
-        self.state = _clone(fed._state())
+        self.state = _clone(trainer._state())
 
         def warm_up():
-            new, _ = fed._round_body(_clone(self.state), ops, self._gens)
-            fed._eval(new.params, batch)
+            new, _ = trainer._round_body(_clone(self.state), ops, self._gens)
+            trainer._eval_body(new.params, batch)
 
         def round_fn():
-            new, self.loss = fed._round_body(self.state, ops, self._gens)
+            new, self.loss = trainer._round_body(self.state, ops, self._gens)
             _copy_into(self.state, new)
 
         def eval_fn():
-            self.scores = fed._eval(self.state.params, batch)
+            self.scores = trainer._eval_body(self.state.params, batch)
 
         self._sync()
         t0 = time.perf_counter()
@@ -1019,12 +1069,12 @@ class _CapturedRound:
         self.capture_ms = (time.perf_counter() - t1) * 1e3
 
     def _sync(self) -> None:
-        torch.cuda.synchronize(self.fed.device)
+        torch.cuda.synchronize(self.trainer.device)
 
     def _warm_up(self, fn: Callable) -> None:
         """``fn()`` on a side stream, which the current stream then
         waits for."""
-        dev = self.fed.device
+        dev = self.trainer.device
         main, side = torch.cuda.current_stream(dev), torch.cuda.Stream(dev)
         side.wait_stream(main)
         with torch.cuda.stream(side):
@@ -1047,11 +1097,11 @@ class _CapturedRound:
                 or s.attack_noise is not self._gens.attack_noise):
             raise RuntimeError("the run's device generators are not the "
                                "ones the round was captured with")
-        _copy_into(self.state, self.fed._state())
+        _copy_into(self.state, self.trainer._state())
         self._losses, self._scores = [], []
 
     def store(self) -> None:
-        self.fed._set_state(_clone(self.state))
+        self.trainer._set_state(_clone(self.state))
 
     def _replay(self, staged: _PinnedOperands, graph, operands) -> None:
         t0 = time.perf_counter()
@@ -1061,13 +1111,13 @@ class _CapturedRound:
         self.stage_s += t1 - t0
         self.replay_s += time.perf_counter() - t1
 
-    def round(self, ops: RoundOperands) -> None:
+    def round(self, ops) -> None:
         self._replay(self._train_in, self.graph, ops)
         self._losses.append(self.loss.clone())
         self.replays += 1
 
-    def eval(self, batch: ICLBatch) -> None:
-        self._replay(self._eval_in, self.eval_graph, batch)
+    def eval(self, ops) -> None:
+        self._replay(self._eval_in, self.eval_graph, ops)
         self._scores.append(self.scores.clone())
         self.eval_replays += 1
 
@@ -1077,8 +1127,44 @@ class _CapturedRound:
         losses, scores = self._losses, self._scores
         self._losses, self._scores = [], []
         out = torch.cat([x.reshape(-1) for x in losses + scores]).cpu()
-        n, k = len(losses), len(self.fed.eval_groups)
+        n, k = len(losses), len(self.trainer.eval_groups)
         return out[:n].tolist(), out[n:].reshape(len(scores), k).numpy()
+
+    def run(self, s: _Streams, rounds: int, log_every: int, eval_mask,
+            hist: History) -> None:
+        """``rounds`` rounds from the trainer's state, replayed in blocks
+        of ``log_every`` rounds (the whole run without it), each read
+        back once into ``hist``. ``s`` holds the run's generators, its
+        device ones those the round was captured with, re-seeded."""
+        t = self.trainer
+        chunk = min(log_every, rounds) if log_every else rounds
+        self.load(s)
+        for start in range(0, rounds, chunk):
+            n, done, evals = min(chunk, rounds - start), 0, []
+            try:
+                for r in range(start, start + n):
+                    t0 = time.perf_counter()
+                    ops = t._stage(r, s, hist)
+                    self.draw_s += time.perf_counter() - t0
+                    self.round(ops)
+                    done += 1
+                    if eval_mask[r]:
+                        t0 = time.perf_counter()
+                        ops = t._eval_host(r, s)
+                        self.draw_s += time.perf_counter() - t0
+                        self.eval(ops)
+                        evals.append(r)
+                losses, scores = self.read()
+            except BaseException:
+                # the trainer keeps the rounds that completed
+                self.store()
+                t._completed(done)
+                raise
+            self.store()
+            for loss in losses:
+                t._record(hist, loss)
+            for i, r in enumerate(evals):
+                hist.append_eval(r, scores[i], log_every, label=t._LABEL)
 
 
 # ---------------------------------------------------------------------------

@@ -131,6 +131,50 @@ class ICLBatch(NamedTuple):
                         num_options=self.num_options)
 
 
+class ICLDraw(NamedTuple):
+    """The question indices of ICL batches, drawn but not yet gathered:
+    ``q`` (..., num_context + num_target) int64, the context questions
+    first, for the groups ``groups`` (broadcast against ``q``'s leading
+    axes, so (m,) serves an (E, m, nq) draw). ``gather_icl_batch`` makes
+    the ``ICLBatch``es on whatever device the two lie on."""
+
+    groups: torch.Tensor
+    q: torch.Tensor
+
+
+def sample_icl_indices(generator: torch.Generator, data: SurveyData, groups,
+                       num_context: int, num_target: int) -> torch.Tensor:
+    """(n, num_context + num_target) int64 question indices for the n
+    groups of ``groups``, distinct within a row and among the group's
+    answered questions, from ONE 2-D ``torch.multinomial`` over their
+    mask rows: the values, and the generator's state after, of n
+    ``sample_icl_batch`` calls in that order."""
+    rows = data.mask[torch.as_tensor(np.asarray(groups), dtype=torch.int64)]
+    return torch.multinomial(rows.float(), num_context + num_target,
+                             replacement=False, generator=generator)
+
+
+def gather_icl_batch(phi: torch.Tensor, prefs: torch.Tensor,
+                     groups: torch.Tensor, q: torch.Tensor,
+                     num_context: int) -> ICLBatch:
+    """The ICL batches of the draw (``groups``, ``q``) (``ICLDraw``):
+    ``q``'s leading axes lead every field, and its first ``num_context``
+    questions a row are the context. One advanced index into ``phi``
+    (Q, A, d) and one into ``prefs`` (G, Q, A), on their device."""
+    num_options, d = phi.shape[-2], phi.shape[-1]
+    lead = q.shape[:-1]
+    x = phi[q]  # (..., nq, A, d)
+    y = prefs[groups[..., None], q]  # (..., nq, A)
+    tgt_q = q[..., num_context:, None].expand(*lead, -1, num_options)
+    return ICLBatch(
+        ctx_x=x[..., :num_context, :, :].reshape(*lead, -1, d),
+        ctx_y=y[..., :num_context, :].reshape(*lead, -1),
+        tgt_x=x[..., num_context:, :, :].reshape(*lead, -1, d),
+        tgt_y=y[..., num_context:, :].reshape(*lead, -1),
+        tgt_q=tgt_q.reshape(*lead, -1),
+        num_options=num_options)
+
+
 def sample_icl_batch(generator: torch.Generator, data: SurveyData,
                      group: int, num_context: int,
                      num_target: int) -> ICLBatch:
@@ -157,9 +201,9 @@ def sample_icl_batches(generator: torch.Generator, data: SurveyData, groups,
                        num_context: int, num_target: int) -> ICLBatch:
     """One ICL batch per group of ``groups``, drawn from ``generator`` in
     that order and stacked on a leading axis: the client-stacked batch
-    of one local epoch, or the held-out groups' batch of one eval."""
-    batches = [sample_icl_batch(generator, data, int(g), num_context,
-                                num_target) for g in groups]
-    return ICLBatch(*(torch.stack([getattr(b, f) for b in batches])
-                      for f in ICLBatch._fields[:-1]),
-                    num_options=data.num_options)
+    of one local epoch, or the held-out groups' batch of one eval. The
+    same values, and the same generator state after, as one
+    ``sample_icl_batch`` call a group."""
+    g = torch.as_tensor(np.asarray(groups), dtype=torch.int64)
+    return gather_icl_batch(data.phi, data.prefs, g, sample_icl_indices(
+        generator, data, g, num_context, num_target), num_context)

@@ -38,6 +38,7 @@ from repro_torch.configs import (
 )
 from repro_torch.core import FederatedGPO, History, federated
 from repro_torch.data import (
+    ICLDraw,
     SurveyConfig,
     make_survey_data,
     sample_icl_batches,
@@ -341,10 +342,11 @@ META = {
 
 @pytest.mark.parametrize("label", list(META))
 def test_round_body_runs_on_the_meta_device(label):
-    """One staged round body, its operands and state on the meta device,
-    kernels off (a wrapper refuses meta tensors): it must finish, so it
-    reads nothing back to the host. The release draws come in as
-    operands (replayed), as the meta device has no generator."""
+    """One staged round body, its operands, state and survey tables on
+    the meta device, kernels off (a wrapper refuses meta tensors): it
+    must finish, so it reads nothing back to the host, the gather of
+    its staged indices included. The release draws come in as operands
+    (replayed), as the meta device has no generator."""
     data, tr, ev = _data()
     kw = dict(META[label], use_pallas_attention=False,
               use_pallas_aggregation=False)
@@ -361,10 +363,13 @@ def test_round_body_runs_on_the_meta_device(label):
     meta = torch.device("meta")
     s = fed._streams(fcfg.seed + 1)
     ops = federated._on(fed._stage(0, s, History()), meta)
+    assert isinstance(ops.batches, ICLDraw)  # gathered in the body
+    fed._tables = federated._on(fed._tables, meta)
     state, loss = fed._round_body(federated._on(fed._state(), meta), ops, s)
     assert loss.device == meta and loss.shape == ()
     assert all(x is None or x.device == meta for x in tree_leaves(state))
-    scores = fed._eval(state.params, fed._eval_host(0, s).to(meta))
+    scores = fed._eval_body(state.params,
+                            federated._on(fed._eval_host(0, s), meta))
     assert scores.device == meta and scores.shape == (len(ev),)
 
 

@@ -75,7 +75,7 @@ from repro_torch.core import (
     gpo_loss,
     params_from_numpy,
 )
-from repro_torch.core import pipeline
+from repro_torch.core import federated, pipeline
 from repro_torch.core.fedavg import broadcast_to_clients
 from repro_torch.data import ICLBatch, SurveyData
 from repro_torch.kernels import gpo_attention
@@ -651,19 +651,36 @@ def _cen_draws(data, fcfg, tr, ev, epochs):
 
 
 def test_centralized_epochs_match_jax_on_replayed_draws():
+    """The port's epochs on the reference's draws, under the per-epoch
+    driver and under the captured epoch (``engine="scan"`` through the
+    rehearsed capture machine of ``test_torch_scan_engine``), each held
+    to the one reference run."""
+    from test_torch_scan_engine import _Rehearsal  # it imports this file
+
     data, port_data, tr, ev = _jax_setup()
     jcfg = JaxFedConfig(num_clients=len(tr), **FED)
     jcen = JaxCentralizedGPO(JaxGPOConfig(**SMALL), jcfg, data, tr, ev)
     init = _np_tree(jcen.params)
     steps, evals = _cen_draws(data, jcfg, tr, ev, epochs=2)
-    cen = CentralizedGPO(GPOConfig(**SMALL), FedConfig(num_clients=len(tr),
-                                                       **FED),
-                         port_data, tr, ev, device="cpu", init_params=init,
-                         batches=lambda e, i: steps[e, i],
-                         eval_batches=lambda e: evals[e])
+
+    def make():
+        return CentralizedGPO(
+            GPOConfig(**SMALL), FedConfig(num_clients=len(tr), **FED),
+            port_data, tr, ev, device="cpu", init_params=init,
+            batches=lambda e, i: steps[e, i],
+            eval_batches=lambda e: evals[e])
+
     jh = jcen.run(epochs=2)
-    h = cen.run(epochs=2)
+    cen = make()
+    h = cen.run(epochs=2, engine="loop")
     _assert_runs_agree(h, jh, cen.params, jcen.params)
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(federated, "_CapturedRound", _Rehearsal)
+        m.setattr(CentralizedGPO, "_captures", lambda self: True)
+        cap = make()
+        h_cap = cap.run(epochs=2, engine="scan")
+    assert cap.captured_round.replays == 2
+    _assert_runs_agree(h_cap, jh, cap.params, jcen.params)
 
 
 def test_unreplayed_runs_are_seeded_and_device_independent_of_hooks():
