@@ -112,7 +112,8 @@ the card, raising on any mismatch:
    the median hierarchy also against a CPU run replaying attacker masks
    and fault draws made once on the CPU; a straggler buffered and landed
    in one round; a zero-survivor round that leaves params and server
-   state bit for bit; one attacked and one faulted round profiled.
+   state bit for bit, under both engines (the graph replayed on the
+   second run); one attacked and one faulted round profiled.
    4g. The sharded round (``make_sharded_round`` through ``ShardedGPO``)
    on processes that ``repro_torch.launch.mesh.spawn`` starts, each
    loading the kernels this process built, at the quickstart's
@@ -137,10 +138,14 @@ the card, raising on any mismatch:
    seed, at the quickstart's ``FedConfig`` with eval every round: FedAvg
    (also 3 of 10 clients a round with optimizer resets), every other
    strategy of the registry, every DP and codec configuration of phase
-   4b, every attack of phase 4f, median and FedAvg at 2 edges, and
-   FedAvg, median, dp_int8_ef and the gaussian attack with the kernels
-   off, 3 rounds, 3 more and 3 profiled under each engine, bit
-   for bit (``CAPTURED_BOUND`` names none); the graphs replayed once a
+   4b, every attack of phase 4f, the four fault configurations of
+   phase 4f and FedAvg under faults at 3 of 10 clients a round with
+   resets (the schedule on the card, the survivor count read with the
+   block), median and FedAvg at 2 edges, and FedAvg, median,
+   dp_int8_ef, the gaussian attack and faulted FedAvg with the kernels
+   off, 3 rounds, 3 more and 3 profiled under each engine, bit for bit,
+   ``round_survivors`` included (``CAPTURED_BOUND`` names none); the
+   graphs replayed once a
    round and once an eval round; the wrappers called once by the
    warm-up and once by the capture, never by a replay; the replayed
    kernels in the profile, counted by name (``KERNEL_NAMES``), equal
@@ -593,9 +598,11 @@ STAGE_RUNS = {
 # (the aggregation kernel a run launches, launches a round): Krum's
 # distances once; the trimmed reduce once, or once an edge (the server's
 # 2-candidate median trims k = 0, the weighted mean, which never reaches
-# the kernel, in the reference too); the FedAvg reduce once, once an
-# edge, or once a faulted round that absorbed a row; median's masked
-# reduce under faults is plain torch (the reference has no kernel for it)
+# the kernel, in the reference too); the FedAvg reduce once, or once an
+# edge; under faults once every round, a round that absorbed no row too
+# (the masked reduce runs and its result is discarded, as in the
+# reference's traced round); median's masked reduce under faults is
+# plain torch (the reference has no kernel for it)
 STAGE_KERNEL = {"sign_flip-krum": ("pairwise_dists", 1),
                 "scaled-multi_krum": ("pairwise_dists", 1),
                 "alie-median": ("trimmed_reduce", 1),
@@ -698,7 +705,10 @@ CAPTURED = {
         "dp_median")},
     **{name: STAGE_RUNS[name] for name in (
         "sign_flip-krum", "scaled-multi_krum", "alie-median",
-        "gaussian-fedavg-norm_bound", "label_flip-fedavg")},
+        "gaussian-fedavg-norm_bound", "label_flip-fedavg", "faults-fedavg",
+        "faults-fedbuff", "faults-median", "faults-int8_ef")},
+    "faults-fedavg-sub3-reset": {"avail": _FAULTS, "batch_groups": 3,
+                                 "reset_opt_each_round": True},
     "median-2-edges": STAGE_RUNS["hier-median"],
     "fedavg-2-edges": STAGE_RUNS["hier-fedavg"],
     "dense-fedavg": {"dense": True},
@@ -706,6 +716,7 @@ CAPTURED = {
     "dense-dp_int8_ef": {"dense": True, **PRIVATE["dp_int8_ef"]},
     "dense-gaussian-fedavg-norm_bound": {
         "dense": True, **STAGE_RUNS["gaussian-fedavg-norm_bound"]},
+    "dense-faults-fedavg": {"dense": True, **STAGE_RUNS["faults-fedavg"]},
 }
 CAPTURED_ROUNDS, CAPTURED_MORE, CAPTURED_PAPER_ROUNDS = 3, 20, 30
 # the centralized epoch captured (core/centralized.py, through the same
@@ -2565,17 +2576,15 @@ def _stage_cfg(base: FedConfig, label: str) -> FedConfig:
         compression=CompressionConfig(**spec.get("compression", {})))
 
 
-def _stage_launches(label: str, survivors: list) -> dict:
+def _stage_launches(label: str) -> dict:
     """The aggregation kernel launches of a phase 4f run: one a round
     (one an edge under the hierarchy); under faults one FedAvg reduce a
-    round that absorbed a row, none for median's masked reduce (plain
-    torch, as in the reference), none for the codec (the fault round
-    releases per row in plain torch)."""
+    round, a round that absorbed no row too (the masked body), none for
+    median's masked reduce (plain torch, as in the reference), none for
+    the codec (the fault round releases per row in plain torch)."""
     kernel, per_round = STAGE_KERNEL[label]
     if kernel is None:
         return {}
-    if label.startswith("faults"):
-        return {kernel: sum(1 for n in survivors if n > 0)}
     return {kernel: per_round * STAGE_ROUNDS}
 
 
@@ -2614,45 +2623,68 @@ def _spy_schedules(seen: list):
 
 def _zero_survivor_check(dev, data, tr, ev, base) -> dict:
     """A faulted fedavgm run whose first round releases every client and
-    whose second has every client offline: the second leaves params and
-    server state (momentum, step) bit for bit, and launches no FedAvg
-    reduce."""
+    whose second has every client offline, under each engine: the second
+    leaves params and server state (momentum, step) bit for bit, and its
+    survivors are [0]. The fault round is one masked body, so the second
+    round still launches its one FedAvg reduce, whose result the
+    zero-survivor gate discards (the reference's traced round computes
+    it too): counted by the wrapper under "loop", by name in a profile
+    under "scan" (the graph, captured in the first run, replays)."""
     gcfg = GPOConfig(d_embed=data.phi.shape[-1])
     c = len(tr)
     kern = replace(base, agg=AggConfig(name="fedavgm"),
                    avail=AvailabilityConfig(online_prob=0.5))
-    fresh = ([True] * c, [False] * c, [False] * c, [1] * c)
-    offline = ([False] * c, [False] * c, [False] * c, [1] * c)
-    calls: list = []
+    phase = {"offline": False}
 
     def draws(r):
-        calls.append(r)
-        return fresh if len(calls) == 1 else offline
+        online = not phase["offline"]
+        return [online] * c, [False] * c, [False] * c, [1] * c
 
-    fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev,
-                       fault_draws=draws)
-    first = fed.run(rounds=1, engine="loop")
-    before = [t.clone() for t in tree_leaves(fed.global_params)
-              + tree_leaves(fed.server_state)]
-    _zero_counts()
-    second = fed.run(rounds=1, engine="loop")
-    torch.cuda.synchronize()
-    launches = _counts()
-    after = tree_leaves(fed.global_params) + tree_leaves(fed.server_state)
-    same = len(before) == len(after) and all(
-        torch.equal(a, b) for a, b in zip(before, after))
-    rec = {"survivors": [first.round_survivors, second.round_survivors],
-           "bit_equal": same, "fedavg_reduce": launches["fedavg_reduce"],
-           "server_step": int(fed.server_state.step)}
-    print(f"  zero-survivor round: survivors {rec['survivors']}, params and "
-          f"server state bit-equal {same}, fedavg_reduce "
-          f"x{rec['fedavg_reduce']}, server step {rec['server_step']}")
-    if not (same and first.round_survivors == [c]
-            and second.round_survivors == [0]
-            and rec["fedavg_reduce"] == 0 and rec["server_step"] == 1):
-        raise AssertionError(f"the zero-survivor round was not a no-op: "
-                             f"{rec}")
-    return rec
+    out = {}
+    for engine in ("loop", "scan"):
+        phase["offline"] = False
+        fed = FederatedGPO(gcfg, kern, data, tr, ev, device=dev,
+                           fault_draws=draws)
+        first = fed.run(rounds=1, engine=engine)
+        before = [t.clone() for t in tree_leaves(fed.global_params)
+                  + tree_leaves(fed.server_state)]
+        phase["offline"] = True
+        _zero_counts()
+        if engine == "loop":
+            second = fed.run(rounds=1, engine=engine)
+            torch.cuda.synchronize()
+            reduces = _counts()["fedavg_reduce"]
+        else:
+            held = []
+            prof = _profile(lambda: held.append(fed.run(rounds=1,
+                                                        engine=engine)),
+                            "zero_survivor_trace.json",
+                            match=KERNEL_NAMES["fedavg_reduce"])
+            second = held[0]
+            if _counts()["fedavg_reduce"] != 0 \
+                    or fed.captured_round.replays != 2:
+                raise AssertionError("the zero-survivor round did not "
+                                     "replay the first run's graph")
+            reduces = sum(prof["matched"][n]["launches"]
+                          for n in KERNEL_NAMES["fedavg_reduce"])
+        after = tree_leaves(fed.global_params) + tree_leaves(
+            fed.server_state)
+        same = len(before) == len(after) and all(
+            torch.equal(a, b) for a, b in zip(before, after))
+        rec = {"survivors": [first.round_survivors, second.round_survivors],
+               "bit_equal": same, "fedavg_reduce": reduces,
+               "server_step": int(fed.server_state.step)}
+        print(f"  zero-survivor round ({engine}): survivors "
+              f"{rec['survivors']}, params and server state bit-equal "
+              f"{same}, fedavg_reduce x{reduces} (the masked body's one, "
+              f"discarded), server step {rec['server_step']}")
+        if not (same and first.round_survivors == [c]
+                and second.round_survivors == [0]
+                and reduces == 1 and rec["server_step"] == 1):
+            raise AssertionError(f"the zero-survivor round ({engine}) was "
+                                 f"not a no-op: {rec}")
+        out[engine] = rec
+    return out
 
 
 def train_stages(dev, data, tr, ev) -> dict:
@@ -2719,7 +2751,7 @@ def train_stages(dev, data, tr, ev) -> dict:
                                      f"CPU run's")
         want = {**dict.fromkeys(_COUNTED, 0),
                 **_attention_launches(gcfg, kern, STAGE_ROUNDS),
-                **_stage_launches(label, hist.round_survivors)}
+                **_stage_launches(label)}
         rec = {"config": STAGE_RUNS[label],
                "kernel": STAGE_KERNEL[label][0],
                "launches": {k: v for k, v in launches.items() if v},
@@ -3274,13 +3306,15 @@ def _captured_cfg(base: FedConfig, label: str) -> FedConfig:
         privacy=PrivacyConfig(**spec.get("privacy", {})),
         compression=CompressionConfig(**spec.get("compression", {})),
         adversary=AdversaryConfig(**spec.get("adversary", {})),
+        avail=AvailabilityConfig(**spec.get("avail", {})),
         hierarchy=HierarchyConfig(**spec.get("hierarchy", {})))
 
 
 def _run_values(trainer, hist) -> tuple:
     """A run's History and the trainer's state (``FederatedGPO``'s or
-    ``CentralizedGPO``'s) as flat float64 arrays (compared exactly), and
-    its eval rounds and cohorts."""
+    ``CentralizedGPO``'s, the fault state included) as flat float64
+    arrays (compared exactly), and its eval rounds, cohorts and
+    survivors."""
     vals = [np.asarray(hist.round_loss, np.float64),
             np.asarray(hist.eval_scores, np.float64).reshape(-1),
             np.asarray(hist.eval_mean_as + hist.eval_fi + hist.eval_cov
@@ -3288,7 +3322,8 @@ def _run_values(trainer, hist) -> tuple:
     for x in tree_leaves(trainer._state()):
         if x is not None:
             vals.append(x.detach().double().cpu().reshape(-1).numpy())
-    return vals, (hist.eval_rounds, hist.round_participants)
+    return vals, (hist.eval_rounds, hist.round_participants,
+                  hist.round_survivors)
 
 
 def _captured_deviation(label: str, a, b) -> float:
@@ -3300,7 +3335,8 @@ def _captured_deviation(label: str, a, b) -> float:
     if ka != kb or len(va) != len(vb) or any(
             x.shape != y.shape for x, y in zip(va, vb)):
         raise AssertionError(f"{label}: the captured run's eval rounds, "
-                             "cohorts or shapes differ from the loop's")
+                             "cohorts, survivors or shapes differ from "
+                             "the loop's")
     bits = all(np.array_equal(x, y) for x, y in zip(va, vb))
     dev = 0.0 if bits else max(float(np.abs(x - y).max(initial=0.0))
                                for x, y in zip(va, vb))
@@ -3312,12 +3348,12 @@ def _captured_deviation(label: str, a, b) -> float:
 
 
 def _sync_free_round(make, dev) -> None:
-    """One staged round (an epoch for ``CentralizedGPO``) and one eval,
-    the device halves run eagerly on a fresh trainer under
-    ``torch.cuda.set_sync_debug_mode("error")``: a call that
-    synchronizes the host with the card raises, the gathers of the
-    staged question indices included. The operands are staged on the
-    card first."""
+    """One staged round (an epoch for ``CentralizedGPO``; the fault
+    body under faults) and one eval, the device halves run eagerly on a
+    fresh trainer under ``torch.cuda.set_sync_debug_mode("error")``: a
+    call that synchronizes the host with the card raises, the gathers of
+    the staged question indices included. The operands are staged on
+    the card first."""
     trainer = make()
     s = trainer._streams(trainer.fed_cfg.seed + 1)
     ops = federated._on(trainer._stage(0, s, History()), dev)
@@ -3325,7 +3361,7 @@ def _sync_free_round(make, dev) -> None:
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
-        state, loss = trainer._round_body(trainer._state(), ops, s)
+        state, loss, *_ = trainer._round_body(trainer._state(), ops, s)
         trainer._eval_body(state.params, batch)
     finally:
         torch.cuda.set_sync_debug_mode(0)
@@ -3440,8 +3476,8 @@ def _captured_pair(label: str, make, rounds: int, prof_rounds: int) -> tuple:
           + ("bit-equal" if rec["bit_equal"] else
              f"off by {max(dev_first, dev_more, dev_prof):.3e}")
           + f"; profiled {prof['kernels'] / prof_rounds:.0f} kernels a "
-          f"round, busy {100 * prof['busy_share']:.2f}%, replayed "
-          f"{rec['replayed_in_profile']}")
+          f"round, busy {100 * prof['busy_share']:.2f}%, replayed in "
+          f"{prof_rounds} rounds {rec['replayed_in_profile']}")
     return rec, loop, cap
 
 

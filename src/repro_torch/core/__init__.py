@@ -31,6 +31,8 @@ from repro_torch.core.availability import (  # noqa: F401
     masked_robust_reduce_flat,
     round_schedule,
     staleness_discount,
+    trim_depth,
+    tree_where,
 )
 from repro_torch.core.centralized import CentralizedGPO  # noqa: F401
 from repro_torch.core.fedavg import (  # noqa: F401

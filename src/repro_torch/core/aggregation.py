@@ -399,9 +399,11 @@ def _make_fedbuff(cfg, *, num_clients, use_pallas):
     θ += server_lr · buffer / mass is applied once at least ``buffer_k``
     client updates have been absorbed since the last flush. The fault
     round passes the realized ``mass`` (the survivors' discounted weight)
-    and ``released`` count; without them the round released every
-    participant with mass 1, so buffer_k <= C flushes every round
-    (fedbuff is fedavg there)."""
+    and ``released`` count (() tensors on the params' device in the
+    stacked fault round, so the flush decision reads nothing back to the
+    host; the count a float in the sharded one); without them the round
+    released every participant with mass 1, so buffer_k <= C flushes
+    every round (fedbuff is fedavg there)."""
     reduce, reduce_flat = _linear_reduce(use_pallas)
     base_lr, buffer_k = cfg.server_lr, cfg.buffer_k
 

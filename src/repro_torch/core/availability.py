@@ -10,29 +10,34 @@ PyTorch port of the reference's ``core/availability.py``.
    ``round_schedule`` resolves the draws against the carried
    ``FaultState``: a client with an upload in flight is busy, a crashed
    client stays offline ``rejoin_rounds`` more rounds.
-2. **Fault state.** The schedule's (C,) metadata (``round``,
-   ``offline_until``, ``pending_due``, ``pending_weight``,
-   ``pending_birth``) stays on the host, so the round decides nothing
-   from a device value; only the in-flight payloads ``pending`` (C, P)
-   live on the device. ``advance_fault_state`` buffers the stragglers'
-   released rows, clears the arrivals' slots and starts the crashed
-   clients' rejoin countdown.
+2. **Fault state.** The whole ``FaultState`` lives on the trainer's
+   device: the (C,) metadata (``offline_until``, ``pending_due``,
+   ``pending_weight``, ``pending_birth``), the round counter ``round``
+   as a 0-d int32 tensor, and the in-flight payloads ``pending`` (C, P).
+   Only the draws are made on the host, and staged with the round's
+   other operands. ``round_schedule`` and ``advance_fault_state`` are
+   tensor arithmetic on that device and read nothing back, so the fault
+   round can be captured into a CUDA graph; ``advance_fault_state``
+   buffers the stragglers' released rows, clears the arrivals' slots and
+   starts the crashed clients' rejoin countdown.
 3. **Degraded-mode reductions.** The linear rules renormalize their
    weights over the survivors (``masked_mean_weights``); median and
    trimmed mean shrink their trim depth with the survivor count
    (``masked_robust_reduce_flat``, plain torch: the reference has no
-   kernel for it). A zero-survivor round leaves params and ``AggState``
-   unchanged: the schedule is on the host, so the round branches there
-   (the reference's leafwise ``tree_where`` on a traced flag has no
-   counterpart).
+   kernel for it), the count and the depth computed as device tensors.
+   A zero-survivor round still reduces and applies, and then keeps the
+   old params and ``AggState`` leaf by leaf (``tree_where`` on the
+   round's 0-d survivor flag), as the reference's traced round does.
 """
 from __future__ import annotations
 
 from typing import NamedTuple, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.configs.base import AvailabilityConfig
+from repro_torch.utils.pytree import tree_map
 
 # the fault generator's seed offset: the reference's fault key tag
 # (core/availability.py::_FAULT_TAG)
@@ -44,7 +49,8 @@ _MASS_FLOOR = 1e-12
 
 
 class FaultDraws(NamedTuple):
-    """A round's raw per-client draws, (C,) each on the host."""
+    """A round's raw per-client draws, (C,) each: drawn on the host,
+    staged on the trainer's device with the round's operands."""
 
     online: torch.Tensor  # bool: reachable this round
     crash: torch.Tensor  # bool: would crash after local training
@@ -66,10 +72,9 @@ def fault_draws(gen: torch.Generator, num_clients: int,
 
 
 class FaultState(NamedTuple):
-    """Cross-round fault state: ``pending`` (C, P) f32 on the device,
-    the rest on the host."""
+    """Cross-round fault state, every field on the trainer's device."""
 
-    round: int  # rounds elapsed under this schedule
+    round: torch.Tensor  # () int32: rounds elapsed under this schedule
     offline_until: torch.Tensor  # (C,) int32: crash-rejoin gate
     pending: torch.Tensor  # (C, P) f32: in-flight released payloads
     pending_due: torch.Tensor  # (C,) int32 arrival round; NO_PENDING=empty
@@ -79,20 +84,20 @@ class FaultState(NamedTuple):
 
 def init_fault_state(num_clients: int, num_params: int,
                      device=None) -> FaultState:
+    i32 = dict(dtype=torch.int32, device=device)
     return FaultState(
-        round=0,
-        offline_until=torch.zeros((num_clients,), dtype=torch.int32),
+        round=torch.zeros((), **i32),
+        offline_until=torch.zeros((num_clients,), **i32),
         pending=torch.zeros((num_clients, num_params), device=device),
-        pending_due=torch.full((num_clients,), NO_PENDING,
-                               dtype=torch.int32),
-        pending_weight=torch.zeros((num_clients,)),
-        pending_birth=torch.zeros((num_clients,), dtype=torch.int32))
+        pending_due=torch.full((num_clients,), NO_PENDING, **i32),
+        pending_weight=torch.zeros((num_clients,), device=device),
+        pending_birth=torch.zeros((num_clients,), **i32))
 
 
 class RoundSchedule(NamedTuple):
-    """A round's resolved schedule, (C,) bool on the host except
-    ``delay`` and ``staleness``. available = fresh ∪ crashed ∪ straggle,
-    disjoint."""
+    """A round's resolved schedule, (C,) bool on the state's device
+    except ``delay`` and ``staleness``. available = fresh ∪ crashed ∪
+    straggle, disjoint."""
 
     available: torch.Tensor  # online, rejoined, not busy: trains now
     fresh: torch.Tensor  # trains and releases this round
@@ -104,7 +109,8 @@ class RoundSchedule(NamedTuple):
 
 
 def round_schedule(draws: FaultDraws, state: FaultState) -> RoundSchedule:
-    """Resolve the round's raw draws against the carried fault state."""
+    """Resolve the round's raw draws against the carried fault state
+    (both on one device; no host read)."""
     r = state.round
     in_flight = (state.pending_due >= 0) & (state.pending_due > r)
     rejoined = r >= state.offline_until
@@ -137,10 +143,9 @@ def advance_fault_state(state: FaultState, sched: RoundSchedule,
     (the sharded round's own; None: all C)."""
     r = state.round
     strag, arr = sched.straggle, sched.arrive
-    dev = state.pending.device
-    sl = slice(None) if rows is None else rows
-    pending = torch.where(strag[sl].to(dev)[:, None], sent,
-                          torch.where(arr[sl].to(dev)[:, None], 0.0,
+    sl = slice(None) if rows is None else rows.to(strag.device)
+    pending = torch.where(strag[sl][:, None], sent,
+                          torch.where(arr[sl][:, None], 0.0,
                                       state.pending))
     due = torch.where(strag, r + sched.delay,
                       torch.where(arr, NO_PENDING, state.pending_due))
@@ -149,11 +154,18 @@ def advance_fault_state(state: FaultState, sched: RoundSchedule,
     birth = torch.where(strag, r, state.pending_birth)
     offline_until = torch.where(sched.crashed, r + 1 + int(rejoin_rounds),
                                 state.offline_until)
-    return FaultState(round=r + 1,
+    return FaultState(round=(r + 1).to(torch.int32),
                       offline_until=offline_until.to(torch.int32),
                       pending=pending, pending_due=due.to(torch.int32),
                       pending_weight=weight.float(),
                       pending_birth=birth.to(torch.int32))
+
+
+def tree_where(flag: torch.Tensor, new, old):
+    """Leafwise ``torch.where(flag, new, old)`` on a 0-d bool tensor:
+    the zero-survivor gate for params and ``AggState``, a select, so the
+    kept side comes out bit for bit."""
+    return tree_map(lambda a, b: torch.where(flag, a, b), new, old)
 
 
 def masked_mean_weights(weights: torch.Tensor,
@@ -164,6 +176,21 @@ def masked_mean_weights(weights: torch.Tensor,
     return w / torch.clamp(w.sum(), min=_MASS_FLOOR)
 
 
+def trim_depth(n: torch.Tensor, name: str,
+               trim_frac: float = 0.0) -> torch.Tensor:
+    """The rank-trim depth k over n surviving rows (``n`` a () integer
+    tensor, k one of its dtype and device, no host read): ⌊(n−1)/2⌋ for
+    ``median`` (0 at n = 0), min(⌊f32(frac)·n⌋, ⌊(n−1)/2⌋) for
+    ``trimmed_mean``, the product in float32, as the reference."""
+    half = torch.clamp(n - 1, min=0) // 2
+    if name == "median":
+        return half
+    if name == "trimmed_mean":
+        return torch.minimum(
+            (n.float() * float(np.float32(trim_frac))).to(n.dtype), half)
+    raise ValueError(f"no masked robust reduce for strategy {name!r}")
+
+
 def masked_robust_reduce_flat(vecs: torch.Tensor, weights: torch.Tensor,
                               mask: torch.Tensor, *, name: str,
                               trim_frac: float = 0.0) -> torch.Tensor:
@@ -171,22 +198,17 @@ def masked_robust_reduce_flat(vecs: torch.Tensor, weights: torch.Tensor,
     (``mask``): masked rows sort last (+inf keys, a stable sort, as the
     reference), and the trim depth follows the survivor count n: k =
     ⌊(n−1)/2⌋ for ``median``, min(⌊frac·n⌋, ⌊(n−1)/2⌋) for
-    ``trimmed_mean``. n = 0 gives zeros."""
+    ``trimmed_mean`` (``trim_depth``). n = 0 gives zeros. n and k are ()
+    tensors on the rows' device (no host read)."""
     x = vecs.float()
     c = x.shape[0]
-    n = int(mask.sum())
-    m = mask.bool().to(x.device)
-    if name == "median":
-        k = max(n - 1, 0) // 2
-    elif name == "trimmed_mean":  # frac·n in float32, as the reference
-        k = min(int(torch.tensor(trim_frac, dtype=torch.float32) * n),
-                max(n - 1, 0) // 2)
-    else:
-        raise ValueError(f"no masked robust reduce for strategy {name!r}")
+    m = mask.bool()
+    n = m.sum()
+    k = trim_depth(n, name, trim_frac)
     sort_key = torch.where(m[:, None], x, torch.inf)
     order = torch.argsort(sort_key, dim=0, stable=True)
     xs = torch.take_along_dim(x, order, dim=0)
-    ws = torch.where(m, weights.to(x.device).float(), 0.0)[order]
+    ws = torch.where(m, weights.float(), 0.0)[order]
     ranks = torch.arange(c, device=x.device)[:, None]
     keep = (ranks >= k) & (ranks < n - k)
     num = torch.where(keep, ws * xs, 0.0).sum(dim=0)

@@ -51,9 +51,13 @@ some straggle (their released row is buffered and lands ``delay`` rounds
 later, discounted by its staleness); the server reduces the fresh rows
 and the arrivals with ``RoundPipeline.masked_reduce``, a zero-survivor
 round leaves params and server state unchanged, and
-``History.round_survivors`` counts the rows absorbed each round. The
-hierarchy does not compose with it (``ValueError``), as in the
-reference.
+``History.round_survivors`` counts the rows absorbed each round. As in
+the reference's traced ``fault_round_step``, every decision is a mask:
+the schedule lives on the device (``RoundState.fault``), its draws are
+staged with the round's operands, the reduce and the server step run
+every round, and a zero-survivor round selects the old params and
+server state. The hierarchy does not compose with it (``ValueError``),
+as in the reference.
 
 A round is two halves. The host half (``_stage``) makes every draw the
 round takes on the CPU, in the order above: the cohort, the attackers,
@@ -85,9 +89,10 @@ the same way. The two drivers run the same halves:
   raises; no round falls back to the loop. Off CUDA there are no
   graphs, and ``"scan"`` runs the per-round driver of ``"loop"``.
 
-The fault round keeps its schedule on the host (it reads the survivors'
-count and weights there every round), so under ``FedConfig.avail`` both
-engines run the per-round driver (ROADMAP.md queue A.2).
+Under ``FedConfig.avail`` the fault round (``_fault_body``) is the
+device half, so both drivers run it too: the loop reads the round's
+loss and survivor count in one transfer, and the captured round writes
+the survivor count beside the loss, read with the block.
 
 The second engine, ``make_sharded_round``, lays the clients out over
 processes (``torch.distributed``, a client mesh of ``launch/mesh.py``):
@@ -323,13 +328,15 @@ class _Streams(NamedTuple):
 
 class RoundState(NamedTuple):
     """What a round carries to the next: the global params, the C
-    clients' Adam states, the server state and the EF residual (None
-    without error feedback)."""
+    clients' Adam states, the server state, the EF residual (None
+    without error feedback) and the fault state (None while the
+    availability stage is off)."""
 
     params: dict
     opt_states: object
     server_state: object
     ef_resid: Optional[torch.Tensor]
+    fault: Optional[av.FaultState] = None
 
 
 class RoundOperands(NamedTuple):
@@ -347,6 +354,9 @@ class RoundOperands(NamedTuple):
     attack_noise: Optional[torch.Tensor] = None  # (C, P), replayed
     noise: Optional[torch.Tensor] = None  # (m, P) DP noise, replayed
     uniform: Optional[torch.Tensor] = None  # (m, P) uniforms, replayed
+    # the fault draws for the population, (C,) each; None while the
+    # availability stage is off
+    faults: Optional[av.FaultDraws] = None
 
 
 def _on(tree, device):
@@ -656,8 +666,9 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
     def _stage(self, r: int, s: _Streams, hist: History) -> RoundOperands:
         """The host half of a round: every host draw it takes, from the
         generators and in the order of the per-round driver (the cohort,
-        the attackers, the E epochs' ICL draws) and the hooks' values, as
-        CPU tensors. Records the cohort in ``hist``."""
+        the attackers, the E epochs' ICL draws, then the fault draws from
+        their own generator) and the hooks' values, as CPU tensors.
+        Records the cohort in ``hist``."""
         cohort = self._cohort(r, s.train)
         if cohort is None:
             groups, weights = self.train_groups, self._full_weights
@@ -668,16 +679,19 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
         mask, attack_noise = self._attack_host(r, s) or (None, None)
         batches = self._host_batches(r, s, groups)
         noise, uniform = self._release_host(r)
+        faults = (self._faults(r, s) if self.fault_state is not None
+                  else None)
         return RoundOperands(batches, weights, cohort, mask, attack_noise,
-                             noise, uniform)
+                             noise, uniform, faults)
 
     def _state(self) -> RoundState:
         return RoundState(self.global_params, self.opt_states,
-                          self.server_state, self.ef_resid)
+                          self.server_state, self.ef_resid,
+                          self.fault_state)
 
     def _set_state(self, state: RoundState) -> None:
         (self.global_params, self.opt_states, self.server_state,
-         self.ef_resid) = state
+         self.ef_resid, self.fault_state) = state
 
     def _attack_ops(self, ops: RoundOperands, s: _Streams):
         """The attack stage's operands for the participants' rows: the
@@ -724,10 +738,14 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
                     s: _Streams) -> tuple:
         """The device half of a round: ``state`` and ``ops`` (tensors on
         one device) in, (the new ``RoundState``, the mean client loss as
-        a () tensor) out. It draws the release operands and the gaussian
-        attack's normals from ``s``'s device generators (where no hook
-        replays them) and reads nothing back to the host, so it can be
-        captured into a CUDA graph."""
+        a () tensor) out; under ``FedConfig.avail`` the fault round's
+        (``_fault_body``: the survivors' mean loss and the round's
+        released count too). It draws the release operands and the
+        gaussian attack's normals from ``s``'s device generators (where
+        no hook replays them) and reads nothing back to the host, so it
+        can be captured into a CUDA graph."""
+        if state.fault is not None:
+            return self._fault_body(state, ops, s)
         pipe, idx = self._pipe, ops.idx
         attack = self._attack_ops(ops, s)
         clients, trained, opt_out, losses = self._local_round(state, ops)
@@ -748,57 +766,64 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
         return (RoundState(params, opt_states, server_state, resid),
                 losses.mean())
 
-    def _fault_round(self, r: int, s: _Streams, hist: History) -> float:
-        """One round under the fault simulator (the reference's
-        ``fault_round_step``); returns the mean loss of the clients whose
-        local round survived."""
-        fed, agg, pipe, dev = self.fed_cfg, self.agg, self._pipe, self.device
-        c = len(self.train_groups)
-        host = self._stage(r, s, hist)
-        ops = _on(host, dev)
-        idx = ops.idx
-        sub = torch.arange(c) if host.idx is None else host.idx
+    def _fault_body(self, state: RoundState, ops: RoundOperands,
+                    s: _Streams) -> tuple:
+        """The device half of a round under the fault simulator (the
+        reference's ``fault_round_step``): ``state`` (its ``fault`` the
+        carried ``FaultState``) and ``ops`` (``faults`` the round's
+        draws) on one device in; (the new ``RoundState``, the mean loss
+        of the clients whose local round survived as a () tensor, the
+        count of rows the server absorbed as a () int64 tensor) out.
+        Every decision is a mask: the reduce and the server step run on
+        every round and a zero-survivor round keeps the old params and
+        server state (``av.tree_where``), so nothing is read back to the
+        host and the round can be captured into a CUDA graph."""
+        fed, agg, pipe = self.fed_cfg, self.agg, self._pipe
+        c, idx, fault = len(self.train_groups), ops.idx, state.fault
+        dev = ops.weights.device
+
+        def rows(x):
+            return x if idx is None else x[idx]
+
         attack = self._attack_ops(ops, s)
         # the schedule over the population, then restricted to the
         # sampled clients (sampling cannot know who will fail)
-        state = self.fault_state
-        sched = av.round_schedule(self._faults(r, s), state)
-        sampled = torch.zeros((c,), dtype=torch.bool)
-        sampled[sub] = True
-        sched = sched._replace(
-            available=sched.available & sampled,
-            fresh=sched.fresh & sampled, crashed=sched.crashed & sampled,
-            straggle=sched.straggle & sampled)
-        w_full = torch.zeros((c,))
-        w_full[sub] = agg.weigh(self.server_state, ops.weights,
-                                idx).float().cpu()
-        clients, trained, opt_out, losses = self._local_round(self._state(),
-                                                              ops)
+        sched = av.round_schedule(ops.faults, fault)
+        if idx is not None:
+            sampled = torch.zeros((c,), dtype=torch.bool,
+                                  device=dev).index_copy(
+                0, idx, torch.ones(idx.shape, dtype=torch.bool, device=dev))
+            sched = sched._replace(
+                available=sched.available & sampled,
+                fresh=sched.fresh & sampled,
+                crashed=sched.crashed & sampled,
+                straggle=sched.straggle & sampled)
+        w_eff = agg.weigh(state.server_state, ops.weights, idx).float()
+        w_full = w_eff if idx is None else torch.zeros(
+            (c,), device=dev).index_copy(0, idx, w_eff)
+        clients, trained, opt_out, losses = self._local_round(state, ops)
         # the local work survives where the client is fresh or straggles:
         # offline clients never trained, crashed ones lost it
-        keep = (sched.fresh | sched.straggle)[sub]
-        keep_d = keep.to(dev)
+        keep = rows(sched.fresh | sched.straggle)
 
         def merge(full, new):
-            old = full if idx is None else full[idx]
-            k = keep_d.reshape((-1,) + (1,) * (new.ndim - 1))
-            rows = torch.where(k, new, old)
-            return rows if idx is None else full.index_copy(0, idx, rows)
+            k = keep.reshape((-1,) + (1,) * (new.ndim - 1))
+            kept = torch.where(k, new, rows(full))
+            return kept if idx is None else full.index_copy(0, idx, kept)
 
-        self.opt_states = tree_map(merge, self.opt_states, opt_out)
+        opt_states = tree_map(merge, state.opt_states, opt_out)
         # per-row release: attack, DP, codec; the EF rows advance where
         # the client released (fresh or straggling)
         noise, uniform = self._release_ops(ops, s)
-        resid = self.ef_resid
-        if resid is not None and idx is not None:
-            resid = resid[idx]
+        resid = None if state.ef_resid is None else rows(state.ef_resid)
         rel, new_resid = pipe.release_rows(
             tree_ravel_clients(tree_sub(trained, clients)), noise, uniform,
             resid, attack=attack)
+        ef_resid = state.ef_resid
         if resid is not None:
-            rows = torch.where(keep_d[:, None], new_resid, resid)
-            self.ef_resid = (rows if idx is None
-                             else self.ef_resid.index_copy(0, idx, rows))
+            kept = torch.where(keep[:, None], new_resid, resid)
+            ef_resid = (kept if idx is None
+                        else ef_resid.index_copy(0, idx, kept))
         rel_full = rel if idx is None else torch.zeros(
             (c, rel.shape[1]), device=dev).index_copy(0, idx, rel)
         # fresh rows at full weight and buffered arrivals discounted by
@@ -806,38 +831,45 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
         # weight-averaged row
         disc = av.staleness_discount(sched.staleness, fed.agg.staleness_power)
         w_fresh = torch.where(sched.fresh, w_full, 0.0)
-        w_arr = torch.where(sched.arrive, state.pending_weight * disc, 0.0)
+        w_arr = torch.where(sched.arrive, fault.pending_weight * disc, 0.0)
         w_c = w_fresh + w_arr
         mask_c = w_c > 0.0
-        n_released = int(sched.fresh.sum()) + int(sched.arrive.sum())
-        if n_released > 0:  # else params and server state stay as they are
-            wf, wa, wc = (t.to(dev)[:, None] for t in (w_fresh, w_arr, w_c))
-            contrib = torch.where(
-                mask_c.to(dev)[:, None],
-                (wf * rel_full + wa * state.pending)
-                / torch.clamp(wc, min=1e-12), 0.0)
-            delta = tree_unflatten_from_vector(
-                pipe.masked_reduce(contrib, w_c, mask_c,
-                                   trim_frac=fed.agg.trim_frac),
-                self.global_params)
-            kw = {}
-            if agg.buffered:
-                kw = dict(mass=w_c.sum().to(dev), released=float(n_released))
-            if agg.needs_losses:
-                # the server saw only the losses that came with a release
-                kw["mask"] = sched.fresh[sub]
-            self.global_params, self.server_state = agg.apply(
-                self.server_state, self.global_params, delta, losses=losses,
-                idx=idx, **kw)
-        self.fault_state = av.advance_fault_state(
-            state, sched, rel_full, w_full, fed.avail.rejoin_rounds)
-        hist.round_survivors.append(n_released)
-        n_train = max(float(keep.sum()), 1.0)
-        return float(torch.where(keep_d, losses, 0.0).sum() / n_train)
+        n_released = sched.fresh.sum() + sched.arrive.sum()
+        contrib = torch.where(
+            mask_c[:, None],
+            (w_fresh[:, None] * rel_full + w_arr[:, None] * fault.pending)
+            / torch.clamp(w_c, min=1e-12)[:, None], 0.0)
+        delta = tree_unflatten_from_vector(
+            pipe.masked_reduce(contrib, w_c, mask_c,
+                               trim_frac=fed.agg.trim_frac), state.params)
+        kw = {}
+        if agg.buffered:
+            kw = dict(mass=w_c.sum(), released=n_released.float())
+        if agg.needs_losses:
+            # the server saw only the losses that came with a release
+            kw["mask"] = rows(sched.fresh)
+        params, server_state = agg.apply(
+            state.server_state, state.params, delta, losses=losses, idx=idx,
+            **kw)
+        # a zero-survivor round keeps params and server state bit for bit
+        any_surv = n_released > 0
+        params = av.tree_where(any_surv, params, state.params)
+        server_state = av.tree_where(any_surv, server_state,
+                                     state.server_state)
+        fault = av.advance_fault_state(fault, sched, rel_full, w_full,
+                                       fed.avail.rejoin_rounds)
+        n_train = torch.clamp(keep.float().sum(), min=1.0)
+        loss = torch.where(keep, losses, 0.0).sum() / n_train
+        return (RoundState(params, opt_states, server_state, ef_resid,
+                           fault), loss, n_released)
 
-    def _record(self, hist: History, loss: float) -> None:
-        """A finished round's loss and cumulative ε, into ``hist``."""
+    def _record(self, hist: History, loss: float,
+                survivors: Optional[float] = None) -> None:
+        """A finished round's loss, its survivors (fault rounds) and the
+        cumulative ε, into ``hist``."""
         hist.round_loss.append(loss)
+        if survivors is not None:
+            hist.round_survivors.append(int(survivors))
         self._note_privacy(hist)
 
     def _completed(self, n: int) -> None:
@@ -849,9 +881,9 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
             engine: str | None = None) -> History:
         """Run ``rounds`` rounds and return the metric ``History``.
         ``engine`` ("scan" or "loop", default ``FedConfig.engine``) picks
-        the driver (the module docstring); off CUDA and under
-        ``FedConfig.avail`` both run the per-round driver. A run that
-        raises leaves the trainer at its last completed round."""
+        the driver (the module docstring); off CUDA both run the
+        per-round driver. A run that raises leaves the trainer at its
+        last completed round."""
         rounds = rounds or self.fed_cfg.rounds
         engine = engine or self.fed_cfg.engine
         if engine not in ("scan", "loop"):
@@ -861,8 +893,7 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
         if rounds <= 0:
             return hist
         eval_mask = self._eval_mask(rounds)
-        if (engine == "loop" or self.fault_state is not None
-                or not self._captures()):
+        if engine == "loop" or not self._captures():
             self._run_loop(rounds, log_every, eval_mask, hist)
         else:
             self._run_blocks(rounds, log_every, eval_mask, hist)
@@ -870,18 +901,14 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
 
     def _run_loop(self, rounds: int, log_every: int, eval_mask,
                   hist: History) -> None:
-        """The per-round driver: one host sync a round."""
+        """The per-round driver: one host read a round (the loss, and
+        a fault round's survivors with it)."""
         s = self._streams(self.fed_cfg.seed + 1)
         for r in range(rounds):
-            if self.fault_state is None:
-                state, loss = self._round_body(
-                    self._state(), _on(self._stage(r, s, hist),
-                                       self.device), s)
-                self._set_state(state)
-                loss = float(loss)
-            else:
-                loss = self._fault_round(r, s, hist)
-            self._record(hist, loss)
+            state, *outs = self._round_body(
+                self._state(), _on(self._stage(r, s, hist), self.device), s)
+            self._set_state(state)
+            self._record(hist, *_round_outputs(outs).tolist())
             if eval_mask[r]:
                 hist.append_eval(r, self._eval_body(
                     self.global_params,
@@ -898,6 +925,13 @@ class FederatedGPO(_RoundSource, _StagedTrainer):
         # re-seeds the device generators in place, after the warm-up
         self.captured_round.run(self._streams(self.fed_cfg.seed + 1),
                                 rounds, log_every, eval_mask, hist)
+
+
+def _round_outputs(outs) -> torch.Tensor:
+    """A round body's () outputs after its state (the loss, and a fault
+    round's released count) as one (n,) f32 tensor, read in one
+    transfer."""
+    return torch.stack([x.float() for x in outs])
 
 
 def _clone(tree):
@@ -999,13 +1033,14 @@ class _CapturedRound:
     The trainer is ``FederatedGPO`` (a round) or ``CentralizedGPO`` (an
     epoch, its round). It gives the two halves and their bookkeeping:
     ``_stage(r, s, hist)`` and ``_eval_host(r, s)`` (the host's operands
-    as CPU tensors), ``_round_body(state, ops, s)`` -> (state, loss ())
-    and ``_eval_body(params, ops)`` -> (K,) scores (tensors only, no host
+    as CPU tensors), ``_round_body(state, ops, s)`` -> (state, loss ()
+    and any more () outputs: a fault round's released count) and
+    ``_eval_body(params, ops)`` -> (K,) scores (tensors only, no host
     read), ``_state()`` / ``_set_state(state)`` (a NamedTuple with
     ``params``), ``_streams(seed)`` (the run's generators; the device
     ones ``release`` and ``attack_noise``, None where it has none),
-    ``_record(hist, loss)``, ``_completed(n)``, ``_LABEL``, ``device``,
-    ``fed_cfg`` and ``eval_groups``.
+    ``_record(hist, loss, *more)``, ``_completed(n)``, ``_LABEL``,
+    ``device``, ``fed_cfg`` and ``eval_groups``.
 
     ``state`` is static: copied in from the trainer at every ``run``
     (``load``) and out as new tensors after every block and on an
@@ -1013,10 +1048,11 @@ class _CapturedRound:
     trainer's tensors between runs is honoured and a run that raises
     leaves the trainer at its last completed round. The operands are
     static too: a round's and an eval's, refilled through
-    ``_PinnedOperands``. A replay writes its loss (an eval replay its
-    (K,) scores) into one static output, which is cloned on the same
-    stream right after it; ``read`` brings a block's clones to the host
-    in one transfer. The trainer's device generators are registered with
+    ``_PinnedOperands``. A replay writes its outputs (the loss, and a
+    fault round's released count beside it; an eval replay its (K,)
+    scores) into one static output, which is cloned on the same stream
+    right after it; ``read`` brings a block's clones to the host in one
+    transfer. The trainer's device generators are registered with
     the round graph, so each replay draws the next values of the streams
     that ``run`` re-seeds in place.
 
@@ -1036,7 +1072,7 @@ class _CapturedRound:
         self.trainer = trainer
         self.draw_s = self.stage_s = self.replay_s = 0.0
         self.replays = self.eval_replays = 0
-        self._losses, self._scores = [], []
+        self._outs, self._scores = [], []
         self._gens = trainer._streams(trainer.fed_cfg.seed + 1)
         self._train_in = _PinnedOperands(
             trainer._stage(0, self._gens, History()), dev)
@@ -1046,11 +1082,13 @@ class _CapturedRound:
         self.state = _clone(trainer._state())
 
         def warm_up():
-            new, _ = trainer._round_body(_clone(self.state), ops, self._gens)
+            new, *_ = trainer._round_body(_clone(self.state), ops,
+                                          self._gens)
             trainer._eval_body(new.params, batch)
 
         def round_fn():
-            new, self.loss = trainer._round_body(self.state, ops, self._gens)
+            new, *outs = trainer._round_body(self.state, ops, self._gens)
+            self.out = _round_outputs(outs)
             _copy_into(self.state, new)
 
         def eval_fn():
@@ -1098,7 +1136,7 @@ class _CapturedRound:
             raise RuntimeError("the run's device generators are not the "
                                "ones the round was captured with")
         _copy_into(self.state, self.trainer._state())
-        self._losses, self._scores = [], []
+        self._outs, self._scores = [], []
 
     def store(self) -> None:
         self.trainer._set_state(_clone(self.state))
@@ -1113,7 +1151,7 @@ class _CapturedRound:
 
     def round(self, ops) -> None:
         self._replay(self._train_in, self.graph, ops)
-        self._losses.append(self.loss.clone())
+        self._outs.append(self.out.clone())
         self.replays += 1
 
     def eval(self, ops) -> None:
@@ -1122,13 +1160,15 @@ class _CapturedRound:
         self.eval_replays += 1
 
     def read(self) -> tuple:
-        """The block's losses (a list) and eval scores ((evals, K)), in
-        one transfer."""
-        losses, scores = self._losses, self._scores
-        self._losses, self._scores = [], []
-        out = torch.cat([x.reshape(-1) for x in losses + scores]).cpu()
-        n, k = len(losses), len(self.trainer.eval_groups)
-        return out[:n].tolist(), out[n:].reshape(len(scores), k).numpy()
+        """The block's round outputs (a list of [loss, ...] a round) and
+        eval scores ((evals, K)), in one transfer."""
+        outs, scores = self._outs, self._scores
+        self._outs, self._scores = [], []
+        out = torch.cat([x.reshape(-1) for x in outs + scores]).cpu()
+        n = sum(x.numel() for x in outs)
+        k = len(self.trainer.eval_groups)
+        rows = out[:n].reshape(len(outs), -1).tolist() if outs else []
+        return rows, out[n:].reshape(len(scores), k).numpy()
 
     def run(self, s: _Streams, rounds: int, log_every: int, eval_mask,
             hist: History) -> None:
@@ -1154,15 +1194,15 @@ class _CapturedRound:
                         self.draw_s += time.perf_counter() - t0
                         self.eval(ops)
                         evals.append(r)
-                losses, scores = self.read()
+                rows, scores = self.read()
             except BaseException:
                 # the trainer keeps the rounds that completed
                 self.store()
                 t._completed(done)
                 raise
             self.store()
-            for loss in losses:
-                t._record(hist, loss)
+            for row in rows:
+                t._record(hist, *row)
             for i, r in enumerate(evals):
                 hist.append_eval(r, scores[i], log_every, label=t._LABEL)
 
@@ -1221,12 +1261,13 @@ def make_sharded_round(gpo_cfg: GPOConfig, fed_cfg: FedConfig,
     With ``FedConfig.avail`` on, the fault round: ``fault`` is the
     ``FaultState`` with its (C,) schedule state on every process and
     only this process's in-flight rows in ``pending``, ``fault_draws``
-    the round's draws for the population. The schedule and the survivor
-    weights are computed on every process alike; the opt states and the
-    EF rows advance only where the client's work survived; the linear
-    family keeps its one all-reduce, the robust family gathers the
-    blended rows; a zero-survivor round leaves params and server state
-    as they are and makes no collective."""
+    the round's draws for the population, all on the process's device.
+    The schedule and the survivor weights are computed on every process
+    alike; the opt states and the EF rows advance only where the
+    client's work survived; the linear family keeps its one all-reduce,
+    the robust family gathers the blended rows; a zero-survivor round
+    leaves params and server state as they are and makes no collective
+    (so the round reads the survivor count back to the host, once)."""
     gpo_cfg = fed_cfg.resolve_gpo(gpo_cfg)
     fed_cfg.privacy.validate()
     fed_cfg.compression.validate()
@@ -1296,11 +1337,11 @@ def make_sharded_round(gpo_cfg: GPOConfig, fed_cfg: FedConfig,
                    draws):
         # the schedule over the population, the same on every process
         sched = av.round_schedule(draws, fault)
-        w_full = weights.float().cpu()
+        w_full = weights.float()
         deltas, opt_out, losses = train(global_params, opt_states,
                                         batches, attack)
         # the local work survives where the client is fresh or straggles
-        keep = (sched.fresh | sched.straggle)[gids].to(dev)
+        keep = (sched.fresh | sched.straggle)[gids_dev]
         opt_out = tree_map(lambda new, old: torch.where(
             keep.reshape((-1,) + (1,) * (new.dim() - 1)), new, old),
             opt_out, opt_states)
@@ -1317,28 +1358,28 @@ def make_sharded_round(gpo_cfg: GPOConfig, fed_cfg: FedConfig,
         w_arr = torch.where(sched.arrive, fault.pending_weight * disc, 0.0)
         w_c = w_fresh + w_arr
         mask_c = w_c > 0.0
-        n_released = int(sched.fresh.sum()) + int(sched.arrive.sum())
+        n_released = int(sched.fresh.sum() + sched.arrive.sum())
         if n_released > 0:  # else params and server state stay
-            wf, wa, wc = (t[gids].to(dev)[:, None]
+            wf, wa, wc = (t[gids_dev][:, None]
                           for t in (w_fresh, w_arr, w_c))
             contrib = torch.where(
-                mask_c[gids].to(dev)[:, None],
+                mask_c[gids_dev][:, None],
                 (wf * rel + wa * fault.pending)
                 / torch.clamp(wc, min=1e-12), 0.0)
             delta = tree_unflatten_from_vector(
                 pipe.masked_reduce_sharded(
-                    contrib, w_c, mask_c, gids, axes, comm,
+                    contrib, w_c, mask_c, gids_dev, axes, comm,
                     trim_frac=fed_cfg.agg.trim_frac), global_params)
             kw = {}
             if agg.buffered:
-                kw = dict(mass=w_c.sum().to(dev), released=float(n_released))
+                kw = dict(mass=w_c.sum(), released=float(n_released))
             if agg.needs_losses:
                 kw["mask"] = sched.fresh
             global_params, server_state = agg.apply(
                 server_state, global_params, delta,
                 losses=all_losses(losses), idx=None, **kw)
         fault = av.advance_fault_state(fault, sched, rel, w_full,
-                                       avail.rejoin_rounds, rows=gids)
+                                       avail.rejoin_rounds, rows=gids_dev)
         return ShardedOut(global_params, opt_out, losses, server_state,
                           resid, fault, n_released)
 
@@ -1426,7 +1467,8 @@ class ShardedGPO(_RoundSource):
         comp = fed_cfg.compression
         self.ef_resid = (torch.zeros((c_local, p), device=self.device)
                          if comp.enabled and comp.error_feedback else None)
-        self.fault_state = (av.init_fault_state(c, 0)._replace(
+        self.fault_state = (av.init_fault_state(
+            c, 0, device=self.device)._replace(
             pending=torch.zeros((c_local, p), device=self.device))
             if fed_cfg.avail.enabled else None)
         self.opt_states = self.opt.init(
@@ -1445,7 +1487,8 @@ class ShardedGPO(_RoundSource):
         s = self._streams(fed.seed + 1)
         for r in range(rounds):
             attack = self._attack(r, s)
-            draws = self._faults(r, s) if fed.avail.enabled else None
+            draws = (_on(self._faults(r, s), self.device)
+                     if fed.avail.enabled else None)
 
             def batches(e: int, r=r) -> ICLBatch:
                 b = (self._batches(r, e) if self._batches is not None else

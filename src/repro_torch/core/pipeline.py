@@ -241,20 +241,21 @@ class RoundPipeline:
                       trim_frac: float) -> torch.Tensor:
         """The fault round's reduce of the (C, P) blended rows (fresh and
         buffered) with their weights ``w_c`` and survivor mask
-        ``mask_c`` (host (C,) tensors): the linear family renormalises
-        over the survivors, median and trimmed mean shrink their trim
-        depth with the survivor count, the defenses drop weight-0 rows.
-        The norm bound clips the blended rows first."""
-        agg, dev = self.agg, contrib.device
+        ``mask_c`` ((C,) tensors on the rows' device): the linear family
+        renormalises over the survivors, median and trimmed mean shrink
+        their trim depth with the survivor count, the defenses drop
+        weight-0 rows. The norm bound clips the blended rows first.
+        Reads nothing back to the host; with no survivor the result is
+        discarded by the caller, as in the reference's traced round."""
+        agg = self.agg
         contrib = self._bound_rows(contrib)
         if agg.linear:
-            return agg.reduce_flat(
-                contrib, av.masked_mean_weights(w_c, mask_c).to(dev))
+            return agg.reduce_flat(contrib,
+                                   av.masked_mean_weights(w_c, mask_c))
         if agg.name in ("median", "trimmed_mean"):
             return av.masked_robust_reduce_flat(
                 contrib, w_c, mask_c, name=agg.name, trim_frac=trim_frac)
-        return agg.reduce_flat(contrib,
-                               torch.where(mask_c, w_c, 0.0).to(dev))
+        return agg.reduce_flat(contrib, torch.where(mask_c, w_c, 0.0))
 
     def masked_reduce_sharded(self, contrib_l: torch.Tensor,
                               w_c: torch.Tensor, mask_c: torch.Tensor,
@@ -262,22 +263,23 @@ class RoundPipeline:
                               trim_frac: float) -> torch.Tensor:
         """``masked_reduce`` for the sharded fault round: ``contrib_l`` are
         this process's blended rows (clients ``gids``), ``w_c`` and
-        ``mask_c`` the population's (C,) weights and survivors (host).
+        ``mask_c`` the population's (C,) weights and survivors, on the
+        rows' device.
         The linear family sums its rows against the survivors'
         renormalised weights and makes one all-reduce; the robust rules
         and the defenses all-gather the rows and reduce the (C, P)
         matrix as ``masked_reduce`` does, on every process."""
-        agg, dev = self.agg, contrib_l.device
+        agg = self.agg
         contrib_l = self._bound_rows(contrib_l)
         if agg.linear:
-            wn_l = av.masked_mean_weights(w_c, mask_c)[gids].to(dev)
+            wn_l = av.masked_mean_weights(w_c, mask_c)[
+                gids.to(w_c.device)]
             return comm.psum(agg.reduce_flat(contrib_l, wn_l), axes)
         all_vecs = comm.all_gather(contrib_l, axes)
         if agg.name in ("median", "trimmed_mean"):
             return av.masked_robust_reduce_flat(
                 all_vecs, w_c, mask_c, name=agg.name, trim_frac=trim_frac)
-        return agg.reduce_flat(all_vecs,
-                               torch.where(mask_c, w_c, 0.0).to(dev))
+        return agg.reduce_flat(all_vecs, torch.where(mask_c, w_c, 0.0))
 
     # -- the stacked round's tail --------------------------------------------
     def reduce_apply(self, server_state, global_params, deltas, weights, *,

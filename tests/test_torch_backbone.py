@@ -42,6 +42,17 @@ B, S, P = 2, 16, 8  # test_decode_consistency.py's batch, length, prompt
 TOL = 1e-4
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _numpy_tree(tree, leaf=np.asarray):
     """The reference's params as nested dicts of numpy arrays (of
     ``leaf(x)`` for each leaf x)."""

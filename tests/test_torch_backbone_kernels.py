@@ -24,6 +24,17 @@ from repro_torch.kernels.ref import ref_attention, ref_ssd
 from repro_torch.kernels.ssd_scan import ssd_scan_bhsp
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tol(dtype):
     return (dict(rtol=2e-2, atol=2e-2) if dtype == "bfloat16"
             else dict(rtol=2e-5, atol=2e-5))

@@ -36,6 +36,17 @@ from repro_torch.launch import serve as serve_cli
 GKW = dict(d_embed=16, d_model=32, num_layers=2, num_heads=4, d_ff=64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _like(**kw):
     return init_gpo_params(GPOConfig(**{**GKW, **kw}),
                            torch.Generator().manual_seed(9), device="cpu")

@@ -47,6 +47,17 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 SMALL = dict(d_embed=16, d_model=32, num_layers=2, num_heads=4, d_ff=64)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _cfgs(**kw):
     return GPOConfig(**kw), JaxGPOConfig(**kw)
 

@@ -33,6 +33,17 @@ TOL = 1e-5  # the card check, 1e-5·(1 + |plain|)
 F32, F64 = torch.float32, torch.float64
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _tf32(x: torch.Tensor) -> torch.Tensor:
     """f32 -> the nearest TF32 value (10 mantissa bits), ties away from
     zero: add half of the dropped 13 bits to the magnitude, then clear

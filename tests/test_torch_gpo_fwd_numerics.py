@@ -31,6 +31,17 @@ F32, F64 = torch.float32, torch.float64
 NEG_INF = -1e30  # the kernel's mask value
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _kernel_model(q, k, v, num_ctx: int, passes: int = 3):
     """(o, lse) of the forward kernel's arithmetic, f32 throughout: the
     context band on the tensor cores, each target's own key on the CUDA

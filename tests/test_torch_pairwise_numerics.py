@@ -46,6 +46,17 @@ CHUNK, KSTEP, WARPS, LANES = 4096, 8, 16, 32  # the kernel's constants
 SHAPES = [(10, 65536), (32, 5001)]
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _grid_split(xs: torch.Tensor):
     """xs (..., n), one row's values on one grid -> (big, small) as the
     kernel splits them: the grid 2^(e − 9) with e = the biased exponent

@@ -31,6 +31,17 @@ fa = importlib.import_module("repro_torch.kernels.flash_attention")
 sd = importlib.import_module("repro_torch.kernels.ssd_scan")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _port_modules():
     return sorted(m.name for m in pkgutil.walk_packages(
         repro_torch.__path__, "repro_torch."))

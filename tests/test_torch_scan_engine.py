@@ -192,18 +192,23 @@ def test_scan_equals_loop_bit_for_bit(label, monkeypatch):
 
 
 def test_fault_round_runs_the_loop_under_scan(rehearse):
-    """The fault round keeps its schedule on the host: under "scan",
-    where the round would be captured, it runs the per-round driver,
-    bit for bit the loop's, and captures nothing."""
+    """The fault round's schedule lives on the device: under "scan" the
+    fault round is captured like any other (the rehearsed captured
+    round, replayed once a round) and equals the loop bit for bit, its
+    survivors and fault state included."""
     data, tr, ev = _data()
     avail = AvailabilityConfig(online_prob=0.8, straggler_prob=0.5,
                                max_staleness=2)
     got = _runs(data, tr, ev, "scan", avail=avail)
     want = _runs(data, tr, ev, "loop", avail=avail)
-    assert got[0].captured_round is None
+    assert isinstance(got[0].captured_round, _Rehearsal)
+    assert got[0].captured_round.replays == 3
+    assert want[0].captured_round is None
     assert got[1].round_survivors
-    _assert_equal((_history(got[1]), _state(got[0])),
-                  (_history(want[1]), _state(want[0])))
+    _assert_equal((_history(got[1]), _state(got[0]),
+                   tree_leaves(got[0].fault_state)),
+                  (_history(want[1]), _state(want[0]),
+                   tree_leaves(want[0].fault_state)))
 
 
 @pytest.mark.parametrize("rounds,log_every", [(4, 2), (3, 2)],

@@ -38,6 +38,17 @@ TRACE = dict(num_requests=11, hit_ratio=0.5, num_context=(2, 6),
              num_target=(1, 3), seed=3)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 @pytest.fixture(scope="module")
 def world():
     data = make_survey_data(SurveyConfig(num_groups=6, num_questions=40,

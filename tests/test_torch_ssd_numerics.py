@@ -30,6 +30,17 @@ F32, BF16 = torch.float32, torch.bfloat16
 OPERANDS = ("scores", "state", "xw")
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _hi_lo(v: torch.Tensor, keep_lo: bool):
     hi = v.to(BF16).float()
     lo = (v - hi).to(BF16).float() if keep_lo else torch.zeros_like(v)

@@ -97,6 +97,17 @@ SMALL = dict(d_embed=16, d_model=32, num_layers=2, num_heads=2, d_ff=64)
 FED = dict(local_epochs=2, num_context=4, num_target=4, eval_every=1)
 
 
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """One intra-op thread: the suite runs several workers on the CPU's
+    cores, and a pool the size of the machine in each oversubscribes
+    them."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _t(a):
     return torch.from_numpy(np.array(a))
 
