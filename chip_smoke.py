@@ -33,8 +33,11 @@ the card, raising on any mismatch:
    rows); and the LM
    backbones' flash-attention forward (the reference's sweeps of S,
    GQA, windows and softcap, non-causal at ragged S, qwen2's 14/2
-   heads; head_dim 128 too, up to qwen3-32b's 64/8 heads at S 1024,
-   bf16 there against the f32 plain version) and SSD chunked scan (the
+   heads; head_dim 128 too, up to qwen3-32b's 64/8 heads at S 1024;
+   the served archs' heads, windows and softcaps: gemma2-27b's 32/16
+   with softcap 50, local and global, gemma3-27b's window 1024 at S
+   1100, granite-moe's 24/8, grok-1's 48/8; bf16 against the f32 plain
+   version) and SSD chunked scan (the
    reference's sweep, mamba2's p 64, n 128 at chunk 128, 64 and 20 and
    at batch 1, p and n that are not multiples of 8; with the final
    state; bf16 also by each row of y against the f32 plain version, at
@@ -79,14 +82,22 @@ the card, raising on any mismatch:
    against the plain-aggregation card run and the CPU run of the same
    draws.
    4d. LM serving: ``serve_lm``'s path (``make_prefill_step``, then
-   ``greedy_decode``) for qwen2-0.5b and mamba2-780m at full width and
-   depth in bf16, random weights from the seed, batch 4, prompt 2048,
-   32 tokens: the launch counts (flash 24 a qwen2 prefill, ssd 48 a
-   mamba2 prefill, 0 in decode and 0 for every other kernel), the last
-   logits and greedy tokens against the same run through the plain
-   branch on the card, prefill and decode times, one profiled prefill;
-   then an f32 run at full width, 4 layers, prompt 512, against the
-   same run on the CPU.
+   ``greedy_decode``) for every ported arch at full width in bf16,
+   random weights from the seed, batch 4, prompt 2048, 32 tokens:
+   qwen2-0.5b, mamba2-780m and granite-moe-3b-a800m at full depth,
+   qwen3-32b, gemma2-27b and gemma3-27b at 8 layers, grok-1-314b at 2
+   (``LM_ARCHS``; each cut printed): the launch counts (flash or ssd
+   once a layer a prefill, 0 in decode and 0 for every other kernel),
+   the last logits and greedy tokens against the same run through the
+   plain branch on the card, prefill and decode times, one profiled
+   prefill; the MoE archs' pairs dropped at capacity factor 1.25 and
+   the (token, layer) routing choices that differ between the kernel
+   and the plain run; the gemmas' ring cache (``ring_cache_from_full``
+   of the prefill's cache) decoding the greedy tokens against the full
+   cache, with both caches' bytes; then an f32 run at the same depth,
+   kernel against plain branch (the gemmas' ring again, at 1e-4), and
+   an f32 run at full width and a few layers (``LM_F32_CPU``) against
+   the same run on the CPU.
    4e. The paper's experiment: one seed of
    ``repro_torch.benchmarks.paper_experiment``'s pair at the reference's
    widths and ``FedConfig`` (17 groups, 10 clients, d_model 96, head_dim
@@ -174,7 +185,10 @@ the card, raising on any mismatch:
    backward (delta, dq, dk/dv through ``GPOAttention``) also beside
    SDPA's backward alone, each replayed from a retained graph, and dq
    and dk/dv at other num_ctx and for one bh alone; flash also at
-   qwen3-32b's widths (B 1, H 64, KV 8, S 2048, hd 128), int8 also at
+   qwen3-32b's widths (B 1, H 64, KV 8, S 2048, hd 128) and at the
+   gemmas' local layers (B 4, H 32, KV 16, S 2048, hd 128: window 4096
+   with softcap 50, no library call; window 1024 beside SDPA with the
+   same boolean mask), int8 also at
    (1280, 256) x (256, 256); SSD also at batch 1, in f32, and beside
    the chunked plain branch (``ssd_chunked``), after its bf16 check and
    planted faults at the prefill shape; the DP clip reduce also in its
@@ -210,6 +224,7 @@ cuDNN; the LM phase serves the configs' bf16 (and one f32 run).
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import json
@@ -269,6 +284,7 @@ from repro_torch.core import (  # noqa: E402
     latency_summary,
     make_prefill_step,
     make_request_trace,
+    make_serve_step,
     predict_preferences,
     quantize_gpo_params,
 )
@@ -285,6 +301,7 @@ from repro_torch.data import (  # noqa: E402
     split_groups,
 )
 from repro_torch.kernels import backend, quantize_linear  # noqa: E402
+from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.agg_reduce import (  # noqa: E402
     _CLIP_ARGTYPES,
     _PAIRWISE_ARGTYPES,
@@ -342,7 +359,12 @@ from repro_torch.launch.mesh import (  # noqa: E402
     make_host_mesh,
     spawn,
 )
-from repro_torch.models import init_params  # noqa: E402
+from repro_torch.models import attention as lm_attention  # noqa: E402
+from repro_torch.models import init_params, moe  # noqa: E402
+from repro_torch.models.transformer import (  # noqa: E402
+    ring_cache_from_full,
+    uses_ring_cache,
+)
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.utils.pytree import (  # noqa: E402
     tree_count_params,
@@ -769,9 +791,10 @@ FLASH_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
 # bf16 flash, besides FLASH_TOL: the largest error of an output row (its
 # 2-norm over the row's 2-norm). The kernel's own rounding (p and o to
 # bf16) read at most FLASH_BF16_ROW_FLOOR over the phase 1 sweeps and
-# the main path's shapes on an H100 (PERF.md §6); the limit is twice
-# that. The controls (a key tile dropped, a window one key wider) must
-# exceed it: they read 0.5-2 there
+# phase 5's shapes on an H100, and up to 3.53e-3 on the LM prefills' own
+# tensors (PERF.md §6); the limit is twice the floor. The controls (a key
+# tile dropped, a window one key wider) must exceed it: they read 0.5-2
+# there, and 0.029-0.79 on the prefills' tensors
 FLASH_BF16_ROW_FLOOR = 3.45e-3
 FLASH_BF16_ROW_TOL = 2 * FLASH_BF16_ROW_FLOOR
 SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
@@ -786,27 +809,59 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # 6-59 and 1.2-3.2 there
 SSD_BF16_ROW_FLOOR = 3.146e-3
 SSD_BF16_ROW_TOL = 2 * SSD_BF16_ROW_FLOOR
-# LM serving: (arch, its prefill's kernel, a config change that reorders
-# the plain branch's sums without changing what it computes, or None);
-# one kernel launch a layer
-LM_ARCHS = (("qwen2-0.5b", "flash_attention", None),
-            ("mamba2-780m", "ssd_scan", {"ssm_chunk": 64}))
+# LM serving: arch -> (its prefill's kernel, the layers served (None: all
+# of the config's), a change to the plain branch that rounds its sums
+# otherwise without changing what it computes, or None); one kernel
+# launch a layer a prefill. Depth is cut only to fit the card and the
+# clock. The change is a config change (mamba2's chunk 64 reorders the
+# SSD's sums) or F32_SCORES: the plain attention with its scores kept in
+# f32, the flash kernel's own rounding. granite-moe's router flips 11.6%
+# of its (token, layer) choices on a bf16 ulp (PERF.md §6), each moving
+# a token by O(1), so its floor is that rounding's effect. The floor
+# follows the kernel's rounding, so the bf16 kernel is held on its own as
+# well: on the main path's q, k and v of a few layers of every attention
+# arch (``_flash_on_path``), to the plain version in f32
+F32_SCORES = "the attention's scores in f32"
+LM_ARCHS = {
+    "qwen2-0.5b": ("flash_attention", None, None),
+    "mamba2-780m": ("ssd_scan", None, {"ssm_chunk": 64}),
+    "qwen3-32b": ("flash_attention", 8, None),
+    "gemma2-27b": ("flash_attention", 8, None),
+    "gemma3-27b": ("flash_attention", 8, None),
+    "granite-moe-3b-a800m": ("flash_attention", None, F32_SCORES),
+    "grok-1-314b": ("flash_attention", 2, None),
+}
+LM_DEPTH_WHY = {
+    "qwen3-32b": "11 GB of bf16 weights",
+    "gemma2-27b": "four local:global periods",
+    "gemma3-27b": "one 5:1 period and a two-layer tail, so the ring's "
+                  "tail path runs",
+    "grok-1-314b": "23 GB of bf16 weights (9.7 GB of experts a layer)",
+}
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
 # the kernel run's last logits against the plain branch's on the card,
 # max-abs over the largest |logit|: bf16 activations round every layer's
 # output, and the flash kernel keeps scores in f32 where the plain
 # branch rounds them to bf16. Where the plain branch run once more with
-# its sums reordered (mamba2 at chunk 64) lands further from itself
-# than that, rounding alone sets the floor: the bound is then 1.5 times
-# that floor, and the f32 run at full depth (LM_F32_TOL) is what holds
-# the kernel to the plain branch.
+# its sums rounded otherwise (mamba2 at chunk 64, granite-moe with f32
+# scores) lands further from itself than that, rounding alone sets the
+# floor: the bound is then 1.5 times that floor, and the f32 run
+# (LM_F32_TOL) is what holds the kernel to the plain branch.
 LM_BF16_TOL = 2e-2
 LM_FLOOR_FACTOR = 1.5
-# f32 at full width and depth, prompt 2048: the kernel prefill against
-# the plain branch's on the card; and f32 at full width, 4 layers,
-# prompt 512, 4 tokens: the card against the CPU
-LM_F32_LAYERS, LM_F32_PROMPT, LM_F32_GEN = 4, 512, 4
+# f32 at full width and the served depth, prompt 2048: the kernel
+# prefill against the plain branch's on the card; and f32 at full
+# width, few layers, against the CPU: (layers, batch, prompt), 4 tokens
+LM_F32_CPU = {"qwen2-0.5b": (4, 4, 512), "mamba2-780m": (4, 4, 512),
+              "grok-1-314b": (1, 1, 64)}
+LM_F32_CPU_DEFAULT = (2, 1, 64)
+LM_F32_GEN = 4
 LM_F32_TOL = 1e-4
+# the gemmas' ring decode against the full-cache decode on the card, the
+# same tokens fed to both: the reference's bound in f32
+# (tests/test_ring_cache.py); in bf16 the ring's slot order sums the
+# window's keys in another order than the full cache's
+LM_RING_TOL = {"float32": 1e-4, "bfloat16": LM_BF16_TOL}
 
 
 def _card_line() -> str:
@@ -1770,6 +1825,20 @@ def _check_backbone_kernels(g, dev, worst) -> None:
         flash_case(dtype, 1, 1024, 64, 8, bq=128, causal=True, **wide)
         flash_case(dtype, 1, 1024, 64, 8, bq=128, causal=True, window=256,
                    softcap=50.0, **wide)
+        # the served archs' heads, windows and softcaps (phase 4d):
+        # gemma2-27b's 32/16 with softcap 50, local (window 4096) and
+        # global; gemma3-27b's, local (window 1024, S past it) and global;
+        # granite-moe's 24/8 at hd 64; grok-1's 48/8 (qwen3-32b's 64/8
+        # above)
+        flash_case(dtype, 2, 300, 32, 16, bq=128, causal=True, window=4096,
+                   softcap=50.0, **wide)
+        flash_case(dtype, 2, 300, 32, 16, bq=128, causal=True, softcap=50.0,
+                   **wide)
+        flash_case(dtype, 1, 1100, 32, 16, bq=128, causal=True, window=1024,
+                   **wide)
+        flash_case(dtype, 2, 300, 32, 16, bq=128, causal=True, **wide)
+        flash_case(dtype, 2, 300, 24, 8, bq=128, causal=True)
+        flash_case(dtype, 2, 300, 48, 8, bq=128, causal=True, **wide)
         for s, chunk in ((64, 16), (75, 16), (128, 32)):
             ssd_case(dtype, 2, s, 3, 16, 8, chunk)
         ssd_case(dtype, 2, 300, 4, 64, 128, 128)  # mamba2's widths
@@ -3716,6 +3785,9 @@ def train_captured(dev, data, tr, ev) -> dict:
 
 
 def _lm_cfg(arch: str, **kw) -> ModelConfig:
+    layers = LM_ARCHS[arch][1]
+    if layers is not None:
+        kw.setdefault("num_layers", layers)
     return override(get_arch(arch), **kw) if kw else get_arch(arch)
 
 
@@ -3725,13 +3797,159 @@ def _rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
             / b.float().abs().max()).item()
 
 
-def _lm_run(cfg, params, prompts, gen_len, use_kernels: bool) -> dict:
+class _Routing:
+    """Records each MoE layer's top-k choices and kept pairs while on
+    (``models/moe.py``'s ``top_k`` and ``_dispatch_block`` wrapped)."""
+
+    def __init__(self):
+        self.idx, self.keep = [], []
+
+    def __enter__(self):
+        self._saved = moe.top_k, moe._dispatch_block
+
+        def top_k(probs, k):
+            vals, idx = self._saved[0](probs, k)
+            self.idx.append(idx)
+            return vals, idx
+
+        def dispatch(*args):
+            out = self._saved[1](*args)
+            self.keep.append(out[2])
+            return out
+
+        moe.top_k, moe._dispatch_block = top_k, dispatch
+        return self
+
+    def __exit__(self, *exc):
+        moe.top_k, moe._dispatch_block = self._saved
+
+    def dropped(self) -> tuple:
+        """(dropped pairs, pairs) over the recorded layers."""
+        return (sum(int((~k).sum()) for k in self.keep),
+                sum(k.numel() for k in self.keep))
+
+
+def _flipped(a: _Routing, b: _Routing, last: int) -> dict:
+    """(token, layer) choices that differ between two runs' records, in
+    all and at the ``last`` position of each sequence."""
+    flips = [(x.sort(-1).values != y.sort(-1).values).any(-1)
+             for x, y in zip(a.idx, b.idx)]
+    return {"flipped": sum(int(f.sum()) for f in flips),
+            "flipped_last": sum(int(f.reshape(LM_BATCH, -1)[:, last].sum())
+                                for f in flips),
+            "choices": sum(f.numel() for f in flips)}
+
+
+class _FlashSpy:
+    """Keeps the inputs and output of the model-layout flash wrapper
+    (``kernels/ops.py``'s ``flash_attention``, wrapped while on) at the
+    first call of each (window, softcap) and at the last call: a layer
+    index -> (q, k, v, its keywords, the output)."""
+
+    def __enter__(self):
+        self._real = kernel_ops.flash_attention
+        self.kept, self._seen, self._last = {}, set(), None
+        self._n = 0
+
+        def spy(q, k, v, **kw):
+            out = self._real(q, k, v, **kw)
+            call = (q, k, v, kw, out)
+            key = (kw.get("window", 0), kw.get("softcap"))
+            if key not in self._seen:
+                self._seen.add(key)
+                self.kept[self._n] = call
+            self._last = (self._n, call)
+            self._n += 1
+            return out
+
+        kernel_ops.flash_attention = spy
+        return self
+
+    def __exit__(self, *exc):
+        kernel_ops.flash_attention = self._real
+        if self._last is not None:
+            self.kept.setdefault(*self._last)
+
+
+def _flash_on_path(arch: str, spy: _FlashSpy) -> dict:
+    """The bf16 flash kernel on the main path's own tensors (batch 4,
+    prompt 2048, the arch's heads): each kept call's output held to the
+    plain version in f32 on its inputs under FLASH_TOL and
+    FLASH_BF16_ROW_TOL, and a planted fault (the last key tile dropped)
+    shown to fail that check. Its launches come after the main path's
+    counts were read."""
+    out = {}
+    for layer, (q, k, v, kw, got) in sorted(spy.kept.items()):
+        qb, kb, vb = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        # one sequence at a time: the f32 scores of all four are 13 GB
+        # at qwen3-32b's 64 heads
+        plain = torch.cat([ref_attention(*_f32(qb[i:i + 1], kb[i:i + 1],
+                                               vb[i:i + 1]), **kw)
+                           for i in range(qb.shape[0])])
+        err, row, ok = _flash_close(got.transpose(1, 2), plain)
+        print(f"    flash on the main path, layer {layer} "
+              f"{list(qb.shape)} kv {kb.shape[1]} "
+              f"{ {n: kw[n] for n in ('window', 'softcap')} }: "
+              f"max_abs_err={err:.3e}  tol={FLASH_TOL[torch.bfloat16]:g}"
+              f"*(1+|plain|)  row error {row:.3e} (limit "
+              f"{FLASH_BF16_ROW_TOL:g})")
+        if not ok:
+            raise AssertionError(f"{arch}: flash off the plain version at "
+                                 f"layer {layer} of the main path")
+        control = _flash_control(
+            f"layer {layer}, the last key tile dropped",
+            flash_attention_bhsd(qb, kb, vb, kv_len=qb.shape[2] - 64, **kw),
+            plain)
+        out[layer] = {"shape": list(qb.shape), "kv_heads": kb.shape[1],
+                      "window": kw.get("window", 0),
+                      "softcap": kw.get("softcap"), "max_abs_err": err,
+                      "row_err": row, "control_row_err": control}
+        del plain, qb, kb, vb
+    spy.kept.clear()
+    torch.cuda.empty_cache()
+    return out
+
+
+@contextlib.contextmanager
+def _plain_scores_f32():
+    """The plain branch's attention with q, k and v upcast, so its scores
+    stay in f32 as the flash kernel keeps them; its output rounded back
+    to v's type once."""
+    real = lm_attention.gqa_scores_softmax
+
+    def f32(q, k, v, mask, logit_cap):
+        return real(q.float(), k.float(), v.float(), mask,
+                    logit_cap).to(v.dtype)
+
+    lm_attention.gqa_scores_softmax = f32
+    try:
+        yield
+    finally:
+        lm_attention.gqa_scores_softmax = real
+
+
+def _plain_floor(cfg, change, params, prompts, plain_last) -> float:
+    """The plain branch's last logits with ``change`` against its own."""
+    changed = cfg if change == F32_SCORES else override(cfg, **change)
+    with (_plain_scores_f32() if change == F32_SCORES
+          else contextlib.nullcontext()):
+        last = make_prefill_step(changed, LM_PROMPT + LM_GEN,
+                                 use_kernels=False)(
+            params, {"tokens": prompts})[0]
+    return _rel_max(last, plain_last)
+
+
+def _lm_run(cfg, params, prompts, gen_len, use_kernels: bool,
+            routing=None, spy=None) -> dict:
     """``serve_lm``'s path: one prefill, then greedy decoding; host-clock
-    times around work that ends in a synchronize."""
+    times around work that ends in a synchronize. ``routing`` records
+    the prefill's MoE choices, ``spy`` its flash calls."""
     prefill = make_prefill_step(cfg, prompts.shape[1] + gen_len,
                                 use_kernels=use_kernels)
     t0 = time.perf_counter()
-    last, cache = prefill(params, {"tokens": prompts})
+    with routing or contextlib.nullcontext(), \
+            spy or contextlib.nullcontext():
+        last, cache = prefill(params, {"tokens": prompts})
     first = torch.argmax(last, dim=-1)[:, None]
     _sync(prompts.device)
     t1 = time.perf_counter()
@@ -3752,15 +3970,77 @@ def _sync(device) -> None:
         torch.cuda.synchronize()
 
 
+def _forced_decode(cfg, params, cache, tokens, start: int) -> torch.Tensor:
+    """The decode logits (B, n, V) of feeding ``tokens`` (B, n) one at a
+    time from ``start``, into ``cache`` in place."""
+    serve = make_serve_step(cfg)
+    return torch.stack([serve(params, cache, tokens[:, i:i + 1],
+                              start + i)[0] for i in range(tokens.shape[1])],
+                       dim=1)
+
+
+def _bytes(tree: dict) -> int:
+    return sum(t.numel() * t.element_size() for t in tree.values())
+
+
+def _ring_check(cfg, params, prompts, generated) -> dict:
+    """The gemmas' ring cache on the card: the kernel prefill's full
+    cache, converted by ``ring_cache_from_full``, decodes the greedy
+    run's tokens (``generated`` (B, n): each fed as the greedy loop fed
+    it) against the full cache decoding the same tokens; no kernel
+    launches in either decode."""
+    b, p = prompts.shape
+    max_seq = p + generated.shape[1]
+    tokens = generated[:, :-1]
+    ring_cfg = override(cfg, ring_cache=True)
+    assert uses_ring_cache(ring_cfg)
+    _, full = make_prefill_step(cfg, max_seq)(params, {"tokens": prompts})
+    ring = ring_cache_from_full(ring_cfg, full, p - 1, b, max_seq)
+    full_bytes, ring_bytes = _bytes(full), _bytes(ring)
+    _zero_counts()
+    _sync(prompts.device)
+    t0 = time.perf_counter()
+    want = _forced_decode(cfg, params, full, tokens, p)
+    _sync(prompts.device)
+    t1 = time.perf_counter()
+    got = _forced_decode(ring_cfg, params, ring, tokens, p)
+    _sync(prompts.device)
+    t2 = time.perf_counter()
+    launches = {k: v for k, v in _counts().items() if v}
+    if launches:
+        raise AssertionError(f"{cfg.name}: decode launched {launches}")
+    rel = _rel_max(got, want)
+    tol = LM_RING_TOL[cfg.activation_dtype]
+    agree = (got.argmax(-1) == want.argmax(-1)).sum().item()
+    print(f"    ring cache ({cfg.activation_dtype}): {tokens.shape[1]}"
+          f" tokens decoded from the converted prefill cache against the "
+          f"full cache: max_abs/max|logit| = {rel:.3e} (bound {tol:g}); "
+          f"argmax agree {agree}/{want.shape[0] * want.shape[1]}; bytes "
+          f"{ring_bytes} ({sorted(ring)}) against the full cache's "
+          f"{full_bytes}; decode {(t1 - t0) * 1e3 / tokens.shape[1]:.2f} "
+          f"ms/token full, {(t2 - t1) * 1e3 / tokens.shape[1]:.2f} ring")
+    if not (rel <= tol and torch.isfinite(got).all()):
+        raise AssertionError(f"{cfg.name}: ring decode off the full cache's")
+    return {"rel": rel, "bound": tol, "argmax_agree": agree,
+            "ring_bytes": ring_bytes, "full_bytes": full_bytes,
+            "full_decode_ms_per_token": (t1 - t0) * 1e3 / tokens.shape[1],
+            "ring_decode_ms_per_token": (t2 - t1) * 1e3 / tokens.shape[1]}
+
+
 def serve_lm(dev) -> dict:
-    """Phase 6: ``serve_lm``'s path for qwen2-0.5b and mamba2-780m at full
-    width and depth in bf16 (random weights from the seed, batch 4,
-    prompt 2048, 32 tokens): launch counts, the kernel run against the
-    plain-branch run on the card, timing and one profiled prefill; then
-    an f32 run at full width, 4 layers, prompt 512, against the CPU."""
+    """Phase 4d: ``serve_lm``'s path for every ported arch at full width
+    in bf16 (depth cut where ``LM_ARCHS`` says; random weights from the
+    seed, batch 4, prompt 2048, 32 tokens): launch counts, the kernel run
+    against the plain-branch run on the card, timing and one profiled
+    prefill; the MoE archs' dropped pairs and the routing choices that
+    differ between the two runs; the gemmas' ring decode against the
+    full cache's; then an f32 run at the same depth, kernel against
+    plain branch (and the gemmas' ring again), and one at a few layers
+    against the CPU."""
     out = {}
-    for arch, kernel, reorder in LM_ARCHS:
+    for arch, (kernel, _, reorder) in LM_ARCHS.items():
         cfg = _lm_cfg(arch)
+        full_depth = get_arch(arch).num_layers
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(SEED)
         params = init_params(cfg, gen, device=dev)
@@ -3770,21 +4050,27 @@ def serve_lm(dev) -> dict:
         init_s = time.perf_counter() - t0
         n_params = sum(t.numel() for t in tree_leaves(params)
                        if t is not None)
+        cut = (f"depth cut to {cfg.num_layers} of {full_depth}: "
+               f"{LM_DEPTH_WHY[arch]}" if cfg.num_layers < full_depth
+               else "full depth")
         print(f"  {arch}: {n_params / 1e6:.1f} M params ({cfg.param_dtype}, "
-              f"{cfg.num_layers} layers) initialised on the card in "
+              f"{cfg.num_layers} layers, {cut}) initialised on the card in "
               f"{init_s:.2f}s")
-        plain = _lm_run(cfg, params, prompts, LM_GEN, use_kernels=False)
+        routes = {"plain": _Routing(), "kernel": _Routing()} \
+            if cfg.is_moe else {}
+        plain = _lm_run(cfg, params, prompts, LM_GEN, use_kernels=False,
+                        routing=routes.get("plain"))
         floor = None
         if reorder:
-            floor = _rel_max(make_prefill_step(
-                override(cfg, **reorder), LM_PROMPT + LM_GEN,
-                use_kernels=False)(params, {"tokens": prompts})[0],
-                plain["last"])
+            floor = _plain_floor(cfg, reorder, params, prompts,
+                                 plain["last"])
         bound = max(LM_BF16_TOL, LM_FLOOR_FACTOR * (floor or 0.0))
         torch.cuda.reset_peak_memory_stats()
         # the main path: the counters from 0, one prefill, then decode
+        spy = _FlashSpy() if kernel == "flash_attention" else None
         _zero_counts()
-        run = _lm_run(cfg, params, prompts, LM_GEN, use_kernels=True)
+        run = _lm_run(cfg, params, prompts, LM_GEN, use_kernels=True,
+                      routing=routes.get("kernel"), spy=spy)
         launches = run["launches"]
         # one launch a layer in the prefill, none in decode
         want = {**dict.fromkeys(_COUNTED, 0), kernel: cfg.num_layers}
@@ -3792,6 +4078,7 @@ def serve_lm(dev) -> dict:
             raise AssertionError(
                 f"{arch} launches {run['launches_prefill']} after the "
                 f"prefill, {launches} after decoding; want {want}")
+        on_path = None if spy is None else _flash_on_path(arch, spy)
         peak_gb = torch.cuda.max_memory_allocated() / 1e9
         rel = _rel_max(run["last"], plain["last"])
         diff = (run["last"] - plain["last"]).abs().max(dim=-1).values
@@ -3800,6 +4087,21 @@ def serve_lm(dev) -> dict:
         first_ok = ((run["tokens"][:, 0] == plain["tokens"][:, 0])
                     | (margin <= diff))
         agree = (run["tokens"] == plain["tokens"]).sum().item()
+        moe_rec = None
+        if cfg.is_moe:
+            dropped, pairs = routes["kernel"].dropped()
+            moe_rec = {"dropped_pairs": dropped, "pairs": pairs,
+                       "dropped_share": dropped / pairs,
+                       "capacity_factor": cfg.moe_capacity_factor,
+                       **_flipped(routes["kernel"], routes["plain"],
+                                  LM_PROMPT - 1)}
+            print(f"    MoE routing in the prefill: {dropped} of {pairs} "
+                  f"(token, choice) pairs dropped at capacity factor "
+                  f"{cfg.moe_capacity_factor} ({dropped / pairs:.4%}); "
+                  f"(token, layer) choices that differ between the kernel "
+                  f"and the plain run: {moe_rec['flipped']} of "
+                  f"{moe_rec['choices']}, {moe_rec['flipped_last']} at the "
+                  f"last position")
         print(f"    prefill {run['prefill_ms']:.2f} ms, decode "
               f"{run['decode_ms_per_token']:.2f} ms/token (plain branch: "
               f"{plain['prefill_ms']:.2f} ms, "
@@ -3808,12 +4110,15 @@ def serve_lm(dev) -> dict:
               f"peak {peak_gb:.2f} GB")
         print(f"    last logits vs the plain branch: max_abs/max|logit| = "
               f"{rel:.3e} (bound {bound:.3e}; the plain branch against "
-              f"itself reordered {reorder}: {floor}); greedy tokens agree "
+              f"itself with {reorder}: {floor}); greedy tokens agree "
               f"{agree}/{run['tokens'].numel()}; first-token margins "
               f"{margin.tolist()} against diffs {diff.tolist()}")
         if not (rel <= bound and bool(first_ok.all())
                 and torch.isfinite(run["last"]).all()):
             raise AssertionError(f"{arch}: kernel run off the plain branch")
+        ring_rec = None
+        if any(w > 0 for w in cfg.window_pattern):
+            ring_rec = _ring_check(cfg, params, prompts, run["tokens"])
         # steady prefills, after the counted one: kernel, plain, plain,
         # kernel, the best of each
         walls = {"kernel": [], "plain": []}
@@ -3832,6 +4137,7 @@ def serve_lm(dev) -> dict:
                         match=(kernel,))
         rec = {
             "params_m": n_params / 1e6, "init_s": init_s,
+            "layers": cfg.num_layers, "full_depth": full_depth,
             "batch": LM_BATCH, "prompt": LM_PROMPT, "generated": LM_GEN,
             "launches": {k: v for k, v in launches.items() if v},
             "prefill_ms": prefill_ms, "first_prefill_ms": run["prefill_ms"],
@@ -3844,6 +4150,7 @@ def serve_lm(dev) -> dict:
             "bound": bound,
             "first_token_margin": margin.tolist(),
             "first_token_diff": diff.tolist(), "tokens_agree": agree,
+            "moe": moe_rec, "ring": ring_rec, "flash_on_path": on_path,
             "profile": {k: prof[k] for k in ("wall_ms", "kernel_ms",
                                              "busy_share", "top",
                                              "matched")}}
@@ -3854,11 +4161,12 @@ def serve_lm(dev) -> dict:
               f"{prof['matched'][kernel]['ms']:.2f} ms of "
               f"{prof['kernel_ms']:.2f} ms kernel time; top "
               f"{[(t['name'][:40], round(t['ms'], 2)) for t in prof['top']]}")
-        del params, plain, run
+        generated = run["tokens"]
+        del params, plain, run, routes
         torch.cuda.empty_cache()
 
-        # f32 at full width and depth: the kernel prefill against the
-        # plain branch's, on the card
+        # f32 at full width and the served depth: the kernel prefill
+        # against the plain branch's, on the card
         full32 = _lm_cfg(arch, param_dtype="float32",
                          activation_dtype="float32")
         gen = torch.Generator(device=dev).manual_seed(SEED)
@@ -3873,32 +4181,43 @@ def serve_lm(dev) -> dict:
         if not (rel_deep <= LM_F32_TOL and torch.isfinite(lasts[0]).all()):
             raise AssertionError(f"{arch}: f32 kernel run off the plain "
                                  "branch")
-        del params, lasts
+        del lasts
+        ring32 = None
+        if ring_rec is not None:
+            ring32 = _ring_check(full32, params, prompts, generated)
+        del params
         torch.cuda.empty_cache()
 
-        # f32 at full width, 4 layers, prompt 512: the card against the CPU
+        # f32 at full width and a few layers: the card against the CPU
+        layers, batch, prompt = LM_F32_CPU.get(arch, LM_F32_CPU_DEFAULT)
         cfg32 = _lm_cfg(arch, param_dtype="float32",
-                        activation_dtype="float32", num_layers=LM_F32_LAYERS)
+                        activation_dtype="float32", num_layers=layers)
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         params = init_params(cfg32, gen, device=dev)
-        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_F32_PROMPT),
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
                                 generator=gen, device=dev)
         card = _lm_run(cfg32, params, prompts, LM_F32_GEN, use_kernels=True)
         t0 = time.perf_counter()
-        cpu = _lm_run(cfg32, _cpu_tree(params), prompts.cpu(), LM_F32_GEN,
+        cpu_params = _cpu_tree(params)
+        del params
+        torch.cuda.empty_cache()
+        cpu = _lm_run(cfg32, cpu_params, prompts.cpu(), LM_F32_GEN,
                       use_kernels=True)
         cpu_s = time.perf_counter() - t0
         rel32 = _rel_max(card["last"].cpu(), cpu["last"])
         agree32 = (card["tokens"].cpu() == cpu["tokens"]).sum().item()
-        print(f"    f32, {LM_F32_LAYERS} layers, prompt {LM_F32_PROMPT}: "
+        print(f"    f32, {layers} layers, batch {batch}, prompt {prompt}: "
               f"last logits card vs CPU max_abs/max|logit| = {rel32:.3e} "
               f"(bound {LM_F32_TOL:g}); greedy tokens agree {agree32}/"
               f"{cpu['tokens'].numel()}; CPU run {cpu_s:.1f}s")
         if not (rel32 <= LM_F32_TOL and torch.isfinite(card["last"]).all()):
             raise AssertionError(f"{arch}: f32 card run off the CPU run")
-        del params, card, cpu
+        del cpu_params, card, cpu
         torch.cuda.empty_cache()
         out[arch] = {**rec, "f32_rel_logits_vs_plain": rel_deep,
+                     "f32_ring": ring32,
+                     "f32_cpu_run": {"layers": layers, "batch": batch,
+                                     "prompt": prompt},
                      "f32_rel_logits_vs_cpu": rel32,
                      "f32_tokens_agree": agree32, "f32_cpu_s": cpu_s}
     return out
@@ -3910,61 +4229,163 @@ def _cpu_tree(tree):
     return None if tree is None else tree.cpu()
 
 
+def _flex_attention(q, k, v, window: int, softcap, plain) -> tuple:
+    """(the call, its description, its check): ``flex_attention`` on q
+    (B, H, S, hd) and k, v (B, KV, S, hd), compiled once here, outside
+    any timed region, with the causal window as a block mask (the tiles
+    outside it skipped) and the softcap as a score_mod on the scaled
+    scores; its output held to ``plain`` (the plain version in f32 on the
+    same inputs) under FLASH_TOL, or it does not compute the function.
+    Inductor's caches go to the git-ignored ``build/``, and it compiles
+    in this process."""
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(ROOT / "build" / "inductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(ROOT / "build" / "triton"))
+    import torch._inductor.config as inductor_config
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    inductor_config.compile_threads = 1
+    s = q.shape[2]
+    w = window if window > 0 else s
+
+    def mask_mod(b, h, q_idx, kv_idx):
+        return (kv_idx <= q_idx) & (q_idx - kv_idx < w)
+
+    score_mod = None
+    if softcap is not None:
+        def score_mod(score, b, h, q_idx, kv_idx):
+            return softcap * torch.tanh(score / softcap)
+
+    block_mask = create_block_mask(mask_mod, None, None, s, s,
+                                   device=q.device)
+    compiled = torch.compile(flex_attention, dynamic=False)
+
+    def call():
+        return compiled(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                        enable_gqa=True)
+
+    t0 = time.perf_counter()
+    got = call()
+    torch.cuda.synchronize()
+    compile_s = time.perf_counter() - t0
+    err, ok = _close(got.float(), plain, FLASH_TOL[got.dtype])
+    row = _row_rel(got, plain)
+    print(f"  flex_attention (window {window}, softcap {softcap}): compiled "
+          f"in {compile_s:.1f}s; against the plain version in f32 "
+          f"max_abs_err={err:.3e}  tol={FLASH_TOL[got.dtype]:g}*(1+|plain|)"
+          f"  row error {row:.3e}")
+    if not ok:
+        raise AssertionError("flex_attention does not compute the plain "
+                             "version's function")
+    desc = ("torch.compile(flex_attention)(q, k, v, block_mask=the causal "
+            f"window {w} (create_block_mask), "
+            + ("" if softcap is None else
+               f"score_mod={softcap:g}*tanh(score/{softcap:g}), ")
+            + "enable_gqa=True)")
+    return call, desc, {"max_abs_err": err, "row_err": row,
+                        "compile_s": compile_s}
+
+
 def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
     """Phase 5's rows for the LM backbones' kernels at the prefill shapes
     of the LM phase: flash at qwen2-0.5b's (B 4, H 14, KV 2, S 2048, hd
-    64, bf16, causal), SSD at mamba2-780m's (b 4, s 2048, h 48, p 64,
-    n 128, chunk 128, bf16, with the final state). The bound is at the
-    bf16 tensor-core rate and the memory rate."""
+    64, bf16, causal), at qwen3-32b's heads (batch 1) and at the gemmas'
+    local layers; SSD at mamba2-780m's (b 4, s 2048, h 48, p 64, n 128,
+    chunk 128, bf16, with the final state). The bound is at the bf16
+    tensor-core rate and the memory rate. The row's launches are phase
+    4d's bf16 prefills'."""
     peaks = (_BF16_PEAKS[_card_row(card_name)], _peaks(card_name)[1])
     g = _gen(SEED + 3)
     bf = torch.bfloat16
     rows = []
 
-    def flash_timed(b, h, kv, s, hd):
+    def flash_timed(b, h, kv, s, hd, window=0, softcap=None, flex=False):
         """Times at one shape, after the bf16 kernel is held there to the
         plain version in f32 (and a planted fault, the last key tile
-        dropped, is shown to fail that check)."""
+        dropped, is shown to fail that check). The library call is SDPA,
+        causal; with ``flex``, ``flex_attention`` (the window as a block
+        mask, the softcap as a score_mod), held to the same plain version
+        first, and beside it SDPA with the window's boolean mask where
+        there is no softcap (SDPA has none)."""
         q = torch.randn((b, h, s, hd), generator=g).to(dev, bf)
         k, v = (torch.randn((b, kv, s, hd), generator=g).to(dev, bf)
                 for _ in range(2))
+        kw = dict(window=window, softcap=softcap)
         f32 = [t.float() for t in (q, k, v)]
-        got = flash_attention_bhsd(q, k, v)
-        again = flash_attention_bhsd(q, k, v)
-        plain = ref_attention(*f32)
+        got = flash_attention_bhsd(q, k, v, **kw)
+        again = flash_attention_bhsd(q, k, v, **kw)
+        plain = ref_attention(*f32, **kw)
         torch.cuda.synchronize()
         err, row, ok = _flash_close(got, plain)
         same = torch.equal(got, again)
-        print(f"  flash_attention bf16 at {[b, h, kv, s, hd]} causal: "
+        print(f"  flash_attention bf16 at {[b, h, kv, s, hd]} causal {kw}: "
               f"max_abs_err={err:.3e}  tol={FLASH_TOL[bf]:g}*(1+|plain|)  "
               f"row error {row:.3e} (limit {FLASH_BF16_ROW_TOL:g})  repeat "
               f"bit-equal: {same}")
         if not (ok and same):
             raise AssertionError(f"flash_attention mismatch at "
-                                 f"{(b, h, kv, s, hd)}")
+                                 f"{(b, h, kv, s, hd, kw)}")
         control = _flash_control(
             "the last key tile dropped",
-            flash_attention_bhsd(q, k, v, kv_len=s - 64), plain)
+            flash_attention_bhsd(q, k, v, kv_len=s - 64, **kw), plain)
+        extra = {}
+        if flex:
+            library, call, extra["library_check"] = _flex_attention(
+                q, k, v, window, softcap, plain)
+            if softcap is None:
+                pos = torch.arange(s, device=dev)
+                mask = ((pos[None, :] <= pos[:, None])
+                        & (pos[:, None] - pos[None, :] < window))
+                extra["sdpa_mask_call"] = (
+                    "F.scaled_dot_product_attention(q, k, v, attn_mask="
+                    "the causal window's boolean mask, enable_gqa=True)")
+                extra["sdpa_mask_ms"] = _time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        q, k, v, attn_mask=mask, enable_gqa=True))[0]
+        else:
+            call = ("F.scaled_dot_product_attention(q, k, v, "
+                    "is_causal=True, enable_gqa=True)")
+
+            def library():
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True, enable_gqa=True)
         del got, again, plain, f32
         torch.cuda.empty_cache()
-        times = _timed(lambda: flash_attention_bhsd(q, k, v),
-                       lambda: ref_attention(q, k, v),
-                       lambda: F.scaled_dot_product_attention(
-                           q, k, v, is_causal=True, enable_gqa=True))
-        pairs = b * h * s * (s + 1) // 2  # the causal band
+        times = _timed(lambda: flash_attention_bhsd(q, k, v, **kw),
+                       lambda: ref_attention(q, k, v, **kw), library)
+        # the (query, key) pairs the causal window keeps
+        w = window if window > 0 else s
+        band = sum(min(i + 1, w) for i in range(s))
         bound, by = _bound_ms(2 * (2 * b * h * s * hd + 2 * b * kv * s * hd),
-                              4 * pairs * hd, peaks)
+                              4 * b * h * band * hd, peaks)
         return {"shape": [b, h, kv, s, hd], "dtype": "bfloat16",
+                "window": window, "softcap": softcap,
                 "check": {"max_abs_err": err, "row_err": row,
                           "row_limit": FLASH_BF16_ROW_TOL,
                           "control_row_err": control},
-                **times, "bound_ms": bound, "bound_by": by}
+                **times, "library_call": call, **extra, "bound_ms": bound,
+                "bound_by": by}
 
-    # qwen2-0.5b's prefill, where the launches come from; and qwen3-32b's
-    # widths (64/8 heads of 128) at the same S
+    # qwen2-0.5b's prefill; qwen3-32b's widths (64/8 heads of 128) at the
+    # same S, batch 1; and the gemmas' prefills (32/16 heads of 128):
+    # gemma2's local layer (window 4096, softcap 50) and gemma3's (window
+    # 1024)
     qwen2 = flash_timed(LM_BATCH, 14, 2, LM_PROMPT, 64)
-    hd128 = {"name": "flash_attention hd 128",
-             **flash_timed(1, 64, 8, LM_PROMPT, 128)}
+    extra = {
+        "hd128": {"name": "flash_attention hd 128",
+                  **flash_timed(1, 64, 8, LM_PROMPT, 128)},
+        "gemma2": {"name": "flash_attention gemma2-27b local",
+                   **flash_timed(LM_BATCH, 32, 16, LM_PROMPT, 128,
+                                 window=4096, softcap=50.0, flex=True)},
+        "gemma3": {"name": "flash_attention gemma3-27b local",
+                   **flash_timed(LM_BATCH, 32, 16, LM_PROMPT, 128,
+                                 window=1024, flex=True)}}
+    flash_by_arch = {arch: rec["launches"]["flash_attention"]
+                     for arch, rec in lm_rec.items()
+                     if "flash_attention" in rec["launches"]}
+    on_path = [c for rec in lm_rec.values()
+               for c in (rec["flash_on_path"] or {}).values()]
     rows.append({
         "name": "flash_attention", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/flash_attention_fwd.cu",
@@ -3977,21 +4398,25 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
                         "3 K/V tiles, ldmatrix",
             "float32": "flash_attention_fwd_f32_kernel: CUDA cores, f32 "
                        "tiles in shared memory"},
-        "launches": lm_rec["qwen2-0.5b"]["launches"]["flash_attention"],
-        "launches_from": "one qwen2-0.5b prefill (decode: 0)",
-        "max_abs_err": max(worst["flash_attention"],
-                           qwen2["check"]["max_abs_err"],
-                           hd128["check"]["max_abs_err"]),
+        "launches": sum(flash_by_arch.values()),
+        "launches_by_arch": flash_by_arch,
+        "launches_from": "one bf16 prefill of each attention arch of "
+                         "phase 4d (decode: 0)",
+        "max_abs_err": max([worst["flash_attention"],
+                            qwen2["check"]["max_abs_err"]]
+                           + [r["check"]["max_abs_err"]
+                              for r in extra.values()]
+                           + [c["max_abs_err"] for c in on_path]),
         "bf16_row_err": {"phase1": worst["flash_bf16_row"],
+                         "main_path": max(c["row_err"] for c in on_path),
                          "limit": FLASH_BF16_ROW_TOL,
                          "controls_min": min(
-                             worst["flash_bf16_control"],
-                             qwen2["check"]["control_row_err"],
-                             hd128["check"]["control_row_err"])},
-        **qwen2,
-        "library_call": "F.scaled_dot_product_attention(q, k, v, "
-                        "is_causal=True, enable_gqa=True)",
-        "hd128": hd128})
+                             [worst["flash_bf16_control"],
+                              qwen2["check"]["control_row_err"]]
+                             + [r["check"]["control_row_err"]
+                                for r in extra.values()]
+                             + [c["control_row_err"] for c in on_path])},
+        **qwen2, **extra})
 
     def ssd_timed(b, s=LM_PROMPT, h=48, p=64, n=128, chunk=128):
         """SSD at mamba2-780m's prefill widths, batch b: the kernel (bf16)
@@ -4081,13 +4506,17 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
                              worst["ssd_state_control"],
                              mamba2["check"]["control_state_err"])},
         **mamba2, "library_call": None, "batch1": batch1})
-    for r in rows + [hd128, batch1]:
+    for r in rows + [rows[0][k] for k in ("hd128", "gemma2", "gemma3")] + [
+            batch1]:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.2f}us")
         print(f"  {r['name']} at {r['shape']} bf16, "
               f"device (CUDA graph): kernel {r['ms'] * 1e3:.2f}us  plain "
               f"{r['plain_ms'] * 1e3:.2f}us  library {lib}  bound "
-              f"{r['bound_ms'] * 1e3:.3f}us ({r['bound_by']})")
+              f"{r['bound_ms'] * 1e3:.3f}us ({r['bound_by']})"
+              + ("" if "sdpa_mask_ms" not in r else
+                 f"  SDPA with the boolean mask "
+                 f"{r['sdpa_mask_ms'] * 1e3:.2f}us"))
     print(f"  ssd_scan bf16 p_width: batch {LM_BATCH} {mamba2['p_width']}, "
           f"batch 1 {batch1['p_width']}; f32 kernel "
           f"{mamba2['f32_kernel_ms'] * 1e3:.2f}us, chunked plain branch "
@@ -4725,9 +5154,11 @@ def main() -> int:
     print("[4g] the sharded round on processes (torch.distributed), 3 "
           "rounds each, through the kernels")
     shard_rec = train_sharded(dev, data, tr, held_out)
-    print("[4d] LM serving: qwen2-0.5b and mamba2-780m at full width and "
-          "depth, bf16, through the flash-attention and SSD kernels")
+    print("[4d] LM serving: every ported arch at full width, bf16, through "
+          "the flash-attention and SSD kernels")
+    t0 = time.perf_counter()
     lm_rec = serve_lm(dev)
+    print(f"  phase 4d: {time.perf_counter() - t0:.1f}s")
     print("[4e] the paper's experiment: FedAvg vs centralized at the "
           "reference's widths through the kernels, then partial "
           "participation and optimizer resets")
@@ -4738,7 +5169,9 @@ def main() -> int:
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, exp_rec, stage_rec, name, worst)
+    t0 = time.perf_counter()
     kernels += _backbone_rows(dev, lm_rec, name, worst)
+    print(f"  phase 5's LM rows: {time.perf_counter() - t0:.1f}s")
     # phase 4g's launches, over its processes and configurations
     sharded = {}
     for part in shard_rec.values():

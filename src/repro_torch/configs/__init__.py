@@ -22,6 +22,14 @@ from repro_torch.configs.base import (  # noqa: F401
 )
 
 # registration side effects
-from repro_torch.configs import mamba2_780m, qwen2_0_5b  # noqa: F401,E402
+from repro_torch.configs import (  # noqa: F401,E402
+    gemma2_27b,
+    gemma3_27b,
+    granite_moe_3b_a800m,
+    grok_1_314b,
+    mamba2_780m,
+    qwen2_0_5b,
+    qwen3_32b,
+)
 
 ALL_ARCHS = tuple(ARCHITECTURES.names())

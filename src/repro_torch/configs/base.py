@@ -30,7 +30,7 @@ class ModelConfig:
 
     One config class covers the zoo: dense/GQA, MoE, SSM, hybrid,
     enc-dec, and embedding-input (VLM / audio) variants are all field
-    combinations. The port's models run the dense and the pure-SSM
+    combinations. The port's models run the dense, MoE and pure-SSM
     families so far (``models/transformer.py`` refuses the rest).
     """
 
@@ -479,15 +479,9 @@ ARCHITECTURES: Registry = Registry("architecture")
 # the reference's other architectures, registered once the port runs
 # their families (ROADMAP queue A.8, in this order)
 PENDING_ARCHS = {
-    "gemma2-27b": "sliding windows, softcaps and the ring cache",
-    "gemma3-27b": "sliding windows, softcaps and the ring cache",
-    "granite-moe-3b-a800m": "the MoE layers",
-    "grok-1-314b": "the MoE layers",
     "zamba2-1.2b": "the Mamba2/shared-attention hybrid",
     "whisper-small": "the encoder-decoder",
     "llava-next-34b": "the embeddings input",
-    "qwen3-32b": "its config and parity tests (qk-norm and head_dim 128 "
-                 "run already)",
 }
 
 

@@ -7,7 +7,9 @@ serving half):
 * ``greedy_decode`` — the greedy generation loop of ``launch/serve.py``.
 
 The prefill runs the flash-attention and SSD kernels unless
-``use_kernels=False``; decode is plain PyTorch, as in the reference.
+``use_kernels=False``; decode is plain PyTorch, as in the reference. A
+ring cache (``models.transformer.ring_cache_from_full`` of the prefill's
+cache) decodes through the same serve step.
 LM training (``lm_loss``, ``make_train_step``, the backbone FedAvg and
 FedLoRA rounds) is ROADMAP queue A.8.
 """
@@ -24,13 +26,15 @@ from repro_torch.models import forward
 def make_prefill_step(cfg: ModelConfig, max_seq: int, *,
                       use_kernels: bool = True) -> Callable:
     """(params, batch) -> (last_logits (B, V) f32, cache); ``batch``
-    holds the prompt ``tokens`` (B, S)."""
+    holds the prompt ``tokens`` (B, S). The last logits are a copy, so
+    the (B, S, V) logits are freed before decoding (gemma3-27b's are
+    8.6 GB at batch 4 × 2048)."""
 
     def prefill_step(params, batch):
         logits, cache, _ = forward(params, cfg, tokens=batch["tokens"],
                                    prefill_len=max_seq,
                                    use_kernels=use_kernels)
-        return logits[:, -1], cache
+        return logits[:, -1].clone(), cache
 
     return prefill_step
 

@@ -2,13 +2,16 @@
 a prefilled KV cache or SSM state, or the GPO preference-serving engine
 (the paper's inference product), on the GPU.
 
-``serve_lm`` builds ``--arch`` (the ported ones: qwen2-0.5b, mamba2-780m;
+``serve_lm`` builds ``--arch`` (the ported ones: qwen2-0.5b, qwen3-32b,
+gemma2-27b, gemma3-27b, granite-moe-3b-a800m, grok-1-314b, mamba2-780m;
 ``--smoke`` for the reduced variant) with random weights from
 ``--seed``, prefills ``--batch`` random prompts of ``--prompt-len``
 tokens through the flash-attention or SSD kernel, and decodes
-``--gen-len`` tokens greedily:
+``--gen-len`` tokens greedily from the full KV cache or SSM state (the
+config's default; the gemmas' ring cache is ``ring_cache_from_full``'s,
+as in the reference):
 
-  PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen2-0.5b \
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
       --smoke --prompt-len 16 --gen-len 16 --batch 4 --device cpu
 
 ``serve_gpo`` serves the latest GPO checkpoint under ``--ckpt-dir`` (the JAX package's
@@ -160,7 +163,9 @@ def serve_gpo(args) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b",
-                    help="LM backbone to serve (qwen2-0.5b, mamba2-780m)")
+                    help="LM backbone to serve (qwen2-0.5b, qwen3-32b, "
+                         "gemma2-27b, gemma3-27b, granite-moe-3b-a800m, "
+                         "grok-1-314b, mamba2-780m)")
     ap.add_argument("--gpo", action="store_true",
                     help="serve the GPO preference predictor instead")
     ap.add_argument("--smoke", action="store_true",

@@ -10,7 +10,10 @@
   validity masking, in plain PyTorch, as the reference computes it
   outside any Pallas kernel. The cache is updated in place (the
   reference returns a new one): the stacked cache is the model's
-  largest activation and a copy a step would double it.
+  largest activation and a copy a step would double it. Past the end of
+  a full cache, decode raises (the reference clamps and overwrites the
+  last slot). ``ring_decode_step`` decodes a local layer against a
+  ring of ``window`` slots, which wraps by design.
 
 On one device the reference's sharding choices are fixed: KV is not
 repeated, the query sequence is not sharded, and ``shard_act`` is the
@@ -196,3 +199,30 @@ def decode_step(p: AttnParams, x, k_cache, v_cache, cache_pos: int, cfg, *,
     out = gqa_scores_softmax(q, k_cache, v_cache, mask,
                              cfg.attn_logit_softcap)
     return out.reshape(b, 1, -1) @ p.wo, k_cache, v_cache
+
+
+def ring_decode_step(p: AttnParams, x, k_cache, v_cache, cache_pos: int,
+                     cfg, *, theta):
+    """One-token decode against a RING cache of w = ``k_cache.shape[1]``
+    slots (the local layer's window), written in place at slot
+    ``cache_pos % w``. Slot s holds the roped key of true position
+    ``cache_pos - (slot - s)`` for s <= slot, else ``cache_pos - (slot +
+    w - s)``: always within (cache_pos - w, cache_pos], so the causal
+    window's mask is only ``true_pos >= 0`` (slots not yet filled).
+    Returns out (b, 1, d)."""
+    b = x.shape[0]
+    w = k_cache.shape[1]
+    pos = torch.full((b, 1), cache_pos, device=x.device)
+    q, k, v = _project_qkv(p, x, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.head_dim, cfg.norm_eps)
+    q, k = rope(q, pos, theta), rope(k, pos, theta)
+    slot = cache_pos % w
+    k_cache[:, slot] = k[:, 0]
+    v_cache[:, slot] = v[:, 0]
+    s = torch.arange(w, device=x.device)
+    true_pos = torch.where(s <= slot, cache_pos - (slot - s),
+                           cache_pos - (slot + w - s))
+    mask = (true_pos >= 0)[None, None, :].expand(b, 1, w)
+    out = gqa_scores_softmax(q, k_cache, v_cache, mask,
+                             cfg.attn_logit_softcap)
+    return out.reshape(b, 1, -1) @ p.wo

@@ -6,6 +6,13 @@ import math
 import torch
 
 
+# dense_init draws at most this many values at once: a larger tensor (an
+# expert stack of grok-1, 1.6e9 values) is drawn in pieces of its flat
+# order, so the float64 intermediates stay ~0.5 GB, not a few times the
+# tensor
+DRAW_CHUNK = 1 << 26
+
+
 def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
                dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal fan-in init (LeCun): N(0, 1/fan_in) cut at ±2σ.
@@ -13,15 +20,25 @@ def dense_init(generator: torch.Generator, shape, in_axis: int = 0,
     Drawn by inverse CDF on the generator's device: a CPU generator gives
     the same weights for the same seed whatever device the caller moves
     them to; a CUDA generator draws on the card (its own stream of
-    numbers)."""
+    numbers). The values are drawn in pieces of ``DRAW_CHUNK`` in flat
+    order: a smaller tensor is one piece."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
     std = 1.0 / math.sqrt(fan_in)
     lo = 0.5 * (1.0 + math.erf(-2.0 / math.sqrt(2.0)))  # Φ(-2)
-    u = lo + (1.0 - 2.0 * lo) * torch.rand(shape, generator=generator,
-                                           dtype=torch.float64,
-                                           device=generator.device)
-    z = math.sqrt(2.0) * torch.special.erfinv(2.0 * u - 1.0)
-    return (std * z.clamp(-2.0, 2.0)).to(dtype)
+
+    def draw(size):
+        u = lo + (1.0 - 2.0 * lo) * torch.rand(size, generator=generator,
+                                               dtype=torch.float64,
+                                               device=generator.device)
+        z = math.sqrt(2.0) * torch.special.erfinv(2.0 * u - 1.0)
+        return (std * z.clamp(-2.0, 2.0)).to(dtype)
+
+    n = math.prod(shape)
+    out = torch.empty(n, dtype=dtype, device=generator.device)
+    for start in range(0, n, DRAW_CHUNK):
+        piece = out[start:start + DRAW_CHUNK]
+        piece.copy_(draw(piece.shape))
+    return out.reshape(shape)
 
 
 class ParamInit:

@@ -1,5 +1,5 @@
-"""Backbone assembler: init and forward for the dense (all-attention) and
-the pure-SSM (all-Mamba2) families (the reference's
+"""Backbone assembler: init and forward for the dense (all-attention),
+the MoE and the pure-SSM (all-Mamba2) families (the reference's
 ``models/transformer.py``).
 
 * Params are a plain dict in the reference's tree layout, every
@@ -14,10 +14,14 @@ the pure-SSM (all-Mamba2) families (the reference's
   the reference's field for field.
 * Decode updates the stacked cache in place (see
   ``models/attention.py``).
+* gemma2/3's post-norms, MoE layers (``models/moe.py``; the aux loss
+  summed over layers is ``forward``'s third output) and the ring cache
+  for periodic local:global patterns (``ring_cache=True``: the prefill
+  fills the full cache, ``ring_cache_from_full`` converts it, and decode
+  keeps a window-long ring a local layer).
 
-MoE, the zamba2 hybrid, the encoder-decoder, the embeddings input and
-the ring cache are refused with ``NotImplementedError`` (ROADMAP queue
-A.8).
+The zamba2 hybrid, the encoder-decoder and the embeddings input are
+refused with ``NotImplementedError`` (ROADMAP queue A.8).
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn_mod
 from repro_torch.models.attention import AttnParams, init_attn_params
 from repro_torch.models.layers import ParamInit, rms_norm, softcap, swiglu
+from repro_torch.models.moe import MoEParams, init_moe_params, moe_ffn
 from repro_torch.models.ssm import (
     MambaParams,
     init_mamba_params,
@@ -51,34 +56,49 @@ def check_supported(cfg: ModelConfig) -> None:
     """Refuse what the port's models do not run yet."""
     kinds = set(cfg.layer_kinds())
     missing = [what for what, bad in (
-        ("MoE layers", cfg.is_moe),
         ("the Mamba2/shared-attention hybrid",
          cfg.shared_attn_every or len(kinds) > 1),
         ("the encoder-decoder", cfg.is_encoder_decoder),
-        ("the embeddings input", cfg.input_kind != "tokens"),
-        ("the ring cache", cfg.ring_cache),
-        ("post-norms", cfg.use_post_norm)) if bad]
+        ("the embeddings input", cfg.input_kind != "tokens")) if bad]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: the port does not run {', '.join(missing)} yet "
             "(ROADMAP queue A.8)")
 
 
-def _stack_layers(layers: list) -> dict:
-    """[layer dict] -> one dict, each leaf stacked on a leading L axis
-    (a NamedTuple of params becomes a dict by field name; None stays)."""
-    def stack(items):
-        first = items[0]
-        if first is None:
-            return None
-        if isinstance(first, tuple) and hasattr(first, "_fields"):
-            return {f: stack([getattr(it, f) for it in items])
-                    for f in first._fields}
-        if isinstance(first, dict):
-            return {k: stack([it[k] for it in items]) for k in first}
-        return torch.stack(items)
+def _stacked_layers(make, n: int) -> dict:
+    """n layers from ``make()``, each leaf stacked on a leading L axis (a
+    NamedTuple of params becomes a dict by field name; None stays). Each
+    layer is copied into the stack as it is made, so the peak is the
+    stack and one layer, not twice the stack."""
+    def as_dict(tree):
+        if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+            return tree._asdict()
+        return tree
 
-    return stack(layers)
+    def empty(tree):
+        tree = as_dict(tree)
+        if tree is None:
+            return None
+        if isinstance(tree, dict):
+            return {k: empty(v) for k, v in tree.items()}
+        return tree.new_empty((n,) + tuple(tree.shape))
+
+    def fill(dst, tree, i):
+        tree = as_dict(tree)
+        if isinstance(tree, dict):
+            for k, v in tree.items():
+                fill(dst[k], v, i)
+        elif tree is not None:
+            dst[i].copy_(tree)
+
+    first = make()
+    out = empty(first)
+    fill(out, first, 0)
+    del first
+    for i in range(1, n):
+        fill(out, make(), i)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -93,12 +113,19 @@ def _init_mlp(init: ParamInit, d, ff, dtype):
 
 
 def _init_attn_layer(init: ParamInit, cfg: ModelConfig, dtype) -> dict:
-    return {
+    layer = {
         "ln1": init.zeros((cfg.d_model,), dtype),
         "attn": init_attn_params(init, cfg, dtype),
         "ln2": init.zeros((cfg.d_model,), dtype),
-        "mlp": _init_mlp(init, cfg.d_model, cfg.d_ff, dtype),
     }
+    if cfg.is_moe:
+        layer["moe"] = init_moe_params(init, cfg, dtype)
+    else:
+        layer["mlp"] = _init_mlp(init, cfg.d_model, cfg.d_ff, dtype)
+    if cfg.use_post_norm:
+        layer["post_ln1"] = init.zeros((cfg.d_model,), dtype)
+        layer["post_ln2"] = init.zeros((cfg.d_model,), dtype)
+    return layer
 
 
 def _init_mamba_layer(init: ParamInit, cfg: ModelConfig, dtype) -> dict:
@@ -128,8 +155,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
         params["lm_head"] = init.dense((cfg.d_model, cfg.vocab_size), dtype)
     one = (_init_attn_layer if cfg.layer_kinds()[0] == ATTN
            else _init_mamba_layer)
-    params["layers"] = _stack_layers(
-        [one(init, cfg, dtype) for _ in range(cfg.num_layers)])
+    params["layers"] = _stacked_layers(lambda: one(init, cfg, dtype),
+                                       cfg.num_layers)
     if init.device != dev:
         params = _to(params, dev)
     return params
@@ -185,10 +212,31 @@ def _layer(tree, i: int):
 # ---------------------------------------------------------------------------
 # Attention-family layers (full / prefill / decode)
 # ---------------------------------------------------------------------------
+def _mlp_and_residual(cfg: ModelConfig, lp: dict, x, a_out):
+    """The attention output's residual, then the MLP's (or the MoE's),
+    each through its post-norm where the config has them. Returns (x,
+    the layer's aux loss, None where it has no MoE)."""
+    if cfg.use_post_norm:
+        a_out = rms_norm(a_out, lp["post_ln1"], cfg.norm_eps)
+    x = x + a_out
+    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
+    if cfg.is_moe:
+        m_out, aux = moe_ffn(MoEParams(**lp["moe"]), h2, cfg.num_experts,
+                             cfg.experts_per_token, cfg.router_aux_coef,
+                             cfg.moe_capacity_factor)
+    else:
+        mlp = lp["mlp"]
+        m_out = swiglu(h2, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
+        aux = None
+    if cfg.use_post_norm:
+        m_out = rms_norm(m_out, lp["post_ln2"], cfg.norm_eps)
+    return x + m_out, aux
+
+
 def _attn_layer(cfg: ModelConfig, mode: str, lp: dict, x, window: int,
                 theta: float, *, k_cache=None, v_cache=None, cache_pos=None,
                 cache_len=None, use_kernels: bool = True):
-    """One dense layer. Returns (x, (k, v) or None)."""
+    """One attention layer. Returns (x, (k, v) or None, aux or None)."""
     ap = AttnParams(**lp["attn"])
     h = rms_norm(x, lp["ln1"], cfg.norm_eps)
     kv = None
@@ -207,26 +255,26 @@ def _attn_layer(cfg: ModelConfig, mode: str, lp: dict, x, window: int,
         kv = (k, v)
     else:
         raise ValueError(mode)
-    x = x + a_out
-    h2 = rms_norm(x, lp["ln2"], cfg.norm_eps)
-    mlp = lp["mlp"]
-    x = x + swiglu(h2, mlp["w_gate"], mlp["w_up"], mlp["w_down"])
-    return x, kv
+    x, aux = _mlp_and_residual(cfg, lp, x, a_out)
+    return x, kv, aux
 
 
 def _scan_attn_layers(params, cfg, x, mode, *, cache=None, cache_pos=None,
                       cache_len=None, use_kernels: bool = True):
     windows, thetas = layer_windows_thetas(cfg)
     ks, vs = [], []
+    aux = None
     for i in range(cfg.num_layers):
         kw = {}
         if mode == "decode":
             kw = dict(k_cache=cache["k"][i], v_cache=cache["v"][i],
                       cache_pos=cache_pos)
-        x, kv = _attn_layer(cfg, mode, _layer(params["layers"], i), x,
-                            int(windows[i]), float(thetas[i]),
-                            cache_len=cache_len, use_kernels=use_kernels,
-                            **kw)
+        x, kv, layer_aux = _attn_layer(
+            cfg, mode, _layer(params["layers"], i), x, int(windows[i]),
+            float(thetas[i]), cache_len=cache_len, use_kernels=use_kernels,
+            **kw)
+        if layer_aux is not None:
+            aux = layer_aux if aux is None else aux + layer_aux
         if mode == "prefill":
             ks.append(kv[0])
             vs.append(kv[1])
@@ -235,7 +283,133 @@ def _scan_attn_layers(params, cfg, x, mode, *, cache=None, cache_pos=None,
         new_cache = {"k": torch.stack(ks), "v": torch.stack(vs)}
     elif mode == "decode":
         new_cache = cache  # written in place, layer by layer
-    return x, new_cache, torch.zeros((), device=x.device)
+    if aux is None:
+        aux = torch.zeros((), device=x.device)
+    return x, new_cache, aux
+
+
+# ---------------------------------------------------------------------------
+# Ring-cache decode for periodic local:global patterns (gemma2/3)
+# ---------------------------------------------------------------------------
+def _ring_split(cfg: ModelConfig):
+    """(period, n_super, tail, local positions-in-period, global
+    positions)."""
+    p = len(cfg.window_pattern)
+    n_super = cfg.num_layers // p
+    tail = cfg.num_layers - n_super * p
+    local_js = [j for j, w in enumerate(cfg.window_pattern) if w > 0]
+    global_js = [j for j, w in enumerate(cfg.window_pattern) if w <= 0]
+    return p, n_super, tail, local_js, global_js
+
+
+def uses_ring_cache(cfg: ModelConfig) -> bool:
+    return (cfg.ring_cache and not cfg.is_encoder_decoder
+            and not cfg.shared_attn_every
+            and all(k == ATTN for k in cfg.layer_kinds())
+            and any(w > 0 for w in cfg.window_pattern)
+            and len(cfg.window_pattern) <= cfg.num_layers)
+
+
+def _ring_slot(cfg: ModelConfig, idx: int) -> tuple:
+    """Where layer ``idx`` keeps its keys and values in the ring layout:
+    (k's name, v's name, the index into both)."""
+    p, n_super, _, local_js, global_js = _ring_split(cfg)
+    s, j = divmod(idx, p)
+    if s >= n_super:
+        return "tail_k", "tail_v", (idx - n_super * p,)
+    if cfg.window_pattern[j] > 0:
+        return "ring_k", "ring_v", (s, local_js.index(j))
+    return "glob_k", "glob_v", (s, global_js.index(j))
+
+
+def _ring_layer(cfg, lp, x, window: int, theta: float, k_cache, v_cache,
+                cache_pos: int):
+    """One decode layer; window > 0: the ring cache's semantics. The
+    caches are written in place."""
+    ap = AttnParams(**lp["attn"])
+    h = rms_norm(x, lp["ln1"], cfg.norm_eps)
+    if window > 0:
+        a_out = attn_mod.ring_decode_step(ap, h, k_cache, v_cache,
+                                          cache_pos, cfg, theta=theta)
+    else:
+        a_out, _, _ = attn_mod.decode_step(ap, h, k_cache, v_cache,
+                                           cache_pos, cfg, window=0,
+                                           theta=theta)
+    x, _ = _mlp_and_residual(cfg, lp, x, a_out)
+    return x
+
+
+def _scan_ring_decode(params, cfg, x, cache, cache_pos: int):
+    """Decode over super-blocks of one period each: local layers read
+    and write (n_super, n_loc, B, W, KV, hd) rings, global layers
+    full-length caches, and the tail layers (L % period) their own; all
+    in place. The aux loss is 0, as the reference's ring decode returns
+    it."""
+    windows, thetas = layer_windows_thetas(cfg)
+    for idx in range(cfg.num_layers):
+        k_name, v_name, at = _ring_slot(cfg, idx)
+        x = _ring_layer(cfg, _layer(params["layers"], idx), x,
+                        int(windows[idx]), float(thetas[idx]),
+                        cache[k_name][at], cache[v_name][at], cache_pos)
+    return x, cache, torch.zeros((), device=x.device)
+
+
+def init_ring_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
+                    device=None) -> dict:
+    """The ring-structured decode cache (see ``_scan_ring_decode``), on
+    ``device`` (CUDA unless the caller names another)."""
+    dev = resolve_device(device)
+    dtype = dtype or _dtype(cfg.activation_dtype)
+    p, n_super, tail, local_js, global_js = _ring_split(cfg)
+    windows, _ = layer_windows_thetas(cfg)
+    w_max = max(int(w) for w in windows if w > 0)
+    kvh = (cfg.num_kv_heads, cfg.head_dim)
+
+    def zeros(*shape):
+        return torch.zeros(shape + kvh, dtype=dtype, device=dev)
+
+    cache = {
+        "ring_k": zeros(n_super, len(local_js), batch, w_max),
+        "ring_v": zeros(n_super, len(local_js), batch, w_max),
+        "glob_k": zeros(n_super, len(global_js), batch, max_seq),
+        "glob_v": zeros(n_super, len(global_js), batch, max_seq),
+    }
+    if tail:
+        tail_ws = [int(windows[n_super * p + t]) for t in range(tail)]
+        t_len = max(w if w > 0 else max_seq for w in tail_ws)
+        cache["tail_k"] = zeros(tail, batch, t_len)
+        cache["tail_v"] = zeros(tail, batch, t_len)
+    return cache
+
+
+def ring_cache_from_full(cfg: ModelConfig, cache: dict, cache_pos: int,
+                         batch: int, max_seq: int) -> dict:
+    """A prefill's full cache in the ring layout, for decoding on from
+    ``cache_pos`` (the last position written), on the cache's device."""
+    windows, _ = layer_windows_thetas(cfg)
+    full_k = cache["k"]
+    ring = init_ring_cache(cfg, batch, max_seq, full_k.dtype,
+                           device=full_k.device)
+    w_max = ring["ring_k"].shape[3]
+    # slot s holds the true position q with q % w_max == s, q in
+    # (cache_pos - w_max, cache_pos]; zeros where there is none yet
+    slots = torch.arange(w_max, device=full_k.device)
+    cand = (cache_pos // w_max) * w_max + slots
+    q = torch.where(cand <= cache_pos, cand, cand - w_max)
+    q_clamped = q.clamp(0, max_seq - 1)
+    valid = ((q >= 0) & (q > cache_pos - w_max))[None, :, None, None]
+
+    def gather_window(full_layer):
+        out = full_layer[:, q_clamped]
+        return out * valid.to(out.dtype)
+
+    for idx in range(cfg.num_layers):
+        k_name, v_name, at = _ring_slot(cfg, idx)
+        local = int(windows[idx]) > 0
+        for name, src in ((k_name, cache["k"][idx]),
+                          (v_name, cache["v"][idx])):
+            ring[name][at].copy_(gather_window(src) if local else src)
+    return ring
 
 
 # ---------------------------------------------------------------------------
@@ -270,10 +444,12 @@ def _scan_mamba_layers(params, cfg, x, mode, *, cache=None,
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
                device=None) -> PyTree:
-    """Pre-allocated decode cache (attention: K and V; SSM: the SSD state
-    in f32 and the conv history), on ``device`` (CUDA unless the caller
-    names another)."""
+    """Pre-allocated decode cache (attention: K and V, or the ring layout
+    where ``uses_ring_cache``; SSM: the SSD state in f32 and the conv
+    history), on ``device`` (CUDA unless the caller names another)."""
     check_supported(cfg)
+    if uses_ring_cache(cfg):
+        return init_ring_cache(cfg, batch, max_seq, dtype, device)
     dev = resolve_device(device)
     dtype = dtype or _dtype(cfg.activation_dtype)
     if all(k == MAMBA for k in cfg.layer_kinds()):
@@ -297,6 +473,8 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=None,
 def _trunk(params, cfg, x, mode, *, cache=None, cache_pos=None,
            cache_len=None, use_kernels=True):
     check_supported(cfg)
+    if mode == "decode" and "ring_k" in cache:
+        return _scan_ring_decode(params, cfg, x, cache, cache_pos)
     if all(k == MAMBA for k in cfg.layer_kinds()):
         # mamba "prefill" == full forward; its final states are the cache
         return _scan_mamba_layers(
@@ -309,8 +487,9 @@ def _trunk(params, cfg, x, mode, *, cache=None, cache_pos=None,
 
 def hidden_states(params, cfg: ModelConfig, tokens,
                   use_kernels: bool = True):
-    """Final-layer hidden states (pre-unembed) and the aux loss (0 for
-    these families): the frozen-backbone embedding interface."""
+    """Final-layer hidden states (pre-unembed) and the aux loss (the MoE
+    layers' sum; 0 for the other families): the frozen-backbone embedding
+    interface."""
     x = _embed_in(params, cfg, tokens)
     x, _, aux = _trunk(params, cfg, x, "full", use_kernels=use_kernels)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
@@ -327,6 +506,10 @@ def forward(params, cfg: ModelConfig, *, tokens, cache=None,
       * full    : cache=None, prefill_len=None -> (logits, None, aux)
       * prefill : prefill_len=S_max            -> (logits, cache, aux)
       * decode  : cache + cache_pos, S == 1    -> (logits, cache, aux)
+
+    A decode cache in the ring layout (``ring_cache_from_full``) decodes
+    through the ring; aux is the MoE layers' summed loss (0 in a ring
+    decode and for the other families).
     """
     x = _embed_in(params, cfg, tokens)
     mode = "full"

@@ -147,10 +147,13 @@ def test_greedy_tokens_match_jax(arch):
     np.testing.assert_array_equal(toks.numpy(), np.asarray(jtoks))
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + [
+    "qwen3-32b", "gemma2-27b", "gemma3-27b", "granite-moe-3b-a800m",
+    "grok-1-314b"])
 def test_full_width_params_have_the_reference_shapes(arch):
-    """Full-width qwen2-0.5b and mamba2-780m built on the meta device:
-    every leaf's shape and dtype equals the reference's, abstractly."""
+    """Every ported arch at full width built on the meta device (post-norms
+    and the MoE's f32 router included): every leaf's shape and dtype
+    equals the reference's, abstractly."""
     want = _numpy_tree(jax.eval_shape(
         lambda k: jax_init_params(jax_get_arch(arch), k),
         jax.random.PRNGKey(0)), leaf=lambda x: x)
