@@ -36,10 +36,14 @@ the card, raising on any mismatch:
    heads; head_dim 128 too, up to qwen3-32b's 64/8 heads at S 1024;
    the served archs' heads, windows and softcaps: gemma2-27b's 32/16
    with softcap 50, local and global, gemma3-27b's window 1024 at S
-   1100, granite-moe's 24/8, grok-1's 48/8; bf16 against the f32 plain
+   1100, granite-moe's 24/8, grok-1's 48/8, whisper-small's 12/12
+   non-causal over its 1500 frames (padded to 1536, the padded keys
+   masked) and causal at its 416-token prompt, llava-next-34b's 56/8 at
+   hd 128, zamba2-1.2b's 32/32; bf16 against the f32 plain
    version) and SSD chunked scan (the
    reference's sweep, mamba2's p 64, n 128 at chunk 128, 64 and 20 and
-   at batch 1, p and n that are not multiples of 8; with the final
+   at batch 1, zamba2's n 64 (its 64 heads in the batch check below),
+   p and n that are not multiples of 8; with the final
    state; bf16 also by each row of y against the f32 plain version, at
    SSD_BF16_ROW_TOL, two planted faults that must fail: one chunk's B
    zeroed, the state one chunk short; and each sequence of a batch-4
@@ -82,12 +86,18 @@ the card, raising on any mismatch:
    against the plain-aggregation card run and the CPU run of the same
    draws.
    4d. LM serving: ``serve_lm``'s path (``make_prefill_step``, then
-   ``greedy_decode``) for every ported arch at full width in bf16,
+   ``greedy_decode``) for all ten archs at full width in bf16,
    random weights from the seed, batch 4, prompt 2048, 32 tokens:
-   qwen2-0.5b, mamba2-780m and granite-moe-3b-a800m at full depth,
-   qwen3-32b, gemma2-27b and gemma3-27b at 8 layers, grok-1-314b at 2
-   (``LM_ARCHS``; each cut printed): the launch counts (flash or ssd
-   once a layer a prefill, 0 in decode and 0 for every other kernel),
+   qwen2-0.5b, mamba2-780m, granite-moe-3b-a800m, zamba2-1.2b (38
+   Mamba2 layers and 6 shared-block calls) and whisper-small (12
+   encoder layers over 1500 frames drawn from the generator, 12 decoder
+   layers, prompt 416 so the cache is its 448-token context) at full
+   depth, qwen3-32b, gemma2-27b, gemma3-27b and llava-next-34b (its
+   prefill from embeddings drawn from the generator, decode from
+   tokens) at 8 layers, grok-1-314b at 2 (``LM_ARCHS``; each cut
+   printed): the launch counts (``_lm_launches``: flash or ssd once a
+   layer a prefill, zamba2's flash once a shared block, whisper's once
+   an encoder layer too; 0 in decode and 0 for every other kernel),
    the last logits and greedy tokens against the same run through the
    plain branch on the card, prefill and decode times, one profiled
    prefill; the MoE archs' pairs dropped at capacity factor 1.25 and
@@ -185,10 +195,14 @@ the card, raising on any mismatch:
    backward (delta, dq, dk/dv through ``GPOAttention``) also beside
    SDPA's backward alone, each replayed from a retained graph, and dq
    and dk/dv at other num_ctx and for one bh alone; flash also at
-   qwen3-32b's widths (B 1, H 64, KV 8, S 2048, hd 128) and at the
+   qwen3-32b's widths (B 1, H 64, KV 8, S 2048, hd 128), at the
    gemmas' local layers (B 4, H 32, KV 16, S 2048, hd 128: window 4096
    with softcap 50, no library call; window 1024 beside SDPA with the
-   same boolean mask), int8 also at
+   same boolean mask), at whisper-small's encoder (B 4, H = KV 12, hd
+   64, S 1500 padded to 1536, non-causal, beside non-causal SDPA) and
+   decoder (S 416 padded to 512), llava-next-34b's (B 4, H 56, KV 8, hd
+   128, S 2048) and zamba2-1.2b's shared block (B 4, H = KV 32, hd 64,
+   S 2048); SSD also at zamba2's trunk (h 64, p 64, n 64); int8 also at
    (1280, 256) x (256, 256); SSD also at batch 1, in f32, and beside
    the chunked plain branch (``ssd_chunked``), after its bf16 check and
    planted faults at the prefill shape; the DP clip reduce also in its
@@ -263,6 +277,7 @@ from repro_torch.configs import (  # noqa: E402
     FedConfig,
     GPOConfig,
     HierarchyConfig,
+    MAMBA,
     ModelConfig,
     PrivacyConfig,
     ServeConfig,
@@ -809,10 +824,12 @@ SSD_TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
 # 6-59 and 1.2-3.2 there
 SSD_BF16_ROW_FLOOR = 3.146e-3
 SSD_BF16_ROW_TOL = 2 * SSD_BF16_ROW_FLOOR
-# LM serving: arch -> (its prefill's kernel, the layers served (None: all
-# of the config's), a change to the plain branch that rounds its sums
-# otherwise without changing what it computes, or None); one kernel
-# launch a layer a prefill. Depth is cut only to fit the card and the
+# LM serving: arch -> (its prefill's kernels, the layers served (None:
+# all of the config's), a change to the plain branch that rounds its sums
+# otherwise without changing what it computes, or None); the launches a
+# prefill are ``_lm_launches``': one a layer, zamba2's SSD one a trunk
+# layer and flash one a shared block, whisper's flash one an encoder and
+# one a decoder layer. Depth is cut only to fit the card and the
 # clock. The change is a config change (mamba2's chunk 64 reorders the
 # SSD's sums) or F32_SCORES: the plain attention with its scores kept in
 # f32, the flash kernel's own rounding. granite-moe's router flips 11.6%
@@ -820,16 +837,22 @@ SSD_BF16_ROW_TOL = 2 * SSD_BF16_ROW_FLOOR
 # a token by O(1), so its floor is that rounding's effect. The floor
 # follows the kernel's rounding, so the bf16 kernel is held on its own as
 # well: on the main path's q, k and v of a few layers of every attention
-# arch (``_flash_on_path``), to the plain version in f32
+# arch (``_flash_on_path``), to the plain version in f32. zamba2 takes
+# mamba2's change: its trunk is mamba2's SSD, and its plain branch at
+# chunk 64 lands 4.1e-2 from itself on an H100 (PERF.md §6)
 F32_SCORES = "the attention's scores in f32"
+FLASH, SSD = ("flash_attention",), ("ssd_scan",)
 LM_ARCHS = {
-    "qwen2-0.5b": ("flash_attention", None, None),
-    "mamba2-780m": ("ssd_scan", None, {"ssm_chunk": 64}),
-    "qwen3-32b": ("flash_attention", 8, None),
-    "gemma2-27b": ("flash_attention", 8, None),
-    "gemma3-27b": ("flash_attention", 8, None),
-    "granite-moe-3b-a800m": ("flash_attention", None, F32_SCORES),
-    "grok-1-314b": ("flash_attention", 2, None),
+    "qwen2-0.5b": (FLASH, None, None),
+    "mamba2-780m": (SSD, None, {"ssm_chunk": 64}),
+    "qwen3-32b": (FLASH, 8, None),
+    "gemma2-27b": (FLASH, 8, None),
+    "gemma3-27b": (FLASH, 8, None),
+    "granite-moe-3b-a800m": (FLASH, None, F32_SCORES),
+    "grok-1-314b": (FLASH, 2, None),
+    "zamba2-1.2b": (SSD + FLASH, None, {"ssm_chunk": 64}),
+    "whisper-small": (FLASH, None, None),
+    "llava-next-34b": (FLASH, 8, None),
 }
 LM_DEPTH_WHY = {
     "qwen3-32b": "11 GB of bf16 weights",
@@ -837,8 +860,17 @@ LM_DEPTH_WHY = {
     "gemma3-27b": "one 5:1 period and a two-layer tail, so the ring's "
                   "tail path runs",
     "grok-1-314b": "23 GB of bf16 weights (9.7 GB of experts a layer)",
+    "llava-next-34b": "10.8 GB of bf16 weights; all 60 layers' 68.8 GB "
+                      "do not fit beside the f32 logits and the plain "
+                      "branch's scores",
 }
 LM_BATCH, LM_PROMPT, LM_GEN = 4, 2048, 32
+# whisper's decoder context is 448 tokens (n_text_ctx in the Whisper
+# release, arXiv 2212.04356): a prompt of 416 and 32 generated fill it.
+# Its encoder reads enc_seq_len (1500) frames drawn N(0, 1) from the
+# generator, as the reference's serve_lm draws them; llava's prefill
+# reads (B, prompt, d_model) embeddings drawn so, then decodes tokens
+LM_PROMPTS = {"whisper-small": 416}
 # the kernel run's last logits against the plain branch's on the card,
 # max-abs over the largest |logit|: bf16 activations round every layer's
 # output, and the flash kernel keeps scores in f32 where the plain
@@ -853,8 +885,11 @@ LM_FLOOR_FACTOR = 1.5
 # prefill against the plain branch's on the card; and f32 at full
 # width, few layers, against the CPU: (layers, batch, prompt), 4 tokens
 LM_F32_CPU = {"qwen2-0.5b": (4, 4, 512), "mamba2-780m": (4, 4, 512),
-              "grok-1-314b": (1, 1, 64)}
+              "grok-1-314b": (1, 1, 64), "zamba2-1.2b": (7, 1, 64)}
 LM_F32_CPU_DEFAULT = (2, 1, 64)
+# zamba2 at 7 layers: one super-block of 6 and the shared block, then a
+# tail layer (2 layers at shared_attn_every 6 would have no shared
+# block); whisper's encoder is cut to the decoder's layers there too
 LM_F32_GEN = 4
 LM_F32_TOL = 1e-4
 # the gemmas' ring decode against the full-cache decode on the card, the
@@ -1697,11 +1732,13 @@ def _check_backbone_kernels(g, dev, worst) -> None:
     """The LM backbones' kernels against their plain versions: the flash
     forward over the reference's sweeps (S 64/100/257, (H, KV) 4/4, 4/2,
     8/1; windows 1/7/64 with and without softcap 20), non-causal at
-    ragged S and qwen2's g = 7, then at head_dim 128, each against the
-    plain version in f32, with two planted faults the bf16 check must
-    catch; the SSD scan over the reference's sweep and at mamba2's chunk
-    128, p 64, n 128, with its final state. f32 and bf16, each call twice
-    and bit-equal."""
+    ragged S and qwen2's g = 7, then at head_dim 128, and at the served
+    archs' heads (whisper's encoder non-causal at S 1500, llava's g 7
+    at hd 128, zamba2's g 1 at H 32), each against the plain version in
+    f32, with two planted faults the bf16 check must catch; the SSD scan
+    over the reference's sweep and at mamba2's chunk 128, p 64, n 128
+    and zamba2's n 64, with its final state. f32 and bf16, each call
+    twice and bit-equal."""
     def flash_case(dtype, b, s, h, kv, bq=32, hd=64, **kw):
         q, k, v = (torch.randn((b, s, n, hd), generator=g).to(dev, dtype)
                    for n in (h, kv, kv))
@@ -1839,9 +1876,18 @@ def _check_backbone_kernels(g, dev, worst) -> None:
         flash_case(dtype, 2, 300, 32, 16, bq=128, causal=True, **wide)
         flash_case(dtype, 2, 300, 24, 8, bq=128, causal=True)
         flash_case(dtype, 2, 300, 48, 8, bq=128, causal=True, **wide)
+        # whisper's encoder (12/12 heads of 64, non-causal over its 1500
+        # frames, padded to 1536 and the padded keys masked) and decoder
+        # (causal at its 416-token prompt, padded to 512); llava's 56/8
+        # (g 7) at hd 128; zamba2's shared block, 32/32 (g 1)
+        flash_case(dtype, 1, 1500, 12, 12, bq=128, causal=False)
+        flash_case(dtype, 2, 416, 12, 12, bq=128, causal=True)
+        flash_case(dtype, 1, 300, 56, 8, bq=128, causal=True, **wide)
+        flash_case(dtype, 2, 300, 32, 32, bq=128, causal=True)
         for s, chunk in ((64, 16), (75, 16), (128, 32)):
             ssd_case(dtype, 2, s, 3, 16, 8, chunk)
         ssd_case(dtype, 2, 300, 4, 64, 128, 128)  # mamba2's widths
+        ssd_case(dtype, 2, 300, 4, 64, 64, 128)  # zamba2's n 64
     flash_controls(1, 256, 4, 2, 64, 7, 20.0)
     flash_controls(1, 1024, 64, 8, 128, 256, 50.0)
     # mamba2's widths at chunk 64, at a chunk that is not a multiple of
@@ -1855,6 +1901,7 @@ def _check_backbone_kernels(g, dev, worst) -> None:
     worst["ssd_bf16_control"], worst["ssd_state_control"] = _ssd_controls(
         _ssd_inputs(g, dev, torch.bfloat16, 2, 384, 4, 64, 128), 128)
     ssd_batch_rows(4, 384, 48, 64, 128, 128)  # mamba2's heads
+    ssd_batch_rows(4, 384, 64, 64, 64, 128)  # zamba2's heads, n 64
 
 
 def check_kernels(dev) -> dict:
@@ -3791,6 +3838,42 @@ def _lm_cfg(arch: str, **kw) -> ModelConfig:
     return override(get_arch(arch), **kw) if kw else get_arch(arch)
 
 
+def _lm_launches(cfg: ModelConfig) -> dict:
+    """Each kernel's launches in one prefill of ``cfg``: the SSD scan
+    once a Mamba2 layer; flash once an attention layer, once a shared
+    block (zamba2: num_layers // shared_attn_every) and once an encoder
+    layer (whisper, non-causal)."""
+    if cfg.shared_attn_every:
+        return {"ssd_scan": cfg.num_layers,
+                "flash_attention": cfg.num_layers // cfg.shared_attn_every}
+    if all(k == MAMBA for k in cfg.layer_kinds()):
+        return {"ssd_scan": cfg.num_layers}
+    return {"flash_attention": cfg.num_layers + (
+        cfg.enc_layers if cfg.is_encoder_decoder else 0)}
+
+
+def _lm_batch(cfg: ModelConfig, gen, batch: int, prompt: int) -> dict:
+    """``make_prefill_step``'s batch, drawn from ``gen`` on its device:
+    the prompt's tokens, or (llava) its embeddings (batch, prompt,
+    d_model) N(0, 1); an encoder-decoder's frames (batch, enc_seq_len,
+    d_model) N(0, 1) beside its tokens. f32: the model casts them."""
+    dev = gen.device
+    if cfg.input_kind == "embeddings":
+        return {"embeds": torch.randn((batch, prompt, cfg.d_model),
+                                      generator=gen, device=dev)}
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                   generator=gen, device=dev)}
+    if cfg.is_encoder_decoder:
+        out["enc_embeds"] = torch.randn(
+            (batch, cfg.enc_seq_len, cfg.d_model), generator=gen, device=dev)
+    return out
+
+
+def _prompt_len(batch: dict) -> int:
+    return (batch["embeds"] if "embeds" in batch else batch["tokens"]
+            ).shape[1]
+
+
 def _rel_max(a: torch.Tensor, b: torch.Tensor) -> float:
     """max |a - b| over the largest |b|."""
     return ((a.float() - b.float()).abs().max()
@@ -3843,8 +3926,8 @@ def _flipped(a: _Routing, b: _Routing, last: int) -> dict:
 class _FlashSpy:
     """Keeps the inputs and output of the model-layout flash wrapper
     (``kernels/ops.py``'s ``flash_attention``, wrapped while on) at the
-    first call of each (window, softcap) and at the last call: a layer
-    index -> (q, k, v, its keywords, the output)."""
+    first call of each (causal, window, softcap) and at the last call: a
+    call index -> (q, k, v, its keywords, the output)."""
 
     def __enter__(self):
         self._real = kernel_ops.flash_attention
@@ -3854,7 +3937,8 @@ class _FlashSpy:
         def spy(q, k, v, **kw):
             out = self._real(q, k, v, **kw)
             call = (q, k, v, kw, out)
-            key = (kw.get("window", 0), kw.get("softcap"))
+            key = (kw.get("causal", True), kw.get("window", 0),
+                   kw.get("softcap"))
             if key not in self._seen:
                 self._seen.add(key)
                 self.kept[self._n] = call
@@ -3871,13 +3955,28 @@ class _FlashSpy:
             self.kept.setdefault(*self._last)
 
 
+def _flash_padded(q, k, v, kv_len: int, **kw) -> torch.Tensor:
+    """``flash_attention_bhsd`` on q (B, H, S, hd), k, v padded along S
+    to the 128-row query block, as ``ops.flash_attention`` pads them,
+    with the keys at or past ``kv_len`` masked; the result cut back to
+    S rows."""
+    s = q.shape[2]
+    pad = (-s) % 128
+
+    def padded(t):
+        return F.pad(t, (0, 0, 0, pad)).contiguous()
+
+    return flash_attention_bhsd(padded(q), padded(k), padded(v),
+                                kv_len=kv_len, **kw)[:, :, :s]
+
+
 def _flash_on_path(arch: str, spy: _FlashSpy) -> dict:
-    """The bf16 flash kernel on the main path's own tensors (batch 4,
-    prompt 2048, the arch's heads): each kept call's output held to the
-    plain version in f32 on its inputs under FLASH_TOL and
-    FLASH_BF16_ROW_TOL, and a planted fault (the last key tile dropped)
-    shown to fail that check. Its launches come after the main path's
-    counts were read."""
+    """The bf16 flash kernel on the main path's own tensors (batch 4, the
+    arch's prompt or whisper's 1500 frames, the arch's heads): each kept
+    call's output held to the plain version in f32 on its inputs under
+    FLASH_TOL and FLASH_BF16_ROW_TOL, and a planted fault (the last key
+    tile dropped) shown to fail that check. Its launches come after the
+    main path's counts were read."""
     out = {}
     for layer, (q, k, v, kw, got) in sorted(spy.kept.items()):
         qb, kb, vb = (t.transpose(1, 2).contiguous() for t in (q, k, v))
@@ -3887,20 +3986,19 @@ def _flash_on_path(arch: str, spy: _FlashSpy) -> dict:
                                                vb[i:i + 1]), **kw)
                            for i in range(qb.shape[0])])
         err, row, ok = _flash_close(got.transpose(1, 2), plain)
-        print(f"    flash on the main path, layer {layer} "
-              f"{list(qb.shape)} kv {kb.shape[1]} "
-              f"{ {n: kw[n] for n in ('window', 'softcap')} }: "
+        print(f"    flash on the main path, call {layer} "
+              f"{list(qb.shape)} kv {kb.shape[1]} {kw}: "
               f"max_abs_err={err:.3e}  tol={FLASH_TOL[torch.bfloat16]:g}"
               f"*(1+|plain|)  row error {row:.3e} (limit "
               f"{FLASH_BF16_ROW_TOL:g})")
         if not ok:
             raise AssertionError(f"{arch}: flash off the plain version at "
-                                 f"layer {layer} of the main path")
+                                 f"call {layer} of the main path")
         control = _flash_control(
-            f"layer {layer}, the last key tile dropped",
-            flash_attention_bhsd(qb, kb, vb, kv_len=qb.shape[2] - 64, **kw),
-            plain)
+            f"call {layer}, the last key tile dropped",
+            _flash_padded(qb, kb, vb, qb.shape[2] - 64, **kw), plain)
         out[layer] = {"shape": list(qb.shape), "kv_heads": kb.shape[1],
+                      "causal": kw.get("causal", True),
                       "window": kw.get("window", 0),
                       "softcap": kw.get("softcap"), "max_abs_err": err,
                       "row_err": row, "control_row_err": control}
@@ -3928,41 +4026,42 @@ def _plain_scores_f32():
         lm_attention.gqa_scores_softmax = real
 
 
-def _plain_floor(cfg, change, params, prompts, plain_last) -> float:
+def _plain_floor(cfg, change, params, batch, plain_last) -> float:
     """The plain branch's last logits with ``change`` against its own."""
     changed = cfg if change == F32_SCORES else override(cfg, **change)
     with (_plain_scores_f32() if change == F32_SCORES
           else contextlib.nullcontext()):
-        last = make_prefill_step(changed, LM_PROMPT + LM_GEN,
-                                 use_kernels=False)(
-            params, {"tokens": prompts})[0]
+        last = make_prefill_step(changed, _prompt_len(batch) + LM_GEN,
+                                 use_kernels=False)(params, batch)[0]
     return _rel_max(last, plain_last)
 
 
-def _lm_run(cfg, params, prompts, gen_len, use_kernels: bool,
+def _lm_run(cfg, params, batch, gen_len, use_kernels: bool,
             routing=None, spy=None) -> dict:
-    """``serve_lm``'s path: one prefill, then greedy decoding; host-clock
-    times around work that ends in a synchronize. ``routing`` records
-    the prefill's MoE choices, ``spy`` its flash calls."""
-    prefill = make_prefill_step(cfg, prompts.shape[1] + gen_len,
+    """``serve_lm``'s path: one prefill of ``batch`` (``_lm_batch``),
+    then greedy decoding; host-clock times around work that ends in a
+    synchronize. ``routing`` records the prefill's MoE choices, ``spy``
+    its flash calls."""
+    prompt = _prompt_len(batch)
+    device = next(iter(batch.values())).device
+    prefill = make_prefill_step(cfg, prompt + gen_len,
                                 use_kernels=use_kernels)
     t0 = time.perf_counter()
     with routing or contextlib.nullcontext(), \
             spy or contextlib.nullcontext():
-        last, cache = prefill(params, {"tokens": prompts})
+        last, cache = prefill(params, batch)
     first = torch.argmax(last, dim=-1)[:, None]
-    _sync(prompts.device)
+    _sync(device)
     t1 = time.perf_counter()
     after_prefill = _counts()
-    rest, _ = greedy_decode(cfg, params, cache, first, prompts.shape[1],
-                            gen_len - 1)
-    _sync(prompts.device)
+    rest, _ = greedy_decode(cfg, params, cache, first, prompt, gen_len - 1)
+    _sync(device)
     t2 = time.perf_counter()
     return {"last": last, "tokens": torch.cat([first, rest], dim=1),
             "launches_prefill": after_prefill, "launches": _counts(),
             "prefill_ms": (t1 - t0) * 1e3,
             "decode_ms_per_token": (t2 - t1) * 1e3 / max(gen_len - 1, 1),
-            "prefill": lambda: prefill(params, {"tokens": prompts})}
+            "prefill": lambda: prefill(params, batch)}
 
 
 def _sync(device) -> None:
@@ -4028,24 +4127,25 @@ def _ring_check(cfg, params, prompts, generated) -> dict:
 
 
 def serve_lm(dev) -> dict:
-    """Phase 4d: ``serve_lm``'s path for every ported arch at full width
-    in bf16 (depth cut where ``LM_ARCHS`` says; random weights from the
-    seed, batch 4, prompt 2048, 32 tokens): launch counts, the kernel run
-    against the plain-branch run on the card, timing and one profiled
-    prefill; the MoE archs' dropped pairs and the routing choices that
-    differ between the two runs; the gemmas' ring decode against the
-    full cache's; then an f32 run at the same depth, kernel against
-    plain branch (and the gemmas' ring again), and one at a few layers
-    against the CPU."""
+    """Phase 4d: ``serve_lm``'s path for every arch at full width in bf16
+    (depth cut where ``LM_ARCHS`` says; random weights from the seed,
+    batch 4, prompt 2048 (whisper's 416, beside 1500 frames; llava's
+    from embeddings), 32 tokens): launch counts, the kernel run against
+    the plain-branch run on the card, timing and one profiled prefill;
+    the MoE archs' dropped pairs and the routing choices that differ
+    between the two runs; the gemmas' ring decode against the full
+    cache's; then an f32 run at the same depth, kernel against plain
+    branch (and the gemmas' ring again), and one at a few layers against
+    the CPU."""
     out = {}
-    for arch, (kernel, _, reorder) in LM_ARCHS.items():
+    for arch, (kernels, _, reorder) in LM_ARCHS.items():
         cfg = _lm_cfg(arch)
         full_depth = get_arch(arch).num_layers
+        prompt_len = LM_PROMPTS.get(arch, LM_PROMPT)
         t0 = time.perf_counter()
         gen = torch.Generator(device=dev).manual_seed(SEED)
         params = init_params(cfg, gen, device=dev)
-        prompts = torch.randint(0, cfg.vocab_size, (LM_BATCH, LM_PROMPT),
-                                generator=gen, device=dev)
+        batch = _lm_batch(cfg, gen, LM_BATCH, prompt_len)
         torch.cuda.synchronize()
         init_s = time.perf_counter() - t0
         n_params = sum(t.numel() for t in tree_leaves(params)
@@ -4058,22 +4158,25 @@ def serve_lm(dev) -> dict:
               f"{init_s:.2f}s")
         routes = {"plain": _Routing(), "kernel": _Routing()} \
             if cfg.is_moe else {}
-        plain = _lm_run(cfg, params, prompts, LM_GEN, use_kernels=False,
+        plain = _lm_run(cfg, params, batch, LM_GEN, use_kernels=False,
                         routing=routes.get("plain"))
         floor = None
         if reorder:
-            floor = _plain_floor(cfg, reorder, params, prompts,
+            floor = _plain_floor(cfg, reorder, params, batch,
                                  plain["last"])
         bound = max(LM_BF16_TOL, LM_FLOOR_FACTOR * (floor or 0.0))
         torch.cuda.reset_peak_memory_stats()
         # the main path: the counters from 0, one prefill, then decode
-        spy = _FlashSpy() if kernel == "flash_attention" else None
+        spy = _FlashSpy() if "flash_attention" in kernels else None
         _zero_counts()
-        run = _lm_run(cfg, params, prompts, LM_GEN, use_kernels=True,
+        run = _lm_run(cfg, params, batch, LM_GEN, use_kernels=True,
                       routing=routes.get("kernel"), spy=spy)
         launches = run["launches"]
-        # one launch a layer in the prefill, none in decode
-        want = {**dict.fromkeys(_COUNTED, 0), kernel: cfg.num_layers}
+        # _lm_launches' in the prefill, none in decode
+        want = {**dict.fromkeys(_COUNTED, 0), **_lm_launches(cfg)}
+        if {k for k, n in want.items() if n} != set(kernels):
+            raise AssertionError(f"{arch}: LM_ARCHS names {kernels}, the "
+                                 f"config launches {_lm_launches(cfg)}")
         if run["launches_prefill"] != want or launches != want:
             raise AssertionError(
                 f"{arch} launches {run['launches_prefill']} after the "
@@ -4094,7 +4197,7 @@ def serve_lm(dev) -> dict:
                        "dropped_share": dropped / pairs,
                        "capacity_factor": cfg.moe_capacity_factor,
                        **_flipped(routes["kernel"], routes["plain"],
-                                  LM_PROMPT - 1)}
+                                  prompt_len - 1)}
             print(f"    MoE routing in the prefill: {dropped} of {pairs} "
                   f"(token, choice) pairs dropped at capacity factor "
                   f"{cfg.moe_capacity_factor} ({dropped / pairs:.4%}); "
@@ -4118,7 +4221,8 @@ def serve_lm(dev) -> dict:
             raise AssertionError(f"{arch}: kernel run off the plain branch")
         ring_rec = None
         if any(w > 0 for w in cfg.window_pattern):
-            ring_rec = _ring_check(cfg, params, prompts, run["tokens"])
+            ring_rec = _ring_check(cfg, params, batch["tokens"],
+                                   run["tokens"])
         # steady prefills, after the counted one: kernel, plain, plain,
         # kernel, the best of each
         walls = {"kernel": [], "plain": []}
@@ -4134,11 +4238,12 @@ def serve_lm(dev) -> dict:
         tokens_s = LM_BATCH * LM_GEN / ((prefill_ms + decode_ms
                                          * (LM_GEN - 1)) / 1e3)
         prof = _profile(run["prefill"], trace=f"lm_{arch}_trace.json",
-                        match=(kernel,))
+                        match=kernels)
         rec = {
             "params_m": n_params / 1e6, "init_s": init_s,
             "layers": cfg.num_layers, "full_depth": full_depth,
-            "batch": LM_BATCH, "prompt": LM_PROMPT, "generated": LM_GEN,
+            "batch": LM_BATCH, "prompt": prompt_len, "generated": LM_GEN,
+            "inputs": {k: list(v.shape) for k, v in batch.items()},
             "launches": {k: v for k, v in launches.items() if v},
             "prefill_ms": prefill_ms, "first_prefill_ms": run["prefill_ms"],
             "decode_ms_per_token": decode_ms, "tokens_per_s": tokens_s,
@@ -4157,9 +4262,10 @@ def serve_lm(dev) -> dict:
         print(f"    steady prefill {prefill_ms:.2f} ms (plain branch "
               f"{plain_prefill_ms:.2f} ms); {tokens_s:.1f} "
               f"generated tokens/s; profiled prefill: busy "
-              f"{prof['busy_share']:.3f}, {kernel} "
-              f"{prof['matched'][kernel]['ms']:.2f} ms of "
-              f"{prof['kernel_ms']:.2f} ms kernel time; top "
+              f"{prof['busy_share']:.3f}, "
+              + ", ".join(f"{k} {prof['matched'][k]['ms']:.2f} ms"
+                          for k in kernels)
+              + f" of {prof['kernel_ms']:.2f} ms kernel time; top "
               f"{[(t['name'][:40], round(t['ms'], 2)) for t in prof['top']]}")
         generated = run["tokens"]
         del params, plain, run, routes
@@ -4171,11 +4277,11 @@ def serve_lm(dev) -> dict:
                          activation_dtype="float32")
         gen = torch.Generator(device=dev).manual_seed(SEED)
         params = init_params(full32, gen, device=dev)
-        lasts = [make_prefill_step(full32, LM_PROMPT + LM_GEN,
-                                   use_kernels=uk)(
-            params, {"tokens": prompts})[0] for uk in (True, False)]
+        lasts = [make_prefill_step(full32, prompt_len + LM_GEN,
+                                   use_kernels=uk)(params, batch)[0]
+                 for uk in (True, False)]
         rel_deep = _rel_max(*lasts)
-        print(f"    f32, {full32.num_layers} layers, prompt {LM_PROMPT}: "
+        print(f"    f32, {full32.num_layers} layers, prompt {prompt_len}: "
               f"last logits kernel vs plain branch max_abs/max|logit| = "
               f"{rel_deep:.3e} (bound {LM_F32_TOL:g})")
         if not (rel_deep <= LM_F32_TOL and torch.isfinite(lasts[0]).all()):
@@ -4184,29 +4290,30 @@ def serve_lm(dev) -> dict:
         del lasts
         ring32 = None
         if ring_rec is not None:
-            ring32 = _ring_check(full32, params, prompts, generated)
+            ring32 = _ring_check(full32, params, batch["tokens"], generated)
         del params
         torch.cuda.empty_cache()
 
         # f32 at full width and a few layers: the card against the CPU
-        layers, batch, prompt = LM_F32_CPU.get(arch, LM_F32_CPU_DEFAULT)
+        layers, n_seq, prompt = LM_F32_CPU.get(arch, LM_F32_CPU_DEFAULT)
+        enc = {"enc_layers": layers} if cfg.is_encoder_decoder else {}
         cfg32 = _lm_cfg(arch, param_dtype="float32",
-                        activation_dtype="float32", num_layers=layers)
+                        activation_dtype="float32", num_layers=layers, **enc)
         gen = torch.Generator(device=dev).manual_seed(SEED + 1)
         params = init_params(cfg32, gen, device=dev)
-        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
-                                generator=gen, device=dev)
-        card = _lm_run(cfg32, params, prompts, LM_F32_GEN, use_kernels=True)
+        batch = _lm_batch(cfg32, gen, n_seq, prompt)
+        card = _lm_run(cfg32, params, batch, LM_F32_GEN, use_kernels=True)
         t0 = time.perf_counter()
         cpu_params = _cpu_tree(params)
         del params
         torch.cuda.empty_cache()
-        cpu = _lm_run(cfg32, cpu_params, prompts.cpu(), LM_F32_GEN,
+        cpu = _lm_run(cfg32, cpu_params, {k: v.cpu() for k, v in
+                                          batch.items()}, LM_F32_GEN,
                       use_kernels=True)
         cpu_s = time.perf_counter() - t0
         rel32 = _rel_max(card["last"].cpu(), cpu["last"])
         agree32 = (card["tokens"].cpu() == cpu["tokens"]).sum().item()
-        print(f"    f32, {layers} layers, batch {batch}, prompt {prompt}: "
+        print(f"    f32, {layers} layers, batch {n_seq}, prompt {prompt}: "
               f"last logits card vs CPU max_abs/max|logit| = {rel32:.3e} "
               f"(bound {LM_F32_TOL:g}); greedy tokens agree {agree32}/"
               f"{cpu['tokens'].numel()}; CPU run {cpu_s:.1f}s")
@@ -4216,8 +4323,8 @@ def serve_lm(dev) -> dict:
         torch.cuda.empty_cache()
         out[arch] = {**rec, "f32_rel_logits_vs_plain": rel_deep,
                      "f32_ring": ring32,
-                     "f32_cpu_run": {"layers": layers, "batch": batch,
-                                     "prompt": prompt},
+                     "f32_cpu_run": {"layers": layers, "batch": n_seq,
+                                     "prompt": prompt, **enc},
                      "f32_rel_logits_vs_cpu": rel32,
                      "f32_tokens_agree": agree32, "f32_cpu_s": cpu_s}
     return out
@@ -4290,45 +4397,56 @@ def _flex_attention(q, k, v, window: int, softcap, plain) -> tuple:
 def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
     """Phase 5's rows for the LM backbones' kernels at the prefill shapes
     of the LM phase: flash at qwen2-0.5b's (B 4, H 14, KV 2, S 2048, hd
-    64, bf16, causal), at qwen3-32b's heads (batch 1) and at the gemmas'
-    local layers; SSD at mamba2-780m's (b 4, s 2048, h 48, p 64, n 128,
-    chunk 128, bf16, with the final state). The bound is at the bf16
-    tensor-core rate and the memory rate. The row's launches are phase
-    4d's bf16 prefills'."""
+    64, bf16, causal), at qwen3-32b's heads (batch 1), at the gemmas'
+    local layers, whisper-small's encoder (non-causal, S 1500) and
+    decoder (S 416), llava-next-34b's and zamba2-1.2b's shared block;
+    SSD at mamba2-780m's (b 4, s 2048, h 48, p 64, n 128, chunk 128,
+    bf16, with the final state) and zamba2-1.2b's (h 64, n 64). The
+    bound is at the bf16 tensor-core rate and the memory rate. The row's
+    launches are phase 4d's bf16 prefills'."""
     peaks = (_BF16_PEAKS[_card_row(card_name)], _peaks(card_name)[1])
     g = _gen(SEED + 3)
     bf = torch.bfloat16
     rows = []
 
-    def flash_timed(b, h, kv, s, hd, window=0, softcap=None, flex=False):
+    def flash_timed(b, h, kv, s, hd, window=0, softcap=None, flex=False,
+                    causal=True):
         """Times at one shape, after the bf16 kernel is held there to the
         plain version in f32 (and a planted fault, the last key tile
-        dropped, is shown to fail that check). The library call is SDPA,
-        causal; with ``flex``, ``flex_attention`` (the window as a block
-        mask, the softcap as a score_mod), held to the same plain version
-        first, and beside it SDPA with the window's boolean mask where
-        there is no softcap (SDPA has none)."""
+        dropped, is shown to fail that check). An S that is not a
+        multiple of the 128-row query block is padded to one, as
+        ``ops.flash_attention`` pads it, and the kernel and the plain
+        version mask the keys past S; the library call reads the S rows
+        alone. The library call is SDPA, causal or not; with ``flex``,
+        ``flex_attention`` (the window as a block mask, the softcap as a
+        score_mod), held to the same plain version first, and beside it
+        SDPA with the window's boolean mask where there is no softcap
+        (SDPA has none)."""
+        s_pad = s + (-s) % 128
         q = torch.randn((b, h, s, hd), generator=g).to(dev, bf)
         k, v = (torch.randn((b, kv, s, hd), generator=g).to(dev, bf)
                 for _ in range(2))
-        kw = dict(window=window, softcap=softcap)
-        f32 = [t.float() for t in (q, k, v)]
-        got = flash_attention_bhsd(q, k, v, **kw)
-        again = flash_attention_bhsd(q, k, v, **kw)
-        plain = ref_attention(*f32, **kw)
+        qp, kp, vp = (F.pad(t, (0, 0, 0, s_pad - s)).contiguous()
+                      for t in (q, k, v))
+        kw = dict(causal=causal, window=window, softcap=softcap)
+        f32 = [t.float() for t in (qp, kp, vp)]
+        got = flash_attention_bhsd(qp, kp, vp, kv_len=s, **kw)[:, :, :s]
+        again = flash_attention_bhsd(qp, kp, vp, kv_len=s, **kw)[:, :, :s]
+        plain = ref_attention(*f32, kv_len=s, **kw)[:, :, :s]
         torch.cuda.synchronize()
         err, row, ok = _flash_close(got, plain)
         same = torch.equal(got, again)
-        print(f"  flash_attention bf16 at {[b, h, kv, s, hd]} causal {kw}: "
-              f"max_abs_err={err:.3e}  tol={FLASH_TOL[bf]:g}*(1+|plain|)  "
-              f"row error {row:.3e} (limit {FLASH_BF16_ROW_TOL:g})  repeat "
-              f"bit-equal: {same}")
+        print(f"  flash_attention bf16 at {[b, h, kv, s, hd]} (padded to "
+              f"{s_pad}) {kw}: max_abs_err={err:.3e}  tol="
+              f"{FLASH_TOL[bf]:g}*(1+|plain|)  row error {row:.3e} (limit "
+              f"{FLASH_BF16_ROW_TOL:g})  repeat bit-equal: {same}")
         if not (ok and same):
             raise AssertionError(f"flash_attention mismatch at "
                                  f"{(b, h, kv, s, hd, kw)}")
         control = _flash_control(
             "the last key tile dropped",
-            flash_attention_bhsd(q, k, v, kv_len=s - 64, **kw), plain)
+            flash_attention_bhsd(qp, kp, vp, kv_len=s - 64, **kw)[:, :, :s],
+            plain)
         extra = {}
         if flex:
             library, call, extra["library_check"] = _flex_attention(
@@ -4345,21 +4463,26 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
                         q, k, v, attn_mask=mask, enable_gqa=True))[0]
         else:
             call = ("F.scaled_dot_product_attention(q, k, v, "
-                    "is_causal=True, enable_gqa=True)")
+                    f"is_causal={causal}, enable_gqa=True)")
 
             def library():
                 return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True)
+                    q, k, v, is_causal=causal, enable_gqa=True)
         del got, again, plain, f32
         torch.cuda.empty_cache()
-        times = _timed(lambda: flash_attention_bhsd(q, k, v, **kw),
-                       lambda: ref_attention(q, k, v, **kw), library)
-        # the (query, key) pairs the causal window keeps
+        times = _timed(lambda: flash_attention_bhsd(qp, kp, vp, kv_len=s,
+                                                    **kw),
+                       lambda: ref_attention(qp, kp, vp, kv_len=s, **kw),
+                       library)
+        # the (query, key) pairs the causal window keeps; all S² when
+        # non-causal
         w = window if window > 0 else s
-        band = sum(min(i + 1, w) for i in range(s))
+        band = (sum(min(i + 1, w) for i in range(s)) if causal
+                else s * min(w, s))
         bound, by = _bound_ms(2 * (2 * b * h * s * hd + 2 * b * kv * s * hd),
                               4 * b * h * band * hd, peaks)
         return {"shape": [b, h, kv, s, hd], "dtype": "bfloat16",
+                "causal": causal, "padded_to": s_pad,
                 "window": window, "softcap": softcap,
                 "check": {"max_abs_err": err, "row_err": row,
                           "row_limit": FLASH_BF16_ROW_TOL,
@@ -4380,7 +4503,43 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
                                  window=4096, softcap=50.0, flex=True)},
         "gemma3": {"name": "flash_attention gemma3-27b local",
                    **flash_timed(LM_BATCH, 32, 16, LM_PROMPT, 128,
-                                 window=1024, flex=True)}}
+                                 window=1024, flex=True)},
+        # whisper-small's encoder over its 1500 frames and decoder at its
+        # 416-token prompt; llava-next-34b's g 7 at hd 128; zamba2-1.2b's
+        # shared block (g 1)
+        "whisper_enc": {"name": "flash_attention whisper-small encoder",
+                        **flash_timed(LM_BATCH, 12, 12, 1500, 64,
+                                      causal=False)},
+        "llava": {"name": "flash_attention llava-next-34b",
+                  **flash_timed(LM_BATCH, 56, 8, LM_PROMPT, 128)},
+        "zamba2": {"name": "flash_attention zamba2-1.2b shared block",
+                   **flash_timed(LM_BATCH, 32, 32, LM_PROMPT, 64)},
+        "whisper_dec": {"name": "flash_attention whisper-small decoder",
+                        **flash_timed(LM_BATCH, 12, 12,
+                                      LM_PROMPTS["whisper-small"], 64)}}
+    # whisper's cross-attention runs plain, once a decoder layer (the
+    # kernel takes as many keys as queries): its scores at the prefill's
+    # shape, beside SDPA on the same q, k and v
+    wq = torch.randn((LM_BATCH, LM_PROMPTS["whisper-small"], 12, 64),
+                     generator=g).to(dev, bf)
+    wk, wv = (torch.randn((LM_BATCH, 1500, 12, 64), generator=g).to(dev, bf)
+              for _ in range(2))
+    every = torch.ones((LM_BATCH, wq.shape[1], 1500), dtype=torch.bool,
+                       device=dev)
+    wt = [t.transpose(1, 2) for t in (wq, wk, wv)]
+    cross_plain = {
+        "shape": {"q": list(wq.shape), "k": list(wk.shape)},
+        "plain_ms": _time_ms(lambda: lm_attention.gqa_scores_softmax(
+            wq, wk, wv, every, None))[0],
+        "sdpa_ms": _time_ms(
+            lambda: F.scaled_dot_product_attention(*wt))[0],
+        "per_prefill": lm_rec.get("whisper-small", {}).get(
+            "layers", 0)}
+    print(f"  whisper's cross-attention (plain, {cross_plain['shape']}): "
+          f"{cross_plain['plain_ms'] * 1e3:.2f}us a layer, SDPA "
+          f"{cross_plain['sdpa_ms'] * 1e3:.2f}us; "
+          f"{cross_plain['per_prefill']} a prefill")
+    del wq, wk, wv, wt, every
     flash_by_arch = {arch: rec["launches"]["flash_attention"]
                      for arch, rec in lm_rec.items()
                      if "flash_attention" in rec["launches"]}
@@ -4416,14 +4575,15 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
                              + [r["check"]["control_row_err"]
                                 for r in extra.values()]
                              + [c["control_row_err"] for c in on_path])},
-        **qwen2, **extra})
+        "whisper_cross_plain": cross_plain, **qwen2, **extra})
 
     def ssd_timed(b, s=LM_PROMPT, h=48, p=64, n=128, chunk=128):
-        """SSD at mamba2-780m's prefill widths, batch b: the kernel (bf16)
-        held to the plain version in f32 (and, at batch 4, the planted
-        faults shown to fail), then timed; at batch 4 also the f32
-        kernel and the chunked plain branch (``ssd_chunked``: several
-        einsums and a loop, not one library call)."""
+        """SSD at mamba2-780m's prefill widths (or zamba2-1.2b's: h 64,
+        n 64), batch b: the kernel (bf16) held to the plain version in
+        f32 (and, at batch 4, the planted faults shown to fail), then
+        timed; at batch 4 also the f32 kernel and the chunked plain
+        branch (``ssd_chunked``: several einsums and a loop, not one
+        library call)."""
         x = (torch.randn((b, s, h, p), generator=g) * 0.5).to(dev, bf)
         dt = F.softplus(torch.randn((b, s, h), generator=g) - 4.0).to(dev)
         a_log = torch.log(torch.rand((h,), generator=g) * 15 + 1).to(dev)
@@ -4480,6 +4640,11 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
 
     mamba2 = ssd_timed(LM_BATCH)
     batch1 = {"name": "ssd_scan batch 1", **ssd_timed(1)}
+    zamba2 = {"name": "ssd_scan zamba2-1.2b", **ssd_timed(LM_BATCH, h=64,
+                                                          n=64)}
+    ssd_by_arch = {arch: rec["launches"]["ssd_scan"]
+                   for arch, rec in lm_rec.items()
+                   if "ssd_scan" in rec["launches"]}
     rows.append({
         "name": "ssd_scan", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
@@ -4492,22 +4657,26 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
                         "scores in registers, cp.async double buffer, a "
                         "block per (batch, head, p_width columns)",
             "float32": "ssd_scan_kernel: CUDA cores, f32 register tiles"},
-        "launches": lm_rec["mamba2-780m"]["launches"]["ssd_scan"],
-        "launches_from": "one mamba2-780m prefill (decode: 0)",
+        "launches": sum(ssd_by_arch.values()),
+        "launches_by_arch": ssd_by_arch,
+        "launches_from": "one bf16 prefill of each Mamba2 arch of phase "
+                         "4d (decode: 0)",
         "max_abs_err": max(worst["ssd_scan"],
                            mamba2["check"]["max_abs_err"],
-                           batch1["check"]["max_abs_err"]),
+                           batch1["check"]["max_abs_err"],
+                           zamba2["check"]["max_abs_err"]),
         "bf16_row_err": {"phase1": worst["ssd_bf16_row"],
                          "limit": SSD_BF16_ROW_TOL,
                          "controls_min": min(
                              worst["ssd_bf16_control"],
-                             mamba2["check"]["control_row_err"]),
+                             mamba2["check"]["control_row_err"],
+                             zamba2["check"]["control_row_err"]),
                          "state_controls_min": min(
                              worst["ssd_state_control"],
-                             mamba2["check"]["control_state_err"])},
-        **mamba2, "library_call": None, "batch1": batch1})
-    for r in rows + [rows[0][k] for k in ("hd128", "gemma2", "gemma3")] + [
-            batch1]:
+                             mamba2["check"]["control_state_err"],
+                             zamba2["check"]["control_state_err"])},
+        **mamba2, "library_call": None, "batch1": batch1, "zamba2": zamba2})
+    for r in rows + [rows[0][k] for k in extra] + [batch1, zamba2]:
         lib = ("n/a" if r["library_ms"] is None
                else f"{r['library_ms'] * 1e3:.2f}us")
         print(f"  {r['name']} at {r['shape']} bf16, "
@@ -4518,9 +4687,11 @@ def _backbone_rows(dev, lm_rec, card_name, worst) -> list:
                  f"  SDPA with the boolean mask "
                  f"{r['sdpa_mask_ms'] * 1e3:.2f}us"))
     print(f"  ssd_scan bf16 p_width: batch {LM_BATCH} {mamba2['p_width']}, "
-          f"batch 1 {batch1['p_width']}; f32 kernel "
-          f"{mamba2['f32_kernel_ms'] * 1e3:.2f}us, chunked plain branch "
-          f"(ssd_chunked) {mamba2['chunked_plain_ms'] * 1e3:.2f}us")
+          f"batch 1 {batch1['p_width']}, zamba2 {zamba2['p_width']}; f32 "
+          f"kernel {mamba2['f32_kernel_ms'] * 1e3:.2f}us (zamba2 "
+          f"{zamba2['f32_kernel_ms'] * 1e3:.2f}us), chunked plain branch "
+          f"(ssd_chunked) {mamba2['chunked_plain_ms'] * 1e3:.2f}us "
+          f"(zamba2 {zamba2['chunked_plain_ms'] * 1e3:.2f}us)")
     return rows
 
 
@@ -5154,7 +5325,7 @@ def main() -> int:
     print("[4g] the sharded round on processes (torch.distributed), 3 "
           "rounds each, through the kernels")
     shard_rec = train_sharded(dev, data, tr, held_out)
-    print("[4d] LM serving: every ported arch at full width, bf16, through "
+    print("[4d] LM serving: all ten archs at full width, bf16, through "
           "the flash-attention and SSD kernels")
     t0 = time.perf_counter()
     lm_rec = serve_lm(dev)

@@ -5,7 +5,6 @@ from repro_torch.configs.base import (  # noqa: F401
     ATTN,
     GLOBAL,
     MAMBA,
-    PENDING_ARCHS,
     AdversaryConfig,
     AggConfig,
     AvailabilityConfig,
@@ -27,9 +26,12 @@ from repro_torch.configs import (  # noqa: F401,E402
     gemma3_27b,
     granite_moe_3b_a800m,
     grok_1_314b,
+    llava_next_34b,
     mamba2_780m,
     qwen2_0_5b,
     qwen3_32b,
+    whisper_small,
+    zamba2_1_2b,
 )
 
 ALL_ARCHS = tuple(ARCHITECTURES.names())

@@ -476,20 +476,8 @@ class FedConfig:
 # registry: arch id -> ModelConfig factory
 ARCHITECTURES: Registry = Registry("architecture")
 
-# the reference's other architectures, registered once the port runs
-# their families (ROADMAP queue A.8, in this order)
-PENDING_ARCHS = {
-    "zamba2-1.2b": "the Mamba2/shared-attention hybrid",
-    "whisper-small": "the encoder-decoder",
-    "llava-next-34b": "the embeddings input",
-}
-
 
 def get_arch(name: str) -> ModelConfig:
-    if name in PENDING_ARCHS and name not in ARCHITECTURES:
-        raise NotImplementedError(
-            f"architecture {name!r} is not ported yet: it needs "
-            f"{PENDING_ARCHS[name]} (ROADMAP queue A.8)")
     cfg = ARCHITECTURES.get(name)
     cfg.validate()
     return cfg

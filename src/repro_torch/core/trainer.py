@@ -26,12 +26,15 @@ from repro_torch.models import forward
 def make_prefill_step(cfg: ModelConfig, max_seq: int, *,
                       use_kernels: bool = True) -> Callable:
     """(params, batch) -> (last_logits (B, V) f32, cache); ``batch``
-    holds the prompt ``tokens`` (B, S). The last logits are a copy, so
-    the (B, S, V) logits are freed before decoding (gemma3-27b's are
-    8.6 GB at batch 4 × 2048)."""
+    holds the prompt's ``tokens`` (B, S) or its ``embeds`` (B, S, d),
+    and an encoder-decoder's ``enc_embeds`` (B, enc_seq_len, d). The
+    last logits are a copy, so the (B, S, V) logits are freed before
+    decoding (gemma3-27b's are 8.6 GB at batch 4 × 2048)."""
 
     def prefill_step(params, batch):
-        logits, cache, _ = forward(params, cfg, tokens=batch["tokens"],
+        logits, cache, _ = forward(params, cfg, tokens=batch.get("tokens"),
+                                   embeds=batch.get("embeds"),
+                                   enc_embeds=batch.get("enc_embeds"),
                                    prefill_len=max_seq,
                                    use_kernels=use_kernels)
         return logits[:, -1].clone(), cache

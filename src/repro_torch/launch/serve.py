@@ -2,14 +2,17 @@
 a prefilled KV cache or SSM state, or the GPO preference-serving engine
 (the paper's inference product), on the GPU.
 
-``serve_lm`` builds ``--arch`` (the ported ones: qwen2-0.5b, qwen3-32b,
-gemma2-27b, gemma3-27b, granite-moe-3b-a800m, grok-1-314b, mamba2-780m;
-``--smoke`` for the reduced variant) with random weights from
-``--seed``, prefills ``--batch`` random prompts of ``--prompt-len``
-tokens through the flash-attention or SSD kernel, and decodes
-``--gen-len`` tokens greedily from the full KV cache or SSM state (the
-config's default; the gemmas' ring cache is ``ring_cache_from_full``'s,
-as in the reference):
+``serve_lm`` builds ``--arch`` (any of the ten: qwen2-0.5b, qwen3-32b,
+gemma2-27b, gemma3-27b, granite-moe-3b-a800m, grok-1-314b, mamba2-780m,
+zamba2-1.2b, whisper-small, llava-next-34b; ``--smoke`` for the reduced
+variant) with random weights from ``--seed``, prefills ``--batch``
+random prompts of ``--prompt-len`` tokens through the flash-attention
+and SSD kernels (an encoder-decoder's frame embeddings drawn N(0, 1)
+from the same generator, as the reference draws them; llava is served
+from tokens, as the reference serves it), and decodes ``--gen-len``
+tokens greedily from the full KV cache or SSM state (the config's
+default; the gemmas' ring cache is ``ring_cache_from_full``'s, as in
+the reference):
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
       --smoke --prompt-len 16 --gen-len 16 --batch 4 --device cpu
@@ -70,11 +73,14 @@ def serve_lm(args) -> torch.Tensor:
     gen = torch.Generator(device=device).manual_seed(args.seed)
     params = init_params(cfg, gen, device=device)
     b, p = args.batch, args.prompt_len
-    prompts = torch.randint(0, cfg.vocab_size, (b, p), generator=gen,
-                            device=device)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (b, p),
+                                     generator=gen, device=device)}
+    if cfg.is_encoder_decoder:
+        batch["enc_embeds"] = torch.randn(
+            (b, cfg.enc_seq_len, cfg.d_model), generator=gen, device=device)
     prefill = make_prefill_step(cfg, p + args.gen_len)
     t0 = time.perf_counter()
-    last_logits, cache = prefill(params, {"tokens": prompts})
+    last_logits, cache = prefill(params, batch)
     first = torch.argmax(last_logits, dim=-1)[:, None]
     toks, _ = greedy_decode(cfg, params, cache, first, p, args.gen_len - 1)
     toks = torch.cat([first, toks], dim=1).cpu()
@@ -165,7 +171,8 @@ def main(argv=None) -> None:
     ap.add_argument("--arch", default="qwen2-0.5b",
                     help="LM backbone to serve (qwen2-0.5b, qwen3-32b, "
                          "gemma2-27b, gemma3-27b, granite-moe-3b-a800m, "
-                         "grok-1-314b, mamba2-780m)")
+                         "grok-1-314b, mamba2-780m, zamba2-1.2b, "
+                         "whisper-small, llava-next-34b)")
     ap.add_argument("--gpo", action="store_true",
                     help="serve the GPO preference predictor instead")
     ap.add_argument("--smoke", action="store_true",

@@ -1,5 +1,7 @@
-"""The LM backbones of the PyTorch port (``models/``): the dense and the
-pure-SSM families, and the weight bridge from the JAX package's params.
+"""The LM backbones of the PyTorch port (``models/``): every family of
+the JAX package (dense, MoE, pure SSM, the zamba2 hybrid, whisper's
+encoder-decoder, llava's embeddings input), and the weight bridge from
+the JAX package's params.
 """
 from __future__ import annotations
 
@@ -8,6 +10,7 @@ import torch
 
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models.transformer import (  # noqa: F401
+    encode,
     forward,
     hidden_states,
     init_cache,

@@ -14,6 +14,10 @@
   a full cache, decode raises (the reference clamps and overwrites the
   last slot). ``ring_decode_step`` decodes a local layer against a
   ring of ``window`` slots, which wraps by design.
+* whisper's encoder attends bidirectionally (``encoder_self_attend``,
+  through the flash kernel, non-causal) and its decoder attends to the
+  encoder's states (``cross_kv`` once a prefill, ``cross_attend`` plain:
+  the kernel takes only as many keys as queries).
 
 On one device the reference's sharding choices are fixed: KV is not
 repeated, the query sequence is not sharded, and ``shard_act`` is the
@@ -226,3 +230,63 @@ def ring_decode_step(p: AttnParams, x, k_cache, v_cache, cache_pos: int,
     out = gqa_scores_softmax(q, k_cache, v_cache, mask,
                              cfg.attn_logit_softcap)
     return out.reshape(b, 1, -1) @ p.wo
+
+
+# ---------------------------------------------------------------------------
+# Cross attention (whisper's decoder on the encoder's states) and the
+# encoder's bidirectional self-attention
+# ---------------------------------------------------------------------------
+class CrossAttnParams(NamedTuple):
+    wq: torch.Tensor  # (d, H*hd)
+    wk: torch.Tensor  # (d, KV*hd)
+    wv: torch.Tensor  # (d, KV*hd)
+    wo: torch.Tensor  # (H*hd, d)
+
+
+def init_cross_attn_params(init: ParamInit, cfg, dtype) -> CrossAttnParams:
+    d, qd, kvd = cfg.d_model, cfg.q_dim, cfg.kv_dim
+    return CrossAttnParams(
+        wq=init.dense((d, qd), dtype),
+        wk=init.dense((d, kvd), dtype),
+        wv=init.dense((d, kvd), dtype),
+        wo=init.dense((qd, d), dtype),
+    )
+
+
+def cross_kv(p: CrossAttnParams, enc_out, cfg):
+    """(k, v), each (b, S_enc, KV, hd), of the encoder's states: made once
+    a prefill and kept in the decode cache."""
+    b, s, _ = enc_out.shape
+    k = (enc_out @ p.wk).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    v = (enc_out @ p.wv).reshape(b, s, cfg.num_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attend(p: CrossAttnParams, x, k, v, cfg):
+    """x (b, sq, d) attends to every encoder position, no rope and no
+    softcap. Plain PyTorch, as the reference computes it outside any
+    Pallas kernel: the flash kernel takes only Sq == Sk."""
+    b, sq, _ = x.shape
+    q = (x @ p.wq).reshape(b, sq, cfg.num_heads, cfg.head_dim)
+    mask = torch.ones((b, sq, k.shape[1]), dtype=torch.bool, device=x.device)
+    out = gqa_scores_softmax(q, k, v, mask, None)
+    return out.reshape(b, sq, -1) @ p.wo
+
+
+def encoder_self_attend(p: AttnParams, x, cfg, use_kernel: bool = True):
+    """Bidirectional (encoder) self-attention with rope at
+    ``cfg.rope_theta``: through the flash kernel, non-causal, unless
+    ``use_kernel=False``, which takes the plain masked softmax."""
+    b, s, _ = x.shape
+    positions = torch.arange(s, device=x.device)[None, :].expand(b, s)
+    q, k, v = _project_qkv(p, x, cfg.num_heads, cfg.num_kv_heads,
+                           cfg.head_dim, cfg.norm_eps)
+    q, k = rope(q, positions, cfg.rope_theta), rope(k, positions,
+                                                     cfg.rope_theta)
+    if use_kernel:
+        out = ops.flash_attention(q, k, v, causal=False,
+                                  softcap=cfg.attn_logit_softcap)
+    else:
+        mask = torch.ones((b, s, s), dtype=torch.bool, device=x.device)
+        out = gqa_scores_softmax(q, k, v, mask, cfg.attn_logit_softcap)
+    return out.reshape(b, s, -1) @ p.wo

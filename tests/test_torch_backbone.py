@@ -22,12 +22,13 @@ import pytest
 import torch
 
 from repro.configs import get_arch as jax_get_arch
+from repro.configs import override as jax_override
 from repro.configs import smoke_variant as jax_smoke_variant
 from repro.core.trainer import greedy_decode as jax_greedy_decode
 from repro.core.trainer import make_prefill_step as jax_make_prefill_step
 from repro.models import forward as jax_forward
 from repro.models import init_params as jax_init_params
-from repro_torch.configs import get_arch, smoke_variant
+from repro_torch.configs import ATTN, MAMBA, get_arch, override, smoke_variant
 from repro_torch.core import greedy_decode, make_prefill_step
 from repro_torch.models import (
     forward,
@@ -149,11 +150,12 @@ def test_greedy_tokens_match_jax(arch):
 
 @pytest.mark.parametrize("arch", ARCHS + [
     "qwen3-32b", "gemma2-27b", "gemma3-27b", "granite-moe-3b-a800m",
-    "grok-1-314b"])
+    "grok-1-314b", "zamba2-1.2b", "whisper-small", "llava-next-34b"])
 def test_full_width_params_have_the_reference_shapes(arch):
-    """Every ported arch at full width built on the meta device (post-norms
-    and the MoE's f32 router included): every leaf's shape and dtype
-    equals the reference's, abstractly."""
+    """Every arch at full width built on the meta device (post-norms, the
+    MoE's f32 router, zamba2's shared block, whisper's encoder and cross
+    attention, llava's untied head included): every leaf's shape and
+    dtype equals the reference's, abstractly."""
     want = _numpy_tree(jax.eval_shape(
         lambda k: jax_init_params(jax_get_arch(arch), k),
         jax.random.PRNGKey(0)), leaf=lambda x: x)
@@ -204,8 +206,21 @@ def test_init_cache_matches_the_prefill_cache():
 
 
 def test_unported_architectures_raise_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.8"):
-        get_arch("zamba2-1.2b")
+    """Every registered arch runs now. What stays refused is what the
+    reference refuses too: a per-layer pattern that mixes attention and
+    Mamba2 layers (zamba2 mixes through its shared block instead), with
+    the reference's message; an unknown name raises ``KeyError``."""
+    mixed = override(smoke_variant(get_arch("zamba2-1.2b")),
+                     block_pattern=(MAMBA, ATTN), shared_attn_every=0)
+    jmixed = jax_override(jax_smoke_variant(jax_get_arch("zamba2-1.2b")),
+                          block_pattern=(MAMBA, ATTN), shared_attn_every=0)
+    with pytest.raises(ValueError, match="mixed per-layer patterns") as got:
+        init_params(mixed, torch.Generator().manual_seed(0), device="cpu")
+    with pytest.raises(ValueError, match="mixed per-layer patterns") as want:
+        jax_init_params(jmixed, jax.random.PRNGKey(0))
+    assert str(got.value) == str(want.value)
+    with pytest.raises(ValueError, match="mixed per-layer patterns"):
+        init_cache(mixed, B, S, device="cpu")
     with pytest.raises(KeyError):
         get_arch("no-such-arch")
 

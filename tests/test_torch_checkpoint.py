@@ -138,13 +138,18 @@ def test_latest_checkpoint(tmp_path):
 # ---------------------------------------------------------------------------
 # the serve launcher
 # ---------------------------------------------------------------------------
-def test_serve_without_restore_names_the_training_slice():
+def test_serve_without_restore_names_the_training_slice(capsys):
     with pytest.raises(SystemExit, match="launch.train --trainer gpo"):
         serve_cli.main(["--gpo", "--device", "cpu"])
-    # LM serving runs qwen2-0.5b and mamba2-780m; an architecture whose
-    # family is not ported yet names its slice
-    with pytest.raises(NotImplementedError, match="ROADMAP queue A.8"):
-        serve_cli.main(["--arch", "zamba2-1.2b", "--device", "cpu"])
+    # LM serving runs every arch now, zamba2's hybrid the last to come:
+    # its smoke variant serves on the CPU
+    capsys.readouterr()
+    serve_cli.main(["--arch", "zamba2-1.2b", "--smoke", "--device", "cpu",
+                    "--prompt-len", "8", "--gen-len", "4"])
+    lines = capsys.readouterr().out.splitlines()
+    assert lines[0] == ("arch=zamba2-1.2b-smoke batch=4 prompt=8 "
+                        "generated=4 device=cpu")
+    assert sum(ln.startswith("  seq") for ln in lines) == 4
 
 
 def test_serve_restore_errors_are_actionable(tmp_path):

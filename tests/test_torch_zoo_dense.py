@@ -88,15 +88,58 @@ def reference_fns(jcfg):
     }
 
 
+# XLA's CPU backend at optimisation level 0 compiles the reference in
+# about half the time (the hybrid's prefill 6.1 -> 2.7 s on one core);
+# its results hold to the port within the same 1e-4
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def reference_run(model, first_inputs, rest_tokens, greedy: int) -> dict:
+    """The reference's prefill of ``first_inputs`` (a dict of
+    ``forward``'s keywords, numpy) into an S cache, then its decode of
+    ``rest_tokens`` (B, n) teacher forced and, from the prefill again,
+    of ``greedy`` greedy tokens: the prefill's logits and cache, the
+    forced decode's logits and final cache, the greedy tokens (B, 1 +
+    greedy). Prefill and decode compile once each (``FAST_COMPILE``)."""
+    jcfg, jparams = model[:2]
+    inputs = {k: jnp.asarray(v) for k, v in first_inputs.items()}
+    prefill = jax.jit(lambda p, inp: jax_forward(
+        p, jcfg, prefill_len=S, **inp)).lower(jparams, inputs).compile(
+        FAST_COMPILE)
+    logits, cache, _ = prefill(jparams, inputs)
+    p = logits.shape[1]
+    tok = jnp.argmax(logits[:, -1], axis=-1).astype(jnp.int32)[:, None]
+    step = jax.jit(lambda prm, t, c, pos: jax_forward(
+        prm, jcfg, tokens=t, cache=c, cache_pos=pos)).lower(
+        jparams, tok, cache, jnp.asarray(p, jnp.int32)).compile(
+        FAST_COMPILE)
+
+    def decode(t, c, pos):
+        return step(jparams, t, c, jnp.asarray(pos, jnp.int32))
+
+    forced, c = [], cache
+    for i in range(rest_tokens.shape[1]):
+        lg, c, _ = decode(jnp.asarray(rest_tokens[:, i:i + 1]), c, p + i)
+        forced.append(np.asarray(lg[:, 0]))
+    toks, g = [tok], cache
+    for i in range(greedy):
+        lg, g, _ = decode(tok, g, p + i)
+        tok = jnp.argmax(lg[:, 0], axis=-1).astype(jnp.int32)[:, None]
+        toks.append(tok)
+    return {"logits": np.asarray(logits), "cache": cache,
+            "forced": np.stack(forced, 1), "forced_cache": c,
+            "greedy": np.concatenate([np.asarray(t) for t in toks], 1)}
+
+
 _MODELS = {}
 
 
-def _model(arch, ring=False):
+def _model(arch, ring=False, **changes):
     """(reference cfg, reference params, port cfg, port params, tokens)
     for the smoke variant of ``arch``; ``ring``: one local:global period
     and a tail layer, the ring cache on (the reference's ring test's
-    configuration)."""
-    key = (arch, ring)
+    configuration); ``changes``: config fields overridden in both."""
+    key = (arch, ring, tuple(sorted(changes.items())))
     if key not in _MODELS:
         jcfg = jax_smoke_variant(jax_get_arch(arch))
         cfg = smoke_variant(get_arch(arch))
@@ -104,6 +147,9 @@ def _model(arch, ring=False):
             n = len(cfg.window_pattern) + 1
             jcfg = jax_override(jcfg, ring_cache=True, num_layers=n)
             cfg = override(cfg, ring_cache=True, num_layers=n)
+        if changes:
+            jcfg = jax_override(jcfg, **changes)
+            cfg = override(cfg, **changes)
         jparams = reference_params(jcfg, 2)
         params = params_from_reference(cfg, _numpy_tree(jparams),
                                        device="cpu")
@@ -162,43 +208,54 @@ def test_arch_config_equals_the_reference_field_for_field(arch):
 
 
 def test_the_remaining_archs_stay_pending():
-    assert set(port_configs.ALL_ARCHS) | set(port_configs.PENDING_ARCHS) \
-        == set(jax_configs.ALL_ARCHS)
-    for arch in port_configs.PENDING_ARCHS:
-        with pytest.raises(NotImplementedError, match="ROADMAP queue A.8"):
-            get_arch(arch)
+    """None is pending any more: the port registers exactly the
+    reference's ten archs, in its order, and refuses none of them."""
+    assert port_configs.ALL_ARCHS == jax_configs.ALL_ARCHS
+    assert len(port_configs.ALL_ARCHS) == 10
+    assert not hasattr(port_configs, "PENDING_ARCHS")
+    for arch in port_configs.ALL_ARCHS:
+        assert get_arch(arch).name == arch
 
 
-def check_forward(arch, use_kernels):
-    """The full forward's logits and aux loss against the reference's."""
-    jcfg, jparams, cfg, params, tokens = _model(arch)
-    want, _, jaux = reference_fns(jcfg)["full"](jparams,
-                                                jnp.asarray(tokens))
+def check_forward(arch, use_kernels, **changes):
+    """The full forward's logits and aux loss against the reference's
+    (and the SSM families' final states, which both return there)."""
+    jcfg, jparams, cfg, params, tokens = _model(arch, **changes)
+    want, jstates, jaux = reference_fns(jcfg)["full"](jparams,
+                                                      jnp.asarray(tokens))
     got, cache, aux = forward(params, cfg, tokens=torch.from_numpy(tokens),
                               use_kernels=use_kernels)
     assert got.shape == (B, S, cfg.vocab_size) and got.dtype == torch.float32
-    assert cache is None and aux.shape == () and aux.dtype == torch.float32
+    assert aux.shape == () and aux.dtype == torch.float32
+    if jstates is None:
+        assert cache is None
+    else:
+        assert set(cache) == set(jstates)
+        for key in cache:
+            assert _rel(cache[key].numpy(), np.asarray(jstates[key])) < TOL
     assert abs(float(aux) - float(jaux)) <= TOL * max(abs(float(jaux)), 1.0)
     assert (float(aux) == 0.0) == (not cfg.is_moe)
     assert _rel(got, want) < TOL
 
 
-def check_decode(arch):
+def check_decode(arch, **changes):
     """Prefill P tokens, decode the rest one at a time: the logits hold
     to the reference's decode and to the port's own teacher-forced
     forward, and the caches to the reference's."""
-    jcfg, jparams, cfg, params, tokens = _model(arch)
+    jcfg, jparams, cfg, params, tokens = _model(arch, **changes)
     got, want, cache, jcache = decode_against_reference(
         jcfg, jparams, cfg, params, tokens, P, S, S - P)
     full, _, _ = forward(params, cfg, tokens=torch.from_numpy(tokens))
     assert _rel(got, want) < TOL
     assert _rel(got, full[:, P:S].numpy()) < 1e-5
+    assert set(cache) == set(jcache)
     for key in cache:
         assert _rel(cache[key].numpy(), np.asarray(jcache[key])) < TOL
 
 
-def check_greedy(arch):
-    last, jlast, toks, jtoks = greedy_against_reference(*_model(arch), 8)
+def check_greedy(arch, **changes):
+    last, jlast, toks, jtoks = greedy_against_reference(
+        *_model(arch, **changes), 8)
     assert _rel(last, jlast) < TOL
     np.testing.assert_array_equal(toks, jtoks)
 
