@@ -187,6 +187,27 @@ the card, raising on any mismatch:
    torch. Phases 4, 4b, 4c, 4e, 4f and 4g's stacked runs pass
    ``engine="loop"``, so their launch counts count what they counted
    before.
+   4i. LM training (``core/trainer.py``) at full width, bf16, run right
+   after phase 1 while the card's memory is whole: (a) 10
+   Adam steps of ``make_train_step`` on qwen2-0.5b (24 layers, batch 4,
+   seq 256; the loss must fall; step ms and peak memory) and (a') 3 on
+   mamba2-780m; (b) the full-parameter ``make_backbone_fedavg_round``
+   on qwen2-0.5b (4 clients, 2 local steps, batch 2, seq 128, 3 rounds)
+   through the FedAvg kernel at P = 494,032,768, the kernel held to its
+   plain version on the round's own (C, P) operand, the losses and
+   params to the same rounds with every kernel swapped for its plain
+   version on the card (``_plain_versions``), round ms and peak memory; (c) ``make_fedlora_round`` (rank 8, P = 4,399,105, the
+   same rounds) under fedavg, fedavgm, median, krum (f = 1), dp_noise,
+   dp_int8_ef and topk_ef, each through its kernel and against the same
+   run with its plain version on the card, the draws from the same
+   device generator; (d) one
+   FedAvg and one FedLoRA round in f32 at 2 layers against the CPU; (e)
+   ``examples/fedlora_finetune.py``'s ~114.9M-param config, 5 rounds
+   in each mode; (f) ``BackboneEmbedder`` on (a)'s trained backbone
+   through flash against the plain branch. Launches asserted for each
+   run: no flash and no SSD in any train step (LM training takes the
+   plain branch, as the kernels have no backward), the aggregation
+   kernel once a round, flash once a layer in the embedder.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -208,10 +229,12 @@ the card, raising on any mismatch:
    planted faults at the prefill shape; the DP clip reduce also in its
    other design (two launches) and, on chip, by phase from a build that
    stamps each block's clock (tile load, barrier wait, reduce); the
-   attention kernels and the FedAvg reduce also at phase 4e's shapes.
+   attention kernels and the FedAvg reduce also at phase 4e's shapes;
+   the FedAvg reduce also at phase 4i's (4, 494,032,768) and (4,
+   4,399,105), the momentum reduce at the latter.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last twelve lines of standard output are the
+right after it. The last thirteen lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
@@ -227,9 +250,10 @@ bytes, agreement), the ``captured`` JSON line (per phase 4h
 configuration, the centralized ones too: the loop's launches, the
 replayed kernels in the profile, walls under both engines, the host's
 draw, stage and replay ms, warm-up and capture ms, staged bytes,
-deviation; the draws by part; the multinomial check), the ``kernels``
-JSON line (4g's
-and 4h's launches in each row's ``launches_by_path``), the
+deviation; the draws by part; the multinomial check), the ``lm_train``
+JSON line (phase 4i: losses, step and round ms, peak memory, launches,
+agreement), the ``kernels`` JSON line (4g's, 4h's and 4i's launches in
+each row's ``launches_by_path``, 4i's shapes under ``lm_train_shapes``), the
 card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
@@ -304,6 +328,14 @@ from repro_torch.core import (  # noqa: E402
     quantize_gpo_params,
 )
 from repro_torch.core import History, ShardedGPO, federated  # noqa: E402
+from repro_torch.core import (  # noqa: E402
+    broadcast_to_clients,
+    init_lora,
+    make_aggregator,
+    make_backbone_fedavg_round,
+    make_fedlora_round,
+    make_train_step,
+)
 from repro_torch.core.fairness import alignment_score  # noqa: E402
 from repro_torch.core.gpo import map_params  # noqa: E402
 from repro_torch.data import (  # noqa: E402
@@ -315,6 +347,12 @@ from repro_torch.data import (  # noqa: E402
     sample_icl_indices,
     split_groups,
 )
+from repro_torch.data import (  # noqa: E402
+    BackboneEmbedder,
+    LMDataConfig,
+    synthetic_lm_batches,
+)
+from repro_torch.examples import fedlora_finetune  # noqa: E402
 from repro_torch.kernels import backend, quantize_linear  # noqa: E402
 from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.agg_reduce import (  # noqa: E402
@@ -375,7 +413,9 @@ from repro_torch.launch.mesh import (  # noqa: E402
     spawn,
 )
 from repro_torch.models import attention as lm_attention  # noqa: E402
-from repro_torch.models import init_params, moe  # noqa: E402
+from repro_torch.launch.train import stack_client_batches  # noqa: E402
+from repro_torch.models import hidden_states, init_params, moe  # noqa: E402
+from repro_torch.optim import adam as lm_adam  # noqa: E402
 from repro_torch.models.transformer import (  # noqa: E402
     ring_cache_from_full,
     uses_ring_cache,
@@ -383,7 +423,9 @@ from repro_torch.models.transformer import (  # noqa: E402
 from repro_torch.models.ssm import ssd_chunked  # noqa: E402
 from repro_torch.utils.pytree import (  # noqa: E402
     tree_count_params,
+    tree_index,
     tree_leaves,
+    tree_map,
 )
 
 # weights, survey data, trace and kernel inputs. With seed 0 the random
@@ -897,6 +939,49 @@ LM_F32_TOL = 1e-4
 # (tests/test_ring_cache.py); in bf16 the ring's slot order sums the
 # window's keys in another order than the full cache's
 LM_RING_TOL = {"float32": 1e-4, "bfloat16": LM_BF16_TOL}
+# phase 4i, LM training (core/trainer.py): the standard step on
+# qwen2-0.5b at full width and depth (batch 4, seq 256, 10 Adam steps at
+# 3e-4) and on mamba2-780m (3 steps); the full-parameter backbone FedAvg
+# round and the FedLoRA rounds (rank 8) at 4 clients, 2 local steps,
+# batch 2, seq 128, 3 rounds; f32 rounds at 2 layers against the CPU;
+# the example's ~114.9M-param config for 5 rounds in both modes; the
+# embedder on the trained backbone
+LM_TRAIN_ARCH = "qwen2-0.5b"
+LM_TRAIN_STD = {"batch": 4, "seq": 256, "steps": 10, "lr": 3e-4}
+LM_TRAIN_SSM = ("mamba2-780m", 3)
+LM_FED = {"clients": 4, "local_steps": 2, "batch": 2, "seq": 128,
+          "rounds": 3, "lr": 3e-4}
+LM_LORA_RANK = 8
+LM_LORA_RUNS = {
+    "fedavg": {},
+    "fedavgm": {"agg": {"name": "fedavgm", **STRATEGIES["fedavgm"]}},
+    "median": {"agg": {"name": "median"}},
+    "krum": {"agg": {"name": "krum", "num_malicious": 1}},
+    "dp_noise": {"privacy": _DP},
+    "dp_int8_ef": {"privacy": _DP, "compression": {"kind": "int8"}},
+    "topk_ef": {"compression": {"kind": "topk", "topk_frac": TOPK_FRAC}},
+}
+LM_LORA_KERNEL = {"fedavg": "fedavg_reduce", "fedavgm": "momentum_reduce",
+                  "median": "trimmed_reduce", "krum": "pairwise_dists",
+                  "dp_noise": "clip_reduce",
+                  "dp_int8_ef": "quant_clip_reduce",
+                  "topk_ef": "topk_reduce"}
+# the kernel run against the same run with the kernels' plain versions
+# on the card, bf16: the per-client mean losses (about 12 at these
+# random weights) and the final payload, each leaf relative to its
+# largest entry. The two runs differ by the reduces' order of additions,
+# rounded to bf16 in the payload, and where that moves a rounding level
+# (int8) or a top-k near-tie
+LM_TRAIN_LOSS_TOL = 2e-2
+LM_LORA_PAYLOAD_TOL = 1e-2
+LM_MAX_BEYOND = 880  # 0.02% of the LoRA payload's 4,399,105 entries
+# f32 at full width and 2 layers: one round of each trainer on the card
+# against the CPU, 1 local step at seq 64
+LM_F32_CPU_TRAIN = {"layers": 2, "clients": 4, "local_steps": 1,
+                    "batch": 2, "seq": 64, "lr": 3e-4}
+LM_F32_CPU_TOL = 1e-4
+LM_EXAMPLE_ROUNDS = 5
+LM_EMBED_DIM = 64
 
 
 def _card_line() -> str:
@@ -4331,9 +4416,7 @@ def serve_lm(dev) -> dict:
 
 
 def _cpu_tree(tree):
-    if isinstance(tree, dict):
-        return {k: _cpu_tree(v) for k, v in tree.items()}
-    return None if tree is None else tree.cpu()
+    return tree_map(lambda x: x.cpu(), tree)
 
 
 def _flex_attention(q, k, v, window: int, softcap, plain) -> tuple:
@@ -5270,11 +5353,500 @@ def _experiment_timings(out, exp_rec, peaks, attn_bounds, g, dev) -> None:
                   f"{xp['launches']}")
 
 
+# ---------------------------------------------------------------------------
+# Phase 4i: LM training (core/trainer.py) on the card
+# ---------------------------------------------------------------------------
+def _lm_train_tree_diff(a, b) -> float:
+    """max over leaves of max |a - b| over max |b|."""
+    return max(float((x.float() - y.float()).abs().max())
+               / max(float(y.float().abs().max()), 1e-30)
+               for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True))
+
+
+def _lm_beyond(a, b) -> int:
+    """The entries of payload ``a`` further from ``b`` than a bf16 ulp of
+    their value (2^-7 |b|) and ``LM_LORA_PAYLOAD_TOL`` of their leaf's
+    largest entry: a bf16 rounding that went the other way moves an
+    entry by one ulp, which this does not count."""
+    n = 0
+    for x, y in zip(tree_leaves(a), tree_leaves(b), strict=True):
+        x, y = x.float(), y.float()
+        lim = 2.0 ** -7 * y.abs() + LM_LORA_PAYLOAD_TOL * y.abs().max()
+        n += int(((x - y).abs() > lim).sum())
+    return n
+
+
+def _krum_nn_scores(d: torch.Tensor, f: int) -> torch.Tensor:
+    """Krum's scores (``core/aggregation.py::krum_scores``, every row
+    active) from a (C, C) distance matrix."""
+    c = d.shape[0]
+    d = torch.where(torch.eye(c, dtype=torch.bool, device=d.device),
+                    torch.full_like(d, 1e30), d)
+    nn = max(1, min(c - f - 2, c - 1))
+    return torch.sort(d, dim=1)[0][:, :nn].sum(dim=1)
+
+
+class _PairwiseSpy:
+    """Stands in for ``kernel_ops.pairwise_dists_flat`` during a Krum
+    run: each call's distances are held to the plain version on the same
+    (C, P) operand (phase 1's 1e-5·max |x_i|²), and Krum's pick from
+    them must be a pick of the plain distances too: its score within
+    that tolerance of their least. At C 4 and f 1 a score is one
+    nearest-neighbour distance, so the closest pair ties exactly in the
+    kernel's symmetric matrix, and the plain version's rounding may
+    break the tie the other way; the runs' payloads then part."""
+
+    def __init__(self, f: int):
+        self.f, self.calls = f, []
+
+    def __call__(self, x):
+        out = pairwise_dists_flat(x)
+        plain = ref_pairwise_sq_dists(x)
+        atol = 1e-5 * float((x * x).sum(dim=1).max())
+        sk, sp = (_krum_nn_scores(d, self.f) for d in (out, plain))
+        pick = int(torch.argmin(sk))
+        self.calls.append({
+            "max_abs_err": float((out - plain).abs().max()), "tol": atol,
+            "pick": pick, "plain_pick": int(torch.argmin(sp)),
+            "tied": int((sk == sk.min()).sum()) > 1,
+            "ok": bool(float((out - plain).abs().max()) <= atol
+                       and float(sp[pick] - sp.min()) <= atol)})
+        return out
+
+
+@contextlib.contextmanager
+def _spy_pairwise(f: int):
+    spy = _PairwiseSpy(f)
+    kernel_ops.pairwise_dists_flat = spy
+    try:
+        yield spy
+    finally:
+        kernel_ops.pairwise_dists_flat = pairwise_dists_flat
+
+
+def _lm_train_counts(what: str, want: dict) -> dict:
+    """The launches since the last ``_zero_counts``: exactly ``want``
+    (kernel -> launches), every other kernel 0."""
+    got = {k: n for k, n in _counts().items() if n}
+    print(f"    {what}: launches {got or 'none'}")
+    if got != {k: n for k, n in want.items() if n}:
+        raise AssertionError(f"{what}: launches {got}, expected {want}")
+    return got
+
+
+class _FedAvgSpy:
+    """Stands in for ``kernel_ops.fedavg_reduce_flat`` during a run: it
+    calls the wrapper, and on its first call also holds the result
+    against the plain version on the same (C, P) operand (phase 1's
+    tolerance, 1e-6·(1 + |plain|)); the plain call launches nothing."""
+
+    def __init__(self):
+        self.first = None
+
+    def __call__(self, x, w):
+        out = fedavg_reduce_flat(x, w)
+        if self.first is None:
+            plain = ref_fedavg_flat(x, w)
+            err, ok = _close(out, plain, 1e-6)
+            del plain
+            self.first = {"shape": list(x.shape), "max_abs_err": err,
+                          "ok": ok}
+        return out
+
+
+@contextlib.contextmanager
+def _spy_fedavg():
+    spy = _FedAvgSpy()
+    kernel_ops.fedavg_reduce_flat = spy
+    try:
+        yield spy
+    finally:
+        kernel_ops.fedavg_reduce_flat = fedavg_reduce_flat
+
+
+@contextlib.contextmanager
+def _plain_versions():
+    """Every kernel wrapper takes its plain PyTorch version on CUDA
+    operands too, after the same contract checks: a run keeps its code
+    path (the fused momentum step, the pipeline's fused DP and codec
+    reduces) with each kernel swapped for its plain version, and
+    launches nothing."""
+    real = backend.on_cpu
+    backend.on_cpu = lambda what, *ts, dtypes: (
+        real(what, *ts, dtypes=dtypes) or True)
+    try:
+        yield
+    finally:
+        backend.on_cpu = real
+
+
+def _lm_fed_batches(cfg, dev, seed: int, rounds: int, spec: dict) -> list:
+    """``rounds`` rounds of client-stacked batches (C, local_steps, B,
+    S) from ``synthetic_lm_batches``, made once on ``dev``."""
+    it = synthetic_lm_batches(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+        global_batch=spec["batch"], seed=seed), device=dev)
+    return [stack_client_batches(it, spec["clients"], spec["local_steps"])
+            for _ in range(rounds)]
+
+
+def _lm_fed_run(cfg, params, payload, mode: str, run: dict, pallas: bool,
+                batches: list, dev, spec=LM_FED) -> dict:
+    """``len(batches)`` rounds of the backbone FedAvg (``mode`` "full")
+    or FedLoRA round from ``payload``, the aggregation built for the
+    kernels (``pallas``; under ``_plain_versions`` each runs its plain
+    version) or leafwise, the release draws from the round's device
+    generator (the same seed in every run): per-round client losses and
+    walls, the final global payload (a copy)."""
+    c, steps = spec["clients"], spec["local_steps"]
+    # the cache's free blocks back to the card: the full-parameter
+    # round's 7.9 GB ravel needs one contiguous block
+    torch.cuda.empty_cache()
+    agg = make_aggregator(AggConfig(**run.get("agg", {})), num_clients=c,
+                          use_pallas=pallas)
+    priv = PrivacyConfig(**run.get("privacy", {}))
+    comp = CompressionConfig(**run.get("compression", {}))
+    opt = lm_adam(spec["lr"])
+    kw = dict(agg=agg, privacy=priv, compression=comp,
+              use_pallas_aggregation=pallas, seed=SEED)
+    rnd = (make_backbone_fedavg_round(cfg, opt, steps, **kw)
+           if mode == "full" else
+           make_fedlora_round(cfg, params, opt, steps, **kw))
+    weights = torch.full((c,), 1.0 / c, device=dev)
+    client = broadcast_to_clients(payload, c)
+    state = opt.init(client, num_clients=c)
+    server = agg.init(payload)
+    extra = ((torch.zeros((c, tree_count_params(payload)), device=dev),)
+             if comp.enabled and comp.error_feedback else ())
+    losses, walls = [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = rnd(client, state, b, weights, server, *extra)
+        client, state, loss, server = out[:4]
+        extra = tuple(out[4:])
+        losses.append(loss.tolist())
+        walls.append((time.perf_counter() - t0) * 1e3)
+    final = tree_map(torch.clone, tree_index(client, 0))
+    return {"losses": losses, "round_ms": walls, "payload": final}
+
+
+def _lm_standard(dev, cfg, params, steps: int) -> dict:
+    """``steps`` Adam steps of ``make_train_step`` on batches from the
+    seed: the losses (which must fall), the median step after the first,
+    the peak memory, and no kernel launched."""
+    spec = LM_TRAIN_STD
+    it = synthetic_lm_batches(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+        global_batch=spec["batch"], seed=SEED), device=dev)
+    opt = lm_adam(spec["lr"])
+    step = make_train_step(cfg, opt)
+    state = opt.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    losses, walls = [], []
+    for _ in range(steps):
+        batch = next(it)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        losses.append(float(m["loss"]))
+        walls.append((time.perf_counter() - t0) * 1e3)
+    launches = _lm_train_counts(f"{cfg.name} standard", {})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    rec = {"losses": losses, "step_ms": float(np.median(walls[1:])),
+           "first_step_ms": walls[0], "peak_gib": peak,
+           "launches": launches, "batch": spec["batch"], "seq": spec["seq"],
+           "layers": cfg.num_layers}
+    print(f"  {cfg.name} standard: {steps} steps, loss {losses[0]:.4f} -> "
+          f"{losses[-1]:.4f}, {rec['step_ms']:.1f} ms a step (median "
+          f"after the first), peak {peak:.2f} GiB")
+    if not (np.isfinite(losses).all() and losses[-1] < losses[0]):
+        raise AssertionError(f"{cfg.name}: the loss did not fall: {losses}")
+    return rec, params
+
+
+def _lm_f32_cpu(dev) -> dict:
+    """(d): qwen2-0.5b at full width, LM_F32_CPU_TRAIN's layers, f32: one
+    FedAvg and one FedLoRA round on the card (kernels) against the same
+    rounds on the CPU (plain), from the same params and batches."""
+    spec = LM_F32_CPU_TRAIN
+    cfg = override(get_arch(LM_TRAIN_ARCH), num_layers=spec["layers"],
+                   param_dtype="float32", activation_dtype="float32")
+    cpu = torch.device("cpu")
+    params = init_params(cfg, torch.Generator().manual_seed(SEED),
+                         device=cpu)
+    lora = init_lora(params, torch.Generator().manual_seed(SEED + 1),
+                     rank=LM_LORA_RANK)
+    batches = _lm_fed_batches(cfg, cpu, SEED + 2, 1, spec)
+    out = {}
+    for mode, payload in (("full", params), ("lora", lora)):
+        card, host = (_lm_fed_run(
+            cfg, tree_map(lambda x: x.to(where), params),
+            tree_map(lambda x: x.to(where), payload), mode, {},
+            where.type == "cuda",
+            [tree_map(lambda x: x.to(where), b) for b in batches], where,
+            spec) for where in (dev, cpu))
+        loss_err = float(np.abs(np.array(card["losses"])
+                                - np.array(host["losses"])).max())
+        payload_err = max(float((a.cpu() - b).abs().max()) for a, b in zip(
+            tree_leaves(card["payload"]), tree_leaves(host["payload"])))
+        ok = loss_err <= LM_F32_CPU_TOL and payload_err <= LM_F32_CPU_TOL
+        out[mode] = {"loss_max_abs": loss_err,
+                     "payload_max_abs": payload_err, "ok": ok}
+        print(f"  f32 {mode} round, card against CPU ({cfg.num_layers} "
+              f"layers, full width): losses {loss_err:.2e}, payload "
+              f"{payload_err:.2e} (tol {LM_F32_CPU_TOL:g})")
+        if not ok:
+            raise AssertionError(f"f32 {mode} round off the CPU's: {out}")
+    return out
+
+
+def train_lm(dev) -> dict:
+    """Phase 4i: LM training at full width through ``core/trainer.py``:
+    (a) standard Adam steps on qwen2-0.5b and (a') mamba2-780m; (b) the
+    full-parameter backbone FedAvg round through the FedAvg kernel at P
+    = 494,032,768, against its plain version on the card; (c) the
+    FedLoRA round under each of ``LM_LORA_RUNS`` through its kernel,
+    against its plain version on the card; (d) f32 rounds against
+    the CPU; (e) the FedLoRA example in both modes; (f)
+    ``BackboneEmbedder`` through the flash kernel against the plain
+    branch. Every train step launches no flash and no SSD kernel."""
+    rec = {"part_s": {}}
+    t_phase = time.perf_counter()
+
+    def part(name):  # the seconds since the last part ended
+        now = time.perf_counter()
+        rec["part_s"][name] = now - t_phase - sum(rec["part_s"].values())
+        print(f"  ({name}: {rec['part_s'][name]:.1f}s)")
+
+    cfg = get_arch(LM_TRAIN_ARCH)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    p_full = tree_count_params(params)
+    print(f"  {cfg.name}: {p_full} params ({cfg.param_dtype}, "
+          f"{cfg.num_layers} layers, full depth)")
+    # (a) standard training, then (a') the SSM family
+    rec["standard"], trained = _lm_standard(dev, cfg, params,
+                                            LM_TRAIN_STD["steps"])
+    ssm_arch, ssm_steps = LM_TRAIN_SSM
+    ssm_cfg = get_arch(ssm_arch)
+    ssm_params = init_params(ssm_cfg, torch.Generator(device=dev)
+                             .manual_seed(SEED), device=dev)
+    rec["standard_ssm"], _ = _lm_standard(dev, ssm_cfg, ssm_params,
+                                          ssm_steps)
+    del ssm_params
+    torch.cuda.empty_cache()
+    part("a")
+
+    # (b) the full-parameter round through the FedAvg kernel
+    batches = _lm_fed_batches(cfg, dev, SEED + 3, LM_FED["rounds"], LM_FED)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    with _spy_fedavg() as spy:
+        kern = _lm_fed_run(cfg, params, params, "full", {}, True, batches,
+                           dev)
+    launches = _lm_train_counts("full-parameter fedavg",
+                                {"fedavg_reduce": LM_FED["rounds"]})
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    _zero_counts()
+    with _plain_versions():
+        plain = _lm_fed_run(cfg, params, params, "full", {}, True, batches,
+                            dev)
+    _lm_train_counts("full-parameter fedavg (plain versions)", {})
+    loss_err = float(np.abs(np.array(kern["losses"])
+                            - np.array(plain["losses"])).max())
+    full = {"P": p_full, "clients": LM_FED["clients"],
+            "launches": launches, "reduce_check": spy.first,
+            "losses": kern["losses"], "plain_losses": plain["losses"],
+            "loss_max_abs": loss_err,
+            "payload_rel": _lm_train_tree_diff(kern["payload"],
+                                               plain["payload"]),
+            "round_ms": kern["round_ms"], "plain_round_ms": plain["round_ms"],
+            "peak_gib": peak}
+    print(f"  full-parameter fedavg, {LM_FED['clients']} clients, P = "
+          f"{p_full}: the kernel on the round's own (C, P) operand "
+          f"max_abs_err {spy.first['max_abs_err']:.3e}; losses against "
+          f"the plain versions {loss_err:.2e} (tol "
+          f"{LM_TRAIN_LOSS_TOL:g}); rounds {kern['round_ms']} ms; peak "
+          f"{peak:.2f} GiB")
+    if not (spy.first["ok"] and spy.first["shape"] == [LM_FED["clients"],
+                                                       p_full]
+            and loss_err <= LM_TRAIN_LOSS_TOL):
+        raise AssertionError(f"full-parameter fedavg: {full}")
+    rec["fedavg_full"] = full
+    del kern, plain
+    torch.cuda.empty_cache()
+    part("b")
+
+    # (c) FedLoRA under each strategy and stage
+    lora = init_lora(params, torch.Generator(device=dev).manual_seed(SEED),
+                     rank=LM_LORA_RANK)
+    p_lora = tree_count_params(lora)
+    lora_rec = {"P": p_lora}
+    for label, run in LM_LORA_RUNS.items():
+        _zero_counts()
+        krum = label == "krum"
+        spy = (_spy_pairwise(run["agg"]["num_malicious"]) if krum
+               else contextlib.nullcontext())
+        with spy as pairs:
+            kern = _lm_fed_run(cfg, params, lora, "lora", run, True,
+                               batches, dev)
+        launches = _lm_train_counts(
+            f"fedlora {label}", {LM_LORA_KERNEL[label]: LM_FED["rounds"]})
+        _zero_counts()
+        with _plain_versions():
+            plain = _lm_fed_run(cfg, params, lora, "lora", run, True,
+                                batches, dev)
+        _lm_train_counts(f"fedlora {label} (plain versions)", {})
+        loss_err = float(np.abs(np.array(kern["losses"])
+                                - np.array(plain["losses"])).max())
+        rel = _lm_train_tree_diff(kern["payload"], plain["payload"])
+        beyond = _lm_beyond(kern["payload"], plain["payload"])
+        if krum:  # the picks, each call: see _PairwiseSpy
+            ok = all(c["ok"] for c in pairs.calls) and len(
+                pairs.calls) == LM_FED["rounds"]
+        else:
+            ok = loss_err <= LM_TRAIN_LOSS_TOL and beyond <= LM_MAX_BEYOND
+        lora_rec[label] = {"launches": launches, "losses": kern["losses"],
+                           "loss_max_abs": loss_err, "payload_rel": rel,
+                           "beyond": beyond,
+                           "round_ms": kern["round_ms"],
+                           "plain_round_ms": plain["round_ms"], "ok": ok}
+        if krum:
+            lora_rec[label]["krum_calls"] = pairs.calls
+        print(f"  fedlora {label}: P = {p_lora}, against the plain "
+              f"versions: losses {loss_err:.2e}, adapters {rel:.2e} of "
+              f"their leaf's largest, {beyond} entries beyond a bf16 ulp "
+              f"and {LM_LORA_PAYLOAD_TOL:g} of it; rounds "
+              f"{[round(x, 1) for x in kern['round_ms']]} ms"
+              + (f"; picks {pairs.calls}" if krum else ""))
+        if not ok:
+            raise AssertionError(f"fedlora {label}: {lora_rec[label]}")
+    rec["fedlora"] = lora_rec
+    part("c")
+
+    # (d) f32 rounds on the card against the CPU
+    rec["f32_cpu"] = _lm_f32_cpu(dev)
+    part("d")
+
+    # (e) the example, both modes
+    ex = {}
+    for mode in ("full", "lora"):
+        _zero_counts()
+        r = fedlora_finetune.main(["--rounds", str(LM_EXAMPLE_ROUNDS),
+                                   "--mode", mode, "--device", str(dev)])
+        launches = _lm_train_counts(f"example {mode}", {
+            "fedavg_reduce": LM_EXAMPLE_ROUNDS})
+        if not (np.isfinite(r["losses"]).all()
+                and r["losses"][-1] < r["losses"][0]):
+            raise AssertionError(f"example {mode}: {r['losses']}")
+        ex[mode] = {**r, "launches": launches}
+    rec["example"] = ex
+    part("e")
+
+    # (f) BackboneEmbedder through the flash kernel
+    tokens = next(synthetic_lm_batches(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=LM_TRAIN_STD["seq"],
+        global_batch=LM_TRAIN_STD["batch"], seed=SEED + 4),
+        device=dev))["tokens"]
+    embs = {}
+    for kernels in (True, False):
+        emb = BackboneEmbedder(
+            lambda p, t, k=kernels: hidden_states(p, cfg, tokens=t,
+                                                  use_kernels=k)[0],
+            trained, cfg.d_model, LM_EMBED_DIM, seed=SEED, device=dev)
+        _zero_counts()
+        embs[kernels] = emb.embed_tokens(tokens)
+        want = {"flash_attention": cfg.num_layers} if kernels else {}
+        launches = _lm_train_counts(f"BackboneEmbedder kernels={kernels}",
+                                    want)
+    err = float((embs[True] - embs[False]).abs().max())
+    rec["embedder"] = {"launches": {"flash_attention": cfg.num_layers},
+                       "max_abs": err, "tol": LM_BF16_TOL}
+    print(f"  BackboneEmbedder through flash against the plain branch: "
+          f"{err:.2e} (tol {LM_BF16_TOL:g})")
+    if not (err <= LM_BF16_TOL and torch.isfinite(embs[True]).all()):
+        raise AssertionError(f"BackboneEmbedder: {rec['embedder']}")
+    part("f")
+    rec["seconds"] = time.perf_counter() - t_phase
+    print(f"  phase 4i: {rec['seconds']:.1f}s")
+    return rec
+
+
+def _lm_train_rows(dev, rec: dict, kernels: list, peaks) -> None:
+    """Phase 5 for phase 4i: the FedAvg reduce at the full-parameter
+    round's (C, P) and the FedAvg and momentum reduces at the LoRA
+    payload's, each beside its plain version, cuBLAS's gemv or addmv and
+    the card's least time, attached to the kernels' rows; each row's
+    launches on the LM training path under ``launches_by_path``."""
+    g = _gen(SEED + 5)
+    c = LM_FED["clients"]
+    torch.cuda.empty_cache()  # (4, 494 M) f32 is one 7.9 GB block
+    by_name = {row["name"]: row for row in kernels}
+    path = {}
+    for part in [rec["fedavg_full"]] + [
+            v for k, v in rec["fedlora"].items() if k != "P"] + list(
+            rec["example"].values()) + [rec["embedder"]]:
+        for k, n in part["launches"].items():
+            path[k] = path.get(k, 0) + n
+    for k, n in path.items():
+        by_name[k].setdefault("launches_by_path", {})["lm_train"] = n
+    w = torch.rand((c,), generator=g) + 0.1
+    w = (w / w.sum()).to(dev)
+    for p, what in ((rec["fedavg_full"]["P"], "full-parameter round"),
+                    (rec["fedlora"]["P"], "LoRA payload")):
+        x = torch.randn((c, p), generator=g, device="cpu").to(dev)
+        big = p > 10**8  # 7.9 GB: few calls a timing
+        time_ms = ((lambda f: _time_ms(f, iters=3, reps=3)) if big
+                   else _time_ms)
+        err, _ = _close(fedavg_reduce_flat(x, w), ref_fedavg_flat(x, w),
+                        1e-6)
+        ms, plain, lib = (time_ms(f)[0] for f in (
+            lambda: fedavg_reduce_flat(x, w),
+            lambda: ref_fedavg_flat(x, w), lambda: w @ x))
+        bound, by = _bound_ms(4 * (c * p + p + c), 2 * c * p, peaks)
+        by_name["fedavg_reduce"].setdefault("lm_train_shapes", []).append({
+            "path": what, "shape": [c, p], "ms": ms, "plain_ms": plain,
+            "library_ms": lib, "bound_ms": bound, "bound_by": by,
+            "max_abs_err": err})
+        print(f"  fedavg_reduce at ({c}, {p}) ({what}): {ms:.4f} ms, plain "
+              f"{plain:.4f}, gemv {lib:.4f}, bound {bound:.4f} ({by})")
+        if not big:
+            m = torch.randn((p,), generator=g).to(dev)
+            beta = STRATEGIES["fedavgm"]["momentum"]
+            err = max(_close(a, b, 1e-6)[0] for a, b in zip(
+                momentum_reduce_flat(x, w, m, beta=beta),
+                ref_momentum_reduce_flat(x, w, m, beta=beta)))
+            ms, plain, lib = (time_ms(f)[0] for f in (
+                lambda: momentum_reduce_flat(x, w, m, beta=beta),
+                lambda: ref_momentum_reduce_flat(x, w, m, beta=beta),
+                lambda: torch.addmv(m, x.T, w, beta=beta)))
+            bound, by = _bound_ms(4 * (c * p + 3 * p + c),
+                                  2 * c * p + 2 * p, peaks)
+            by_name["momentum_reduce"].setdefault(
+                "lm_train_shapes", []).append({
+                    "path": what, "shape": [c, p], "ms": ms,
+                    "plain_ms": plain, "library_ms": lib, "bound_ms": bound,
+                    "bound_by": by, "max_abs_err": err})
+            print(f"  momentum_reduce at ({c}, {p}) ({what}): {ms:.4f} ms, "
+                  f"plain {plain:.4f}, addmv {lib:.4f}, bound {bound:.4f} "
+                  f"({by})")
+            del m
+        del x
+        torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     dev = backend.resolve_device("cuda")
+    t_run = time.perf_counter()
+
+    def _lap():  # the run's clock after each phase
+        print(f"  [{time.perf_counter() - t_run:.1f}s into the run]")
+
     torch.backends.cuda.matmul.allow_tf32 = False  # full f32, stated
     torch.backends.cudnn.allow_tf32 = False
     card = _card_line()
@@ -5298,6 +5870,14 @@ def main() -> int:
 
     print("[1] kernels against their plain versions on the card")
     worst = check_kernels(dev)
+    _lap()
+    # LM training first, while the card's memory is whole: the
+    # full-parameter round peaks at about 57 GiB
+    print("[4i] LM training at full width: the train step, the backbone "
+          "FedAvg and FedLoRA rounds through the aggregation kernels")
+    lm_train_rec = train_lm(dev)
+    torch.cuda.empty_cache()
+    _lap()
 
     data = make_survey_data(SurveyConfig(), _gen(SEED))
     tr, held_out = split_groups(data, seed=SEED)
@@ -5305,44 +5885,59 @@ def main() -> int:
     params = init_gpo_params(gcfg, _gen(SEED), device=dev)
     print("[2] PreferenceServer, ServeConfig() defaults, GPOConfig() width")
     serve_rec = serve(dev, data, list(held_out), gcfg, params)
+    _lap()
     print("[3] predict_preferences through the attention kernel")
     pred_rec = predict(dev, data, held_out, gcfg, params)
+    _lap()
     print("[4] FederatedGPO at GPOConfig() width, the quickstart's "
           "FedConfig, through the kernels")
     train_rec = train(dev, data, tr, held_out)
+    _lap()
     print("[4b] the aggregation registry's strategies, 3 rounds each, "
           "through the kernels")
     strat_rec = train_strategies(dev, data, tr, held_out)
+    _lap()
     print("[4c] the DP and codec stages, 3 rounds each, through the "
           "kernels")
     priv_rec = train_private(dev, data, tr, held_out)
+    _lap()
     print("[4c] every survey group a client: one replayed DP and one int8 "
           "round through the designs past the on-chip capacity")
     wide_rec = train_private_wide(dev, data, tr, held_out)
+    _lap()
     print("[4f] the adversary, availability and hierarchy stages, 3 rounds "
           "each, through the kernels")
     stage_rec = train_stages(dev, data, tr, held_out)
+    _lap()
     print("[4g] the sharded round on processes (torch.distributed), 3 "
           "rounds each, through the kernels")
     shard_rec = train_sharded(dev, data, tr, held_out)
+    _lap()
     print("[4d] LM serving: all ten archs at full width, bf16, through "
           "the flash-attention and SSD kernels")
     t0 = time.perf_counter()
     lm_rec = serve_lm(dev)
+    _lap()
     print(f"  phase 4d: {time.perf_counter() - t0:.1f}s")
     print("[4e] the paper's experiment: FedAvg vs centralized at the "
           "reference's widths through the kernels, then partial "
           "participation and optimizer resets")
     exp_rec = experiment(dev)
+    _lap()
     print("[4h] engine=\"scan\" on the card: the round replayed from a CUDA "
           "graph, against the eager card run")
     cap_rec = train_captured(dev, data, tr, held_out)
+    _lap()
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, exp_rec, stage_rec, name, worst)
     t0 = time.perf_counter()
     kernels += _backbone_rows(dev, lm_rec, name, worst)
     print(f"  phase 5's LM rows: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    _lm_train_rows(dev, lm_train_rec, kernels, _peaks(name))
+    print(f"  phase 5's LM training rows: {time.perf_counter() - t0:.1f}s")
+    _lap()
     # phase 4g's launches, over its processes and configurations
     sharded = {}
     for part in shard_rec.values():
@@ -5376,6 +5971,7 @@ def main() -> int:
     print(json.dumps({"stages": stage_rec}))
     print(json.dumps({"sharded": shard_rec}))
     print(json.dumps({"captured": cap_rec}))
+    print(json.dumps({"lm_train": lm_train_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Params checkpointing to .npz (atomic, step-indexed), in the JAX
 package's format: the same flat key strings (``['in_proj']``,
-``['layers'].wq``, ``['head'].q`` for a quantized leaf, with ``/`` stored
+``['layers'].wq``, ``['head'].q`` for a quantized leaf, ``['layers']
+['attn'].wq`` for an LM's attention weights, with ``/`` stored
 as ``|``), the same ``__crc32__`` content checksum. A checkpoint either
 package saved restores into the other.
 
@@ -39,11 +40,27 @@ def _content_crc(stored: dict[str, np.ndarray]) -> int:
     return crc & 0xFFFFFFFF
 
 
+class Fields(dict):
+    """A dict that stands for one of the JAX package's NamedTuples of
+    params (``AttnParams``, ``CrossAttnParams``, ``MambaParams``,
+    ``MoEParams``): its entries, in insertion order, are the tuple's
+    fields in field order. The leaf walk takes them in that order and
+    names them ``.field``, as ``jax.tree_util`` walks and names the
+    tuple; indexing by name works as for any dict."""
+
+
 def _leaves(tree: PyTree, path: str = "") -> Iterator[Tuple[str, Any]]:
-    """(key string, leaf) pairs named as ``jax.tree_util.keystr`` names
-    them: ``[repr(key)]`` for dict entries (in sorted key order),
-    ``.field`` for NamedTuple fields, ``[i]`` for other sequences."""
-    if isinstance(tree, dict):
+    """(key string, leaf) pairs in ``jax.tree_util.tree_flatten_with_path``
+    order, named as ``jax.tree_util.keystr`` names them: ``.field`` for
+    NamedTuple fields and ``Fields`` entries (in field order),
+    ``[repr(key)]`` for other dict entries (in sorted key order), ``[i]``
+    for other sequences. None is an empty subtree and yields nothing."""
+    if tree is None:
+        return
+    if isinstance(tree, Fields):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}.{k}")
+    elif isinstance(tree, dict):
         for k in sorted(tree):
             yield from _leaves(tree[k], f"{path}[{k!r}]")
     elif isinstance(tree, tuple) and hasattr(tree, "_fields"):
@@ -57,7 +74,13 @@ def _leaves(tree: PyTree, path: str = "") -> Iterator[Tuple[str, Any]]:
 
 
 def _rebuild(like: PyTree, fn, path: str = "") -> PyTree:
-    """``like``'s structure with each leaf replaced by fn(key, leaf)."""
+    """``like``'s structure with each leaf replaced by fn(key, leaf); a
+    None stays None."""
+    if like is None:
+        return None
+    if isinstance(like, Fields):
+        return Fields((k, _rebuild(v, fn, f"{path}.{k}"))
+                      for k, v in like.items())
     if isinstance(like, dict):
         return {k: _rebuild(v, fn, f"{path}[{k!r}]") for k, v in like.items()}
     if isinstance(like, tuple) and hasattr(like, "_fields"):

@@ -15,6 +15,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ModelConfig,
     PrivacyConfig,
     ServeConfig,
+    TrainConfig,
     get_arch,
     override,
     smoke_variant,

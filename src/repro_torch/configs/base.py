@@ -473,6 +473,22 @@ class FedConfig:
         return gpo_cfg
 
 
+@dataclass(frozen=True)
+class TrainConfig:
+    """Generic backbone training (LM objective) settings."""
+
+    global_batch: int = 8
+    seq_len: int = 128
+    steps: int = 10
+    lr: float = 3e-4
+    warmup_steps: int = 10
+    weight_decay: float = 0.0
+    grad_clip: float = 1.0
+    seed: int = 0
+    # remat policy for the layer loop: "none" | "full" | "dots"
+    remat: str = "none"
+
+
 # registry: arch id -> ModelConfig factory
 ARCHITECTURES: Registry = Registry("architecture")
 

@@ -3,7 +3,8 @@
 # the server-aggregation registry, the round's stage pipeline: the
 # Byzantine adversary, the DP release, the delta codecs, the
 # availability faults and the edge hierarchy) and centralized trainer, the multi-tenant serving engine, the alignment and fairness
-# metrics, and the LM backbones' serving steps.
+# metrics, the LM backbones' training and serving steps, FedLoRA, and the
+# federated backbone trainers.
 from repro_torch.core.adversary import (  # noqa: F401
     apply_attack,
     attacker_draws,
@@ -74,9 +75,20 @@ from repro_torch.core.serving import (  # noqa: F401
     make_request_trace,
     quantize_gpo_params,
 )
+from repro_torch.core.lora import (  # noqa: F401
+    apply_lora,
+    init_lora,
+    lora_from_reference,
+    lora_param_count,
+)
 from repro_torch.core.trainer import (  # noqa: F401
+    RoundDraws,
     greedy_decode,
+    lm_loss,
+    make_backbone_fedavg_round,
+    make_fedlora_round,
     make_prefill_step,
     make_serve_step,
+    make_train_step,
 )
 from repro_torch.core import fairness  # noqa: F401

@@ -10,3 +10,11 @@ from repro_torch.data.surveys import (  # noqa: F401
     sample_icl_indices,
     split_groups,
 )
+from repro_torch.data.embeddings import (  # noqa: F401
+    BackboneEmbedder,
+    StubEmbedder,
+)
+from repro_torch.data.lm_data import (  # noqa: F401
+    LMDataConfig,
+    synthetic_lm_batches,
+)

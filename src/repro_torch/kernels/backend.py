@@ -92,9 +92,10 @@ def refuse_grad(what: str, *tensors: torch.Tensor) -> None:
     both devices, so the CPU tests see what the card would do."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(
-            f"{what} has no backward yet (ROADMAP A.8.5 / C.1): call it "
-            "under torch.no_grad() or with operands that do not require "
-            "grad")
+            f"{what} has no backward yet (ROADMAP C.1): call it under "
+            "torch.no_grad() or with operands that do not require grad; "
+            "LM training takes the plain branch (use_kernels=False), as "
+            "the reference differentiates its plain path")
 
 
 def _nvcc() -> str:

@@ -37,9 +37,10 @@ and o (10 µs of bytes): about 30.4 µs at the 989 TFLOP/s bf16
 tensor-core rate, which the bf16 kernel runs on. The f32 kernel's own
 ceiling at the same shape is about 450 µs (67 TFLOP/s).
 
-There is no backward yet (ROADMAP A.8.5 / C.1): the wrapper refuses
-operands that require grad while grad mode is on, on either device,
-rather than hand back a result without a ``grad_fn``.
+There is no backward, as the reference has none (ROADMAP C.1): the
+wrapper refuses operands that require grad while grad mode is on, on
+either device, rather than hand back a result without a ``grad_fn``;
+LM training takes the plain branch.
 """
 from __future__ import annotations
 

@@ -39,8 +39,9 @@ per (batch, head), the (p, n) state resident in shared memory, each
 product a register tile per thread (about 340 µs of f32 work at the
 shape above; TF32 mma would not hold the f32 tolerances).
 
-There is no backward yet (ROADMAP A.8.5 / C.1): the wrapper refuses
-operands that require grad while grad mode is on, on either device.
+There is no backward, as the reference has none (ROADMAP C.1): the
+wrapper refuses operands that require grad while grad mode is on, on
+either device; LM training takes the plain branch.
 """
 from __future__ import annotations
 

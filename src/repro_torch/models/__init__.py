@@ -15,6 +15,7 @@ from repro_torch.models.transformer import (  # noqa: F401
     hidden_states,
     init_cache,
     init_params,
+    train_logits,
 )
 
 
@@ -44,8 +45,8 @@ def params_from_reference(cfg, tree, device=None) -> dict:
                 got = sorted(ref) if isinstance(ref, dict) else type(ref)
                 raise ValueError(f"params{path}: keys {got}, expected "
                                  f"{sorted(want)}")
-            return {k: convert(ref[k], want[k], f"{path}[{k!r}]")
-                    for k in want}
+            return type(want)((k, convert(ref[k], want[k], f"{path}[{k!r}]"))
+                              for k in want)
         if want is None or ref is None:
             if want is not None or ref is not None:
                 raise ValueError(f"params{path}: None in one tree only")

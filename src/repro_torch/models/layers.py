@@ -110,3 +110,15 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     u = x @ w_up
     h = torch.nn.functional.silu(g.float()).to(u.dtype) * u
     return h @ w_down
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
+                       final_softcap=None) -> torch.Tensor:
+    """Mean next-token NLL: logits (B, S, V) in any float dtype, taken in
+    f32 (through the final softcap where given); labels (B, S) ints."""
+    logits = logits.float()
+    if final_softcap is not None:
+        logits = softcap(logits, final_softcap)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    return (logz - gold).mean()

@@ -17,8 +17,8 @@ scatter/gather dispatch (the reference's ``models/moe.py``).
 
 The port has no sharding context, so the reference's token blocks are
 one block (its ``nb = 1``, ``shard_act`` the identity). The blocked
-dispatch waits for ``models/partitioning.py`` with LM training (ROADMAP
-queue A.7's leftover, A.8.5).
+dispatch waits for ``models/partitioning.py`` (ROADMAP queue A.7's
+leftover).
 """
 from __future__ import annotations
 

@@ -78,13 +78,16 @@ def causal_depthwise_conv(x, w, b, state=None):
 
 def _segsum_decay(dA_chunk):
     """dA_chunk (..., L) log-decays -> (..., L, L) matrix exp(cs_i - cs_j)
-    masked to j <= i (else 0)."""
+    masked to j <= i (else 0). The mask is applied before the exp (-inf
+    above the diagonal): the values are the reference's, and the
+    gradient stays finite where cs_i - cs_j (j > i) overflows the exp,
+    which the reference's exp-then-mask turns into 0 · inf = NaN."""
     cs = torch.cumsum(dA_chunk, dim=-1)  # inclusive
     diff = cs[..., :, None] - cs[..., None, :]  # (..., i, j)
     l = dA_chunk.shape[-1]
     mask = torch.tril(torch.ones((l, l), dtype=torch.bool,
                                  device=dA_chunk.device))
-    return torch.where(mask, torch.exp(diff), 0.0)
+    return torch.exp(torch.where(mask, diff, float("-inf")))
 
 
 def ssd_chunked(x, dt, A_log, B, C, D, chunk: int):

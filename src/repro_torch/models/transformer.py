@@ -30,6 +30,16 @@ llava's embeddings input.
   layer's cross K/V once a prefill, and the cache keeps them for decode.
 * The embeddings input (llava): ``embeds=`` (B, S, d) in place of
   ``tokens=``; decode goes on from tokens.
+* Training: ``train_logits`` is the full mode with autograd, through
+  the plain branch (the kernels have no backward); ``remat`` recomputes
+  each trunk layer in the backward pass (``torch.utils.checkpoint``, the
+  reference's ``jax.checkpoint`` of its scans' bodies). The full mode
+  writes nothing in place that autograd saved: the MoE dispatch fills a
+  fresh buffer, and the caches written in place are decode's.
+* The tree's NamedTuples of params (``AttnParams`` and the like) are
+  ``Fields`` dicts, which the leaf walk takes in field order, so the
+  flat leaf order, LoRA's leaf indices and the checkpoint keys are the
+  reference's.
 """
 from __future__ import annotations
 
@@ -37,7 +47,9 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
+from repro_torch.checkpoint.checkpoint import Fields
 from repro_torch.configs.base import ATTN, GLOBAL, MAMBA, ModelConfig
 from repro_torch.kernels.backend import resolve_device
 from repro_torch.models import attention as attn_mod
@@ -58,6 +70,7 @@ from repro_torch.models.ssm import (
     mamba_block,
     mamba_dims,
 )
+from repro_torch.utils.pytree import tree_map
 
 PyTree = Any
 
@@ -78,12 +91,13 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _stacked_layers(make, n: int) -> dict:
     """n layers from ``make()``, each leaf stacked on a leading L axis (a
-    NamedTuple of params becomes a dict by field name; None stays). Each
-    layer is copied into the stack as it is made, so the peak is the
-    stack and one layer, not twice the stack."""
+    NamedTuple of params becomes a ``Fields`` dict, walked in field order
+    as the reference's tuple; None stays). Each layer is copied into the
+    stack as it is made, so the peak is the stack and one layer, not
+    twice the stack."""
     def as_dict(tree):
         if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-            return tree._asdict()
+            return Fields(tree._asdict())
         return tree
 
     def empty(tree):
@@ -91,7 +105,7 @@ def _stacked_layers(make, n: int) -> dict:
         if tree is None:
             return None
         if isinstance(tree, dict):
-            return {k: empty(v) for k, v in tree.items()}
+            return type(tree)((k, empty(v)) for k, v in tree.items())
         return tree.new_empty((n,) + tuple(tree.shape))
 
     def fill(dst, tree, i):
@@ -179,7 +193,7 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
         # zamba2: ONE shared-weight attention+MLP block
         params["shared_attn"] = {
             "ln1": init.zeros((cfg.d_model,), dtype),
-            "attn": init_attn_params(init, cfg, dtype)._asdict(),
+            "attn": Fields(init_attn_params(init, cfg, dtype)._asdict()),
             "ln2": init.zeros((cfg.d_model,), dtype),
             "mlp": _init_mlp(init, cfg.d_model, cfg.d_ff, dtype),
         }
@@ -190,14 +204,8 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator],
             "norm": init.zeros((cfg.d_model,), dtype),
         }
     if init.device != dev:
-        params = _to(params, dev)
+        params = tree_map(lambda x: x.to(dev), params)
     return params
-
-
-def _to(tree, dev):
-    if isinstance(tree, dict):
-        return {k: _to(v, dev) for k, v in tree.items()}
-    return None if tree is None else tree.to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -305,11 +313,24 @@ def _attn_layer(cfg: ModelConfig, mode: str, lp: dict, x, window: int,
     return x, kv, aux
 
 
+def _remat(fn, remat: bool):
+    """``fn``, each call recomputed in the backward pass where ``remat``
+    (``torch.utils.checkpoint``: the reference's ``jax.checkpoint`` of
+    its layer scan's body)."""
+    if not remat:
+        return fn
+    return lambda *a, **kw: torch.utils.checkpoint.checkpoint(
+        fn, *a, use_reentrant=False, **kw)
+
+
 def _scan_attn_layers(params, cfg, x, mode, *, cache=None, cache_pos=None,
-                      cache_len=None, cross=None, use_kernels: bool = True):
+                      cache_len=None, cross=None, use_kernels: bool = True,
+                      remat: bool = False):
     """The attention trunk; ``cross``: the stacked (L, B, S_enc, KV, hd)
-    encoder keys and values, which the prefill's cache keeps."""
+    encoder keys and values, which the prefill's cache keeps. ``remat``
+    (the full mode) recomputes each layer in the backward pass."""
     windows, thetas = layer_windows_thetas(cfg)
+    layer = _remat(_attn_layer, remat and mode == "full")
     ks, vs = [], []
     aux = None
     for i in range(cfg.num_layers):
@@ -317,7 +338,7 @@ def _scan_attn_layers(params, cfg, x, mode, *, cache=None, cache_pos=None,
         if mode == "decode":
             kw = dict(k_cache=cache["k"][i], v_cache=cache["v"][i],
                       cache_pos=cache_pos)
-        x, kv, layer_aux = _attn_layer(
+        x, kv, layer_aux = layer(
             cfg, mode, _layer(params["layers"], i), x, int(windows[i]),
             float(thetas[i]), cache_len=cache_len,
             cross=None if cross is None else (cross[0][i], cross[1][i]),
@@ -466,22 +487,31 @@ def ring_cache_from_full(cfg: ModelConfig, cache: dict, cache_pos: int,
 # ---------------------------------------------------------------------------
 # Mamba-family (pure SSM) layers
 # ---------------------------------------------------------------------------
+def _mamba_layer(cfg, lp, x, ssm_state=None, conv_state=None, *,
+                 decode: bool = False, use_kernels: bool = True):
+    """One Mamba2 layer: (x, (ssm state, conv state))."""
+    h = rms_norm(x, lp["ln"], cfg.norm_eps)
+    out, states = mamba_block(MambaParams(**lp["mamba"]), h, cfg,
+                              ssm_state=ssm_state, conv_state=conv_state,
+                              decode=decode, use_kernel=use_kernels)
+    return x + out, states
+
+
 def _mamba_range(params, cfg, x, layers, *, cache=None, states=None,
-                 use_kernels: bool = True):
+                 use_kernels: bool = True, remat: bool = False):
     """The trunk's Mamba2 layers ``layers`` (a range). Decode (``cache``
     given): each layer's SSM and conv states are read from the stacked
     cache and written back in place; otherwise each layer's final states
-    are appended to ``states`` (two lists)."""
+    are appended to ``states`` (two lists), and ``remat`` recomputes each
+    layer in the backward pass."""
     decode = cache is not None
+    layer = _remat(_mamba_layer, remat and not decode)
     for i in layers:
-        lp = _layer(params["layers"], i)
-        h = rms_norm(x, lp["ln"], cfg.norm_eps)
-        out, (ssm_s, conv_s) = mamba_block(
-            MambaParams(**lp["mamba"]), h, cfg,
-            ssm_state=cache["ssm"][i] if decode else None,
-            conv_state=cache["conv"][i] if decode else None,
-            decode=decode, use_kernel=use_kernels)
-        x = x + out
+        x, (ssm_s, conv_s) = layer(
+            cfg, _layer(params["layers"], i), x,
+            cache["ssm"][i] if decode else None,
+            cache["conv"][i] if decode else None,
+            decode=decode, use_kernels=use_kernels)
         if decode:
             cache["ssm"][i].copy_(ssm_s)
             cache["conv"][i].copy_(conv_s)
@@ -492,12 +522,12 @@ def _mamba_range(params, cfg, x, layers, *, cache=None, states=None,
 
 
 def _scan_mamba_layers(params, cfg, x, mode, *, cache=None,
-                       use_kernels: bool = True):
+                       use_kernels: bool = True, remat: bool = False):
     decode = mode == "decode"
     states = ([], [])
     x = _mamba_range(params, cfg, x, range(cfg.num_layers),
                      cache=cache if decode else None, states=states,
-                     use_kernels=use_kernels)
+                     use_kernels=use_kernels, remat=remat)
     new_cache = cache if decode else {"ssm": torch.stack(states[0]),
                                       "conv": torch.stack(states[1])}
     return x, new_cache, torch.zeros((), device=x.device)
@@ -543,7 +573,8 @@ def _shared_attn_apply(params, cfg, x, mode, *, k_cache=None, v_cache=None,
 
 
 def _run_hybrid(params, cfg, x, mode, *, cache=None, cache_pos=None,
-                cache_len=None, use_kernels: bool = True):
+                cache_len=None, use_kernels: bool = True,
+                remat: bool = False):
     """n_super super-blocks of k Mamba2 layers, each followed by the
     shared block (its cache is super-block j's ``shared_k[j]``,
     ``shared_v[j]``), then the tail's L - n_super·k Mamba2 layers. A
@@ -556,7 +587,7 @@ def _run_hybrid(params, cfg, x, mode, *, cache=None, cache_pos=None,
     for j in range(n_super):
         x = _mamba_range(params, cfg, x, range(j * k, (j + 1) * k),
                          cache=trunk_cache, states=states,
-                         use_kernels=use_kernels)
+                         use_kernels=use_kernels, remat=remat)
         x, kv = _shared_attn_apply(
             params, cfg, x, mode,
             k_cache=cache["shared_k"][j] if decode else None,
@@ -568,7 +599,7 @@ def _run_hybrid(params, cfg, x, mode, *, cache=None, cache_pos=None,
             shared[1].append(kv[1])
     x = _mamba_range(params, cfg, x, range(n_super * k, cfg.num_layers),
                      cache=trunk_cache, states=states,
-                     use_kernels=use_kernels)
+                     use_kernels=use_kernels, remat=remat)
     zero = torch.zeros((), device=x.device)
     if decode:
         return x, cache, zero
@@ -669,22 +700,23 @@ def _cross(params, cfg, mode, cache, enc_embeds, use_kernels):
 
 
 def _trunk(params, cfg, x, mode, *, cache=None, cache_pos=None,
-           cache_len=None, cross=None, use_kernels=True):
+           cache_len=None, cross=None, use_kernels=True, remat=False):
     check_supported(cfg)
     if mode == "decode" and "ring_k" in cache:
         return _scan_ring_decode(params, cfg, x, cache, cache_pos)
     if cfg.shared_attn_every:
         return _run_hybrid(params, cfg, x, mode, cache=cache,
                            cache_pos=cache_pos, cache_len=cache_len,
-                           use_kernels=use_kernels)
+                           use_kernels=use_kernels, remat=remat)
     if all(k == MAMBA for k in cfg.layer_kinds()):
         # mamba "prefill" == full forward; its final states are the cache
         return _scan_mamba_layers(
             params, cfg, x, "full" if mode == "prefill" else mode,
-            cache=cache, use_kernels=use_kernels)
+            cache=cache, use_kernels=use_kernels, remat=remat)
     return _scan_attn_layers(params, cfg, x, mode, cache=cache,
                              cache_pos=cache_pos, cache_len=cache_len,
-                             cross=cross, use_kernels=use_kernels)
+                             cross=cross, use_kernels=use_kernels,
+                             remat=remat)
 
 
 def hidden_states(params, cfg: ModelConfig, tokens=None, embeds=None,
@@ -700,12 +732,26 @@ def hidden_states(params, cfg: ModelConfig, tokens=None, embeds=None,
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
 
+def train_logits(params, cfg: ModelConfig, *, tokens=None, embeds=None,
+                 enc_embeds=None, remat: bool = False):
+    """The full-mode forward with autograd, for training: (logits (B, S,
+    V) f32, aux). It takes the plain branch: the flash and SSD kernels
+    have no backward, as the reference's model differentiates its plain
+    path. ``remat`` recomputes each trunk layer in the backward pass (the
+    reference's ``jax.checkpoint`` of its scans' bodies)."""
+    x = _embed_in(params, cfg, tokens=tokens, embeds=embeds)
+    cross = _cross(params, cfg, "full", None, enc_embeds, False)
+    x, _, aux = _trunk(params, cfg, x, "full", cross=cross,
+                       use_kernels=False, remat=remat)
+    return _unembed(params, cfg, x), aux
+
+
 @torch.no_grad()
 def forward(params, cfg: ModelConfig, *, tokens=None, embeds=None,
             enc_embeds=None, cache=None, cache_pos: Optional[int] = None,
             prefill_len: Optional[int] = None, use_kernels: bool = True):
-    """Unified forward, no autograd (the port serves; LM training is
-    ROADMAP queue A.8.5).
+    """Unified forward for serving, no autograd (training goes through
+    ``train_logits``).
 
     Modes:
       * full    : cache=None, prefill_len=None -> (logits, None, aux)

@@ -1,12 +1,18 @@
 """Params-tree helpers the federated round needs.
 
-A params tree is the port's dict of tensors and ``GPOLayer`` NamedTuples.
-The leaf order is the JAX package's (``jax.tree_util`` sorts dict keys):
-``final_norm``, ``head``, ``in_proj``, then ``layers`` ln1, wq, wk, wv,
-wo, ln2, w1, w2. ``checkpoint._leaves`` already walks a tree in that
-order (it names leaves as ``jax.tree_util.keystr`` does), so every helper
-here takes its order from there; the raveled (C, P) client matrix thus
-lays the parameters out exactly as the reference's ``tree_ravel_clients``.
+A params tree is the port's dict of tensors, NamedTuples (``GPOLayer``)
+and ``Fields`` dicts (an LM's ``AttnParams``, ``MambaParams`` and the
+like, which the reference keeps as NamedTuples), with None where the
+reference has an absent leaf (``bq``, ``q_norm``). The leaf order is the
+JAX package's: dict keys sorted, NamedTuple and ``Fields`` entries in
+field order, None skipped. For the GPO tree that is ``final_norm``,
+``head``, ``in_proj``, then ``layers`` ln1, wq, wk, wv, wo, ln2, w1, w2;
+for an LM ``embed``, ``final_norm``, ``layers`` ``['attn'].wq``, ...
+``checkpoint._leaves`` walks a tree in that order (it names leaves as
+``jax.tree_util.keystr`` does), so every helper here takes its order
+from there; the raveled (C, P) client matrix thus lays the parameters
+out exactly as the reference's ``tree_ravel_clients``, and LoRA's
+flat-leaf indices point at the reference's leaves.
 """
 from __future__ import annotations
 
@@ -15,7 +21,11 @@ from typing import Any, Callable, List
 
 import torch
 
-from repro_torch.checkpoint.checkpoint import _leaves, _rebuild
+from repro_torch.checkpoint.checkpoint import (  # noqa: F401
+    Fields,
+    _leaves,
+    _rebuild,
+)
 
 PyTree = Any
 
@@ -39,6 +49,11 @@ def tree_map(fn: Callable, tree: PyTree, *rest: PyTree) -> PyTree:
 
 def tree_sub(a: PyTree, b: PyTree) -> PyTree:
     return tree_map(torch.sub, a, b)
+
+
+def tree_paths(tree: PyTree) -> List[str]:
+    """The leaves' key strings (``jax.tree_util.keystr``), in order."""
+    return [path for path, _ in _leaves(tree)]
 
 
 def tree_index(tree: PyTree, i) -> PyTree:

@@ -97,7 +97,7 @@ STAGE_SAMPLES = {
 @pytest.mark.parametrize("name", [
     "GPOConfig", "ServeConfig", "FedConfig", "AggConfig", "PrivacyConfig",
     "AvailabilityConfig", "AdversaryConfig", "CompressionConfig",
-    "HierarchyConfig", "ModelConfig"])
+    "HierarchyConfig", "ModelConfig", "TrainConfig"])
 def test_configs_copy_the_reference_field_for_field(name):
     port, ref = getattr(repro_torch.configs, name), getattr(jax_configs, name)
 
