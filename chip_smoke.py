@@ -208,6 +208,27 @@ the card, raising on any mismatch:
    run: no flash and no SSD in any train step (LM training takes the
    plain branch, as the kernels have no backward), the aggregation
    kernel once a round, flash once a layer in the embedder.
+   4j. ``python -m repro_torch.launch.serve --gpo`` in-process, as a
+   user runs it: its default 60 FedAvg rounds at ``GPOConfig()`` width
+   through the attention kernels (forward, dq, dk/dv) and the FedAvg
+   reduce, the checkpoint saved, the default trace served int8 (the int8
+   matmul; the engine's prefix and decode attention is plain); then
+   ``--restore`` serves it f32 on the card (no kernel launched) and on
+   the CPU, the rows within ``SERVE_CPU_TOL``; the five kernels' wrapper
+   launches nonzero; the training (``engine="scan"``: a warm-up round,
+   then the captured round replayed) and int8 serving once more under
+   the profiler, the five kernels counted by name, nonzero, the FedAvg
+   reduce once a round and once in the warm-up; the launcher's p50/p99
+   and QPS.
+   4k. The dry-run tooling: the sweep of all ten archs x four shapes on
+   meta (``launch/sweep.py``, one process an arch, no card visible to
+   them; every record ok, and its seconds); phase 4i's qwen2-0.5b step
+   counted by ``launch/hlo_cost.py::analyze_step`` on meta and by
+   ``FlopCounterMode`` on the card, equal exactly; ``lower_pair`` on a
+   (1, 1) mesh at 4i's shape, its params + optimizer + batch bytes no
+   larger than 4i's measured peak; mfu (``launch/roofline.py``'s
+   ``model_flops``, 6·N·D a train step and 2·N·D a prefill, over the
+   measured time x the bf16 dense peak) of 4i's step and 4d's prefills.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -234,7 +255,7 @@ the card, raising on any mismatch:
    4,399,105), the momentum reduce at the latter.
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last thirteen lines of standard output are the
+right after it. The last fifteen lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
@@ -252,8 +273,12 @@ replayed kernels in the profile, walls under both engines, the host's
 draw, stage and replay ms, warm-up and capture ms, staged bytes,
 deviation; the draws by part; the multinomial check), the ``lm_train``
 JSON line (phase 4i: losses, step and round ms, peak memory, launches,
-agreement), the ``kernels`` JSON line (4g's, 4h's and 4i's launches in
-each row's ``launches_by_path``, 4i's shapes under ``lm_train_shapes``), the
+agreement), the ``serve_train`` JSON line (phase 4j: round ms,
+launches, the latency summaries, the CPU rows' distance), the
+``tooling`` JSON line (phase 4k: the sweep's records and seconds, the
+two FLOP counts, the dry run's bytes, mfu), the ``kernels`` JSON line
+(4g's, 4h's, 4i's and 4j's launches in each row's ``launches_by_path``,
+4i's shapes under ``lm_train_shapes``), the
 card's ``nvidia-smi`` name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or outside
 a checkout of the repository, the script exits non-zero and prints no
@@ -294,6 +319,7 @@ from repro_torch.checkpoint import (  # noqa: E402
     save_checkpoint,
 )
 from repro_torch.configs import (  # noqa: E402
+    ALL_ARCHS,
     AdversaryConfig,
     AggConfig,
     AvailabilityConfig,
@@ -301,6 +327,7 @@ from repro_torch.configs import (  # noqa: E402
     FedConfig,
     GPOConfig,
     HierarchyConfig,
+    InputShape,
     MAMBA,
     ModelConfig,
     PrivacyConfig,
@@ -407,7 +434,12 @@ from repro_torch.kernels.ssd_scan import (  # noqa: E402
     p_width_for,
     ssd_scan_bhsp,
 )
+from repro_torch.launch import dryrun  # noqa: E402
+from repro_torch.launch import roofline as rl  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch.hlo_cost import analyze_step  # noqa: E402
 from repro_torch.launch.mesh import (  # noqa: E402
+    MeshShape,
     make_edge_mesh,
     make_host_mesh,
     spawn,
@@ -982,6 +1014,16 @@ LM_F32_CPU_TRAIN = {"layers": 2, "clients": 4, "local_steps": 1,
 LM_F32_CPU_TOL = 1e-4
 LM_EXAMPLE_ROUNDS = 5
 LM_EMBED_DIM = 64
+# phase 4j: `python -m repro_torch.launch.serve --gpo` in-process, its
+# defaults (60 FedAvg rounds at GPOConfig() width, the default 32-request
+# trace), serving int8 and then f32 from the checkpoint it saved
+SERVE_TRAIN_ROUNDS = 60  # the launcher's default --rounds
+SERVE_TRAIN_KERNELS = ("int8_matmul", "gpo_attention_fwd",
+                       "gpo_attention_bwd_dq", "gpo_attention_bwd_dkdv",
+                       "fedavg_reduce")
+SERVE_CPU_TOL = 1e-4  # the card's f32 rows against the CPU's, max abs
+# phase 4k: the dry-run sweep's processes (one an arch, no card visible)
+SWEEP_TIMEOUT = 600
 
 
 def _card_line() -> str:
@@ -5837,6 +5879,233 @@ def _lm_train_rows(dev, rec: dict, kernels: list, peaks) -> None:
         torch.cuda.empty_cache()
 
 
+def serve_trained(dev) -> dict:
+    """Phase 4j: ``python -m repro_torch.launch.serve --gpo`` in-process
+    on the card, as a user runs it: 60 FedAvg rounds through the GPO
+    attention kernels (each local step's forward, dq and dk/dv, and the
+    evals' forward) and the FedAvg reduce, the checkpoint saved, the
+    default trace served int8 (the int8 matmul); then ``--restore``
+    serves it f32 (no kernel: the engine's prefix and decode attention
+    is its plain split, as phase 2 holds), and once more on the CPU,
+    whose rows must match the card's within SERVE_CPU_TOL. The wrappers'
+    launches of rows 1-5 held nonzero. The launcher trains under the
+    default ``engine="scan"``: one eager warm-up round, then the round's
+    CUDA graph captured (its wrappers called once, launching nothing)
+    and replayed once a round, so the training and int8 serving run once
+    more under the profiler, where the kernels are counted by name: each
+    nonzero, the FedAvg reduce once a round and once in the warm-up."""
+    ckpt = ROOT / "build" / "serve_4j"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    base = ["--gpo", "--ckpt-dir", str(ckpt), "--device", str(dev)]
+    _zero_counts()
+    t0 = time.perf_counter()
+    int8 = serve_cli.main(base + ["--agg", "fedavg", "--int8"])
+    torch.cuda.synchronize()
+    wall_int8 = time.perf_counter() - t0
+    launches = {k: v for k, v in _counts().items() if v}
+    _zero_counts()
+    f32 = serve_cli.main(base + ["--restore"])
+    torch.cuda.synchronize()
+    launches_f32 = {k: v for k, v in _counts().items() if v}
+    cpu = serve_cli.main(["--gpo", "--ckpt-dir", str(ckpt), "--restore",
+                          "--device", "cpu"])
+    missing = [k for k in SERVE_TRAIN_KERNELS if not launches.get(k)]
+    if missing:
+        raise AssertionError(f"phase 4j launched no {missing}: {launches}")
+    if launches_f32:
+        raise AssertionError(f"phase 4j f32 serving launched {launches_f32}")
+    names = {k: KERNEL_NAMES[k] for k in SERVE_TRAIN_KERNELS}
+    prof = _profile(lambda: serve_cli.main(base + ["--agg", "fedavg",
+                                                   "--int8"]),
+                    trace="serve_train_trace.json",
+                    match=[n for ns in names.values() for n in ns])
+    by_name = {k: sum(prof["matched"][n]["launches"] for n in ns)
+               for k, ns in names.items()}
+    if not all(by_name.values()) or launches["fedavg_reduce"] != 2 or \
+            by_name["fedavg_reduce"] != SERVE_TRAIN_ROUNDS + 1:
+        raise AssertionError(
+            f"phase 4j's profile counted {by_name}, the wrappers "
+            f"{launches}: under engine=\"scan\" the FedAvg wrapper runs "
+            f"in the warm-up and the capture, and the kernel "
+            f"{SERVE_TRAIN_ROUNDS} + 1 times (each replay and the warm-up)")
+    card = {c.rid: c.pred for c in f32["results"]}
+    host = {c.rid: c.pred for c in cpu["results"]}
+    if set(card) != set(host) or not card:
+        raise AssertionError(f"phase 4j: the card served {sorted(card)}, "
+                             f"the CPU {sorted(host)}")
+    err = max(float(np.abs(card[r] - host[r]).max()) for r in card)
+    if not err <= SERVE_CPU_TOL:
+        raise AssertionError(f"phase 4j: the card's f32 rows are {err:.3e} "
+                             f"from the CPU's (tol {SERVE_CPU_TOL})")
+    keys = ("p50_ms", "p99_ms", "qps", "completed", "hit_rate")
+    rec = {"rounds": SERVE_TRAIN_ROUNDS, "train_s": int8["train_s"],
+           # the launcher's training seconds over its rounds: the
+           # warm-up round, the capture and the evals are in them
+           "train_ms_over_rounds": (int8["train_s"] * 1e3
+                                    / SERVE_TRAIN_ROUNDS),
+           "wall_train_and_int8_s": wall_int8,
+           "launches": launches, "launches_f32": launches_f32,
+           "replayed_in_profile": by_name,
+           "profile": {k: prof[k] for k in ("wall_ms", "kernel_ms",
+                                            "kernels", "busy_share")},
+           "int8": {k: int8["summary"][k] for k in keys},
+           "f32": {k: f32["summary"][k] for k in keys},
+           "cpu_f32": {k: cpu["summary"][k] for k in keys},
+           "cpu_max_abs": err, "checkpoint": latest_checkpoint(str(ckpt))}
+    print(f"  trained {SERVE_TRAIN_ROUNDS} rounds in {rec['train_s']:.2f}s "
+          f"({rec['train_ms_over_rounds']:.2f} ms a round, the warm-up, "
+          f"the capture and the evals included); int8 p50 "
+          f"{rec['int8']['p50_ms']:.2f} p99 {rec['int8']['p99_ms']:.2f} ms "
+          f"qps {rec['int8']['qps']:.1f}; f32 p50 {rec['f32']['p50_ms']:.2f}"
+          f" p99 {rec['f32']['p99_ms']:.2f} ms qps {rec['f32']['qps']:.1f}; "
+          f"CPU rows within {err:.2e}; wrapper launches {launches}; by name "
+          f"in the profiled rerun {by_name}")
+    return rec
+
+
+def _meta(batch: dict) -> dict:
+    return {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+            for k, v in batch.items()}
+
+
+def _start_sweep(out_dir: Path) -> list:
+    """The dry-run sweep, one process an arch, started at once, with no
+    card visible to them (the sweep counts on meta)."""
+    shutil.rmtree(out_dir, ignore_errors=True)
+    out_dir.mkdir(parents=True)
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="",
+               PYTHONPATH=str(ROOT / "src"))
+    return [(arch, subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.sweep", "--out",
+         str(out_dir / f"{arch}.jsonl"), "--arch", arch], cwd=ROOT, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for arch in ALL_ARCHS]
+
+
+def _finish_sweep(procs: list, out_dir: Path) -> list:
+    """Wait for the sweep's processes (killing them all if one fails or
+    outlasts SWEEP_TIMEOUT) and read their records."""
+    try:
+        for arch, p in procs:
+            log, _ = p.communicate(timeout=SWEEP_TIMEOUT)
+            if p.returncode != 0:
+                raise AssertionError(f"the sweep of {arch} exited "
+                                     f"{p.returncode}:\n{log[-3000:]}")
+    finally:
+        for _, p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    recs = [json.loads(line) for arch, _ in procs
+            for line in (out_dir / f"{arch}.jsonl").read_text().splitlines()]
+    bad = [(r["arch"], r["shape"]) for r in recs if "error" in r]
+    if bad or len(recs) != len(ALL_ARCHS) * 4:
+        raise AssertionError(f"the sweep: {len(recs)} records, errors {bad}")
+    return recs
+
+
+def _mfu(flops: float, ms: float, peak: float) -> float:
+    return flops / (ms * 1e-3 * peak)
+
+
+def tooling(dev, lm_train_rec: dict, lm_rec: dict, card_name: str) -> dict:
+    """Phase 4k: the dry-run tooling against the card. (a) The sweep of
+    all ten archs x four shapes on meta (``launch/sweep.py``), one
+    process an arch with no card visible: every record ok, and its
+    seconds. (b) Phase 4i's qwen2-0.5b train step: ``analyze_step``'s
+    FLOPs counted on meta equal ``FlopCounterMode``'s around the same
+    step on the card, exactly. (c) ``lower_pair`` on a (1, 1) mesh at
+    phase 4i's shape: params + optimizer + batch bytes no larger than
+    4i's measured peak. (d) mfu, ``model_flops`` (6·N·D a train step,
+    2·N·D a prefill of D prompt tokens, N the active parameters) over
+    (measured time x the bf16 dense peak), of 4i's step and 4d's
+    prefills: the model's work, not the plain branch's count, which
+    holds the masked half of the causal scores that flash skips."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    rec = {"card": card_name}
+    peak = _BF16_PEAKS[_card_row(card_name)]
+    out_dir = ROOT / "build" / "sweep_4k"
+    t0 = time.perf_counter()
+    procs = _start_sweep(out_dir)
+    recs = _finish_sweep(procs, out_dir)
+    rec["sweep_s"] = time.perf_counter() - t0
+    rec["sweep"] = {f"{r['arch']} x {r['shape']}": {
+        "count_s": r["count_s"], "bottleneck": r["roofline"]["bottleneck"],
+        "flops_per_chip": r["roofline"]["flops_per_chip"],
+        "useful_ratio": r["roofline"]["useful_ratio"],
+        "argument_bytes": r["memory"]["argument_size_in_bytes"]}
+        for r in recs}
+    print(f"  (a) sweep: {len(recs)} pairs ok on meta in "
+          f"{rec['sweep_s']:.1f}s ({len(ALL_ARCHS)} processes, no card "
+          f"visible)")
+
+    # (b) 4i's step, counted on the card and on meta
+    cfg, spec = get_arch(LM_TRAIN_ARCH), LM_TRAIN_STD
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    params = init_params(cfg, gen, device=dev)
+    opt = lm_adam(spec["lr"])
+    state = opt.init(params)
+    batch = next(synthetic_lm_batches(LMDataConfig(
+        vocab_size=cfg.vocab_size, seq_len=spec["seq"],
+        global_batch=spec["batch"], seed=SEED), device=dev))
+    step = make_train_step(cfg, opt)
+    with FlopCounterMode(display=False) as counter:
+        step(params, state, batch)
+        torch.cuda.synchronize()
+    card_flops = float(counter.get_total_flops())
+    del params, state
+    torch.cuda.empty_cache()
+    meta_params = init_params(cfg, None, device="meta")
+    meta = analyze_step(step, meta_params, opt.init(meta_params),
+                        _meta(batch))
+    rec["train_step"] = {"card_flops": card_flops, "meta_flops": meta.flops,
+                         "meta_bytes": meta.bytes, "ops": meta.ops}
+    print(f"  (b) qwen2-0.5b step ({spec['batch']} x {spec['seq']}): "
+          f"{card_flops:.6e} FLOPs counted on the card, {meta.flops:.6e} "
+          f"on meta")
+    if card_flops != meta.flops:
+        raise AssertionError(f"phase 4k: the step's FLOPs on the card "
+                             f"{card_flops} != on meta {meta.flops}")
+
+    # (c) the dry run's bytes at 4i's shape on one device
+    shape = InputShape("phase_4i", spec["seq"], spec["batch"], "train")
+    pair = dryrun.lower_pair(LM_TRAIN_ARCH, shape, verbose=False,
+                             mesh=MeshShape((1, 1), ("data", "model")))
+    mem = pair["memory"]
+    args = mem["params_bytes"] + mem["optimizer_bytes"] + mem["batch_bytes"]
+    peak_bytes = lm_train_rec["standard"]["peak_gib"] * 2**30
+    rec["lower_pair_1x1"] = {"memory": mem, "args_bytes": args,
+                             "phase_4i_peak_bytes": peak_bytes}
+    print(f"  (c) lower_pair at 4i's shape on (1, 1): params + optimizer + "
+          f"batch {args / 2**30:.3f} GiB, 4i's measured peak "
+          f"{peak_bytes / 2**30:.3f} GiB")
+    if args > peak_bytes:
+        raise AssertionError("phase 4k: the dry run's bytes exceed the "
+                             "measured peak")
+
+    # (d) mfu of 4i's step and 4d's prefills, from the model's FLOPs
+    step_ms = lm_train_rec["standard"]["step_ms"]
+    flops = rl.model_flops(cfg, shape, 1)
+    rec["mfu"] = {"lm-train qwen2-0.5b": {
+        "flops": flops, "ms": step_ms, "mfu": _mfu(flops, step_ms, peak)}}
+    for arch in LM_ARCHS:
+        c = _lm_cfg(arch)
+        prompt = LM_PROMPTS.get(arch, LM_PROMPT)
+        flops = rl.model_flops(
+            c, InputShape("phase_4d", prompt, LM_BATCH, "prefill"), 1)
+        ms = lm_rec[arch]["prefill_ms"]
+        rec["mfu"][f"lm-{arch}"] = {"flops": flops, "ms": ms,
+                                    "layers": c.num_layers,
+                                    "mfu": _mfu(flops, ms, peak)}
+    for name, m in rec["mfu"].items():
+        print(f"  (d) {name}: {m['flops']:.4e} model FLOPs in "
+              f"{m['ms']:.2f} ms, "
+              f"mfu {m['mfu']:.4f} of {peak / 1e12:.0f} TFLOP/s bf16 "
+              f"({card_name})")
+    return rec
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -5928,6 +6197,18 @@ def main() -> int:
           "graph, against the eager card run")
     cap_rec = train_captured(dev, data, tr, held_out)
     _lap()
+    print("[4j] serve --gpo as a user runs it: 60 FedAvg rounds through "
+          "the kernels, the checkpoint saved, int8 and f32 serving")
+    t0 = time.perf_counter()
+    serve_train_rec = serve_trained(dev)
+    _lap()
+    print(f"  phase 4j: {time.perf_counter() - t0:.1f}s")
+    print("[4k] the dry-run tooling against the card: the sweep on meta, "
+          "the counted FLOPs, the dry run's bytes, mfu")
+    t0 = time.perf_counter()
+    tool_rec = tooling(dev, lm_train_rec, lm_rec, card)
+    _lap()
+    print(f"  phase 4k: {time.perf_counter() - t0:.1f}s")
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, exp_rec, stage_rec, name, worst)
@@ -5951,6 +6232,11 @@ def main() -> int:
         for k, n in run["replayed_in_profile"].items():
             captured[k] = captured.get(k, 0) + n
     for row in kernels:
+        if row["name"] in serve_train_rec["launches"]:
+            by_path = row.setdefault("launches_by_path", {})
+            by_path["serve_train"] = serve_train_rec["launches"][row["name"]]
+            by_path["serve_train_by_name"] = \
+                serve_train_rec["replayed_in_profile"][row["name"]]
         if row["name"] in sharded:
             row.setdefault("launches_by_path", {})["sharded"] = \
                 sharded[row["name"]]
@@ -5972,6 +6258,8 @@ def main() -> int:
     print(json.dumps({"sharded": shard_rec}))
     print(json.dumps({"captured": cap_rec}))
     print(json.dumps({"lm_train": lm_train_rec}))
+    print(json.dumps({"serve_train": serve_train_rec}))
+    print(json.dumps({"tooling": tool_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

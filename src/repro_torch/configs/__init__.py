@@ -4,6 +4,7 @@ from repro_torch.configs.base import (  # noqa: F401
     ARCHITECTURES,
     ATTN,
     GLOBAL,
+    INPUT_SHAPES,
     MAMBA,
     AdversaryConfig,
     AggConfig,
@@ -12,10 +13,12 @@ from repro_torch.configs.base import (  # noqa: F401
     FedConfig,
     GPOConfig,
     HierarchyConfig,
+    InputShape,
     ModelConfig,
     PrivacyConfig,
     ServeConfig,
     TrainConfig,
+    config_dict,
     get_arch,
     override,
     smoke_variant,

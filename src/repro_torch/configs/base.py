@@ -11,6 +11,7 @@ availability faults and the edge hierarchy.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
 
@@ -490,6 +491,23 @@ class TrainConfig:
 
 
 # registry: arch id -> ModelConfig factory
+@dataclass(frozen=True)
+class InputShape:
+    """One of the four assigned workload shapes."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # "train" | "prefill" | "decode"
+
+
+INPUT_SHAPES: dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4_096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32_768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524_288, 1, "decode"),
+}
+
 ARCHITECTURES: Registry = Registry("architecture")
 
 
@@ -539,3 +557,7 @@ def override(cfg, **kw):
     if isinstance(out, ModelConfig):
         out.validate()
     return out
+
+
+def config_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)

@@ -54,3 +54,19 @@ def synthetic_lm_batches(cfg: LMDataConfig, device=None) -> Iterator[dict]:
             seq[:, t] = np.where(follow[:, t], succ[seq[:, t - 1]], iid[:, t])
         seq = torch.from_numpy(seq.astype(np.int32))
         yield {"tokens": seq[:, :-1].to(dev), "labels": seq[:, 1:].to(dev)}
+
+
+def shard_batch(batch: dict, mesh, batch_axis: str = "data", *,
+                index: int) -> dict:
+    """Block ``index`` of a host batch split as the reference's
+    ``NamedSharding(mesh, P(batch_axis))`` splits it: dim 0 in
+    ``mesh.shape[batch_axis]`` equal blocks, in order."""
+    n = mesh.shape[batch_axis]
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"{k}: batch {v.shape[0]} does not split over "
+                             f"{batch_axis} ({n})")
+        rows = v.shape[0] // n
+        out[k] = v[index * rows:(index + 1) * rows]
+    return out

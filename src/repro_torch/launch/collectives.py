@@ -1,7 +1,8 @@
 """The sharded round's collectives over mesh axes, with a ledger of
 every call: the PyTorch port of what ``jax.lax.psum`` and
 ``jax.lax.all_gather(..., tiled=True)`` do inside the reference's
-``shard_map``, and of ``launch/hlo_cost.py::CostTotals.collective_ops``
+``shard_map``, and of the reference's
+``launch/hlo_cost.py::CostTotals.collective_ops``
 for the byte contracts of DESIGN.md §10, §11 and §14.
 
 * ``psum(t, axes)``: the sum of ``t`` over the ranks along ``axes``

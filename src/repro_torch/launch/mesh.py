@@ -19,9 +19,13 @@ port to collide on), and returns their results in rank order. The
 backend and each rank's device are the caller's: nothing here picks or
 switches them.
 
-``make_production_mesh`` (the TPU v5e pod layout, which only the
-reference's ``launch/dryrun.py`` calls) is not ported: ROADMAP.md queue
-A.9.
+``make_production_mesh`` returns a ``MeshShape``: the axis names and
+sizes of the TPU v5e pod layout that the reference plans its sharding
+rules for, with no devices and no process group behind them. The
+sharding rules (``launch/sharding.py``), the activation context
+(``models/partitioning.py``) and the dry run (``launch/dryrun.py``) read
+only a mesh's ``shape`` and ``axis_names``, so they take it as the
+reference's take ``jax.make_mesh``'s mesh.
 """
 from __future__ import annotations
 
@@ -31,6 +35,7 @@ import os
 import pickle
 import tempfile
 import time
+from collections import OrderedDict
 from datetime import timedelta
 from typing import Callable, Dict, Optional, Sequence, Tuple
 
@@ -110,6 +115,30 @@ class ClientMesh:
         return i
 
 
+class MeshShape:
+    """A mesh's axis names and sizes, and nothing else: no devices, no
+    process group. ``shape`` is an ordered dict, as a JAX mesh's is."""
+
+    def __init__(self, sizes: Sequence[int], axis_names: Sequence[str]):
+        if len(sizes) != len(axis_names):
+            raise ValueError(f"{len(sizes)} sizes for axes {axis_names}")
+        self.axis_names = tuple(axis_names)
+        self.shape = OrderedDict(zip(self.axis_names, map(int, sizes)))
+
+    def __repr__(self) -> str:
+        return f"MeshShape({dict(self.shape)})"
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> MeshShape:
+    """The reference's production layout, a TPU v5e pod of 16 x 16 = 256
+    chips as (data, model), or two pods, 512 chips, with a leading
+    ``pod`` axis. A description for the sharding rules and the dry run:
+    no H100 machine has this mesh, and nothing runs on it."""
+    if multi_pod:
+        return MeshShape((2, 16, 16), ("pod", "data", "model"))
+    return MeshShape((16, 16), ("data", "model"))
+
+
 def make_host_mesh(data: Optional[int] = None, *, device=None) -> ClientMesh:
     """One ``"data"`` axis over the ranks of the process group (``data``,
     when given, must be their number)."""
@@ -129,16 +158,20 @@ def make_edge_mesh(num_edges: int, clients_per_edge: int, *,
                       device)
 
 
-def data_axes(mesh: ClientMesh) -> Tuple[str, ...]:
+def data_axes(mesh) -> Tuple[str, ...]:
     """The batch/client axes: ("pod", "data") on multi-pod, else
     ("data",)."""
     return tuple(a for a in mesh.axis_names if a in ("pod", "data"))
 
 
-def client_axes(mesh: ClientMesh) -> Tuple[str, ...]:
+def client_axes(mesh) -> Tuple[str, ...]:
     """The federated client axes in hop order: the outer axis first
     ("edge" on an edge mesh, "pod" multi-pod), then "data"."""
     return tuple(a for a in mesh.axis_names if a in ("edge", "pod", "data"))
+
+
+def model_axis_size(mesh) -> int:
+    return mesh.shape["model"]
 
 
 def _rank_devices(world: int, device) -> list:

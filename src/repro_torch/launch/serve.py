@@ -17,20 +17,21 @@ the reference):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-27b \
       --smoke --prompt-len 16 --gen-len 16 --batch 4 --device cpu
 
-``serve_gpo`` serves the latest GPO checkpoint under ``--ckpt-dir`` (the JAX package's
-``serve --gpo`` writes one in the same format) through
-``core.serving.PreferenceServer`` (DESIGN.md §12): admission-controlled
-queue, bucketed continuous batching, LRU prefix/KV cache over shared ICL
-contexts, and optional int8 weights (``--int8``) through the int8
-matmul kernel.
+``serve_gpo`` trains the GPO preference predictor once, federated
+(``core.FederatedGPO`` for ``--rounds`` under ``--agg`` and
+``--prox-mu``, the attention and the aggregation through the kernels on
+the card), saves it under ``--ckpt-dir`` in the JAX package's format
+(step ``--rounds``, the reference's metadata), and serves it;
+``--restore`` serves the latest checkpoint there instead (one this
+launcher, ``launch.train --trainer gpo --ckpt-dir`` or the JAX package
+saved). It serves through ``core.serving.PreferenceServer`` (DESIGN.md
+§12): admission-controlled queue, bucketed continuous batching, LRU
+prefix/KV cache over shared ICL contexts, and optional int8 weights
+(``--int8``) through the int8 matmul kernel.
 
+  PYTHONPATH=src python -m repro_torch.launch.serve --gpo --requests 64
   PYTHONPATH=src python -m repro_torch.launch.serve --gpo --restore \
       --int8 --requests 64 --hit-ratio 0.75
-
-``--restore`` is required: this launcher never serves random weights.
-Train and save a checkpoint first, with this package
-(``python -m repro_torch.launch.train --trainer gpo --ckpt-dir ...``) or
-the JAX package.
 """
 from __future__ import annotations
 
@@ -40,14 +41,20 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.checkpoint import latest_checkpoint, restore_checkpoint
+from repro_torch.checkpoint import (
+    latest_checkpoint,
+    restore_checkpoint,
+    save_checkpoint,
+)
 from repro_torch.configs import (
+    AggConfig,
     GPOConfig,
     ServeConfig,
     get_arch,
     smoke_variant,
 )
 from repro_torch.core import (
+    FederatedGPO,
     PreferenceServer,
     greedy_decode,
     init_gpo_params,
@@ -58,6 +65,7 @@ from repro_torch.core import (
 from repro_torch.core.fairness import alignment_score
 from repro_torch.data import SurveyConfig, make_survey_data, split_groups
 from repro_torch.kernels.backend import resolve_device
+from repro_torch.launch.train import gpo_fed_config
 from repro_torch.models import init_params
 
 
@@ -101,9 +109,8 @@ def _restore_params(ckpt_dir: str, gcfg: GPOConfig, seed: int,
     path = latest_checkpoint(ckpt_dir)
     if path is None:
         raise SystemExit(
-            f"--restore: no checkpoint under {ckpt_dir!r}; train and save "
-            "one with python -m repro_torch.launch.train --trainer gpo "
-            f"--ckpt-dir {ckpt_dir}")
+            f"--restore: no checkpoint under {ckpt_dir!r}; run once "
+            "without --restore to train and save one")
     like = init_gpo_params(gcfg, torch.Generator().manual_seed(seed),
                            device=device)
     try:
@@ -116,20 +123,34 @@ def _restore_params(ckpt_dir: str, gcfg: GPOConfig, seed: int,
     return params
 
 
-def serve_gpo(args) -> None:
+def serve_gpo(args) -> dict:
     """Preference serving for unseen groups through the multi-tenant
-    engine, with the p50/p99 latency and QPS of an open-loop trace."""
+    engine, with the p50/p99 latency and QPS of an open-loop trace.
+    Trains and saves the predictor first, unless ``--restore``. Returns
+    the served params, the trace, its results and their summary, and the
+    training's seconds (None under ``--restore``)."""
     device = resolve_device(args.device)
-    if not args.restore:
-        raise SystemExit(
-            "serve --gpo needs --restore: this launcher does not serve "
-            "random weights; train a predictor first with python -m "
-            "repro_torch.launch.train --trainer gpo --ckpt-dir "
-            f"{args.ckpt_dir}")
     data = make_survey_data(SurveyConfig(seed=args.seed))
-    _, ev = split_groups(data, seed=args.seed)
+    tr, ev = split_groups(data, seed=args.seed)
     gcfg = GPOConfig(d_embed=data.phi.shape[-1])
-    params = _restore_params(args.ckpt_dir, gcfg, args.seed, device)
+    train_s = None
+    if args.restore:
+        params = _restore_params(args.ckpt_dir, gcfg, args.seed, device)
+    else:
+        fcfg = gpo_fed_config(
+            num_clients=len(tr), rounds=args.rounds, seed=args.seed,
+            agg=AggConfig(name=args.agg, prox_mu=args.prox_mu))
+        fed = FederatedGPO(gcfg, fcfg, data, tr, ev, device=device)
+        print(f"training federated GPO for {args.rounds} rounds ...")
+        t0 = time.time()
+        fed.run(rounds=args.rounds)
+        params = fed.global_params
+        train_s = time.time() - t0
+        path = save_checkpoint(
+            args.ckpt_dir, args.rounds, params,
+            metadata={"rounds": args.rounds, "seed": args.seed,
+                      "agg": args.agg, "d_embed": gcfg.d_embed})
+        print(f"saved GPO predictor to {path} (serve with --restore)")
     scfg = ServeConfig(max_batch=args.max_batch, int8_weights=args.int8)
     server = PreferenceServer(params, gcfg, scfg,
                               num_options=data.num_options, device=device)
@@ -164,9 +185,12 @@ def serve_gpo(args) -> None:
         print(f"  rid={c.rid} group={req.meta['group']} AS={score:.4f} "
               f"hit={c.cache_hit} "
               f"pred[0]={np.round(c.pred[0], 3).tolist()}")
+    return {"params": params, "trace": trace, "results": results,
+            "summary": summary, "train_s": train_s}
 
 
-def main(argv=None) -> None:
+def main(argv=None):
+    """The launcher; returns ``serve_gpo``'s or ``serve_lm``'s result."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="qwen2-0.5b",
                     help="LM backbone to serve (qwen2-0.5b, qwen3-32b, "
@@ -180,10 +204,18 @@ def main(argv=None) -> None:
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--prompt-len", type=int, default=16)
     ap.add_argument("--gen-len", type=int, default=16)
+    ap.add_argument("--rounds", type=int, default=60)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--ckpt-dir", default="checkpoints/gpo_serve")
     ap.add_argument("--restore", action="store_true",
-                    help="serve the latest GPO checkpoint (required)")
+                    help="load the latest GPO checkpoint instead of "
+                         "retraining (gpo mode)")
+    ap.add_argument("--agg", default="fedavg",
+                    help="server-aggregation strategy for the training "
+                         "path (DESIGN.md §7)")
+    ap.add_argument("--prox-mu", type=float, default=0.0,
+                    help="FedProx proximal coefficient (required > 0 for "
+                         "--agg fedprox to differ from fedavg)")
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda)")
     ap.add_argument("--requests", type=int, default=32,
@@ -201,9 +233,8 @@ def main(argv=None) -> None:
                          "through the int8 matmul kernel")
     args = ap.parse_args(argv)
     if args.gpo:
-        serve_gpo(args)
-    else:
-        serve_lm(args)
+        return serve_gpo(args)
+    return serve_lm(args)
 
 
 if __name__ == "__main__":

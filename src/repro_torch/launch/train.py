@@ -86,6 +86,16 @@ from repro_torch.optim import adam
 from repro_torch.utils.pytree import tree_count_params
 
 
+def gpo_fed_config(**fields) -> FedConfig:
+    """The GPO trainer's ``FedConfig`` with the attention (forward and
+    backward) and the aggregation through the kernels: on the card the
+    hand-written CUDA kernels, on CPU tensors their plain versions. The
+    JAX package's launchers leave these flags off; the values agree
+    within the port's stated tolerances either way."""
+    return FedConfig(use_pallas_attention=True, use_pallas_aggregation=True,
+                     **fields)
+
+
 def stack_client_batches(it, clients: int, steps: int) -> dict:
     """``clients`` × ``steps`` batches from ``it``, stacked (C, steps,
     B, S)."""
@@ -244,11 +254,10 @@ def main(argv=None) -> None:
     data = make_survey_data(SurveyConfig(seed=args.seed))
     tr, ev = split_groups(data, seed=args.seed)
     gcfg = GPOConfig(d_embed=data.phi.shape[-1])
-    fcfg = FedConfig(num_clients=len(tr), rounds=args.rounds,
-                     eval_every=args.eval_every, seed=args.seed, agg=agg,
-                     privacy=priv, compression=comp, adversary=adv,
-                     use_pallas_attention=True,
-                     use_pallas_aggregation=True)
+    fcfg = gpo_fed_config(num_clients=len(tr), rounds=args.rounds,
+                          eval_every=args.eval_every, seed=args.seed,
+                          agg=agg, privacy=priv, compression=comp,
+                          adversary=adv)
     fed = FederatedGPO(gcfg, fcfg, data, tr, ev, device=device)
     t0 = time.time()
     hist = fed.run(rounds=args.rounds, log_every=args.eval_every)

@@ -19,9 +19,16 @@
   encoder's states (``cross_kv`` once a prefill, ``cross_attend`` plain:
   the kernel takes only as many keys as queries).
 
-On one device the reference's sharding choices are fixed: KV is not
-repeated, the query sequence is not sharded, and ``shard_act`` is the
-identity, so the port has none of them (ROADMAP queue A.7).
+Under an ``activation_sharding`` context (``models/partitioning.py``)
+the plain branch repeats K and V to the full head count where
+``prefers_repeat_kv``, as the reference does. The reference's other
+layout choices (its query-sharded branch where ``prefers_q_sharding``,
+the query-sequence split of MHA with heads the model axis does not
+divide) only pick ``shard_act`` specs: in one process ``shard_act`` is
+the identity, so they compute what the grouped and MHA branches compute
+and the port has no branch for them. Without a context the values are
+as before, bit for bit. The flash kernel handles GQA itself and takes
+no layout from the context.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import torch
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamInit, rms_norm, rope, softcap
+from repro_torch.models.partitioning import prefers_repeat_kv, shard_act
 
 NEG_INF = -2.3819763e38  # bf16-safe large negative
 
@@ -72,9 +80,12 @@ def _project_qkv(p: AttnParams, x, num_heads, num_kv, head_dim, eps):
     q, k, v = x @ p.wq, x @ p.wk, x @ p.wv
     if p.bq is not None:
         q, k, v = q + p.bq, k + p.bk, v + p.bv
-    q = q.reshape(b, s, num_heads, head_dim)
-    k = k.reshape(b, s, num_kv, head_dim)
-    v = v.reshape(b, s, num_kv, head_dim)
+    q = shard_act(q.reshape(b, s, num_heads, head_dim),
+                  ("batch", "seq", "heads", "hd"))
+    k = shard_act(k.reshape(b, s, num_kv, head_dim),
+                  ("batch", "seq", "kv_heads", "hd"))
+    v = shard_act(v.reshape(b, s, num_kv, head_dim),
+                  ("batch", "seq", "kv_heads", "hd"))
     if p.q_norm is not None:
         q = rms_norm(q, p.q_norm, eps)
         k = rms_norm(k, p.k_norm, eps)
@@ -88,13 +99,20 @@ def gqa_scores_softmax(q, k, v, mask, logit_cap):
     b, sq, h, hd = q.shape
     kv = k.shape[2]
     scale = math.sqrt(hd)
+    if kv != h and prefers_repeat_kv(h, kv):
+        # repeated-KV layout: one shardable heads dim where the grouped
+        # form would split it into two unshardable factors
+        k = k.repeat_interleave(h // kv, dim=2)
+        v = v.repeat_interleave(h // kv, dim=2)
+        kv = h
     if kv == h:
         scores = torch.einsum("bqhd,bshd->bhqs", q, k).float() / scale
         if logit_cap is not None:
             scores = softcap(scores, logit_cap)
         scores = torch.where(mask[:, None], scores, NEG_INF)
         probs = torch.softmax(scores, dim=-1).to(v.dtype)
-        return torch.einsum("bhqs,bshd->bqhd", probs, v)
+        out = torch.einsum("bhqs,bshd->bqhd", probs, v)
+        return shard_act(out, ("batch", "seq", "heads", "hd"))
     g = h // kv
     qg = q.reshape(b, sq, kv, g, hd)
     scores = torch.einsum("bqkgd,bskd->bkgqs", qg, k).float() / scale
@@ -103,7 +121,7 @@ def gqa_scores_softmax(q, k, v, mask, logit_cap):
     scores = torch.where(mask[:, None, None], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bkgqs,bskd->bqkgd", probs, v)
-    return out.reshape(b, sq, h, hd)
+    return shard_act(out.reshape(b, sq, h, hd), ("batch", "seq", "heads", "hd"))
 
 
 def make_causal_window_mask(q_pos, k_pos, window: int, k_valid=None):

@@ -5,6 +5,8 @@ import math
 
 import torch
 
+from repro_torch.models.partitioning import shard_act
+
 
 # dense_init draws at most this many values at once: a larger tensor (an
 # expert stack of grok-1, 1.6e9 values) is drawn in pieces of its flat
@@ -109,7 +111,12 @@ def swiglu(x: torch.Tensor, w_gate, w_up, w_down) -> torch.Tensor:
     g = x @ w_gate
     u = x @ w_up
     h = torch.nn.functional.silu(g.float()).to(u.dtype) * u
-    return h @ w_down
+    if h.ndim == 3:
+        h = shard_act(h, ("batch", "seq", "ff"))
+    out = h @ w_down
+    if out.ndim == 3:
+        out = shard_act(out, ("batch", "seq", "embed"))
+    return out
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,

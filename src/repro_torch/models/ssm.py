@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 from repro_torch.models.layers import ParamInit, rms_norm
+from repro_torch.models.partitioning import shard_act
 
 
 class MambaParams(NamedTuple):
@@ -191,6 +192,7 @@ def mamba_block(p: MambaParams, x, cfg, *, ssm_state=None, conv_state=None,
     xbc = F.silu(xbc.float()).to(xbc.dtype)
 
     xs = xbc[..., :d_in].reshape(b, s, n_heads, cfg.ssm_head_dim)
+    xs = shard_act(xs, ("batch", "seq", "ssm_heads", "hd"))
     B = xbc[..., d_in: d_in + n]
     C = xbc[..., d_in + n:]
     dt = F.softplus(dt_raw.float() + p.dt_bias[None, None, :])

@@ -64,6 +64,7 @@ from repro_torch.models.attention import (
 )
 from repro_torch.models.layers import ParamInit, rms_norm, softcap, swiglu
 from repro_torch.models.moe import MoEParams, init_moe_params, moe_ffn
+from repro_torch.models.partitioning import shard_act
 from repro_torch.models.ssm import (
     MambaParams,
     init_mamba_params,
@@ -232,7 +233,7 @@ def _embed_in(params, cfg: ModelConfig, tokens=None, embeds=None):
     x = x.to(_dtype(cfg.activation_dtype))
     if cfg.scale_embeddings:
         x = x * torch.tensor(float(np.sqrt(cfg.d_model)), dtype=x.dtype)
-    return x
+    return shard_act(x, ("batch", "seq", "embed"))
 
 
 def _unembed(params, cfg: ModelConfig, x):
@@ -240,7 +241,7 @@ def _unembed(params, cfg: ModelConfig, x):
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
-    logits = (x @ head).float()
+    logits = shard_act((x @ head).float(), ("batch", "seq", "vocab"))
     if cfg.final_logit_softcap is not None:
         logits = softcap(logits, cfg.final_logit_softcap)
     return logits

@@ -138,9 +138,45 @@ def test_latest_checkpoint(tmp_path):
 # ---------------------------------------------------------------------------
 # the serve launcher
 # ---------------------------------------------------------------------------
-def test_serve_without_restore_names_the_training_slice(capsys):
-    with pytest.raises(SystemExit, match="launch.train --trainer gpo"):
-        serve_cli.main(["--gpo", "--device", "cpu"])
+def test_serve_without_restore_names_the_training_slice(tmp_path, capsys):
+    """Without --restore the launcher trains, saves and serves, as the
+    reference's: the checkpoint carries the reference's step and metadata
+    keys, loads through the reference's ``--restore`` path, and serves
+    the reference's rows (atol 1e-5)."""
+    import json
+
+    from repro.data import SurveyConfig as JaxSurveyConfig
+    from repro.data import make_survey_data as jax_survey
+    from repro.data import split_groups as jax_split
+    from repro.launch.serve import _restore_params as jax_restore_params
+
+    ckpt = str(tmp_path / "gpo")
+    serve_cli.main(["--gpo", "--rounds", "2", "--requests", "4",
+                    "--device", "cpu", "--ckpt-dir", ckpt])
+    out = capsys.readouterr().out
+    assert "training federated GPO for 2 rounds ..." in out
+    assert "saved GPO predictor to" in out and "served 4/4 requests" in out
+    assert latest_checkpoint(ckpt).endswith("ckpt_00000002.npz")
+    with open(os.path.join(ckpt, "ckpt_00000002.json")) as f:
+        meta = json.load(f)
+    assert meta == {"rounds": 2, "seed": 0, "agg": "fedavg", "d_embed": 64}
+    jp = jax_restore_params(ckpt, JaxGPOConfig(d_embed=64), 0)
+    port = restore_checkpoint(latest_checkpoint(ckpt), init_gpo_params(
+        GPOConfig(d_embed=64), torch.Generator().manual_seed(9),
+        device="cpu"))
+    data = jax_survey(JaxSurveyConfig(seed=0))
+    _, ev = jax_split(data, seed=0)
+    g = int(ev[0])
+    phi, prefs = np.array(data.phi), np.array(data.prefs)
+    a = prefs.shape[-1]
+    ctx_x = phi[:6].reshape(-1, phi.shape[-1])
+    ctx_y = prefs[g, :6].reshape(-1)
+    tgt_x = phi[6:10].reshape(-1, phi.shape[-1])
+    want = np.asarray(jax_predict(jp, JaxGPOConfig(d_embed=64), ctx_x, ctx_y,
+                                  tgt_x, a))
+    got = predict_preferences(port, GPOConfig(d_embed=64), ctx_x, ctx_y,
+                              tgt_x, a, device="cpu").numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     # LM serving runs every arch now, zamba2's hybrid the last to come:
     # its smoke variant serves on the CPU
     capsys.readouterr()
@@ -150,6 +186,51 @@ def test_serve_without_restore_names_the_training_slice(capsys):
     assert lines[0] == ("arch=zamba2-1.2b-smoke batch=4 prompt=8 "
                         "generated=4 device=cpu")
     assert sum(ln.startswith("  seq") for ln in lines) == 4
+
+
+def _parser(main, argv):
+    """The ArgumentParser that ``main`` builds, caught at its parse."""
+    import argparse
+
+    seen = []
+    real = argparse.ArgumentParser.parse_args
+
+    def catch(self, *a, **k):
+        seen.append(self)
+        raise SystemExit(0)
+
+    argparse.ArgumentParser.parse_args = catch
+    try:
+        with pytest.raises(SystemExit):
+            main(argv)
+    finally:
+        argparse.ArgumentParser.parse_args = real
+    return seen[0]
+
+
+def test_serve_launcher_flags_are_the_references(monkeypatch):
+    """Every flag of the reference's serve launcher, with its default,
+    type and help, and ``--device`` besides."""
+    import sys
+
+    from repro.launch import serve as jax_serve
+
+    monkeypatch.setattr(sys, "argv", ["serve"])
+
+    def flags(parser):
+        return {a.dest: (tuple(a.option_strings), a.default, a.type,
+                         a.help) for a in parser._actions
+                if a.dest != "help"}
+
+    port = flags(_parser(serve_cli.main, []))
+    ref = flags(_parser(lambda argv: jax_serve.main(), []))
+    assert set(port) - set(ref) == {"device"}
+    for dest, want in ref.items():
+        got = port[dest]
+        assert got[:3] == want[:3], dest
+        if want[3] is not None:
+            assert got[3] is not None, dest
+    assert port["rounds"][1] == 60 and port["agg"][1] == "fedavg"
 
 
 def test_serve_restore_errors_are_actionable(tmp_path):

@@ -97,7 +97,7 @@ STAGE_SAMPLES = {
 @pytest.mark.parametrize("name", [
     "GPOConfig", "ServeConfig", "FedConfig", "AggConfig", "PrivacyConfig",
     "AvailabilityConfig", "AdversaryConfig", "CompressionConfig",
-    "HierarchyConfig", "ModelConfig", "TrainConfig"])
+    "HierarchyConfig", "ModelConfig", "TrainConfig", "InputShape"])
 def test_configs_copy_the_reference_field_for_field(name):
     port, ref = getattr(repro_torch.configs, name), getattr(jax_configs, name)
 
@@ -225,6 +225,20 @@ def test_training_entry_points_refuse_to_run_on_the_cpu_unasked():
                 device="cpu")  # and on the CPU when asked
     with pytest.raises(RuntimeError, match="no CUDA device"):
         train.main(["--trainer", "gpo", "--rounds", "1"])
+
+
+def test_new_entry_points_refuse_the_cpu_unasked_and_meta_needs_no_card():
+    """The train-then-serve path and the sharded dry-run round run on the
+    card unless told otherwise; the dry run's meta counts need none."""
+    _no_card()
+    from repro_torch.launch import dryrun, serve
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--gpo", "--rounds", "1"])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        dryrun.lower_gpo_round("fedavg", clients=2, verbose=False)
+    rec = dryrun.lower_pair("whisper-small", "long_500k", verbose=False)
+    assert rec["kind"] == "decode" and rec["counted"]["flops"] > 0
 
 
 def _counts():
