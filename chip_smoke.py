@@ -229,6 +229,22 @@ the card, raising on any mismatch:
    larger than 4i's measured peak; mfu (``launch/roofline.py``'s
    ``model_flops``, 6·N·D a train step and 2·N·D a prefill, over the
    measured time x the bf16 dense peak) of 4i's step and 4d's prefills.
+   4l. Kernel coverage: the attention forward, dq and dk/dv at head
+   widths ``COVER_HDS`` (12 and 100 padded to a built width) at the
+   training shape and the experiment's, and the trimmed reduce (trim 0,
+   1, the median; ties, NaN in entries and in a whole column, an
+   infinity) and the pairwise distances at ``COVER_CS`` clients past
+   the C <= 32 designs, each against its plain version, each call a
+   launch of its kernel, two calls bit for bit, and the pairwise
+   distances at ``COVER_F64_CS`` clients against float64 as phase 1
+   holds the C <= 32 design (a one-pass control must fail); then the
+   users that need those shapes, through the kernels against their CPU
+   runs:
+   ``benchmarks/bench_round.py``'s round (head_dim 8), krum and the
+   median over 40 clients (67 groups at the 60/40 split), the dry run
+   ``--gpo-fed --pallas-attn --clients 8`` (head_dim 16; its processes'
+   launches and losses). Each widened source's build seconds and its
+   kernels' registers and spills by width.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -385,7 +401,9 @@ from repro_torch.kernels import ops as kernel_ops  # noqa: E402
 from repro_torch.kernels.agg_reduce import (  # noqa: E402
     _CLIP_ARGTYPES,
     _PAIRWISE_ARGTYPES,
-    PAIRWISE_CHUNK,
+    _TILES_ARGTYPES,
+    pairwise_design_for,
+    pairwise_split,
     ROW_CHUNK,
     clip_reduce_flat,
     fedavg_reduce_flat,
@@ -395,6 +413,7 @@ from repro_torch.kernels.agg_reduce import (  # noqa: E402
     quant_clip_reduce_flat,
     quant_split,
     topk_reduce_flat,
+    trimmed_design_for,
     trimmed_reduce_flat,
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -408,6 +427,7 @@ from repro_torch.kernels.gpo_attention import (  # noqa: E402
     gpo_attention_bwd_dkdv,
     gpo_attention_bwd_dq,
     gpo_attention_fwd,
+    head_width_for,
 )
 from repro_torch.kernels.ops import (  # noqa: E402
     flash_attention,
@@ -512,13 +532,13 @@ BWD_F64_RATIO = 1.5
 # forward and backward sources share: each k-step's big.big and each
 # product of a stage go into the running accumulator itself
 _CHAINED_EDITS = (
-    ("""    mma_tf32(lo, a.small[ks], bb[0], bb[1]);
-    mma_tf32(lo, a.big[ks], bs[0], bs[1]);
+    ("""    mma_tf32(lo, as, bb[0], bb[1]);
+    mma_tf32(lo, ab, bs[0], bs[1]);
     float hi[4] = {};
-    mma_tf32(hi, a.big[ks], bb[0], bb[1]);
+    mma_tf32(hi, ab, bb[0], bb[1]);
 #pragma unroll
     for (int e = 0; e < 4; ++e) d[e] += hi[e];
-""", """    mma_3xtf32(d, a.big[ks], a.small[ks], bb, bs);
+""", """    mma_3xtf32(d, ab, as, bb, bs);
 """),
     ("""    float t[4] = {};
     mma_3xtf32(t, ab, as, bb, bs);
@@ -526,19 +546,24 @@ _CHAINED_EDITS = (
     for (int e = 0; e < 4; ++e) acc[nt][e] += t[e];
 """, """    mma_3xtf32(acc[nt], ab, as, bb, bs);
 """))
-# Krum's pairwise distances at the quickstart's (C, P): the kernel's mean
-# |error| against the distances in float64 at most this many times the
-# f32 expansion form's in plain PyTorch (TF32 off). A planted control,
-# the source rebuilt with one TF32 pass (big.big alone, _ONE_PASS_EDITS),
-# must exceed it; the per-value 3xTF32 split (_SPLIT_3X_EDITS), whose
-# k-step sums of a row's squares the tensor cores round toward zero, is
-# read beside it
+# Krum's pairwise distances at the quickstart's (C, P), and in phase 4l
+# at COVER_F64_CS clients (the tiled design): the kernel's mean |error|
+# against the distances in float64 at most this many times the f32
+# expansion form's in plain PyTorch (TF32 off). A planted control, the
+# source rebuilt with one TF32 pass (big.big alone in both designs,
+# _ONE_PASS_EDITS), must exceed it; the per-value 3xTF32 split
+# (_SPLIT_3X_EDITS), whose k-step sums of a row's squares the tensor
+# cores round toward zero, is read beside it at the quickstart's shape
 PAIRWISE_F64_RATIO = 1.5
 PAIRWISE_F64_SHAPE = (10, 534016)
 _ONE_PASS_EDITS = (
     ("""        mma_tf32(l, as, big[n][kk][0], big[n][kk][1]);
         mma_tf32(l, as, half[n][kk][0], half[n][kk][1]);
-""", ""),)
+""", ""),
+    ("""        mma_tf32(lo, as, bJ[n][kk][0], bJ[n][kk][1]);
+        mma_tf32(lo, ab, sJ[n][kk][0], sJ[n][kk][1]);
+        mma_tf32(lo, as, sJ[n][kk][0], sJ[n][kk][1]);
+""", ""))
 _SPLIT_3X_EDITS = (
     ("""      const float b = __fmul_rn(rintf(__fmul_rn(v[k][e], inv)), step);
       const float sm = __fsub_rn(v[k][e], b);
@@ -594,6 +619,25 @@ __device__ __forceinline__ void clip_stamp(int k) {
 }
 
 extern "C" int clip_reduce_launch("""))
+# phase 4l, the kernels' coverage of the reference's shapes: head widths
+# that are not built (12, 100: padded), built ones past 32, at the
+# training shape and at the experiment's (S 120, num_ctx 60); client
+# counts past the C <= 32 designs, at the quickstart's P
+COVER_HDS = (8, 12, 16, 40, 64, 100, 128, 256)
+COVER_ATTN = ((40, 160, 80), (40, 120, 60))
+COVER_CS = (33, 64, 200, 1024)
+COVER_P = 534016
+# the tiled pairwise design against float64 (PAIRWISE_F64_RATIO), and the
+# products a k-step and tile that it computes on the tensor cores at the
+# TF32 rate (big.big and three small), which phase 5 prices
+COVER_F64_CS = (64, 1024)
+GRAM_TILE_PRODUCTS = 4
+# phase 5's rows of the same: widths and client counts
+COVER_ROW_HDS = (8, 64, 128, 256)
+COVER_ROW_CS = (64, 1024)
+# the sources whose kernels phase 4l widened: their ptxas reports
+COVER_SOURCES = ("gpo_attention_fwd", "gpo_attention_bwd", "trimmed_reduce",
+                 "pairwise_dists")
 HEAD_DIM = 32
 HEAD_DIMS = (32, 24)  # GPOConfig() and benchmarks/paper_experiment.py
 # (C, P): the quickstart's 10 clients x 534,016 GPOConfig() params, then
@@ -1094,6 +1138,20 @@ def _time_ms(fn, iters: int = 50, reps: int = 7, graph: bool = True,
     return (median_ms(captured.replay) if graph else None), median_ms(eager)
 
 
+def _once_ms(fn) -> tuple:
+    """(None, eager ms) of one call of ``fn`` after one warm call: for
+    plain versions that take seconds a call."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    fn()
+    b.record()
+    b.synchronize()
+    return None, a.elapsed_time(b)
+
+
 def _timed(kernel_fn, plain_fn, library_fn) -> dict:
     """Device and eager times of a kernel, its plain version and the
     library call that computes the same function (None: no such call)."""
@@ -1390,7 +1448,7 @@ def _chained_fwd(q, k, v, nc) -> tuple:
         "chained", "gpo_attention_fwd", "gpo_attention_fwd_launch",
         _FWD_ARGTYPES)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), bh, s, nc, hd, backend.stream_ptr(q.device)),
+        lse.data_ptr(), bh, s, nc, hd, hd, backend.stream_ptr(q.device)),
         "chained forward")
     return o, lse
 
@@ -1406,11 +1464,11 @@ def _chained_bwd(ops, nc) -> tuple:
     backend.check(_control_fn(
         "chained", "gpo_attention_bwd", "gpo_attention_bwd_dq_launch",
         _DQ_ARGTYPES)(
-        *ptrs, outs[0].data_ptr(), bh, s, nc, hd, stream), "chained dq")
+        *ptrs, outs[0].data_ptr(), bh, s, nc, hd, hd, stream), "chained dq")
     backend.check(_control_fn(
         "chained", "gpo_attention_bwd", "gpo_attention_bwd_dkdv_launch",
         _DKDV_ARGTYPES)(
-        *ptrs, outs[1].data_ptr(), outs[2].data_ptr(), bh, s, nc, hd,
+        *ptrs, outs[1].data_ptr(), outs[2].data_ptr(), bh, s, nc, hd, hd,
         stream), "chained dk/dv")
     return tuple(outs)
 
@@ -1691,16 +1749,55 @@ def _check_agg_kernels(g, dev, worst) -> None:
 
 def _pairwise_control(ctl: str, x) -> torch.Tensor:
     """The pairwise distances from control ``ctl``'s build of the kernel
-    (``_CONTROLS``); uncounted (no wrapper)."""
+    (``_CONTROLS``), through the C entry of ``pairwise_design_for(C)``
+    with the wrapper's split; uncounted (no wrapper)."""
     c, p = x.shape
-    nb = -(-p // PAIRWISE_CHUNK)
+    chunk, nb = pairwise_split(c, p)
     part = torch.empty((nb, c, c), dtype=torch.float64, device=x.device)
     out = torch.empty((c, c), dtype=torch.float32, device=x.device)
-    backend.check(_control_fn(ctl, "pairwise_dists", "pairwise_dists_launch",
-                              _PAIRWISE_ARGTYPES)(
-        x.data_ptr(), part.data_ptr(), out.data_ptr(), c, p, nb,
-        backend.stream_ptr(x.device)), ctl)
+    fn, extra = ((_control_fn(ctl, "pairwise_dists", "pairwise_dists_launch",
+                              _PAIRWISE_ARGTYPES), ())
+                 if pairwise_design_for(c) == "one_tile" else
+                 (_control_fn(ctl, "pairwise_dists", "pairwise_tiles_launch",
+                              _TILES_ARGTYPES), (chunk,)))
+    backend.check(fn(x.data_ptr(), part.data_ptr(), out.data_ptr(), c, p, nb,
+                     *extra, backend.stream_ptr(x.device)), ctl)
     return out
+
+
+def _pairwise_f64(x, controls) -> dict:
+    """The mean |error| off the diagonal against the distances in float64:
+    the f32 expansion form's in plain PyTorch, and the kernel's and each
+    control's (``_pairwise_control``) as multiples of it."""
+    c = x.shape[0]
+    xd = x.double()
+    sq = (xd * xd).sum(dim=1)
+    want = (sq[:, None] + sq[None, :] - 2.0 * (xd @ xd.T)).clamp_min(0.0)
+    del xd
+    sq32 = (x * x).sum(dim=1)
+    plain = sq32[:, None] + sq32[None, :] - 2.0 * (x @ x.T)
+    off = ~torch.eye(c, dtype=torch.bool, device=x.device)
+
+    def mean_err(d):
+        return (d.double() - want).abs()[off].mean().item()
+
+    base = mean_err(plain)
+    ratios = {"kernel": mean_err(pairwise_dists_flat(x)) / base}
+    for ctl in controls:
+        ratios[ctl] = mean_err(_pairwise_control(ctl, x)) / base
+    return {"plain_mean_abs_err": base, **ratios}
+
+
+def _pairwise_f64_verdict(rec: dict, where: str) -> None:
+    """The kernel within ``PAIRWISE_F64_RATIO``, the one-pass control
+    above it."""
+    if rec["kernel"] > PAIRWISE_F64_RATIO:
+        raise AssertionError(f"pairwise_dists {where}: the mean error "
+                             "against float64 is above the limit")
+    if rec["pairwise_one_pass"] <= PAIRWISE_F64_RATIO:
+        raise AssertionError(f"the float64 check at {where} passes the "
+                             "one-pass pairwise control: it does not guard "
+                             "the split")
 
 
 def _check_pairwise_f64(g, dev, worst) -> None:
@@ -1710,33 +1807,15 @@ def _check_pairwise_f64(g, dev, worst) -> None:
     that limit, and the per-value 3xTF32 split is read beside it."""
     c, p = PAIRWISE_F64_SHAPE
     x, _ = _agg_inputs(c, p, g, dev)
-    xd = x.double()
-    sq = (xd * xd).sum(dim=1)
-    want = (sq[:, None] + sq[None, :] - 2.0 * (xd @ xd.T)).clamp_min(0.0)
-    sq32 = (x * x).sum(dim=1)
-    plain = sq32[:, None] + sq32[None, :] - 2.0 * (x @ x.T)
-    off = ~torch.eye(c, dtype=torch.bool, device=dev)
-
-    def mean_err(d):
-        return (d.double() - want).abs()[off].mean().item()
-
-    base = mean_err(plain)
-    ratios = {"kernel": mean_err(pairwise_dists_flat(x)) / base}
-    for ctl in ("pairwise_one_pass", "pairwise_3xtf32"):
-        ratios[ctl] = mean_err(_pairwise_control(ctl, x)) / base
+    rec = _pairwise_f64(x, ("pairwise_one_pass", "pairwise_3xtf32"))
     torch.cuda.synchronize()
-    worst["pairwise_dists_f64"] = {"plain_mean_abs_err": base, **ratios}
+    worst["pairwise_dists_f64"] = rec
     print(f"  pairwise_dists C={c:2d} P={p:7d}  mean |err| vs float64: f32 "
-          f"expansion form {base:.3e}; the kernel {ratios['kernel']:.3f}x "
-          f"that (limit {PAIRWISE_F64_RATIO}), one-pass control "
-          f"{ratios['pairwise_one_pass']:.3f}x, per-value 3xTF32 split "
-          f"{ratios['pairwise_3xtf32']:.3f}x")
-    if ratios["kernel"] > PAIRWISE_F64_RATIO:
-        raise AssertionError("pairwise_dists: the mean error against "
-                             "float64 is above the limit")
-    if ratios["pairwise_one_pass"] <= PAIRWISE_F64_RATIO:
-        raise AssertionError("the float64 check passes the one-pass "
-                             "pairwise control: it does not guard the split")
+          f"expansion form {rec['plain_mean_abs_err']:.3e}; the kernel "
+          f"{rec['kernel']:.3f}x that (limit {PAIRWISE_F64_RATIO}), one-pass "
+          f"control {rec['pairwise_one_pass']:.3f}x, per-value 3xTF32 split "
+          f"{rec['pairwise_3xtf32']:.3f}x")
+    _pairwise_f64_verdict(rec, f"C {c}")
 
 
 def _transport_inputs(c, p, g, dev):
@@ -6106,6 +6185,468 @@ def tooling(dev, lm_train_rec: dict, lm_rec: dict, card_name: str) -> dict:
     return rec
 
 
+def _ptxas_kernels(log: str) -> list:
+    """Each entry function of a ptxas -v report: its name (the template
+    argument kept: gpo_attention_fwd_kernel<256>), registers and spill
+    bytes."""
+    rows = []
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '\w*?\d+((?:gpo_attention|"
+                      r"trimmed|gram)_\w*?_kernel)(?:IL[ib](\d+)E"
+                      r"(?:L[ib](\d+)E)?)?", ln)
+        if m:
+            args = ", ".join(a for a in m.groups()[1:] if a is not None)
+            rows.append({"kernel": m.group(1) + (f"<{args}>" if args
+                                                 else ""),
+                         "registers": None, "spill_stores": None,
+                         "spill_loads": None})
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if m and rows:
+            rows[-1]["spill_stores"] = int(m.group(1))
+            rows[-1]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and rows:
+            rows[-1]["registers"] = int(m.group(1))
+    # the register trimmed kernel's 32 instantiations in one line
+    regs = [r for r in rows
+            if r["kernel"].startswith("trimmed_reduce_kernel<")]
+    return [r for r in rows if r not in regs] + (
+        [{"kernel": f"trimmed_reduce_kernel<1..{len(regs)}>",
+          "registers": max(r["registers"] or 0 for r in regs),
+          "spill_stores": max(r["spill_stores"] or 0 for r in regs),
+          "spill_loads": max(r["spill_loads"] or 0 for r in regs)}]
+        if regs else [])
+
+
+def _build_report() -> dict:
+    """Each source's nvcc seconds and ptxas -v report, printed: one
+    report per kernel (trimmed_reduce has one per C); the sources phase
+    4l widened by kernel and width (``_ptxas_kernels``), the others as
+    their range of registers and their spills."""
+    rec = {"seconds": dict(backend.BUILD_SECONDS), "ptxas": {}}
+    for src, log in backend.BUILD_LOG.items():
+        if src in COVER_SOURCES:
+            rec["ptxas"][src] = _ptxas_kernels(log)
+            print(f"  {src}: " + "; ".join(
+                f"{r['kernel']} {r['registers']} regs, spills "
+                f"{r['spill_stores']}/{r['spill_loads']} B"
+                for r in rec["ptxas"][src]))
+            continue
+        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
+        spills = sorted({ln.strip() for ln in log.splitlines()
+                         if "spill" in ln and " 0 bytes spill stores, 0 "
+                         "bytes spill loads" not in ln})
+        print(f"  {src}: {len(regs)} kernels, {min(regs, default=0)}-"
+              f"{max(regs, default=0)} registers a thread, spills: "
+              f"{'; '.join(spills) or 'none'}")
+    return rec
+
+
+def _bits_equal(a, b) -> bool:
+    """Bit for bit, NaN payloads included."""
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+def _cover_attention(dev, g) -> dict:
+    """Phase 4l (a): the forward, dq and dk/dv kernels at ``COVER_HDS``
+    and ``COVER_ATTN`` against their plain versions (o and lse within
+    1e-5, the backward within 1e-5·(1 + |plain|)), each call counted as a
+    launch of its kernel, two calls bit-equal."""
+    out = {}
+    for hd in COVER_HDS:
+        for bh, s_len, nc in COVER_ATTN:
+            q, k, v, do = _attn_inputs(bh, s_len, g, dev, hd, n=4)
+            po, plse = ref_gpo_attention(q, k, v, num_ctx=nc)
+            plain = ref_gpo_attention_bwd(q, k, v, po, plse, do, num_ctx=nc)
+            ops = (q, k, v, do, plse, (do * po).sum(-1))
+            before = _counts()
+            runs = [(*gpo_attention_fwd(q, k, v, num_ctx=nc),
+                     *_attention_bwd(ops, nc)) for _ in range(2)]
+            torch.cuda.synchronize()
+            moved = {n: _counts()[n] - before[n] for n in before}
+            want = {n: (2 if n.startswith("gpo_attention") else 0)
+                    for n in before}
+            eo = (runs[0][0] - po).abs().max().item()
+            el = (runs[0][1] - plse).abs().max().item()
+            errs = [_close(a, b, 1e-5) for a, b in zip(runs[0][2:], plain)]
+            same = all(_bits_equal(a, b) for a, b in zip(*runs))
+            label = f"hd {hd} {bh}x{s_len}x{nc}"
+            out[label] = {"o": eo, "lse": el, "dq": errs[0][0],
+                          "dk": errs[1][0], "dv": errs[2][0],
+                          "repeat_bit_equal": same, "launches": moved}
+            print(f"  gpo_attention {label} (built width "
+                  f"{head_width_for(hd)}): max_abs_err o {eo:.2e} lse "
+                  f"{el:.2e} dq {errs[0][0]:.2e} dk {errs[1][0]:.2e} dv "
+                  f"{errs[2][0]:.2e}; repeat bit-equal {same}; launches "
+                  f"{ {n: c for n, c in moved.items() if c} }")
+            if not (eo <= 1e-5 and el <= 1e-5 and all(ok for _, ok in errs)
+                    and torch.isfinite(runs[0][0]).all()):
+                raise AssertionError(f"gpo_attention off the plain version "
+                                     f"at {label}")
+            if not same or moved != want:
+                raise AssertionError(f"gpo_attention at {label}: repeat "
+                                     f"bit-equal {same}, launches {moved}")
+    return out
+
+
+def _cover_inputs(c, p, dev, seed, ties=False):
+    """``_agg_inputs`` drawn on the card (a (1024, 534016) draw on the
+    host takes seconds): deltas, normalised weights."""
+    gd = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((c, p), generator=gd, device=dev)
+    if ties:
+        x = torch.round(2 * x) / 2
+    w = torch.rand((c,), generator=gd, device=dev) + 0.1
+    return x, w / w.sum()
+
+
+def _cover_reduces(dev) -> dict:
+    """Phase 4l (b): the trimmed reduce (trim 0, 1 and the median) and
+    the pairwise distances at ``COVER_CS`` clients and ``COVER_P``
+    columns against their plain versions, each call a launch of the
+    design past 32 clients, two calls bit-equal. The trimmed reduce's
+    deltas have ties (values on a grid of 1/2), NaNs in a few entries
+    and one column of NaN, and one infinity: NaN and infinity where the
+    plain version has them, the rest within 1e-6·(1 + |plain|); the
+    pairwise distances within 1e-5·max_i |x_i|^2, exactly symmetric, the
+    diagonal exactly 0, and at ``COVER_F64_CS`` clients against float64
+    as phase 1 holds the C <= 32 design (``_pairwise_f64``). The plain
+    pairwise call is timed (CUDA events): phase 5's row at C 1024 takes
+    that time rather than run a call of seconds again."""
+    out = {}
+    for i, c in enumerate(COVER_CS):
+        x, w = _cover_inputs(c, COVER_P, dev, SEED + 40 + i, ties=True)
+        x[3, 5] = float("nan")
+        x[c // 2, 11] = float("nan")
+        x[:, 7] = float("nan")
+        x[c - 1, 13] = float("inf")
+        design = trimmed_design_for(c)
+        for trim in sorted({0, 1, (c - 1) // 2}):
+            before = trimmed_reduce_flat.launches
+            got = trimmed_reduce_flat(x, w, trim=trim)
+            again = trimmed_reduce_flat(x, w, trim=trim)
+            moved = trimmed_reduce_flat.launches - before
+            plain = ref_trimmed_flat(x, w, trim=trim)
+            torch.cuda.synchronize()
+            fin = torch.isfinite(plain)
+            err, ok = _close(got[fin], plain[fin], 1e-6)
+            odd = (torch.equal(torch.isnan(got), torch.isnan(plain))
+                   and torch.equal(got[torch.isinf(plain)],
+                                   plain[torch.isinf(plain)]))
+            same = _bits_equal(got, again)
+            label = f"C {c} trim {trim}"
+            out[f"trimmed_reduce {label}"] = {
+                "max_abs_err": err, "nan_inf_as_plain": odd,
+                "nan_columns": int(torch.isnan(got).sum()),
+                "repeat_bit_equal": same, "launches": moved,
+                "design": design}
+            print(f"  trimmed_reduce {label} P={COVER_P} ({design}): "
+                  f"max_abs_err {err:.2e} (tol 1e-6*(1+|plain|)); NaN and "
+                  f"inf as the plain version {odd} "
+                  f"({int(torch.isnan(got).sum())} NaN columns); repeat "
+                  f"bit-equal {same}; launches {moved}")
+            if not (ok and odd and same and moved == 2
+                    and design == "select"):
+                raise AssertionError(f"trimmed_reduce at {label}")
+        del x, plain, got, again
+        x, _ = _cover_inputs(c, COVER_P, dev, SEED + 50 + i)
+        design = pairwise_design_for(c)
+        before = pairwise_dists_flat.launches
+        got = pairwise_dists_flat(x)
+        again = pairwise_dists_flat(x)
+        moved = pairwise_dists_flat.launches - before
+        a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        plain = ref_pairwise_sq_dists(x)
+        b.record()
+        b.synchronize()
+        atol = 1e-5 * (x * x).sum(dim=1).max().item()
+        err = (got - plain).abs().max().item()
+        same = _bits_equal(got, again)
+        exact = (bool((torch.diagonal(got) == 0).all())
+                 and torch.equal(got, got.T))
+        rec = out[f"pairwise_dists C {c}"] = {
+            "max_abs_err": err, "atol": atol, "repeat_bit_equal": same,
+            "diag_zero_symmetric": exact, "launches": moved,
+            "design": design, "split": list(pairwise_split(c, COVER_P)),
+            "plain_ms": a.elapsed_time(b)}
+        print(f"  pairwise_dists C {c} P={COVER_P} ({design}, "
+              f"chunk, blocks {pairwise_split(c, COVER_P)}): max_abs_err "
+              f"{err:.3e} (tol {atol:.3e}); zero diagonal and symmetric "
+              f"{exact}; repeat bit-equal {same}; launches {moved}")
+        if not (err <= atol and same and exact and moved == 2
+                and torch.isfinite(got).all() and design == "tiled"):
+            raise AssertionError(f"pairwise_dists at C {c}")
+        del plain, got, again
+        if c in COVER_F64_CS:
+            f64 = rec["f64"] = _pairwise_f64(x, ("pairwise_one_pass",))
+            print(f"  pairwise_dists C {c} P={COVER_P} mean |err| vs "
+                  f"float64: f32 expansion form "
+                  f"{f64['plain_mean_abs_err']:.3e}; the kernel "
+                  f"{f64['kernel']:.3f}x that (limit {PAIRWISE_F64_RATIO}), "
+                  f"one-pass control {f64['pairwise_one_pass']:.3f}x")
+            _pairwise_f64_verdict(f64, f"C {c}")
+        del x
+        torch.cuda.empty_cache()
+    return out
+
+
+def _cover_run(label, gcfg, fcfg, data, tr, ev, dev, want) -> dict:
+    """3 rounds of ``FederatedGPO`` through the kernels (launches
+    counted against ``want``), against the same run on the CPU within
+    ``TRAIN_TOL``."""
+    fed = FederatedGPO(gcfg, fcfg, data, tr, ev, device=dev)
+    _zero_counts()
+    t0 = time.perf_counter()
+    hist = fed.run(rounds=TRAIN_ROUNDS, engine="loop")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = _counts()
+    cpu = FederatedGPO(gcfg, fcfg, data, tr, ev, device="cpu")
+    cpu_hist = cpu.run(rounds=TRAIN_ROUNDS, engine="loop")
+    agree = _agreement(hist, fed.global_params, cpu_hist, cpu.global_params)
+    rec = {"clients": len(tr), "head_dim": gcfg.d_model // gcfg.num_heads,
+           "launches": {k: v for k, v in launches.items() if v},
+           "wall_ms_per_round": wall / TRAIN_ROUNDS * 1e3,
+           "round_loss": hist.round_loss, "agreement_cpu": agree}
+    print(f"  {label}: {len(tr)} clients, head_dim {rec['head_dim']}, "
+          f"{rec['wall_ms_per_round']:.1f} ms/round; launches "
+          f"{rec['launches']}; vs cpu: loss rel "
+          f"{agree['round_loss_rel']:.2e} eval {agree['eval_abs']:.2e} "
+          f"params {agree['params_max_abs']:.2e}")
+    full = {**dict.fromkeys(_COUNTED, 0), **want}
+    if launches != full:
+        raise AssertionError(f"{label}: launches {launches}, want {full}")
+    if not _within(agree):
+        raise AssertionError(f"{label}: off the CPU run (tolerance "
+                             f"{TRAIN_TOL})")
+    return rec
+
+
+def _cover_users(dev) -> dict:
+    """Phase 4l (c): the users the kernels refused before they took
+    these shapes, through the kernels against their CPU runs:
+    ``benchmarks/bench_round.py``'s round (17 groups, d_model 8 in one
+    head: head_dim 8); the paper's 60/40 split of 67 groups (40 training
+    clients) under krum and the median; the dry run ``--gpo-fed
+    --pallas-attn --clients 8`` (d_model 32 in two heads: head_dim 16),
+    its processes' launches and losses."""
+    out = {}
+    data = make_survey_data(SurveyConfig(num_groups=17, num_questions=16,
+                                         d_embed=4, seed=0), _gen(SEED))
+    tr, ev = split_groups(data, train_frac=0.6, seed=0)
+    gcfg = GPOConfig(d_embed=4, d_model=8, num_layers=1, num_heads=1,
+                     d_ff=16)
+    fcfg = FedConfig(num_clients=len(tr), local_epochs=6, eval_every=1,
+                     num_context=1, num_target=1,
+                     use_pallas_attention=True, use_pallas_aggregation=True)
+    out["bench_round hd 8"] = _cover_run(
+        "bench_round's round", gcfg, fcfg, data, tr, ev, dev,
+        {**_attention_launches(gcfg, fcfg, TRAIN_ROUNDS),
+         "fedavg_reduce": TRAIN_ROUNDS})
+
+    data = make_survey_data(SurveyConfig(num_groups=67), _gen(SEED))
+    tr, ev = split_groups(data, seed=SEED)
+    gcfg = GPOConfig(d_embed=data.phi.shape[-1])
+    base = FedConfig(num_clients=len(tr), local_epochs=6, lr=3e-4,
+                     eval_every=1, use_pallas_attention=True,
+                     use_pallas_aggregation=True)
+    for label in ("krum", "median"):
+        kern = _strategy_cfg(base, label)
+        out[f"{label} C {len(tr)}"] = _cover_run(
+            f"{label} over {len(tr)} clients", gcfg, kern, data, tr, ev, dev,
+            {**_attention_launches(gcfg, kern, TRAIN_ROUNDS),
+             STRATEGY_KERNEL[label]: TRAIN_ROUNDS})
+        out[f"{label} C {len(tr)}"]["design"] = (
+            pairwise_design_for if label == "krum" else
+            trimmed_design_for)(len(tr))
+
+    runs = {d: dryrun.lower_gpo_round("fedavg", clients=8,
+                                      use_pallas_attention=True,
+                                      verbose=False, device=d)
+            for d in (dev, "cpu")}
+    card, cpu = runs[dev], runs["cpu"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(
+        card["client_losses"] + [card["params_sq_norm"]],
+        cpu["client_losses"] + [cpu["params_sq_norm"]]))
+    launched = {k: n for k, n in card["kernel_launches"].items() if n}
+    out["dryrun gpo-fed hd 16"] = {
+        "launches": launched, "run_s": card["run_s"],
+        "cpu_run_s": cpu["run_s"], "rel_diff_cpu": rel,
+        "collective_bytes_by_kind": card["collective_bytes_by_kind"]}
+    print(f"  dryrun --gpo-fed --pallas-attn --clients 8 (head_dim 16): "
+          f"{card['run_s']}s, launches over the processes {launched}; "
+          f"client losses and params' squared norm vs cpu: rel {rel:.2e}")
+    if not all(launched.get(k, 0) > 0 for k in (
+            "gpo_attention_fwd", "gpo_attention_bwd_dq",
+            "gpo_attention_bwd_dkdv")):
+        raise AssertionError("the dry run's round ran no attention kernel")
+    if rel > TRAIN_TOL["round_loss_rtol"] or (
+            card["collective_bytes_by_kind"]
+            != cpu["collective_bytes_by_kind"]):
+        raise AssertionError("the dry run's round on the card is off its "
+                             "CPU run")
+    return out
+
+
+def kernel_coverage(dev) -> dict:
+    """Phase 4l: the GPO attention kernels at head widths other than 24
+    and 32, the trimmed and pairwise kernels past 32 clients, and the
+    users that need them."""
+    t0 = time.perf_counter()
+    rec = {"attention": _cover_attention(dev, _gen(SEED + 30)),
+           "reduces": _cover_reduces(dev)}
+    rec["checks_s"] = time.perf_counter() - t0
+    rec["users"] = _cover_users(dev)
+    rec["seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def _coverage_rows(dev, kernels: list, cover: dict, card_name: str) -> None:
+    """Phase 5's rows of phase 4l's shapes, nested in each kernel's row
+    under ``coverage``: the attention kernels at ``COVER_ROW_HDS`` (the
+    training shape, beside SDPA with the mask), the trimmed reduce
+    (median) and the pairwise distances at ``COVER_ROW_CS`` clients
+    (beside ``torch.cdist``'s matrix-product mode)."""
+    peaks = _peaks(card_name)
+    tf32_peak = _TF32_PEAKS[_card_row(card_name)]
+    tf32 = (tf32_peak / 3, peaks[1])  # 3xTF32: three products a FMA
+    rows = {r["name"]: r for r in kernels}
+    g = _gen(SEED + 31)
+    bh, s_len, nc = COVER_ATTN[0]
+    band = s_len * nc + (s_len - nc)
+    pos = torch.arange(s_len, device=dev)
+    mask = (pos[None, :] < nc) | (pos[None, :] == pos[:, None])
+    users = cover["users"]
+    for hd in COVER_ROW_HDS:
+        q, k, v, do = _attn_inputs(bh, s_len, g, dev, hd, n=4)
+        o, lse = gpo_attention_fwd(q, k, v, num_ctx=nc)
+        ops = (q, k, v, do, lse, (do * o).sum(-1))
+        leaf = [t.clone().requires_grad_() for t in (q, k, v)]
+        sdpa_bwd = _bwd_alone(
+            lambda *a: F.scaled_dot_product_attention(*a, attn_mask=mask),
+            leaf, do)
+        checked = cover["attention"][f"hd {hd} {bh}x{s_len}x{nc}"]
+        path = (users["bench_round hd 8"]["launches"] if hd == 8 else {})
+        for name, kfn, pfn, lib, n_out, per_pair, err in (
+                ("gpo_attention_fwd",
+                 lambda: gpo_attention_fwd(q, k, v, num_ctx=nc),
+                 lambda: ref_gpo_attention(q, k, v, num_ctx=nc),
+                 lambda: F.scaled_dot_product_attention(q, k, v,
+                                                        attn_mask=mask),
+                 1, 4, max(checked["o"], checked["lse"])),
+                ("gpo_attention_bwd_dq",
+                 lambda: gpo_attention_bwd_dq(*ops, num_ctx=nc),
+                 lambda: ref_gpo_attention_bwd_dq(*ops, num_ctx=nc), None,
+                 1, 6, checked["dq"]),
+                ("gpo_attention_bwd_dkdv",
+                 lambda: gpo_attention_bwd_dkdv(*ops, num_ctx=nc),
+                 lambda: ref_gpo_attention_bwd_dkdv(*ops, num_ctx=nc), None,
+                 2, 8, max(checked["dk"], checked["dv"]))):
+            times = _timed(kfn, pfn, lib)
+            if lib is None:  # SDPA's whole backward, as the hd 32 rows
+                times["library_ms"], times["eager_ms"]["library"] = sdpa_bwd
+            # fwd: q, k, v read, o and lse written; bwd: q, k, v, do, lse
+            # and delta read, each output written
+            nbytes = (4 * bh * (4 * s_len * hd + s_len) if n_out == 1
+                      and name.endswith("fwd") else
+                      4 * bh * ((4 + n_out) * s_len * hd + 2 * s_len))
+            bound, by = _bound_ms(nbytes, per_pair * bh * band * hd, tf32)
+            entry = {"name": f"{name} hd {hd}", "shape": [bh, s_len, nc, hd],
+                     "built_width": head_width_for(hd),
+                     "launches": path.get(name, 0),
+                     "launches_from": "phase 4l's bench_round round"
+                                      if hd == 8 else "no path at this width",
+                     "max_abs_err": err, **times, "bound_ms": bound,
+                     "bound_by": by}
+            rows[name].setdefault("coverage", {})[f"hd {hd}"] = entry
+            print(f"  {entry['name']} {entry['shape']}: kernel "
+                  f"{times['ms'] * 1e3:.2f}us  plain "
+                  f"{times['plain_ms'] * 1e3:.2f}us  SDPA"
+                  f"{'' if lib else ' backward'} "
+                  f"{times['library_ms'] * 1e3:.2f}us  bound "
+                  f"{bound * 1e3:.3f}us ({by})")
+        del q, k, v, do, o, lse, ops, leaf
+    for c in COVER_ROW_CS:
+        xs = [_cover_inputs(c, COVER_P, dev, SEED + 60 + j)
+              for j in range(2 if c > 64 else 4)]
+        w = xs[0][1]
+        xs = [x for x, _ in xs]
+        turn = [0]
+
+        def rot(fn):
+            def call():
+                turn[0] += 1
+                return fn(xs[turn[0] % len(xs)])
+            return call
+
+        trim = (c - 1) // 2
+        # at C 1024 a call of the kernel takes milliseconds and one of
+        # each plain version up to seconds (and the sort's scratch is
+        # gigabytes, which a graph would keep): fewer calls, the trimmed
+        # plain version once after a warm call, eager, and the pairwise
+        # one the timed call of phase 4l's check; at C 64 the plain
+        # versions (milliseconds a call) over fewer calls than the kernels
+        few = dict(iters=3, reps=3) if c > 64 else {}
+        kt = _time_ms(rot(lambda x: trimmed_reduce_flat(x, w, trim=trim)),
+                      **few)
+        plain = rot(lambda x: ref_trimmed_flat(x, w, trim=trim))
+        pt = _once_ms(plain) if c > 64 else _time_ms(plain, iters=5, reps=3)
+        # the select design's compares: a radix select of the key's 32
+        # bits over the C clients for each of the two ranks (one at an
+        # odd C's median), then the walk
+        selects = 1 if c - 1 - trim == trim else 2
+        bound, by = _bound_ms(4 * (c * COVER_P + COVER_P + c),
+                              (32 * selects + 1) * c * COVER_P, peaks)
+        checked = cover["reduces"][f"trimmed_reduce C {c} trim {trim}"]
+        rows["trimmed_reduce"].setdefault("coverage", {})[f"C {c}"] = {
+            "name": f"trimmed_reduce C {c}", "shape": [c, COVER_P],
+            "trim": trim, "design": trimmed_design_for(c),
+            "launches": 0, "launches_from": "no path at this C (phase 4l's "
+            "median ran C 40)", "max_abs_err": checked["max_abs_err"],
+            "ms": kt[0], "plain_ms": pt[0] if pt[0] is not None else pt[1],
+            "library_ms": None,
+            "eager_ms": {"kernel": kt[1], "plain": pt[1]},
+            "bound_ms": bound, "bound_by": by}
+        print(f"  trimmed_reduce C {c} median: kernel {kt[0] * 1e3:.1f}us  "
+              f"plain {(pt[0] or pt[1]) * 1e3:.1f}us  bound {bound * 1e3:.2f}us ({by})")
+        checked = cover["reduces"][f"pairwise_dists C {c}"]
+        kp = _time_ms(rot(pairwise_dists_flat), **few)
+        pp = ((None, checked["plain_ms"]) if c > 64 else
+              _time_ms(rot(ref_pairwise_sq_dists), iters=5, reps=3))
+        lp = _time_ms(rot(lambda x: torch.cdist(
+            x, x, compute_mode="use_mm_for_euclid_dist").square()), **few)
+        # the C (C + 1) / 2 dot products, each of its FMAs computed as
+        # GRAM_TILE_PRODUCTS tensor-core products at the TF32 rate
+        bound, by = _bound_ms(4 * c * COVER_P, c * (c + 1) * COVER_P,
+                              (tf32_peak / GRAM_TILE_PRODUCTS, peaks[1]))
+        rows["pairwise_dists"].setdefault("coverage", {})[f"C {c}"] = {
+            "name": f"pairwise_dists C {c}", "shape": [c, COVER_P],
+            "design": pairwise_design_for(c),
+            "split": list(pairwise_split(c, COVER_P)),
+            "launches": 0, "launches_from": "no path at this C (phase 4l's "
+            "krum ran C 40)", "max_abs_err": checked["max_abs_err"],
+            "ms": kp[0], "plain_ms": pp[0] if pp[0] is not None else pp[1],
+            "library_ms": lp[0],
+            "library_call": "torch.cdist(x, x, compute_mode="
+                            "'use_mm_for_euclid_dist').square()",
+            "eager_ms": {"kernel": kp[1], "plain": pp[1], "library": lp[1]},
+            "bound_ms": bound, "bound_by": by}
+        print(f"  pairwise_dists C {c}: kernel {kp[0] * 1e3:.1f}us  plain "
+              f"{(pp[0] or pp[1]) * 1e3:.1f}us  cdist {lp[0] * 1e3:.1f}us  "
+              f"bound {bound * 1e3:.2f}us ({by})")
+        del xs
+        torch.cuda.empty_cache()
+    # the 40-client runs' launches on the rows
+    for label, name in (("krum", "pairwise_dists"),
+                        ("median", "trimmed_reduce")):
+        run = next(r for k, r in users.items() if k.startswith(label))
+        rows[name].setdefault("launches_by_path", {})[
+            f"coverage {label} C {run['clients']}"] = run["launches"][name]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -6126,16 +6667,11 @@ def main() -> int:
     t0 = time.perf_counter()
     _start_control_builds()  # phase 1's planted controls, alongside
     paths = backend.build()
-    print(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f}s")
-    for src, log in backend.BUILD_LOG.items():
-        # ptxas -v: one report per kernel (trimmed_reduce has one per C)
-        regs = [int(n) for n in re.findall(r"Used (\d+) registers", log)]
-        spills = sorted({ln.strip() for ln in log.splitlines()
-                         if "spill" in ln and " 0 bytes spill stores, 0 "
-                         "bytes spill loads" not in ln})
-        print(f"  {src}: {len(regs)} kernels, {min(regs, default=0)}-"
-              f"{max(regs, default=0)} registers a thread, spills: "
-              f"{'; '.join(spills) or 'none'}")
+    print(f"[build] {len(paths)} kernels in {time.perf_counter() - t0:.1f}s; "
+          "each source's nvcc, seconds: " + ", ".join(
+              f"{k} {v:.1f}" for k, v in sorted(
+                  backend.BUILD_SECONDS.items(), key=lambda kv: kv[1])))
+    build_rec = _build_report()
 
     print("[1] kernels against their plain versions on the card")
     worst = check_kernels(dev)
@@ -6209,6 +6745,13 @@ def main() -> int:
     tool_rec = tooling(dev, lm_train_rec, lm_rec, card)
     _lap()
     print(f"  phase 4k: {time.perf_counter() - t0:.1f}s")
+    print("[4l] kernel coverage: the attention kernels at other head "
+          "widths, the trimmed and pairwise kernels past 32 clients, and "
+          "the users that need them")
+    t0 = time.perf_counter()
+    cover_rec = {"build": build_rec, **kernel_coverage(dev)}
+    _lap()
+    print(f"  phase 4l: {time.perf_counter() - t0:.1f}s")
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, exp_rec, stage_rec, name, worst)
@@ -6218,6 +6761,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _lm_train_rows(dev, lm_train_rec, kernels, _peaks(name))
     print(f"  phase 5's LM training rows: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    _coverage_rows(dev, kernels, cover_rec, name)
+    print(f"  phase 5's coverage rows: {time.perf_counter() - t0:.1f}s")
     _lap()
     # phase 4g's launches, over its processes and configurations
     sharded = {}
@@ -6260,6 +6806,7 @@ def main() -> int:
     print(json.dumps({"lm_train": lm_train_rec}))
     print(json.dumps({"serve_train": serve_train_rec}))
     print(json.dumps({"tooling": tool_rec}))
+    print(json.dumps({"coverage": cover_rec}))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

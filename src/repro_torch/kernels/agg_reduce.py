@@ -19,10 +19,20 @@ by bytes on the H100. Shapes and times at the quickstart's
 * ``trimmed_reduce_flat`` (``csrc/trimmed_reduce.cu``, replaces
   ``_trim_kernel``): the per-coordinate stable-rank trimmed weighted
   mean, ``trim`` clients dropped at each end (the median at
-  trim = (C−1)//2). One thread per coordinate ranks its C values in
-  registers with ``_trim_kernel``'s own predicate (one instantiation
-  per C, so the client loops unroll). 4·(C·P + P + C) bytes, about
-  7.0 µs; the C² compares (53 M) are far under the rate.
+  trim = (C−1)//2). Two designs, picked by ``trimmed_design_for(C)``:
+  "registers" for
+  C ≤ ``REGISTER_CLIENTS`` (32), one thread per coordinate ranking its C
+  values in registers with ``_trim_kernel``'s own predicate (one
+  instantiation per C, so the client loops unroll; 4·(C·P + P + C)
+  bytes, about 7.0 µs; the C² compares (53 M) are far under the rate);
+  "select" up to ``MAX_CLIENTS``, a block staging the (C, 16) slab of 16
+  coordinates in shared memory as order keys, one warp a coordinate
+  selecting the pairs (key, client) at ranks trim and C−1−trim by a
+  radix select over the key's bits, then one thread a coordinate
+  summing the survivors in client order. Both give the reference's
+  survivors (ties by client index); a NaN anywhere in a column makes the
+  column NaN in the reference (keep·w·x with keep = 0), and in the
+  select design too (the register design skips dropped clients).
 * ``pairwise_dists_flat`` (``csrc/pairwise_dists.cu``, replaces
   ``_pairwise_kernel``): the (C, C) squared distances
   G_ii + G_jj − 2·G_ij from the Gram matrix G = X·Xᵀ, clamped at 0. The
@@ -34,7 +44,13 @@ by bytes on the H100. Shapes and times at the quickstart's
   sums added in f64 into an (nb, C, C) scratch; a second launch sums the
   blocks in a fixed order in f64 and forms d from G's own diagonal: no
   atomics, two calls bit-equal, the diagonal exactly 0, the output
-  exactly symmetric. 4·C·P bytes, 21.4 MB, about 6.4 µs.
+  exactly symmetric. 4·C·P bytes, 21.4 MB, about 6.4 µs. That is the
+  "one_tile" design, for C ≤ ``REGISTER_CLIENTS``; "tiled"
+  (``pairwise_design_for``) takes C up to ``MAX_CLIENTS``: 32-row tiles
+  of G, a block per column chunk and tile pair I ≤ J, the same exact
+  big·big and three small products, and a column chunk that depends on
+  (C, P) (``pairwise_split``) so that the f64 partials stay within
+  ``PAIRWISE_BUDGET`` bytes.
 
 * ``clip_reduce_flat`` (``csrc/clip_reduce.cu``, replaces
   ``_clip_reduce_kernel`` and ``_clip_reduce_noise_kernel``): the DP
@@ -77,10 +93,10 @@ by bytes on the H100. Shapes and times at the quickstart's
   4·(2·C·P + P + 2·C) bytes with the residual, 44.9 MB, about 13.4 µs.
 
 The trimmed and pairwise kernels hold at most ``MAX_CLIENTS`` clients
-(instantiations and registers, shared memory per block), the clip and
-quant kernels at most ``MAX_ROWS`` (two floats a client in the shared
-memory of the three-pass kernels); the wrappers refuse more on both
-devices.
+(the select design's slab of 16 coordinates in shared memory, the
+pairwise partials' budget), the clip and quant kernels at most
+``MAX_ROWS`` (two floats a client in the shared memory of the
+three-pass kernels); the wrappers refuse more on both devices.
 Every wrapper holds the operand contract on both devices, runs the plain
 version on CPU tensors, launches on CUDA tensors or raises, and counts
 its launches (one call counts once, however many kernels it launches;
@@ -113,10 +129,18 @@ _NORM_FLOOR = 1e-12
 INT8_LEVELS = 127.0
 _SCALE_FLOOR = 1e-30
 
-# the trimmed and pairwise kernels' cap on C (kMaxClients in their
-# sources): FedConfig.num_clients is 10 in the quickstart and the sweeps,
-# 32 in benchmarks/bench_round.py's aggregation section
-MAX_CLIENTS = 32
+# the trimmed and pairwise kernels' cap on C (kMaxSelect, kMaxTiled in
+# their sources), and the cap of their C <= 32 designs (kMaxClients):
+# FedConfig.num_clients is 10 in the quickstart and the sweeps, 32 in
+# benchmarks/bench_round.py's aggregation section, tens to hundreds in
+# cross-device rounds
+MAX_CLIENTS = 1024
+REGISTER_CLIENTS = 32
+# the tiled pairwise design: a column chunk is a multiple of its stage
+# (kTCols) and at least PAIRWISE_CHUNK, and large enough that the
+# (nb, C, C) f64 partials fit this many bytes
+PAIRWISE_STAGE = 128
+PAIRWISE_BUDGET = 256 << 20
 # the clip and quant kernels' cap on C (kMaxRows in csrc/client_rows.cuh)
 MAX_ROWS = 4096
 # columns per block of the pairwise kernel (kChunk in its source)
@@ -139,6 +163,9 @@ _TRIMMED_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
 _PAIRWISE_ARGTYPES = [ctypes.c_void_p] * 3 + [
     ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_void_p]
+_TILES_ARGTYPES = [ctypes.c_void_p] * 3 + [
+    ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong, ctypes.c_longlong,
+    ctypes.c_void_p]
 _CLIP_ARGTYPES = [ctypes.c_void_p] * 5 + [
     ctypes.c_float, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
     ctypes.c_longlong, ctypes.c_void_p]
@@ -213,12 +240,18 @@ def _check_clients(what: str, c: int) -> None:
                          f"to {MAX_CLIENTS}")
 
 
+def trimmed_design_for(c: int) -> str:
+    """The trimmed reduce's design at C clients: "registers" up to
+    ``REGISTER_CLIENTS``, else "select" (shared memory)."""
+    return "registers" if c <= REGISTER_CLIENTS else "select"
+
+
 def trimmed_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
                         trim: int) -> torch.Tensor:
     """stacked (C, P) f32 deltas, weights (C,) f32 -> (P,) f32: the
     per-coordinate rank-trimmed weighted mean, ``trim`` clients dropped
     at each end. CPU tensors take the plain version; CUDA tensors launch
-    the kernel."""
+    the kernel in ``trimmed_design_for(C)``."""
     if stacked.dim() != 2 or weights.shape != stacked.shape[:1]:
         raise ValueError(f"trimmed_reduce shapes: stacked "
                          f"{tuple(stacked.shape)}, weights "
@@ -245,10 +278,32 @@ def trimmed_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
 trimmed_reduce_flat.launches = 0
 
 
+def pairwise_design_for(c: int) -> str:
+    """The pairwise kernel's design at C clients: "one_tile" up to
+    ``REGISTER_CLIENTS`` (one block holds the whole Gram of its columns),
+    else "tiled" (32-row tile pairs)."""
+    return "one_tile" if c <= REGISTER_CLIENTS else "tiled"
+
+
+def pairwise_split(c: int, p: int) -> tuple[int, int]:
+    """(chunk, nb): the columns a block takes and the number of column
+    blocks of the pairwise kernel at (C, P). "one_tile": PAIRWISE_CHUNK
+    columns. "tiled": a multiple of PAIRWISE_STAGE columns, at least
+    PAIRWISE_CHUNK, with nb·C·C f64 partials within PAIRWISE_BUDGET
+    bytes."""
+    chunk = PAIRWISE_CHUNK
+    if pairwise_design_for(c) == "tiled":
+        most = max(1, PAIRWISE_BUDGET // (8 * c * c))  # blocks that fit
+        chunk = max(chunk, -(-p // most))
+        chunk = -(-chunk // PAIRWISE_STAGE) * PAIRWISE_STAGE
+    return chunk, -(-p // chunk)
+
+
 def pairwise_dists_flat(stacked: torch.Tensor) -> torch.Tensor:
     """stacked (C, P) f32 deltas -> (C, C) f32 pairwise squared L2
     distances, clamped at 0. CPU tensors take the plain version (the
-    direct difference form); CUDA tensors launch the kernel."""
+    direct difference form); CUDA tensors launch the kernel in
+    ``pairwise_design_for(C)``."""
     if stacked.dim() != 2:
         raise ValueError(f"pairwise_dists shapes: stacked "
                          f"{tuple(stacked.shape)}")
@@ -256,16 +311,20 @@ def pairwise_dists_flat(stacked: torch.Tensor) -> torch.Tensor:
     _check_clients("pairwise_dists", c)
     if backend.on_cpu("pairwise_dists", stacked, dtypes=(torch.float32,)):
         return ref_pairwise_sq_dists(stacked)
-    fn = backend.kernel("pairwise_dists", "pairwise_dists_launch",
-                        _PAIRWISE_ARGTYPES)
+    design = pairwise_design_for(c)
+    fn = (backend.kernel("pairwise_dists", "pairwise_dists_launch",
+                         _PAIRWISE_ARGTYPES) if design == "one_tile" else
+          backend.kernel("pairwise_dists", "pairwise_tiles_launch",
+                         _TILES_ARGTYPES))
     out = torch.empty((c, c), dtype=torch.float32, device=stacked.device)
     if p == 0:
         return out.zero_()
-    nb = -(-p // PAIRWISE_CHUNK)
+    chunk, nb = pairwise_split(c, p)
     part = torch.empty((nb, c, c), dtype=torch.float64,
                        device=stacked.device)
+    extra = () if design == "one_tile" else (chunk,)
     err = fn(stacked.data_ptr(), part.data_ptr(), out.data_ptr(), c, p, nb,
-             backend.stream_ptr(stacked.device))
+             *extra, backend.stream_ptr(stacked.device))
     backend.check(err, "pairwise_dists")
     pairwise_dists_flat.launches += 1
     return out

@@ -31,6 +31,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
 from pathlib import Path
 from typing import Dict
 
@@ -42,10 +43,11 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # loaded libraries by source stem, their bound C entries by symbol, and
-# the ptxas report of each build
+# the ptxas report and seconds of each build (all started together)
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _FNS: Dict[str, ctypes._CFuncPtr] = {}
 BUILD_LOG: Dict[str, str] = {}
+BUILD_SECONDS: Dict[str, float] = {}
 
 
 def resolve_device(device=None) -> torch.device:
@@ -133,15 +135,24 @@ def build() -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = _nvcc()
     procs = {}
+    t0 = time.perf_counter()
     for n in todo:
         tmp = paths[n].with_suffix(f".tmp{os.getpid()}")
-        procs[n] = (tmp, subprocess.Popen(
-            [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        log = tmp.with_suffix(f".log{os.getpid()}")
+        with open(log, "w") as out:
+            procs[n] = (tmp, log, subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(srcs[n])],
+                stdout=out, stderr=subprocess.STDOUT))
+    pending = set(procs)
+    while pending:  # each build's own seconds
+        for n in [n for n in pending if procs[n][2].poll() is not None]:
+            BUILD_SECONDS[n] = time.perf_counter() - t0
+            pending.discard(n)
+        time.sleep(0.05)
     failed = []
-    for n, (tmp, proc) in procs.items():
-        out, _ = proc.communicate()
-        BUILD_LOG[n] = out
+    for n, (tmp, log, proc) in procs.items():
+        out = BUILD_LOG[n] = log.read_text()
+        log.unlink()
         if proc.returncode != 0:
             failed.append(f"{n}.cu:\n{out}")
             tmp.unlink(missing_ok=True)

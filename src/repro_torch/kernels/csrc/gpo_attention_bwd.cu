@@ -23,7 +23,10 @@
 // products through one accumulator drifts: each k-step's big.big sum and
 // each stage's accumulation start from zero and are added in f32, which
 // brings the error against float64 to that of the plain f32 version
-// (PERF.md, section 6). k = 8 divides HD 24 and 32, so nothing is padded.
+// (PERF.md, section 6). k = 8 divides every built width HD (GPO_WIDTHS in
+// gpo_tiles.cuh); the wrapper pads any other head with zero columns.
+// Past HD 64 a context block owns a slab of dq, or of dk and dv, and
+// recomputes p and ds over the whole head (gpo_tiles.cuh).
 //
 // dq: one block of four warps per (bh, 16 query rows). The block's q and
 // do rows (and, if it holds target rows, their own k and v rows) come
@@ -71,8 +74,6 @@ namespace {
 
 constexpr int kTpr = 4;             // threads a target key, dk/dv
 constexpr int kTargets = kThreads / kTpr;  // target keys a dk/dv block takes
-// after the walk the ring of stages holds the warp partials, dk and dv
-static_assert(2 * kWarps * kTile <= kBufs * 2 * kStage, "partials overflow");
 static_assert(2 * kStage <= kThreads, "a thread each lse and delta value");
 
 // rows [r0, r0 + kStage) of one bh's (S,) lse or delta into shared
@@ -121,11 +122,13 @@ gpo_attention_bwd_dq_kernel(const float* __restrict__ q,
                             float* __restrict__ dq, int S, int num_ctx,
                             float scale) {
   constexpr int P = pitch(HD);
+  constexpr int VW = slab(HD);             // dq columns of the block
+  constexpr int kBufs = bufs(HD);
   constexpr int kTileF = kTile * P;        // floats of a 16-row tile
   constexpr int kStageF = 2 * kStage * P;  // floats of a stage: k, v
   // the block's rows of q, do, k and v; then the ring of stages, which
   // holds the warp partials after the walk
-  __shared__ __align__(16) float sm[4 * kTileF + kBufs * kStageF];
+  extern __shared__ __align__(16) float sm[];  // dq_smem_floats<HD>()
   float* const qs = sm;
   float* const dos = sm + kTileF;
   float* const kd = sm + 2 * kTileF;
@@ -140,6 +143,7 @@ gpo_attention_bwd_dq_kernel(const float* __restrict__ q,
   const float* lr = lse + static_cast<size_t>(blockIdx.y) * S;
   const float* dr = delta + static_cast<size_t>(blockIdx.y) * S;
   const int r0 = blockIdx.x * kTile;
+  const int col0 = blockIdx.z * VW;  // the block's slab of dq
   const bool has_target = r0 + kTile > num_ctx;  // uniform in the block
 
   // group 0: the block's tiles and stage 0; then stages 1 .. kBufs - 2,
@@ -176,10 +180,10 @@ gpo_attention_bwd_dq_kernel(const float* __restrict__ q,
   cp_async_wait<kBufs - 2>();
   __syncthreads();
 
-  TileA<HD> qa, da;
+  Tile<HD> qa, da;
   qa.load(qs, g, tq);
   da.load(dos, g, tq);
-  float acc[HD / 8][4] = {};
+  float acc[VW / 8][4] = {};
   for (int st = 0; st < stages; ++st) {
     if (st > 0) {
       cp_async_wait<kBufs - 2>();
@@ -200,17 +204,18 @@ gpo_attention_bwd_dq_kernel(const float* __restrict__ q,
         const float p = on ? expf(s[e] * scale - l[e >> 1]) : 0.0f;
         ds[e] = p * (dp[e] - dl[e >> 1]) * scale;
       }
-      mma_acc_u<HD>(acc, ds, ku, g, tq);
+      mma_acc_u<HD, VW>(acc, ds, ku + col0, g, tq);
     }
   }
   cp_async_wait<0>();
   __syncthreads();
-  store_partial<HD>(ring, acc, w, g, tq);
+  store_partial<HD, VW>(ring, acc, w, g, tq);
   __syncthreads();
 
-  // the partials in warp order, plus a target row's own key
-  const int c0 = (threadIdx.x & 7) * (HD / 8);
-  const int t = r * P + c0;
+  // the partials in warp order, plus a target row's own key (its dot
+  // products over the whole head, HD / 8 columns a thread)
+  const int c0 = (threadIdx.x & 7) * (VW / 8);
+  const int t = r * P + (threadIdx.x & 7) * (HD / 8);
   float p = 0.0f;
   float ds = 0.0f;
   if (has_target)
@@ -218,11 +223,12 @@ gpo_attention_bwd_dq_kernel(const float* __restrict__ q,
                    ds);
   if (!live) return;
   const bool target = row >= num_ctx;
-  const size_t off = base + static_cast<size_t>(row) * HD + c0;
+  const int tv = r * P + col0 + c0;  // the row's slab columns of k
+  const size_t off = base + static_cast<size_t>(row) * HD + col0 + c0;
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
+  for (int c = 0; c < VW / 8; ++c) {
     const float x = sum_partials<HD>(ring, r, c0 + c);
-    dq[off + c] = target ? fmaf(ds, kd[t + c], x) : x;
+    dq[off + c] = target ? fmaf(ds, kd[tv + c], x) : x;
   }
 }
 
@@ -238,20 +244,28 @@ gpo_attention_bwd_dkdv_kernel(const float* __restrict__ q,
                               int bh, int S, int num_ctx, int ctx_blocks,
                               int tgt_blocks, float scale) {
   constexpr int P = pitch(HD);
+  constexpr int VW = slab(HD);  // dk and dv columns of a context block
+  constexpr int kSlabs = HD / VW;
+  constexpr int kBufs = bufs(HD);
   constexpr int kTileF = kTile * P;
   // floats of a stage: q and do rows, then lse and delta
   constexpr int kStageF = 2 * kStage * P + 2 * kStage;
   // the block's rows of k and v; then the ring of stages, which holds
   // the dk and dv warp partials after the walk
-  __shared__ __align__(16) float sm[2 * kTileF + kBufs * kStageF];
+  extern __shared__ __align__(16) float sm[];  // dkdv_smem_floats<HD>()
+  static_assert(2 * kWarps * kTileF <= kBufs * kStageF, "partials overflow");
 
-  // a one-dimensional grid: every bh's context blocks, then every bh's
-  // target blocks, so the heavy blocks spread evenly over the SMs
-  const int n_ctx = bh * ctx_blocks;
+  // a one-dimensional grid: every bh's context blocks (each tile's
+  // slabs side by side), then every bh's target blocks, so the heavy
+  // blocks spread evenly over the SMs
+  const int n_ctx = bh * ctx_blocks * kSlabs;
   const int b = blockIdx.x;
   const bool ctx = b < n_ctx;
-  const int bhi = ctx ? b / ctx_blocks : (b - n_ctx) / tgt_blocks;
-  const int tile = ctx ? b % ctx_blocks : (b - n_ctx) % tgt_blocks;
+  const int bhi =
+      ctx ? b / (ctx_blocks * kSlabs) : (b - n_ctx) / tgt_blocks;
+  const int tile =
+      ctx ? b / kSlabs % ctx_blocks : (b - n_ctx) % tgt_blocks;
+  const int col0 = ctx ? b % kSlabs * VW : 0;  // the block's slab
   const size_t base = static_cast<size_t>(bhi) * S * HD;
   const float* lr = lse + static_cast<size_t>(bhi) * S;
   const float* dr = delta + static_cast<size_t>(bhi) * S;
@@ -309,11 +323,11 @@ gpo_attention_bwd_dkdv_kernel(const float* __restrict__ q,
   cp_async_wait<kBufs - 2>();
   __syncthreads();
 
-  TileA<HD> ka, va;
+  Tile<HD> ka, va;
   ka.load(ks, g, tq);
   va.load(vs, g, tq);
-  float dk_acc[HD / 8][4] = {};
-  float dv_acc[HD / 8][4] = {};
+  float dk_acc[VW / 8][4] = {};
+  float dv_acc[VW / 8][4] = {};
   for (int st = 0; st < stages; ++st) {
     if (st > 0) {
       cp_async_wait<kBufs - 2>();
@@ -338,102 +352,116 @@ gpo_attention_bwd_dkdv_kernel(const float* __restrict__ q,
         p[e] = on ? expf(s[e] * scale - lu[col]) : 0.0f;
         ds[e] = p[e] * (dp[e] - dlu[col]) * scale;
       }
-      mma_acc_u<HD>(dv_acc, p, du, g, tq);
-      mma_acc_u<HD>(dk_acc, ds, qu, g, tq);
+      mma_acc_u<HD, VW>(dv_acc, p, du + col0, g, tq);
+      mma_acc_u<HD, VW>(dk_acc, ds, qu + col0, g, tq);
     }
   }
   cp_async_wait<0>();
   __syncthreads();
   float* const part_k = ring;
   float* const part_v = ring + kWarps * kTileF;
-  store_partial<HD>(part_k, dk_acc, w, g, tq);
-  store_partial<HD>(part_v, dv_acc, w, g, tq);
+  store_partial<HD, VW>(part_k, dk_acc, w, g, tq);
+  store_partial<HD, VW>(part_v, dv_acc, w, g, tq);
   __syncthreads();
 
   const int r = threadIdx.x >> 3;
   const int key = j0 + r;
   if (key >= num_ctx) return;  // a target key: a target block writes it
-  const int c0 = (threadIdx.x & 7) * (HD / 8);
-  const size_t off = base + static_cast<size_t>(key) * HD + c0;
+  const int c0 = (threadIdx.x & 7) * (VW / 8);
+  const size_t off = base + static_cast<size_t>(key) * HD + col0 + c0;
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) {
+  for (int c = 0; c < VW / 8; ++c) {
     dk[off + c] = sum_partials<HD>(part_k, r, c0 + c);
     dv[off + c] = sum_partials<HD>(part_v, r, c0 + c);
   }
 }
 
 template <int HD>
-void launch_dq(const float* q, const float* k, const float* v,
-               const float* dout, const float* lse, const float* delta,
-               float* dq, int bh, int S, int num_ctx, float scale,
-               cudaStream_t st) {
-  const dim3 grid((S + kTile - 1) / kTile, bh);
-  gpo_attention_bwd_dq_kernel<HD><<<grid, kThreads, 0, st>>>(
-      q, k, v, dout, lse, delta, dq, S, num_ctx, scale);
+constexpr size_t dq_smem_floats() {
+  return 4 * kTile * pitch(HD) + bufs(HD) * 2 * kStage * pitch(HD);
 }
 
 template <int HD>
-void launch_dkdv(const float* q, const float* k, const float* v,
-                 const float* dout, const float* lse, const float* delta,
-                 float* dk, float* dv, int bh, int S, int num_ctx,
-                 float scale, cudaStream_t st) {
+constexpr size_t dkdv_smem_floats() {
+  return 2 * kTile * pitch(HD) +
+         bufs(HD) * (2 * kStage * pitch(HD) + 2 * kStage);
+}
+
+template <int HD>
+int launch_dq(const float* q, const float* k, const float* v,
+              const float* dout, const float* lse, const float* delta,
+              float* dq, int bh, int S, int num_ctx, float scale,
+              cudaStream_t st) {
+  const dim3 grid((S + kTile - 1) / kTile, bh, HD / slab(HD));
+  return launch_dyn(gpo_attention_bwd_dq_kernel<HD>, grid,
+                    sizeof(float) * dq_smem_floats<HD>(), st, q, k, v, dout,
+                    lse, delta, dq, S, num_ctx, scale);
+}
+
+template <int HD>
+int launch_dkdv(const float* q, const float* k, const float* v,
+                const float* dout, const float* lse, const float* delta,
+                float* dk, float* dv, int bh, int S, int num_ctx,
+                float scale, cudaStream_t st) {
   const int ctx_blocks = (num_ctx + kTile - 1) / kTile;
   const int tgt_blocks = (S - num_ctx + kTargets - 1) / kTargets;
-  gpo_attention_bwd_dkdv_kernel<HD>
-      <<<bh * (ctx_blocks + tgt_blocks), kThreads, 0, st>>>(
-          q, k, v, dout, lse, delta, dk, dv, bh, S, num_ctx, ctx_blocks,
-          tgt_blocks, scale);
+  const dim3 grid(bh * (ctx_blocks * (HD / slab(HD)) + tgt_blocks));
+  return launch_dyn(gpo_attention_bwd_dkdv_kernel<HD>, grid,
+                    sizeof(float) * dkdv_smem_floats<HD>(), st, q, k, v,
+                    dout, lse, delta, dk, dv, bh, S, num_ctx, ctx_blocks,
+                    tgt_blocks, scale);
 }
 
 }  // namespace
 
-// C entries, bound with ctypes. Each launches on `stream` (PyTorch's
-// current stream), allocates nothing, does not synchronise; returns
-// cudaGetLastError(), cudaErrorInvalidValue for a head width that is not
-// instantiated here, or cudaErrorMisalignedAddress for a (BH, S, HD)
-// operand that does not start 16-byte aligned.
+// C entries, bound with ctypes. q, k, v, do and the outputs are (bh, S,
+// width), width a built width (GPO_WIDTHS), hd <= width the head's own
+// width (the wrapper pads the rest with zero columns), which sets the
+// scale 1 / sqrt(hd). Each launches on `stream` (PyTorch's current
+// stream), allocates nothing, does not synchronise; returns
+// cudaGetLastError(), cudaErrorInvalidValue for a width that is not built
+// here or an hd outside [1, width], or cudaErrorMisalignedAddress for a
+// (BH, S, width) operand that does not start 16-byte aligned.
 extern "C" int gpo_attention_bwd_dq_launch(const float* q, const float* k,
                                            const float* v, const float* dout,
                                            const float* lse,
                                            const float* delta, float* dq,
                                            int bh, int S, int num_ctx, int hd,
-                                           void* stream) {
+                                           int width, void* stream) {
   if (!aligned16({q, k, v, dout, dq}))
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (hd < 1 || hd > width) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = softmax_scale(hd);
-  switch (hd) {
-    case 24:
-      launch_dq<24>(q, k, v, dout, lse, delta, dq, bh, S, num_ctx, scale, st);
-      break;
-    case 32:
-      launch_dq<32>(q, k, v, dout, lse, delta, dq, bh, S, num_ctx, scale, st);
-      break;
+  switch (width) {
+#define GPO_DQ_CASE(W)                                                      \
+  case W:                                                                   \
+    return launch_dq<W>(q, k, v, dout, lse, delta, dq, bh, S, num_ctx, scale, \
+                        st);
+    GPO_WIDTHS(GPO_DQ_CASE)
+#undef GPO_DQ_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int gpo_attention_bwd_dkdv_launch(
     const float* q, const float* k, const float* v, const float* dout,
     const float* lse, const float* delta, float* dk, float* dv, int bh,
-    int S, int num_ctx, int hd, void* stream) {
+    int S, int num_ctx, int hd, int width, void* stream) {
   if (!aligned16({q, k, v, dout, dk, dv}))
     return static_cast<int>(cudaErrorMisalignedAddress);
+  if (hd < 1 || hd > width) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = softmax_scale(hd);
-  switch (hd) {
-    case 24:
-      launch_dkdv<24>(q, k, v, dout, lse, delta, dk, dv, bh, S, num_ctx,
-                      scale, st);
-      break;
-    case 32:
-      launch_dkdv<32>(q, k, v, dout, lse, delta, dk, dv, bh, S, num_ctx,
-                      scale, st);
-      break;
+  switch (width) {
+#define GPO_DKDV_CASE(W)                                                \
+  case W:                                                               \
+    return launch_dkdv<W>(q, k, v, dout, lse, delta, dk, dv, bh, S,     \
+                          num_ctx, scale, st);
+    GPO_WIDTHS(GPO_DKDV_CASE)
+#undef GPO_DKDV_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

@@ -6,10 +6,14 @@
 // pallas_call in _gpo_forward).
 //
 // Inputs q, k, v (BH, S, HD) f32 contiguous; outputs o (BH, S, HD) and
-// lse (BH, S) f32. Key j is allowed for query i iff j < num_ctx (a
-// context key) or j == i (a target's own key). As in the TPU kernel,
-// scores scale by 1/sqrt(HD), the mask value is -1e30 (never -inf), l
-// clamps at 1e-30 and lse = m + log l; the backward reads this lse.
+// lse (BH, S) f32, HD a built width (GPO_WIDTHS in gpo_tiles.cuh: the
+// wrapper pads any other head with zero columns). Key j is allowed for
+// query i iff j < num_ctx (a context key) or j == i (a target's own
+// key). As in the TPU kernel, scores scale by 1/sqrt(hd) of the head's
+// own width, the mask value is -1e30 (never -inf), l clamps at 1e-30 and
+// lse = m + log l; the backward reads this lse. Past HD 64 a block owns
+// a slab of o's columns and recomputes the scores over the whole head
+// (gpo_tiles.cuh); the first slab's block writes lse.
 //
 // One block of four warps per (bh, 16 query rows). The block's q rows
 // (and, if it holds target rows, their own k and v rows) come into
@@ -59,11 +63,13 @@ gpo_attention_fwd_kernel(const float* __restrict__ q,
                          float* __restrict__ lse, int S, int num_ctx,
                          float scale) {
   constexpr int P = pitch(HD);
+  constexpr int VW = slab(HD);             // output columns of the block
+  constexpr int kBufs = bufs(HD);
   constexpr int kTileF = kTile * P;        // floats of a 16-row tile
   constexpr int kStageF = 2 * kStage * P;  // floats of a stage: k, v
   // the block's rows of q, k and v; then the ring of stages, which holds
   // the warp partials (acc, then m and l) after the walk
-  __shared__ __align__(16) float sm[3 * kTileF + kBufs * kStageF];
+  extern __shared__ __align__(16) float sm[];  // fwd_smem_floats<HD>()
   static_assert(kWarps * kTileF + 2 * kWarps * kTile <= kBufs * kStageF,
                 "partials overflow");
   float* const qs = sm;
@@ -77,6 +83,7 @@ gpo_attention_fwd_kernel(const float* __restrict__ q,
   const int tq = lane & 3;
   const size_t base = static_cast<size_t>(blockIdx.y) * S * HD;
   const int r0 = blockIdx.x * kTile;
+  const int col0 = blockIdx.z * VW;  // the block's slab of o
   const bool has_target = r0 + kTile > num_ctx;  // uniform in the block
 
   // group 0: the block's tiles and stage 0; then stages 1 .. kBufs - 2,
@@ -100,9 +107,9 @@ gpo_attention_fwd_kernel(const float* __restrict__ q,
   cp_async_wait<kBufs - 2>();
   __syncthreads();
 
-  TileA<HD> qa;
+  Tile<HD> qa;
   qa.load(qs, g, tq);
-  float acc[HD / 8][4] = {};
+  float acc[VW / 8][4] = {};
   // rows g and g + 8: the running max (the same on the 4 lanes of a
   // quad) and this lane's share of the running sum
   float m[2] = {kNegInf, kNegInf};
@@ -143,11 +150,11 @@ gpo_attention_fwd_kernel(const float* __restrict__ q,
         l[e >> 1] += p[e];
       }
 #pragma unroll
-      for (int nt = 0; nt < HD / 8; ++nt) {
+      for (int nt = 0; nt < VW / 8; ++nt) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[nt][e] *= alpha[e >> 1];
       }
-      mma_acc_u<HD>(acc, p, vu, g, tq);
+      mma_acc_u<HD, VW>(acc, p, vu + col0, g, tq);
     }
   }
 #pragma unroll
@@ -159,7 +166,7 @@ gpo_attention_fwd_kernel(const float* __restrict__ q,
   __syncthreads();
   float* const ms = ring + kWarps * kTileF;  // kWarps x 16 maxima
   float* const ls = ms + kWarps * kTile;     // kWarps x 16 sums
-  store_partial<HD>(ring, acc, w, g, tq);
+  store_partial<HD, VW>(ring, acc, w, g, tq);
   if (tq == 0) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -170,27 +177,27 @@ gpo_attention_fwd_kernel(const float* __restrict__ q,
   __syncthreads();
 
   // the warps in warp order, each scaled by exp(m_w - m_row), 8 threads
-  // a row over HD / 8 columns each
+  // a row over VW / 8 columns each
   const int r = threadIdx.x >> 3;
   const int row = r0 + r;
-  const int c0 = (threadIdx.x & 7) * (HD / 8);
+  const int c0 = (threadIdx.x & 7) * (VW / 8);
   float mr = kNegInf;
 #pragma unroll
   for (int ww = 0; ww < kWarps; ++ww) mr = fmaxf(mr, ms[ww * kTile + r]);
   float lr = 0.0f;
-  float x[HD / 8] = {};
+  float x[VW / 8] = {};
 #pragma unroll
   for (int ww = 0; ww < kWarps; ++ww) {
     const float a = expf(ms[ww * kTile + r] - mr);
     lr = fmaf(a, ls[ww * kTile + r], lr);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c)
+    for (int c = 0; c < VW / 8; ++c)
       x[c] = fmaf(a, ring[(ww * kTile + r) * P + c0 + c], x[c]);
   }
 
-  // a target row's own key: q_i . k_i over the row's 8 threads (every
-  // lane of the warp joins the shuffles)
-  const int t = r * P + c0;
+  // a target row's own key: q_i . k_i over the row's 8 threads, HD / 8
+  // columns each (every lane of the warp joins the shuffles)
+  const int t = r * P + (threadIdx.x & 7) * (HD / 8);
   float s_own = 0.0f;
   if (has_target) {
 #pragma unroll
@@ -201,55 +208,65 @@ gpo_attention_fwd_kernel(const float* __restrict__ q,
     s_own *= scale;
   }
   if (row >= S) return;
+  const int tv = r * P + col0 + c0;  // the row's slab columns of v
   if (row >= num_ctx) {
     const float m_new = fmaxf(mr, s_own);
     const float alpha = expf(mr - m_new);
     const float p = expf(s_own - m_new);
     lr = fmaf(lr, alpha, p);
 #pragma unroll
-    for (int c = 0; c < HD / 8; ++c) x[c] = fmaf(p, vd[t + c], x[c] * alpha);
+    for (int c = 0; c < VW / 8; ++c) x[c] = fmaf(p, vd[tv + c], x[c] * alpha);
     mr = m_new;
   }
   const float lc = fmaxf(lr, 1e-30f);
-  const size_t off = base + static_cast<size_t>(row) * HD + c0;
+  const size_t off = base + static_cast<size_t>(row) * HD + col0 + c0;
 #pragma unroll
-  for (int c = 0; c < HD / 8; ++c) o[off + c] = x[c] / lc;
-  if ((threadIdx.x & 7) == 0)
+  for (int c = 0; c < VW / 8; ++c) o[off + c] = x[c] / lc;
+  // every slab's block has the same m and l; the first writes lse
+  if (blockIdx.z == 0 && (threadIdx.x & 7) == 0)
     lse[static_cast<size_t>(blockIdx.y) * S + row] = mr + logf(lc);
 }
 
 template <int HD>
-void launch_fwd(const float* q, const float* k, const float* v, float* o,
-                float* lse, int bh, int S, int num_ctx, float scale,
-                cudaStream_t st) {
-  const dim3 grid((S + kTile - 1) / kTile, bh);
-  gpo_attention_fwd_kernel<HD><<<grid, kThreads, 0, st>>>(q, k, v, o, lse, S,
-                                                          num_ctx, scale);
+constexpr size_t fwd_smem_floats() {
+  return 3 * kTile * pitch(HD) + bufs(HD) * 2 * kStage * pitch(HD);
+}
+
+template <int HD>
+int launch_fwd(const float* q, const float* k, const float* v, float* o,
+               float* lse, int bh, int S, int num_ctx, float scale,
+               cudaStream_t st) {
+  const dim3 grid((S + kTile - 1) / kTile, bh, HD / slab(HD));
+  return launch_dyn(gpo_attention_fwd_kernel<HD>, grid,
+                    sizeof(float) * fwd_smem_floats<HD>(), st, q, k, v, o,
+                    lse, S, num_ctx, scale);
 }
 
 }  // namespace
 
-// C entry, bound with ctypes. Launches on `stream` (PyTorch's current
-// stream), allocates nothing, does not synchronise; returns
-// cudaGetLastError(), cudaErrorInvalidValue for a head width that is not
-// instantiated here, or cudaErrorMisalignedAddress for a q, k or v that
-// does not start 16-byte aligned.
+// C entry, bound with ctypes. q, k, v, o are (bh, S, width), width a
+// built width (GPO_WIDTHS), hd <= width the head's own width (the wrapper
+// pads the rest with zero columns), which sets the scale 1 / sqrt(hd).
+// Launches on `stream` (PyTorch's current stream), allocates nothing,
+// does not synchronise; returns cudaGetLastError(), cudaErrorInvalidValue
+// for a width that is not built here or an hd outside [1, width], or
+// cudaErrorMisalignedAddress for a q, k or v that does not start 16-byte
+// aligned.
 extern "C" int gpo_attention_fwd_launch(const float* q, const float* k,
                                         const float* v, float* o, float* lse,
                                         int bh, int S, int num_ctx, int hd,
-                                        void* stream) {
+                                        int width, void* stream) {
   if (!aligned16({q, k, v})) return static_cast<int>(cudaErrorMisalignedAddress);
+  if (hd < 1 || hd > width) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   const float scale = softmax_scale(hd);
-  switch (hd) {
-    case 24:
-      launch_fwd<24>(q, k, v, o, lse, bh, S, num_ctx, scale, st);
-      break;
-    case 32:
-      launch_fwd<32>(q, k, v, o, lse, bh, S, num_ctx, scale, st);
-      break;
+  switch (width) {
+#define GPO_FWD_CASE(W) \
+  case W:               \
+    return launch_fwd<W>(q, k, v, o, lse, bh, S, num_ctx, scale, st);
+    GPO_WIDTHS(GPO_FWD_CASE)
+#undef GPO_FWD_CASE
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  return static_cast<int>(cudaGetLastError());
 }

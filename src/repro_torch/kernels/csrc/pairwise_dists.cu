@@ -61,6 +61,26 @@
 //
 // Inputs x (C, P) f32 contiguous; scratch part (nb, C, C) f64 and output
 // (C, C) f32, allocated by the wrapper. C <= kMaxClients.
+//
+// Past 32 clients (33 <= C <= kMaxTiled) the rows no longer fit one
+// block's Gram: gram_tile_kernel tiles G into 32-row tiles and gives
+// each block one chunk of columns and one pair of tiles I <= J, whose
+// 64 rows (32 on the diagonal) stream through a ring of kTStages stages
+// of kTCols columns. Every value takes the same split on its row's grid
+// over the warp's k-steps of the stage (grid_split), so hi = big_I.big_J^T
+// is exact as above; the small terms are three products chained from
+// zero each stage, small_I.big_J^T + big_I.small_J^T + small_I.small_J^T
+// (the L + L^T form needs one symmetric tile). A diagonal block computes
+// the tiles on or above the diagonal. The block writes its entries i <=
+// j of G_b in f64, and the finish launch above forms d. The column split
+// depends on (C, P): chunk columns a block, a multiple of kTCols of at
+// least kChunk, chosen by the wrapper so that the (nb, C, C) f64
+// partials stay within a fixed budget (256 MiB: nb <= 32 at C = 1024).
+// Bound on the H100 at C = 1024, P = 534016: 2.2 GB read once, 0.65 us
+// at 3.35 TB/s; the C (C + 1) / 2 dot products, 5.6e14 FMA-equivalent
+// f32 operations, set the bound (chip_smoke.py phase 5). Each block reads
+// its rows of the chunk once from device memory or L2: the rows are read
+// about C / 32 times in all.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -85,6 +105,15 @@ __host__ __device__ constexpr int stage_stride() { return stage_cols<R>() + 4; }
 constexpr int kStages = 4;
 constexpr long long kChunk = 4096;  // columns a block
 constexpr int kMaxClients = 32;
+// the tiled design past kMaxClients: 8 warps, 2 k-steps a warp a stage,
+// so 128 columns a stage, a ring of 3 stages of 64 rows (101 KB)
+constexpr int kTThreads = 256;
+constexpr int kTWarps = kTThreads / 32;
+constexpr int kTSteps = 2;
+constexpr int kTCols = 8 * kTSteps * kTWarps;
+constexpr int kTStride = kTCols + 4;  // = 4 mod 32, as stage_stride
+constexpr int kTStages = 3;
+constexpr int kMaxTiled = 1024;
 
 // the 16x8 output tiles (m, n) of an R x R matrix, t = 4 m + n: all of
 // them for L (2 at R = 16, 8 at R = 32), those on or above the diagonal
@@ -293,6 +322,152 @@ gram_partial_kernel(const float* __restrict__ x, double* __restrict__ part,
   }
 }
 
+// one chunk of columns of one 32 x 32 Gram tile pair (I, J), I <= J: the
+// block's entries i <= j of G_b, in f64, into part[b]
+template <bool kVec>
+__global__ void __launch_bounds__(kTThreads)
+gram_tile_kernel(const float* __restrict__ x, double* __restrict__ part,
+                 int C, long long P, long long chunk) {
+  // [kTStages][64][kTStride]: rows 0..31 tile I, 32..63 tile J (unused
+  // on the diagonal, where B reads I's rows)
+  extern __shared__ __align__(16) float smem[];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane / 4, tq = lane % 4;
+  int I = 0, u = blockIdx.y;  // pair u = (I, J) in row-major order
+  const int T = (C + 31) / 32;
+  for (; u >= T - I; ++I) u -= T - I;
+  const int J = I + u;
+  const bool diag = I == J;
+  const int slots = diag ? 32 : 64;
+  const int b_row = diag ? 0 : 32;  // J's first row in a stage
+  const long long base = static_cast<long long>(blockIdx.x) * chunk;
+  const long long end = base + chunk < P ? base + chunk : P;
+  const int nst = static_cast<int>((end - base + kTCols - 1) / kTCols);
+
+  auto row_of = [&](int slot) {  // slot -> client row (>= C: none)
+    return slot < 32 ? 32 * I + slot : 32 * J + slot - 32;
+  };
+  auto load_stage = [&](int s) {
+    constexpr int V = kVec ? 4 : 1, kPacks = kTCols / V;
+    float* dst = smem + (s % kTStages) * 64 * kTStride;
+    const long long c0 = base + static_cast<long long>(s) * kTCols;
+    for (int i = threadIdx.x; i < slots * kPacks; i += kTThreads) {
+      const int slot = i / kPacks, k = i % kPacks;
+      const int r = row_of(slot);
+      if (r >= C) continue;
+      const long long col = c0 + k * V;
+      const bool in = col < end;
+      const float* src = in ? x + static_cast<long long>(r) * P + col : x;
+      const uint32_t at = smem_addr(dst + slot * kTStride + k * V);
+      if (kVec)
+        cp_async16(at, src, in);
+      else
+        cp_async4(at, src, in);
+    }
+  };
+
+  for (int s = 0; s < kTStages - 1; ++s) {
+    if (s < nst) load_stage(s);
+    cp_async_commit();
+  }
+  float acc_hi[8][4] = {}, acc_lo[8][4] = {};
+  for (int s = 0; s < nst; ++s) {
+    cp_async_wait<kTStages - 2>();
+    __syncthreads();  // stage s landed; stage s - 1's slot is free
+    if (s + kTStages - 1 < nst) load_stage(s + kTStages - 1);
+    cp_async_commit();
+    const float* tile = smem + (s % kTStages) * 64 * kTStride;
+    // each row group's values of the warp's k-steps, split on the row's
+    // grid; rows past C are zeros, never loaded
+    uint32_t bI[4][kTSteps][2], sI[4][kTSteps][2], bJ[4][kTSteps][2],
+        sJ[4][kTSteps][2], unused[kTSteps][2];
+#pragma unroll
+    for (int h = 0; h < 8; ++h) {
+      if (diag && h >= 4) break;
+      const int slot = (h < 4 ? 0 : b_row) + 8 * (h % 4) + g;
+      const bool live = row_of(slot) < C;
+      float v[kTSteps][2];
+#pragma unroll
+      for (int kk = 0; kk < kTSteps; ++kk) {
+        const float* at =
+            tile + slot * kTStride + (kk * kTWarps + warp) * 8 + tq;
+        v[kk][0] = live ? at[0] : 0.0f;
+        v[kk][1] = live ? at[4] : 0.0f;
+      }
+      if (h < 4)
+        grid_split(v, bI[h], sI[h], unused);
+      else
+        grid_split(v, bJ[h - 4], sJ[h - 4], unused);
+    }
+    if (diag) {
+#pragma unroll
+      for (int h = 0; h < 4; ++h)
+#pragma unroll
+        for (int kk = 0; kk < kTSteps; ++kk)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            bJ[h][kk][e] = bI[h][kk][e];
+            sJ[h][kk][e] = sI[h][kk][e];
+          }
+    }
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int m = t / 4, n = t % 4;
+      // all padding, or below a diagonal block's diagonal (warp-uniform)
+      if (32 * I + 16 * m >= C || 32 * J + 8 * n >= C) continue;
+      if (diag && !upper(t)) continue;
+      float hi[4] = {}, lo[4] = {};
+#pragma unroll
+      for (int kk = 0; kk < kTSteps; ++kk) {
+        const uint32_t ab[4] = {bI[2 * m][kk][0], bI[2 * m + 1][kk][0],
+                                bI[2 * m][kk][1], bI[2 * m + 1][kk][1]};
+        const uint32_t as[4] = {sI[2 * m][kk][0], sI[2 * m + 1][kk][0],
+                                sI[2 * m][kk][1], sI[2 * m + 1][kk][1]};
+        mma_tf32(hi, ab, bJ[n][kk][0], bJ[n][kk][1]);
+        mma_tf32(lo, as, bJ[n][kk][0], bJ[n][kk][1]);
+        mma_tf32(lo, ab, sJ[n][kk][0], sJ[n][kk][1]);
+        mma_tf32(lo, as, sJ[n][kk][0], sJ[n][kk][1]);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        acc_hi[t][e] = __fadd_rn(acc_hi[t][e], hi[e]);
+        acc_lo[t][e] = __fadd_rn(acc_lo[t][e], lo[e]);
+      }
+    }
+  }
+
+  // the block's G_b: the warps' hi + lo, in warp order, in f64
+  cp_async_wait<0>();
+  __syncthreads();
+  float* red_hi = smem;                   // [kTWarps][32][32]
+  float* red_lo = smem + kTWarps * 1024;  // [kTWarps][32][32]
+#pragma unroll
+  for (int t = 0; t < 8; ++t) {
+    const int m = t / 4, n = t % 4;
+    if (32 * I + 16 * m >= C || 32 * J + 8 * n >= C) continue;
+    if (diag && !upper(t)) continue;
+    const int o = (warp * 32 + 16 * m + g) * 32 + 8 * n + 2 * tq;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int at = o + (e / 2) * 8 * 32 + e % 2;
+      red_hi[at] = acc_hi[t][e];
+      red_lo[at] = acc_lo[t][e];
+    }
+  }
+  __syncthreads();
+  const long long cc = static_cast<long long>(C) * C;
+  for (int e = threadIdx.x; e < 1024; e += kTThreads) {
+    const int il = e / 32, jl = e % 32;
+    const int i = 32 * I + il, j = 32 * J + jl;
+    if (i >= C || j >= C || (diag && il > jl)) continue;
+    double s = 0.0;
+    for (int w = 0; w < kTWarps; ++w)
+      s = __dadd_rn(s, __dadd_rn(red_hi[w * 1024 + e], red_lo[w * 1024 + e]));
+    part[static_cast<long long>(blockIdx.x) * cc +
+         static_cast<long long>(i) * C + j] = s;
+  }
+}
+
 // one warp per pair i <= j: G_ii, G_jj and G_ij from every block's
 // partial in one fixed order (an entry gets the same bits in every warp),
 // then d from G's own diagonal, written at (i, j) and (j, i)
@@ -327,6 +502,24 @@ int launch_partial(const float* x, double* part, int C, long long P, int nb,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <bool kVec>
+int launch_tiles(const float* x, double* part, int C, long long P, int nb,
+                 long long chunk, cudaStream_t st) {
+  const auto kern = gram_tile_kernel<kVec>;
+  const size_t smem = sizeof(float) * kTStages * 64 * kTStride;
+  static_assert(sizeof(float) * kTStages * 64 * kTStride >=
+                    sizeof(float) * 2 * kTWarps * 1024,
+                "the warp sums overflow the ring");
+  const int err = static_cast<int>(cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem)));
+  if (err != 0) return err;
+  const int tiles = (C + 31) / 32;
+  const dim3 grid(static_cast<unsigned>(nb), tiles * (tiles + 1) / 2);
+  kern<<<grid, kTThreads, smem, st>>>(x, part, C, P, chunk);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry, bound with ctypes: both launches on `stream` (PyTorch's current
@@ -353,5 +546,30 @@ extern "C" int pairwise_dists_launch(const float* x, double* part, float* out,
   if (err != 0) return err;
   const int pairs = C * (C + 1) / 2;
   gram_finish_kernel<<<(pairs + 7) / 8, 256, 0, st>>>(part, out, C, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// C entry of the tiled design, 33 <= C <= kMaxTiled: both launches on
+// `stream`. part holds nb * C * C doubles, nb = ceil(P / chunk), chunk a
+// multiple of kTCols of at least kChunk (the wrapper's pairwise_split).
+// Allocates nothing, does not synchronise; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for a C outside the design's range or a split or
+// scratch of another size.
+extern "C" int pairwise_tiles_launch(const float* x, double* part,
+                                     float* out, int C, long long P,
+                                     long long nb, long long chunk,
+                                     void* stream) {
+  if (C <= kMaxClients || C > kMaxTiled || P < 1 || chunk < kChunk ||
+      chunk % kTCols != 0 || nb != (P + chunk - 1) / chunk)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const bool vec = P % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  const int n = static_cast<int>(nb);
+  const int err = vec ? launch_tiles<true>(x, part, C, P, n, chunk, st)
+                      : launch_tiles<false>(x, part, C, P, n, chunk, st);
+  if (err != 0) return err;
+  const long long pairs = static_cast<long long>(C) * (C + 1) / 2;
+  gram_finish_kernel<<<static_cast<unsigned>((pairs + 7) / 8), 256, 0, st>>>(
+      part, out, C, n);
   return static_cast<int>(cudaGetLastError());
 }

@@ -26,7 +26,36 @@
 // lower client indices and < for higher ones. num and den accumulate over
 // the survivors in client order 0..C-1. Deterministic: no atomics, one
 // thread per output.
+//
+// Past 32 clients (33 <= C <= kMaxSelect) the values do not fit a
+// thread's registers, and the C^2 compares would not fit the card's
+// rate (5.6e11 at C = 1024, P = 534016): a second design,
+// trimmed_select_kernel. A block owns kCols consecutive coordinates and
+// stages their (C, kCols) slab in shared memory, once, as order keys
+// (and the C weights beside it):
+// the f32 bits mapped to a uint32 whose unsigned order is the float
+// order (-0 taken as +0, so that it ties with +0 as x == y does). Ties go
+// by client index, so client c's rank is its position in the order of
+// the pairs (key, c), and the survivors are the clients whose pair lies
+// between the pairs at ranks trim and C - 1 - trim. One warp a coordinate
+// finds those two pairs by a radix select over the key's 32 bits, most
+// significant first: at each bit the lanes count the candidates whose
+// bit is 0 (a lane takes clients lane, lane + 32, ...) and add the
+// counts over the warp, so the select reads the slab 32 times and
+// compares nothing pairwise; what is left of the rank at the end is the
+// pair's position among the clients of its value, in client order. Then
+// one thread a coordinate walks the clients in order 0..C-1, keeps the
+// pairs between the two, and sums num and den as the register kernel
+// does. A NaN is before no one in _trim_kernel's predicate, so the other
+// clients' ranks are as if it were absent; its own key falls at one end,
+// which moves nobody else's rank that matters: a NaN anywhere in a column
+// makes that column NaN in _trim_kernel (num += keep * w * x with keep =
+// 0 is NaN), and here too, since a dropped client adds 0 * x (an
+// infinity dropped is NaN as well). No atomics: the counts are integer
+// sums, the f32 sums run in client order.
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -34,6 +63,13 @@ constexpr int kThreads = 128;
 // the largest C with an instantiation: 32 values in registers a thread,
 // and C^2 = 1024 unrolled compares in the largest one
 constexpr int kMaxClients = 32;
+// the shared-memory select design past kMaxClients: coordinates a block
+// (one warp each), the slab's row pitch in keys (odd: the warp's column
+// reads and the walk's row reads hit distinct banks), and its cap on C
+constexpr int kCols = 16;
+constexpr int kPitch = kCols + 1;
+constexpr int kSelThreads = 32 * kCols;
+constexpr int kMaxSelect = 1024;
 
 template <int C>
 __global__ void __launch_bounds__(kThreads)
@@ -87,16 +123,136 @@ void dispatch(int c, const float* x, const float* w, float* out, int trim,
   }
 }
 
+// f32 -> a uint32 in the same order (unsigned), -0 as +0
+__device__ __forceinline__ uint32_t order_key(float x) {
+  uint32_t b = __float_as_uint(x);
+  if ((b << 1) == 0u) b = 0u;  // -0
+  return b ^ ((b >> 31) ? 0xffffffffu : 0x80000000u);
+}
+
+__device__ __forceinline__ float key_value(uint32_t u) {
+  return __uint_as_float(u ^ ((u >> 31) ? 0x80000000u : 0xffffffffu));
+}
+
+// the pair at rank r (0-based) of the column's C (key, client) pairs,
+// the column a slab column at pitch kPitch: its key, and its position
+// among the clients of that key; called by the whole warp
+__device__ __forceinline__ void select_rank(const uint32_t* col, int C, int r,
+                                            uint32_t& key, int& pos) {
+  const int lane = threadIdx.x & 31;
+  uint32_t prefix = 0u;  // the key's bits decided so far
+  for (int b = 31; b >= 0; --b) {
+    // candidates (bits above b as decided) whose bit b is 0
+    int n = 0;
+    for (int c = lane; c < C; c += 32)
+      n += ((col[c * kPitch] ^ prefix) >> b) == 0u;
+    n = __reduce_add_sync(0xffffffffu, n);
+    if (r >= n) {
+      prefix |= 1u << b;
+      r -= n;
+    }
+  }
+  key = prefix;
+  pos = r;
+}
+
+__global__ void __launch_bounds__(kSelThreads)
+trimmed_select_kernel(const float* __restrict__ x,
+                      const float* __restrict__ w, float* __restrict__ out,
+                      int C, int trim, long long P) {
+  extern __shared__ uint32_t keys[];  // [C][kPitch], then the C weights
+  float* const ws = reinterpret_cast<float*>(keys + C * kPitch);
+  __shared__ uint32_t lo_key[kCols], hi_key[kCols];
+  __shared__ int lo_pos[kCols], hi_pos[kCols];
+  const long long p0 = static_cast<long long>(blockIdx.x) * kCols;
+  for (int i = threadIdx.x; i < C; i += kSelThreads) ws[i] = __ldg(w + i);
+  for (int i = threadIdx.x; i < C * kCols; i += kSelThreads) {
+    const int c = i / kCols, t = i % kCols;
+    const long long p = p0 + t;
+    keys[c * kPitch + t] =
+        p < P ? order_key(__ldg(x + static_cast<long long>(c) * P + p)) : 0u;
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x >> 5;  // the warp's coordinate p0 + warp
+  if (trim == 0) {  // every client survives
+    if ((threadIdx.x & 31) == 0) {
+      lo_key[warp] = 0u;
+      lo_pos[warp] = 0;
+      hi_key[warp] = 0xffffffffu;
+      hi_pos[warp] = C;
+    }
+  } else {
+    uint32_t kl, kh;
+    int pl, ph;
+    select_rank(keys + warp, C, trim, kl, pl);
+    if (C - 1 - trim == trim) {  // the median of an odd C
+      kh = kl;
+      ph = pl;
+    } else {
+      select_rank(keys + warp, C, C - 1 - trim, kh, ph);
+    }
+    if ((threadIdx.x & 31) == 0) {
+      lo_key[warp] = kl;
+      lo_pos[warp] = pl;
+      hi_key[warp] = kh;
+      hi_pos[warp] = ph;
+    }
+  }
+  __syncthreads();
+
+  // the walk: one thread a coordinate, clients in order 0..C-1, counting
+  // each threshold key's clients as it passes them; the weights come from
+  // shared memory, so only the sums' own chain is serial
+  const int t = threadIdx.x;
+  if (t >= kCols || p0 + t >= P) return;
+  const uint32_t kl = lo_key[t], kh = hi_key[t];
+  const int pl = lo_pos[t], ph = hi_pos[t];
+  int nl = 0, nh = 0;
+  float num = 0.0f;
+  float den = 0.0f;
+#pragma unroll 4
+  for (int c = 0; c < C; ++c) {
+    const uint32_t u = keys[c * kPitch + t];
+    const bool keep = (u > kl || (u == kl && nl >= pl)) &&
+                      (u < kh || (u == kh && nh <= ph));
+    nl += u == kl;
+    nh += u == kh;
+    // a dropped client adds 0 * x, as _trim_kernel's keep * w * x does
+    const float wc = keep ? ws[c] : 0.0f;
+    num = fmaf(wc, key_value(u), num);
+    den += wc;
+  }
+  out[p0 + t] = num / den;
+}
+
+int launch_select(const float* x, const float* w, float* out, int C,
+                  int trim, long long P, cudaStream_t st) {
+  const size_t smem = sizeof(uint32_t) * C * (kPitch + 1);
+  const cudaError_t err = cudaFuncSetAttribute(
+      trimmed_select_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const unsigned blocks = static_cast<unsigned>((P + kCols - 1) / kCols);
+  trimmed_select_kernel<<<blocks, kSelThreads, smem, st>>>(x, w, out, C,
+                                                            trim, P);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry, bound with ctypes. Launches on `stream` (PyTorch's current
-// stream), allocates nothing, does not synchronise; returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a C above the cap.
+// stream), allocates nothing, does not synchronise: the register kernel
+// for C <= kMaxClients, the select kernel up to kMaxSelect. Returns
+// cudaGetLastError(), or cudaErrorInvalidValue for a C above the cap or a
+// trim out of range.
 extern "C" int trimmed_reduce_launch(const float* x, const float* w,
                                      float* out, int C, int trim,
                                      long long P, void* stream) {
-  if (C < 1 || C > kMaxClients || trim < 0 || 2 * trim >= C)
+  if (C < 1 || C > kMaxSelect || trim < 0 || 2 * trim >= C)
     return static_cast<int>(cudaErrorInvalidValue);
-  dispatch<1>(C, x, w, out, trim, P, static_cast<cudaStream_t>(stream));
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (C > kMaxClients) return launch_select(x, w, out, C, trim, P, st);
+  dispatch<1>(C, x, w, out, trim, P, st);
   return static_cast<int>(cudaGetLastError());
 }

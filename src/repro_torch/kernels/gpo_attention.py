@@ -41,6 +41,18 @@ own query alone, take an elementwise pass in extra blocks of the same
 launch. No atomics: a result is bit-equal from call to call and does
 not depend on the batch.
 
+Head widths: the sources build every kernel at the widths
+``HEAD_WIDTHS`` (multiples of 8, the mma's k-step, up to
+``MAX_HEAD_DIM``). ``head_width_for(hd)`` is the padding plan: a head
+of another width goes to the kernels padded with zero columns to the
+next built width (zero columns add nothing to q·kᵀ; the scale stays
+1/√hd of the head's own width, which the C entries take beside the
+built width), and the padded columns of o, dq, dk and dv are sliced
+off. hd 24 and 32 are built widths and go unpadded. Past 64 a block
+owns a slab of the output's columns and splits its A fragments from
+shared memory at each use (``csrc/gpo_tiles.cuh``). A head wider than
+``MAX_HEAD_DIM`` is refused on both devices.
+
 What bounds them on the H100: at the training shapes (BH = 10 clients ×
 4 heads = 40, S = 160, num_ctx = 80, hd = 32) the bound is 0.99 µs
 (forward), 1.24 µs (dq) and 1.48 µs (dk/dv), set by the bytes (the
@@ -65,12 +77,15 @@ from repro_torch.kernels.ref import (
     ref_gpo_attention_bwd_dq,
 )
 
-HEAD_DIMS = (24, 32)  # head widths the CUDA sources instantiate
+# the head widths the CUDA sources build (GPO_WIDTHS in
+# csrc/gpo_tiles.cuh), and the widest head the wrappers take
+HEAD_WIDTHS = (8, 16, 24, 32, 40, 48, 56, 64, 96, 128, 192, 256)
+MAX_HEAD_DIM = HEAD_WIDTHS[-1]
 
 _F32 = torch.float32
-_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-_DKDV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [
+_FWD_ARGTYPES = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DQ_ARGTYPES = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_DKDV_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
     ctypes.c_void_p]
 
 
@@ -83,10 +98,29 @@ def _check_shapes(q, k, v, num_ctx, *rest):
         raise ValueError(f"num_ctx={num_ctx} outside [0, {s}]")
 
 
-def _check_head_dim(hd: int) -> None:
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"gpo_attention kernels are built for head_dim in "
-                         f"{HEAD_DIMS}, got {hd}")
+def head_width_for(hd: int) -> int:
+    """The padding plan: the built width (``HEAD_WIDTHS``) that a head of
+    width hd runs at, the smallest at least hd. Raises outside 1 to
+    ``MAX_HEAD_DIM``."""
+    if not 1 <= hd <= MAX_HEAD_DIM:
+        raise ValueError(f"gpo_attention kernels take head_dim 1 to "
+                         f"{MAX_HEAD_DIM}, got {hd}")
+    return next(w for w in HEAD_WIDTHS if w >= hd)
+
+
+def _padded(width: int, *ts: torch.Tensor):
+    """Each (BH, S, hd) operand with zero columns up to ``width``."""
+    hd = ts[0].shape[-1]
+    if width == hd:
+        return ts
+    return tuple(torch.nn.functional.pad(t, (0, width - hd)) for t in ts)
+
+
+def _sliced(hd: int, *ts: torch.Tensor):
+    """Each (BH, S, width) result cut back to its first hd columns."""
+    if ts[0].shape[-1] == hd:
+        return ts
+    return tuple(t[..., :hd].contiguous() for t in ts)
 
 
 def _check_aligned(what: str, **operands: torch.Tensor) -> None:
@@ -109,22 +143,24 @@ def gpo_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     ``GPOAttention`` (``ops.gpo_attention``)."""
     _check_shapes(q, k, v, num_ctx)
     bh, s, hd = q.shape
+    width = head_width_for(hd)
     cpu = backend.on_cpu("gpo_attention", q, k, v, dtypes=(_F32,) * 3)
     _check_aligned("gpo_attention_fwd", q=q, k=k, v=v)
     if cpu:
         return ref_gpo_attention(q, k, v, num_ctx=num_ctx)
-    _check_head_dim(hd)
     fn = backend.kernel("gpo_attention_fwd", "gpo_attention_fwd_launch",
                         _FWD_ARGTYPES)
+    q, k, v = _padded(width, q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty((bh, s), dtype=_F32, device=q.device)
     if bh == 0 or s == 0:
-        return o, lse
+        return _sliced(hd, o)[0], lse
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-             lse.data_ptr(), bh, s, num_ctx, hd, backend.stream_ptr(q.device))
+             lse.data_ptr(), bh, s, num_ctx, hd, width,
+             backend.stream_ptr(q.device))
     backend.check(err, "gpo_attention_fwd")
     gpo_attention_fwd.launches += 1
-    return o, lse
+    return _sliced(hd, o)[0], lse
 
 
 def _bwd_operands(what, q, k, v, do, lse, delta, num_ctx) -> bool:
@@ -134,6 +170,7 @@ def _bwd_operands(what, q, k, v, do, lse, delta, num_ctx) -> bool:
     if lse.shape != q.shape[:2] or delta.shape != q.shape[:2]:
         raise ValueError(f"{what}: lse {tuple(lse.shape)} and delta "
                          f"{tuple(delta.shape)} must be {tuple(q.shape[:2])}")
+    head_width_for(q.shape[-1])
     cpu = backend.on_cpu(what, q, k, v, do, lse, delta, dtypes=(_F32,) * 6)
     _check_aligned(what, q=q, k=k, v=v, do=do)
     return cpu
@@ -149,18 +186,19 @@ def gpo_attention_bwd_dq(q, k, v, do, lse, delta, *,
         return ref_gpo_attention_bwd_dq(q, k, v, do, lse, delta,
                                         num_ctx=num_ctx)
     bh, s, hd = q.shape
-    _check_head_dim(hd)
+    width = head_width_for(hd)
     fn = backend.kernel("gpo_attention_bwd", "gpo_attention_bwd_dq_launch",
                         _DQ_ARGTYPES)
+    q, k, v, do = _padded(width, q, k, v, do)
     dq = torch.empty_like(q)
     if bh == 0 or s == 0:
-        return dq
+        return _sliced(hd, dq)[0]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, num_ctx,
-             hd, backend.stream_ptr(q.device))
+             hd, width, backend.stream_ptr(q.device))
     backend.check(err, "gpo_attention_bwd_dq")
     gpo_attention_bwd_dq.launches += 1
-    return dq
+    return _sliced(hd, dq)[0]
 
 
 def gpo_attention_bwd_dkdv(q, k, v, do, lse, delta, *, num_ctx: int):
@@ -172,18 +210,19 @@ def gpo_attention_bwd_dkdv(q, k, v, do, lse, delta, *, num_ctx: int):
         return ref_gpo_attention_bwd_dkdv(q, k, v, do, lse, delta,
                                           num_ctx=num_ctx)
     bh, s, hd = q.shape
-    _check_head_dim(hd)
+    width = head_width_for(hd)
     fn = backend.kernel("gpo_attention_bwd", "gpo_attention_bwd_dkdv_launch",
                         _DKDV_ARGTYPES)
+    q, k, v, do = _padded(width, q, k, v, do)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if bh == 0 or s == 0:
-        return dk, dv
+        return _sliced(hd, dk, dv)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
              lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-             bh, s, num_ctx, hd, backend.stream_ptr(q.device))
+             bh, s, num_ctx, hd, width, backend.stream_ptr(q.device))
     backend.check(err, "gpo_attention_bwd_dkdv")
     gpo_attention_bwd_dkdv.launches += 1
-    return dk, dv
+    return _sliced(hd, dk, dv)
 
 
 gpo_attention_fwd.launches = 0
@@ -214,3 +253,36 @@ class GPOAttention(torch.autograd.Function):
         dk, dv = gpo_attention_bwd_dkdv(q, k, v, do, lse, delta,
                                         num_ctx=ctx.num_ctx)
         return dq, dk, dv, None
+
+
+def _banded_ctx_blocks(num_ctx: int, bk: int, num_kb: int) -> int | None:
+    """k-blocks of the context band of the reference's Pallas grid, or
+    None when the band saturates the grid (the reference then runs the
+    full grid)."""
+    ctx_blocks = min(-(-num_ctx // bk), num_kb)
+    return ctx_blocks if ctx_blocks < num_kb else None
+
+
+def gpo_tile_counts(s: int, num_ctx: int, bq: int, bk: int) -> tuple[int, int]:
+    """(banded_tiles, full_grid_tiles) a head of the reference's forward
+    grid at (S, num_ctx) and blocks (bq, bk): the grid-level work ratio
+    its benchmarks report. Plain integers; no kernel."""
+    num_qb, num_kb = s // bq, s // bk
+    ctx_blocks = _banded_ctx_blocks(num_ctx, bk, num_kb)
+    banded = num_qb * (ctx_blocks + 1 if ctx_blocks is not None else num_kb)
+    return banded, num_qb * num_kb
+
+
+def gpo_tile_counts_bwd(s: int, num_ctx: int, bq: int,
+                        bk: int) -> tuple[int, int]:
+    """(banded_bwd_tiles, full_grid_bwd_tiles) a head: the dq grid's
+    steps plus the dk/dv grid's, the backward's counterpart of
+    ``gpo_tile_counts``."""
+    num_qb, num_kb = s // bq, s // bk
+    ctx_blocks = _banded_ctx_blocks(num_ctx, bk, num_kb)
+    full = 2 * num_qb * num_kb
+    if ctx_blocks is None:
+        return full, full
+    dq = num_qb * (ctx_blocks + 1)
+    dkdv = ctx_blocks * num_qb + (num_kb - ctx_blocks)
+    return dq + dkdv, full

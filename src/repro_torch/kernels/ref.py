@@ -169,9 +169,11 @@ def ref_trimmed_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
 def ref_pairwise_sq_dists(stacked: torch.Tensor) -> torch.Tensor:
     """(C, P) deltas -> (C, C) pairwise squared L2 distances in the
     direct difference form sum_p (x_i[p] - x_j[p])^2, independent of the
-    kernel's expansion form |x_i|^2 + |x_j|^2 - 2 x_i.x_j."""
+    kernel's expansion form |x_i|^2 + |x_j|^2 - 2 x_i.x_j. One row of
+    the output at a time, so that it holds (C, P) and not (C, C, P)."""
     x = stacked.float()
-    return ((x[:, None, :] - x[None, :, :]) ** 2).sum(dim=-1)
+    return torch.stack([((x[i] - x) ** 2).sum(dim=-1)
+                        for i in range(x.shape[0])])
 
 
 def _clip_scale(x: torch.Tensor, clip: float) -> torch.Tensor:

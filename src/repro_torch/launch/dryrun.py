@@ -267,6 +267,7 @@ def _gpo_round_rank(rank, device, agg_name, clients, edges, kw):
     from repro_torch.core import ShardedGPO
     from repro_torch.data import SurveyConfig, make_survey_data
     from repro_torch.launch.mesh import make_edge_mesh, make_host_mesh
+    from repro_torch.utils.pytree import tree_sq_norm
 
     torch.set_num_threads(1)
     if edges > 1:
@@ -299,8 +300,30 @@ def _gpo_round_rank(rank, device, agg_name, clients, edges, kw):
         hierarchy=HierarchyConfig(num_edges=edges))
     run = ShardedGPO(gcfg, fcfg, data, list(range(clients)), mesh,
                      client_axes=caxes)
-    run.run(1)
-    return {"linear": run.agg.linear, "ledger": list(run.comm.ledger)}
+    hist = run.run(1)
+    return {"linear": run.agg.linear, "ledger": list(run.comm.ledger),
+            "client_losses": [float(x) for x in hist.client_losses[0]],
+            "params_sq_norm": float(tree_sq_norm(run.global_params)),
+            "launches": {k: fn.launches for k, fn in _launch_counts().items()}}
+
+
+def _launch_counts() -> dict:
+    """The round's kernel wrappers, whose ``launches`` count this
+    process's launches on CUDA tensors."""
+    import importlib
+
+    from repro_torch.kernels import agg_reduce as ar
+
+    # the module: the package's gpo_attention is the ops function
+    ga = importlib.import_module("repro_torch.kernels.gpo_attention")
+
+    return {"gpo_attention_fwd": ga.gpo_attention_fwd,
+            "gpo_attention_bwd_dq": ga.gpo_attention_bwd_dq,
+            "gpo_attention_bwd_dkdv": ga.gpo_attention_bwd_dkdv,
+            **{k: getattr(ar, f"{k}_flat") for k in (
+                "fedavg_reduce", "momentum_reduce", "trimmed_reduce",
+                "pairwise_dists", "clip_reduce", "quant_clip_reduce",
+                "topk_reduce")}}
 
 
 def lower_gpo_round(agg_name: str, *, clients: int = 8,
@@ -357,6 +380,13 @@ def lower_gpo_round(agg_name: str, *, clients: int = 8,
         "norm_bound": norm_bound,
         "linear": ranks[0]["linear"],
         "run_s": round(time.time() - t0, 1),
+        # each process's clients' losses and rank 0's global params'
+        # squared norm after the round, and the kernel launches of every
+        # process (0 on the CPU, where the wrappers run the plain versions)
+        "client_losses": [x for r in ranks for x in r["client_losses"]],
+        "params_sq_norm": ranks[0]["params_sq_norm"],
+        "kernel_launches": {k: sum(r["launches"][k] for r in ranks)
+                            for k in ranks[0]["launches"]},
         "collective_bytes_by_kind": dict(coll.bytes_by_kind),
         "collective_count_by_kind": dict(coll.count_by_kind),
         "collective_count": coll.total_count,

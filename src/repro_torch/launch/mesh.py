@@ -176,8 +176,9 @@ def model_axis_size(mesh) -> int:
 
 def _rank_devices(world: int, device) -> list:
     """Each rank's device: ``cuda:<rank>`` when ``device`` is None, the
-    one device given, or one of a sequence per rank. A CUDA device the
-    machine lacks raises."""
+    one device given, or one of a sequence per rank; a CUDA device with
+    no index is the current one (a rank sets its device by index). A
+    CUDA device the machine lacks raises."""
     if device is None:
         devices = [torch.device("cuda", r) for r in range(world)]
     elif isinstance(device, (str, torch.device)):
@@ -186,6 +187,9 @@ def _rank_devices(world: int, device) -> list:
         devices = [torch.device(d) for d in device]
         if len(devices) != world:
             raise ValueError(f"{len(devices)} devices for {world} ranks")
+    devices = [torch.device("cuda", torch.cuda.current_device())
+               if d.type == "cuda" and d.index is None else d
+               for d in devices]
     for d in devices:
         if d.type == "cuda" and (d.index or 0) >= torch.cuda.device_count():
             raise RuntimeError(

@@ -264,8 +264,14 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
         a = torch.empty((2, 10, 32), device="cuda")
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             ga.gpo_attention_fwd(a, a, a, num_ctx=4)
-        with pytest.raises(ValueError, match="head_dim"):
-            ga.gpo_attention_fwd(*(torch.empty((2, 10, 16), device="cuda")
+        # every head width up to 256 reaches the launch (a width that is
+        # not built, padded to the next one); 257 is refused first
+        for hd in (16, 12, 256):
+            t = torch.empty((2, 10, hd), device="cuda")
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                ga.gpo_attention_fwd(t, t, t, num_ctx=4)
+        with pytest.raises(ValueError, match="head_dim 1 to 256"):
+            ga.gpo_attention_fwd(*(torch.empty((2, 10, 257), device="cuda")
                                    for _ in range(3)), num_ctx=4)
         # operands that need a gradient reach the same launch (the
         # GPOAttention Function differentiates it)
@@ -291,8 +297,14 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
         # on a CUDA tensor as on the CPU
         with pytest.raises(ValueError, match="trim=2 must satisfy"):
             ar.trimmed_reduce_flat(x, w, trim=2)
-        with pytest.raises(ValueError, match="holds 1 to 32"):
-            ar.pairwise_dists_flat(torch.empty((33, 8), device="cuda"))
+        wide = torch.empty((33, 8), device="cuda")
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ar.pairwise_dists_flat(wide)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            ar.trimmed_reduce_flat(wide, torch.empty((33,), device="cuda"),
+                                   trim=16)
+        with pytest.raises(ValueError, match="holds 1 to 1024"):
+            ar.pairwise_dists_flat(torch.empty((1025, 8), device="cuda"))
         with pytest.raises(ValueError, match="different devices"):
             ar.momentum_reduce_flat(x, w, torch.empty((8,)), beta=0.9)
         with pytest.raises(ValueError, match="different devices"):
