@@ -245,6 +245,23 @@ the card, raising on any mismatch:
    ``--gpo-fed --pallas-attn --clients 8`` (head_dim 16; its processes'
    launches and losses). Each widened source's build seconds and its
    kernels' registers and spills by width.
+   4m. The kernels' last shape limits: flash at head widths
+   ``LIMIT_FLASH_HDS`` (1 and 8 padded to 16, 100 to 128) in f32 and
+   bf16, causal with
+   GQA, a window with a softcap and non-causal at a ragged kv_len, and
+   phase 1's two planted bf16 faults at hd 256; the SSD scan at chunk
+   256, p 128 and n 256, each alone, in f32 and bf16 with the state;
+   the C <= 32 trimmed kernel's NaN columns (a NaN or an infinity
+   trimmed away makes the column NaN, as in the reference) at
+   ``LIMIT_NAN_CS``; clip and quant at ``LIMIT_ROW_C`` clients (their
+   scales in device memory); trimmed and pairwise at ``LIMIT_WIDE_CS``
+   clients; each against its plain version at phase 1's tolerances,
+   twice bit for bit, one launch a call. Then the users that need those
+   shapes, kernels against the plain branch on the card: a 2-layer
+   gemma2-27b at Gemma 2 9B's attention widths (16/8 heads of 256) and a
+   2-layer mamba2-780m at chunk 256, one prefill each in bf16 and f32;
+   the DP release (``private_delta_flat``) on ``LIMIT_ROW_C`` client
+   rows; the registry's median and krum on ``LIMIT_WIDE_CS[0]`` rows.
 5. Timing: each kernel, its plain version and one PyTorch library call
    at the main paths' shapes (CUDA events, median of repeats; replayed
    from a CUDA graph for the device time, and launched eagerly),
@@ -268,10 +285,13 @@ the card, raising on any mismatch:
    stamps each block's clock (tile load, barrier wait, reduce); the
    attention kernels and the FedAvg reduce also at phase 4e's shapes;
    the FedAvg reduce also at phase 4i's (4, 494,032,768) and (4,
-   4,399,105), the momentum reduce at the latter.
+   4,399,105), the momentum reduce at the latter; phase 4m's shapes
+   (``LIMIT_TIME_FLASH``, SSD at chunk 256, clip and quant at
+   ``LIMIT_TIME_ROW_C`` clients, trimmed and pairwise at
+   ``LIMIT_TIME_WIDE_C``).
 
 Launch counters are set to 0 right before each main-path phase and read
-right after it. The last fifteen lines of standard output are the
+right after it. The last seventeen lines of standard output are the
 ``engine`` JSON line (steps, launches, latency summaries, profiles), the
 ``train`` JSON line (launches, agreement, losses, profile), the
 ``strategies`` JSON line (per strategy: launches, agreement, wall per
@@ -292,7 +312,9 @@ JSON line (phase 4i: losses, step and round ms, peak memory, launches,
 agreement), the ``serve_train`` JSON line (phase 4j: round ms,
 launches, the latency summaries, the CPU rows' distance), the
 ``tooling`` JSON line (phase 4k: the sweep's records and seconds, the
-two FLOP counts, the dry run's bytes, mfu), the ``kernels`` JSON line
+two FLOP counts, the dry run's bytes, mfu), the ``coverage`` and
+``limits`` JSON lines (phases 4l and 4m: each shape's errors, repeats
+and launches, the users' runs), the ``kernels`` JSON line
 (4g's, 4h's, 4i's and 4j's launches in each row's ``launches_by_path``,
 4i's shapes under ``lm_train_shapes``), the
 card's ``nvidia-smi`` name and power limit, and
@@ -313,6 +335,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import replace
 from pathlib import Path
 
@@ -418,6 +441,9 @@ from repro_torch.kernels.agg_reduce import (  # noqa: E402
 )
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention_bhsd,
+)
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    head_width_for as flash_width_for,
 )
 from repro_torch.kernels.gpo_attention import (  # noqa: E402
     _DKDV_ARGTYPES,
@@ -638,6 +664,43 @@ COVER_ROW_CS = (64, 1024)
 # the sources whose kernels phase 4l widened: their ptxas reports
 COVER_SOURCES = ("gpo_attention_fwd", "gpo_attention_bwd", "trimmed_reduce",
                  "pairwise_dists")
+# phase 4m, the kernels' last shape limits: flash at head widths past the
+# first built 64 and 128 (Phi-2's 80, Phi-3-mini's 96, Gemma's 256; 1 and
+# 8 padded to 16, whose kernel takes p in three bf16 parts; 100 padded to
+# 128), both dtypes, (B, S, H, KV, keyword arguments): causal with GQA, a
+# window with a softcap, non-causal at a ragged kv_len
+LIMIT_FLASH_HDS = (1, 8, 16, 32, 80, 96, 100, 256)
+LIMIT_FLASH_CASES = ((2, 257, 4, 2, {"causal": True}),
+                     (1, 128, 4, 4, {"causal": True, "window": 7,
+                                     "softcap": 20.0}),
+                     (2, 100, 4, 4, {"causal": False, "kv_len": 77}))
+# the SSD scan past each tile alone, (b, s, h, p, n, chunk): chunk 256 at
+# mamba2's p 64 and n 128, p 128, n 256
+LIMIT_SSD = ((2, 512, 4, 64, 128, 256), (2, 256, 4, 128, 128, 128),
+             (2, 256, 4, 64, 256, 128))
+# the trimmed register design's NaN columns (C <= 32); the clip and quant
+# reduces past the 4096 clients whose scales live in shared memory (P
+# past the on-chip designs, and one P they hold); the trimmed and
+# pairwise reduces past 1024 clients
+LIMIT_NAN_CS = (5, 17, 32)
+LIMIT_ROW_C, LIMIT_ROW_PS = 5000, (8192, 512)
+LIMIT_WIDE_CS, LIMIT_WIDE_P = (2048, 4096), 8192
+# the users: a 2-layer gemma2-27b at Gemma 2 9B's attention widths (16
+# heads, 8 KV heads of 256) and a 2-layer mamba2-780m at chunk 256 (the
+# published Mamba2 and Zamba2 default), one prefill each in bf16 and f32
+# at (LIMIT_LM_BATCH, LIMIT_LM_PROMPT), kernel against plain branch; the
+# DP release on LIMIT_ROW_C client rows; median and krum on
+# LIMIT_WIDE_CS[0] rows
+LIMIT_LM = {"gemma2-27b": dict(num_layers=2, num_heads=16, num_kv_heads=8,
+                               head_dim=256),
+            "mamba2-780m": dict(num_layers=2, ssm_chunk=256)}
+LIMIT_LM_BATCH, LIMIT_LM_PROMPT = 2, 1024
+# phase 5's rows of phase 4m's shapes: flash at Gemma 2 9B's widths and
+# Phi-3-mini's (B, H, KV, S, hd), bf16, causal; SSD at mamba2's widths at
+# chunk 256 beside chunk 128; clip and quant at LIMIT_TIME_ROW_C, trimmed
+# and pairwise at LIMIT_TIME_WIDE_C
+LIMIT_TIME_FLASH = {"12i": (4, 16, 8, 2048, 256), "12j": (4, 32, 32, 2048, 96)}
+LIMIT_TIME_ROW_C, LIMIT_TIME_WIDE_C = 8192, 4096
 HEAD_DIM = 32
 HEAD_DIMS = (32, 24)  # GPOConfig() and benchmarks/paper_experiment.py
 # (C, P): the quickstart's 10 clients x 534,016 GPOConfig() params, then
@@ -1088,14 +1151,45 @@ def _peaks(name: str):
     return _PEAKS[_card_row(name)]
 
 
+# the device time one timed repetition of ``_time_ms`` aims at
+TIME_REP_MS = 20.0
+
+
+class _Ms(float):
+    """A time in ms from ``_time_ms`` or ``_once_ms``, which keeps the
+    calls each timed repetition made (``iters``); ``_iters_of`` reads
+    them back from a row."""
+
+    def __new__(cls, ms: float, iters: int):
+        out = super().__new__(cls, ms)
+        out.iters = iters
+        return out
+
+
+def _iters_of(row, path: str = "") -> dict:
+    """{path of a time in ``row``: the calls a timed repetition made},
+    over the row's nested dicts and lists, for the row's JSON: the count
+    ``_time_ms`` chose (or 1 for a single timed call)."""
+    out = {}
+    items = (row.items() if isinstance(row, dict) else
+             enumerate(row) if isinstance(row, list) else ())
+    for k, v in items:
+        key = f"{path}.{k}" if path else str(k)
+        if isinstance(v, _Ms):
+            out[key] = v.iters
+        elif isinstance(v, (dict, list)):
+            out.update(_iters_of(v, key))
+    return out
+
+
 def _bound_ms(nbytes: float, flops: float, peaks):
     t_ops, t_bytes = flops / peaks[0] * 1e3, nbytes / peaks[1] * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops > t_bytes
                                  else "bytes")
 
 
-def _time_ms(fn, iters: int = 50, reps: int = 7, graph: bool = True,
-             stream=None) -> tuple:
+def _time_ms(fn, iters: int | None = None, reps: int = 7,
+             graph: bool = True, stream=None) -> tuple:
     """(device, eager) milliseconds per call of ``fn``, each the median
     over ``reps`` of CUDA-event times over ``iters`` calls, after a
     warm-up. Device: the calls captured once in a CUDA graph and
@@ -1103,13 +1197,23 @@ def _time_ms(fn, iters: int = 50, reps: int = 7, graph: bool = True,
     card's own time for the work remains (inputs stay in the 50 MB L2,
     as the serving path's weights do); None with ``graph=False``. Eager:
     the same calls launched one by one from Python, host overhead
-    included. ``stream``: the warm-up and capture stream (default a new
-    one)."""
+    included. ``iters`` by default: as many calls as take about
+    ``TIME_REP_MS`` by the warm-up's last call, from 3 to 50 (a call of
+    microseconds is repeated 50 times, one of milliseconds fewer: about
+    17·iters calls in all). ``stream``: the warm-up and capture stream
+    (default a new one)."""
     side = torch.cuda.Stream() if stream is None else stream
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(2):
             fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+    if iters is None:
+        once = (time.perf_counter() - t0) * 1e3
+        iters = max(3, min(50, int(TIME_REP_MS / max(once, 1e-6))))
     torch.cuda.current_stream().wait_stream(side)
     if graph:
         captured = torch.cuda.CUDAGraph()
@@ -1135,7 +1239,8 @@ def _time_ms(fn, iters: int = 50, reps: int = 7, graph: bool = True,
         for _ in range(iters):
             fn()
 
-    return (median_ms(captured.replay) if graph else None), median_ms(eager)
+    return ((_Ms(median_ms(captured.replay), iters) if graph else None),
+            _Ms(median_ms(eager), iters))
 
 
 def _once_ms(fn) -> tuple:
@@ -1149,7 +1254,7 @@ def _once_ms(fn) -> tuple:
     fn()
     b.record()
     b.synchronize()
-    return None, a.elapsed_time(b)
+    return None, _Ms(a.elapsed_time(b), 1)
 
 
 def _timed(kernel_fn, plain_fn, library_fn) -> dict:
@@ -1235,6 +1340,23 @@ def _close(got, plain, tol: float) -> tuple:
     ok = bool((err <= tol * (1 + plain.abs())).all()
               and torch.isfinite(got).all())
     return err.max().item(), ok
+
+
+def _quant_close(got, plain, level: float) -> tuple:
+    """(max abs error, coordinates beyond 2e-5·(1 + |plain|), within
+    2e-5 plus one quantization ``level`` with at most a thousandth of the
+    coordinates beyond and finite): ``got`` and ``plain`` the quant
+    reduce's (out, new residual or None). A scale an ulp off (norms
+    summed in another order) may flip a rounding decision by a level."""
+    pairs = [(a, b) for a, b in zip(got, plain) if a is not None]
+    errs = [(a - b).abs() for a, b in pairs]
+    err = max(e.max().item() for e in errs)
+    flips = sum(int((e > 2e-5 + 2e-5 * b.abs()).sum())
+                for e, (_, b) in zip(errs, pairs))
+    ok = err <= 2e-5 + level and flips <= 1e-3 * sum(
+        b.numel() for _, b in pairs) and all(
+        bool(torch.isfinite(a).all()) for a, _ in pairs)
+    return err, flips, ok
 
 
 def _row_rel(got, plain) -> float:
@@ -1877,15 +1999,7 @@ def _check_transport_kernels(g, dev, worst) -> None:
             out2, er2 = quant_clip_reduce_flat(x, w, **kw)
             pout, per = ref_quant_clip_reduce(x, w, **kw)
             torch.cuda.synchronize()
-            pairs = [(out, pout)] + ([(er, per)] if er is not None else [])
-            errs = [(a - b).abs() for a, b in pairs]
-            err = max(e.max().item() for e in errs)
-            # coordinates beyond float error: flipped levels
-            flips = sum(int((e > 2e-5 + 2e-5 * b.abs()).sum())
-                        for e, (_, b) in zip(errs, pairs))
-            ok = err <= 2e-5 + level and flips <= 1e-3 * sum(
-                b.numel() for _, b in pairs) and all(
-                torch.isfinite(a).all() for a, _ in pairs)
+            err, flips, ok = _quant_close((out, er), (pout, per), level)
             same = torch.equal(out, out2) and (er is None
                                                or torch.equal(er, er2))
             resid_exact = er is None or torch.equal(er, per)
@@ -6425,7 +6539,15 @@ def _cover_run(label, gcfg, fcfg, data, tr, ev, dev, want) -> dict:
     return rec
 
 
-def _cover_users(dev) -> dict:
+def _cover_dryrun(device) -> dict:
+    """Phase 4l's dry run ``--gpo-fed --pallas-attn --clients 8`` on
+    ``device``."""
+    return dryrun.lower_gpo_round("fedavg", clients=8,
+                                  use_pallas_attention=True, verbose=False,
+                                  device=device)
+
+
+def _cover_users(dev, cpu_dryrun: dict | None = None) -> dict:
     """Phase 4l (c): the users the kernels refused before they took
     these shapes, through the kernels against their CPU runs:
     ``benchmarks/bench_round.py``'s round (17 groups, d_model 8 in one
@@ -6463,11 +6585,8 @@ def _cover_users(dev) -> dict:
             pairwise_design_for if label == "krum" else
             trimmed_design_for)(len(tr))
 
-    runs = {d: dryrun.lower_gpo_round("fedavg", clients=8,
-                                      use_pallas_attention=True,
-                                      verbose=False, device=d)
-            for d in (dev, "cpu")}
-    card, cpu = runs[dev], runs["cpu"]
+    card = _cover_dryrun(dev)
+    cpu = _cover_dryrun("cpu") if cpu_dryrun is None else cpu_dryrun
     rel = max(abs(a - b) / abs(b) for a, b in zip(
         card["client_losses"] + [card["params_sq_norm"]],
         cpu["client_losses"] + [cpu["params_sq_norm"]]))
@@ -6491,15 +6610,17 @@ def _cover_users(dev) -> dict:
     return out
 
 
-def kernel_coverage(dev) -> dict:
+def kernel_coverage(dev, cpu_dryrun: dict | None = None) -> dict:
     """Phase 4l: the GPO attention kernels at head widths other than 24
     and 32, the trimmed and pairwise kernels past 32 clients, and the
-    users that need them."""
+    users that need them. ``cpu_dryrun``: the dry run's CPU half, when
+    it ran already (``main`` runs it beside phase 1); else it runs here,
+    after the card's."""
     t0 = time.perf_counter()
     rec = {"attention": _cover_attention(dev, _gen(SEED + 30)),
            "reduces": _cover_reduces(dev)}
     rec["checks_s"] = time.perf_counter() - t0
-    rec["users"] = _cover_users(dev)
+    rec["users"] = _cover_users(dev, cpu_dryrun)
     rec["seconds"] = time.perf_counter() - t0
     return rec
 
@@ -6647,6 +6768,532 @@ def _coverage_rows(dev, kernels: list, cover: dict, card_name: str) -> None:
             f"coverage {label} C {run['clients']}"] = run["launches"][name]
 
 
+def _limit_flash(dev, g) -> dict:
+    """Phase 4m (a): flash at ``LIMIT_FLASH_HDS`` in both dtypes over
+    ``LIMIT_FLASH_CASES``, each against the plain version in f32 at
+    phase 1's tolerances (``_flash_close``), twice and bit-equal, one
+    launch a call; then phase 1's two planted bf16 faults at hd 256."""
+    out = {}
+    for hd in LIMIT_FLASH_HDS:
+        for dtype in (torch.float32, torch.bfloat16):
+            for b, s_len, h, kv, kw in LIMIT_FLASH_CASES:
+                q = torch.randn((b, h, s_len, hd), generator=g).to(dev, dtype)
+                k, v = (torch.randn((b, kv, s_len, hd), generator=g).to(
+                    dev, dtype) for _ in range(2))
+                before = flash_attention_bhsd.launches
+                got = flash_attention_bhsd(q, k, v, **kw)
+                again = flash_attention_bhsd(q, k, v, **kw)
+                moved = flash_attention_bhsd.launches - before
+                plain = ref_attention(q.float(), k.float(), v.float(), **kw)
+                torch.cuda.synchronize()
+                err, row, ok = _flash_close(got, plain)
+                same = _bits_equal(got.float(), again.float())
+                label = (f"hd {hd} {str(dtype)[6:]} {b}x{s_len}x{h}x{kv} "
+                         f"{kw}")
+                out[label] = {"max_abs_err": err, "row_err": row,
+                              "built_width": flash_width_for(hd),
+                              "repeat_bit_equal": same, "launches": moved}
+                print(f"  flash_attention {label} (built width "
+                      f"{flash_width_for(hd)}): max_abs_err {err:.3e} (tol "
+                      f"{FLASH_TOL[dtype]:g}*(1+|plain|)) row error "
+                      f"{row:.3e}; repeat bit-equal {same}; launches "
+                      f"{moved}")
+                if not (ok and same and moved == 2):
+                    raise AssertionError(f"flash_attention at {label}")
+    hd = 256
+    q = torch.randn((1, 4, 256, hd), generator=g).to(dev, torch.bfloat16)
+    k, v = (torch.randn((1, 2, 256, hd), generator=g).to(dev, torch.bfloat16)
+            for _ in range(2))
+    f32 = [t.float() for t in (q, k, v)]
+    out["controls hd 256"] = [
+        _flash_control("window 8 for 7, hd 256",
+                       flash_attention_bhsd(q, k, v, window=8, softcap=20.0),
+                       ref_attention(*f32, window=7, softcap=20.0)),
+        _flash_control("the last key tile dropped, non-causal, hd 256",
+                       flash_attention_bhsd(q, k, v, causal=False,
+                                            kv_len=256 - 64),
+                       ref_attention(*f32, causal=False))]
+    return out
+
+
+def _limit_ssd(dev, g) -> dict:
+    """Phase 4m (b): the SSD scan at ``LIMIT_SSD`` (chunk 256, p 128, n
+    256, each alone), f32 and bf16, with the final state, against the
+    plain version at phase 1's tolerances (bf16 also by each row of y),
+    twice and bit-equal, one launch a call."""
+    out = {}
+    for b, s_len, h, p, n, chunk in LIMIT_SSD:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs(g, dev, dtype, b, s_len, h, p, n)
+            before = ssd_scan_bhsp.launches
+            y, state = ssd_scan_bhsp(*args, chunk=chunk, return_state=True)
+            y2, state2 = ssd_scan_bhsp(*args, chunk=chunk, return_state=True)
+            moved = ssd_scan_bhsp.launches - before
+            fy, pstate = ref_ssd(*_f32(*args))
+            torch.cuda.synchronize()
+            ey, oky = _close(y.float(), fy.to(dtype).float(), SSD_TOL[dtype])
+            es, oks = _close(state, pstate, SSD_TOL[torch.float32])
+            row = _row_rel(y, fy) if dtype == torch.bfloat16 else 0.0
+            same = _bits_equal(y.float(), y2.float()) and _bits_equal(
+                state, state2)
+            label = f"{str(dtype)[6:]} {b}x{s_len}x{h}x{p}x{n} chunk {chunk}"
+            out[label] = {"y_max_abs_err": ey, "state_max_abs_err": es,
+                          "row_err": row, "repeat_bit_equal": same,
+                          "launches": moved}
+            print(f"  ssd_scan {label}: y max_abs_err {ey:.3e} (tol "
+                  f"{SSD_TOL[dtype]:g}*(1+|plain|)) row error {row:.3e} "
+                  f"(limit {SSD_BF16_ROW_TOL:g}) state max_abs_err {es:.3e}; "
+                  f"repeat bit-equal {same}; launches {moved}")
+            if not (oky and oks and row <= SSD_BF16_ROW_TOL and same
+                    and moved == 2):
+                raise AssertionError(f"ssd_scan at {label}")
+    return out
+
+
+def _twice(fn, counter) -> tuple:
+    """Two calls of ``fn`` (a wrapper whose launches ``counter`` counts):
+    the first result, whether the two are bit-equal, the launches."""
+    before = counter.launches
+    a, b = fn(), fn()
+    moved = counter.launches - before
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    return a, all(x is None or _bits_equal(x, y) for x, y in pairs), moved
+
+
+def _limit_reduces(dev) -> dict:
+    """Phase 4m (c): the trimmed register design's NaN columns (C.13) at
+    ``LIMIT_NAN_CS`` against the plain version (NaN exactly where it is,
+    the rest within 1e-6·(1 + |plain|)); the clip and quant reduces at
+    ``LIMIT_ROW_C`` clients (with and without noise; int8 with error
+    feedback alone and under the DP release), clip within
+    1e-5·(1 + |plain|) and quant as phase 1 holds it (``_quant_close``);
+    the trimmed reduce (trim
+    1 and the median) and the pairwise distances at ``LIMIT_WIDE_CS``
+    clients as phase 4l holds them. Each twice, bit-equal, one launch a
+    call, the design that ran printed."""
+    out = {}
+    gd = torch.Generator(device=dev).manual_seed(SEED + 70)
+    for c in LIMIT_NAN_CS:
+        x = torch.round(2 * torch.randn((c, 64), generator=gd,
+                                        device=dev)) / 2
+        x[1, 3] = float("nan")
+        x[c - 1, 5] = float("inf")
+        x[0, 7] = -float("inf")
+        x[:, 11] = float("nan")
+        w = torch.rand((c,), generator=gd, device=dev) + 0.1
+        for trim in (1, (c - 1) // 2):
+            got, same, moved = _twice(
+                lambda: trimmed_reduce_flat(x, w, trim=trim),
+                trimmed_reduce_flat)
+            plain = ref_trimmed_flat(x, w, trim=trim)
+            fin = torch.isfinite(plain)
+            err, ok = _close(got[fin], plain[fin], 1e-6)
+            nan = torch.equal(torch.isnan(got), torch.isnan(plain))
+            cols = torch.isnan(got).nonzero().flatten().tolist()
+            label = f"trimmed_reduce NaN C {c} trim {trim}"
+            out[label] = {"max_abs_err": err, "nan_columns": cols,
+                          "nan_as_plain": nan, "repeat_bit_equal": same,
+                          "launches": moved}
+            print(f"  {label}: NaN columns {cols} as the plain version's "
+                  f"{nan}; max_abs_err {err:.2e}; repeat bit-equal {same}; "
+                  f"launches {moved}")
+            if not (ok and nan and set(cols) >= {3, 5, 7, 11} and same
+                    and moved == 2):
+                raise AssertionError(label)
+    c = LIMIT_ROW_C
+    for p in LIMIT_ROW_PS:
+        x = torch.randn((c, p), generator=gd, device=dev)
+        noise, resid = (0.01 * torch.randn((c, p), generator=gd, device=dev)
+                        for _ in range(2))
+        uni = torch.rand((c, p), generator=gd, device=dev)
+        w = torch.rand((c,), generator=gd, device=dev) + 0.1
+        w = w / w.sum()
+        clip = float(x.norm(dim=1).median())
+        level = (x.abs().max() + noise.abs().max()
+                 + resid.abs().max()).item() / 127.0
+        for label, fn, pfn, counter in (
+                ("clip_reduce noise",
+                 lambda: clip_reduce_flat(x, w, clip=clip, noise=noise),
+                 lambda: ref_clip_reduce(x, w, clip=clip, noise=noise),
+                 clip_reduce_flat),
+                ("clip_reduce",
+                 lambda: clip_reduce_flat(x, w, clip=clip),
+                 lambda: ref_clip_reduce(x, w, clip=clip), clip_reduce_flat),
+                ("quant_clip_reduce int8_ef",
+                 lambda: quant_clip_reduce_flat(x, w, uniform=uni,
+                                                resid=resid),
+                 lambda: ref_quant_clip_reduce(x, w, uniform=uni,
+                                               resid=resid),
+                 quant_clip_reduce_flat),
+                ("quant_clip_reduce dp_int8_ef",
+                 lambda: quant_clip_reduce_flat(
+                     x, w, clip=clip, noise=noise, uniform=uni, resid=resid),
+                 lambda: ref_quant_clip_reduce(
+                     x, w, clip=clip, noise=noise, uniform=uni, resid=resid),
+                 quant_clip_reduce_flat)):
+            got, same, moved = _twice(fn, counter)
+            plain = pfn()
+            design = counter.design
+            if isinstance(got, tuple):  # phase 1's rule for the quant
+                err, flips, ok = _quant_close(got, plain, level)
+                tol = f"2e-5+level={2e-5 + level:.3e}"
+            else:
+                (err, ok), flips = _close(got, plain, 1e-5), 0
+                tol = "1e-5*(1+|plain|)"
+            key = f"{label} C {c} P {p}"
+            out[key] = {"max_abs_err": err, "coords_beyond_2e-5": flips,
+                        "design": design, "repeat_bit_equal": same,
+                        "launches": moved}
+            print(f"  {key} ({design}): max_abs_err {err:.2e} (tol {tol}); "
+                  f"coords beyond 2e-5 {flips}; repeat bit-equal {same}; "
+                  f"launches {moved}")
+            if not (ok and same and moved == 2):
+                raise AssertionError(key)
+        del x, noise, resid, uni
+    for c in LIMIT_WIDE_CS:
+        x, w = _cover_inputs(c, LIMIT_WIDE_P, dev, SEED + 80 + c, ties=True)
+        for trim in (1, (c - 1) // 2):
+            got, same, moved = _twice(
+                lambda: trimmed_reduce_flat(x, w, trim=trim),
+                trimmed_reduce_flat)
+            err, ok = _close(got, ref_trimmed_flat(x, w, trim=trim), 1e-6)
+            key = f"trimmed_reduce C {c} trim {trim}"
+            out[key] = {"max_abs_err": err,
+                        "design": trimmed_design_for(c),
+                        "repeat_bit_equal": same, "launches": moved}
+            print(f"  {key} P={LIMIT_WIDE_P} ({trimmed_design_for(c)}): "
+                  f"max_abs_err {err:.2e}; repeat bit-equal {same}; "
+                  f"launches {moved}")
+            if not (ok and same and moved == 2):
+                raise AssertionError(key)
+        x, _ = _cover_inputs(c, LIMIT_WIDE_P, dev, SEED + 90 + c)
+        got, same, moved = _twice(lambda: pairwise_dists_flat(x),
+                                  pairwise_dists_flat)
+        atol = 1e-5 * (x * x).sum(dim=1).max().item()
+        err = (got - ref_pairwise_sq_dists(x)).abs().max().item()
+        exact = (bool((torch.diagonal(got) == 0).all())
+                 and torch.equal(got, got.T))
+        key = f"pairwise_dists C {c}"
+        out[key] = {"max_abs_err": err, "atol": atol,
+                    "diag_zero_symmetric": exact,
+                    "split": list(pairwise_split(c, LIMIT_WIDE_P)),
+                    "repeat_bit_equal": same, "launches": moved}
+        print(f"  {key} P={LIMIT_WIDE_P} (tiled, chunk, blocks "
+              f"{pairwise_split(c, LIMIT_WIDE_P)}): max_abs_err {err:.3e} "
+              f"(tol {atol:.3e}); zero diagonal and symmetric {exact}; "
+              f"repeat bit-equal {same}; launches {moved}")
+        if not (err <= atol and exact and same and moved == 2):
+            raise AssertionError(key)
+        del x
+    return out
+
+
+def _limit_users(dev) -> dict:
+    """Phase 4m (d): the users that need the new shapes, through the
+    kernels against their plain branches on the card: each ``LIMIT_LM``
+    config's prefill (bf16 within LM_BF16_TOL, or 1.5x the plain
+    branch's own rounding floor as phase 4d bounds mamba2; f32 within
+    LM_F32_TOL), its launches counted from 0; ``private_delta_flat`` on
+    ``LIMIT_ROW_C`` client rows under FedAvg and the median; the
+    registry's median and krum on ``LIMIT_WIDE_CS[0]`` rows."""
+    out = {}
+    for arch, kw in LIMIT_LM.items():
+        for dtype in ("bfloat16", "float32"):
+            cfg = override(get_arch(arch), param_dtype=dtype,
+                           activation_dtype=dtype, **kw)
+            gen = torch.Generator(device=dev).manual_seed(SEED + 5)
+            params = init_params(cfg, gen, device=dev)
+            batch = _lm_batch(cfg, gen, LIMIT_LM_BATCH, LIMIT_LM_PROMPT)
+            plain = make_prefill_step(cfg, LIMIT_LM_PROMPT + 1,
+                                      use_kernels=False)(params, batch)[0]
+            _zero_counts()
+            last = make_prefill_step(cfg, LIMIT_LM_PROMPT + 1,
+                                     use_kernels=True)(params, batch)[0]
+            torch.cuda.synchronize()
+            launches = {k: n for k, n in _counts().items() if n}
+            rel = _rel_max(last, plain)
+            floor = None
+            if dtype == "float32":
+                bound = LM_F32_TOL
+            else:
+                reorder = LM_ARCHS[arch][2]
+                if reorder:
+                    floor = _plain_floor(cfg, reorder, params, batch, plain)
+                bound = max(LM_BF16_TOL, LM_FLOOR_FACTOR * (floor or 0.0))
+            want = _lm_launches(cfg)
+            label = f"{arch} {dtype}"
+            out[label] = {"overrides": kw, "launches": launches,
+                          "rel_logits_vs_plain": rel, "bound": bound,
+                          "plain_floor": floor}
+            print(f"  {arch} ({kw}), {dtype}, batch {LIMIT_LM_BATCH}, prompt "
+                  f"{LIMIT_LM_PROMPT}: last logits kernel vs plain branch "
+                  f"max_abs/max|logit| {rel:.3e} (bound {bound:.3e}); "
+                  f"launches {launches}")
+            if not (rel <= bound and launches == want
+                    and torch.isfinite(last).all()):
+                raise AssertionError(f"{label}: off the plain branch or "
+                                     f"launches {launches}, want {want}")
+            del params, plain, last
+            torch.cuda.empty_cache()
+    gd = torch.Generator(device=dev).manual_seed(SEED + 95)
+    c, p = LIMIT_ROW_C, LIMIT_ROW_PS[0]
+    vecs = torch.randn((c, p), generator=gd, device=dev) * 0.1
+    noise = torch.randn((c, p), generator=gd, device=dev) * 0.01
+    w = torch.rand((c,), generator=gd, device=dev) + 0.1
+    w = w / w.sum()
+    privacy = PrivacyConfig(clip_norm=float(vecs.norm(dim=1).median()),
+                            noise_multiplier=0.8)
+    for name, kernel in (("fedavg", "clip_reduce"),
+                         ("median", "trimmed_reduce")):
+        got = {}
+        for pallas in (True, False):
+            agg = make_aggregator(AggConfig(name=name), num_clients=c,
+                                  use_pallas=pallas)
+            _zero_counts()
+            got[pallas] = dp.private_delta_flat(vecs, w, noise, privacy, agg,
+                                                use_pallas=pallas)
+            torch.cuda.synchronize()
+            if pallas:
+                launches = {k: n for k, n in _counts().items() if n}
+        err, ok = _close(got[True], got[False],
+                         1e-5 if name == "fedavg" else 1e-6)
+        label = f"private_delta_flat {name} C {c}"
+        out[label] = {"max_abs_err": err, "launches": launches}
+        print(f"  {label} P={p}: kernels vs plain on the card max_abs_err "
+              f"{err:.2e}; launches {launches}")
+        if not (ok and launches == {kernel: 1}):
+            raise AssertionError(label)
+    c = LIMIT_WIDE_CS[0]
+    vecs, w = _cover_inputs(c, LIMIT_WIDE_P, dev, SEED + 96)
+    for name, kernel, cfg in (
+            ("median", "trimmed_reduce", AggConfig(name="median")),
+            ("krum", "pairwise_dists", AggConfig(name="krum",
+                                                 num_malicious=3))):
+        got = {}
+        for pallas in (True, False):
+            agg = make_aggregator(cfg, num_clients=c, use_pallas=pallas)
+            _zero_counts()
+            got[pallas] = agg.reduce_flat(vecs, w)
+            torch.cuda.synchronize()
+            if pallas:
+                launches = {k: n for k, n in _counts().items() if n}
+        err, ok = _close(got[True], got[False], 1e-6)
+        if name == "krum":  # the same row picked
+            ok = torch.equal(got[True], got[False])
+        label = f"{name} C {c}"
+        out[label] = {"max_abs_err": err, "launches": launches}
+        print(f"  the registry's {label} P={LIMIT_WIDE_P}: kernels vs plain "
+              f"on the card max_abs_err {err:.2e}; launches {launches}")
+        if not (ok and launches == {kernel: 1}):
+            raise AssertionError(label)
+    return out
+
+
+def kernel_limits(dev) -> dict:
+    """Phase 4m: the kernels at the shapes they refused before (flash
+    head widths 1-256, the SSD scan past its tiles, clip and quant past
+    4096 clients, trimmed and pairwise past 1024) and the trimmed
+    register design's NaN columns, then the users that need them."""
+    t0 = time.perf_counter()
+    g = _gen(SEED + 60)
+    rec = {"flash": _limit_flash(dev, g), "ssd": _limit_ssd(dev, g),
+           "reduces": _limit_reduces(dev)}
+    rec["checks_s"] = time.perf_counter() - t0
+    rec["users"] = _limit_users(dev)
+    rec["seconds"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _limit_rows(dev, kernels: list, limits: dict, card_name: str) -> None:
+    """Phase 5's rows of phase 4m's shapes, nested in each kernel's row
+    under ``limits``, each held once to its plain version where it is
+    timed: flash at ``LIMIT_TIME_FLASH`` (bf16, causal; beside SDPA), the
+    SSD scan at mamba2-780m's prefill widths at chunk 256 (chunk 128's
+    kernel time beside it), clip and quant at ``LIMIT_TIME_ROW_C``
+    clients and trimmed (the median) and pairwise (beside
+    ``torch.cdist``'s matrix-product mode) at ``LIMIT_TIME_WIDE_C``, P
+    ``LIMIT_WIDE_P``. Launches: phase 4m's users' where one ran the
+    shape, else 0."""
+    peaks = _peaks(card_name)
+    bf_peaks = (_BF16_PEAKS[_card_row(card_name)], peaks[1])
+    tf32_peak = _TF32_PEAKS[_card_row(card_name)]
+    rows = {r["name"]: r for r in kernels}
+    users = limits["users"]
+    g = _gen(SEED + 61)
+    bf = torch.bfloat16
+
+    def put(name, label, entry):
+        rows[name].setdefault("limits", {})[label] = entry
+        lib = entry.get("library_ms")
+        print(f"  {name} {label} {entry['shape']}: kernel "
+              f"{entry['ms'] * 1e3:.2f}us  plain "
+              f"{entry['plain_ms'] * 1e3:.2f}us  library "
+              f"{'n/a' if lib is None else f'{lib * 1e3:.2f}us'}  bound "
+              f"{entry['bound_ms'] * 1e3:.3f}us ({entry['bound_by']}); "
+              f"max_abs_err {entry['max_abs_err']:.3e}; launches "
+              f"{entry['launches']}")
+
+    gemma = users["gemma2-27b bfloat16"]["launches"].get("flash_attention",
+                                                           0)
+    for row, (b, h, kv, s_len, hd) in LIMIT_TIME_FLASH.items():
+        q = torch.randn((b, h, s_len, hd), generator=g).to(dev, bf)
+        k, v = (torch.randn((b, kv, s_len, hd), generator=g).to(dev, bf)
+                for _ in range(2))
+        err, rerr, ok = _flash_close(flash_attention_bhsd(q, k, v),
+                                     ref_attention(q.float(), k.float(),
+                                                   v.float()))
+        if not ok:
+            raise AssertionError(f"flash_attention off the plain version "
+                                 f"at row {row}")
+        times = _timed(lambda: flash_attention_bhsd(q, k, v),
+                       lambda: ref_attention(q, k, v),
+                       lambda: F.scaled_dot_product_attention(
+                           q, k, v, is_causal=True, enable_gqa=True))
+        band = s_len * (s_len + 1) // 2
+        bound, by = _bound_ms(2 * (2 * b * h * s_len * hd
+                                   + 2 * b * kv * s_len * hd),
+                              4 * b * h * band * hd, bf_peaks)
+        put("flash_attention", row, {
+            "name": f"flash_attention hd {hd}", "shape": [b, h, kv, s_len, hd],
+            "dtype": "bfloat16", "causal": True,
+            "built_width": flash_width_for(hd),
+            "launches": gemma if hd == 256 else 0,
+            "launches_from": ("phase 4m's 2-layer gemma2-27b at Gemma 2 "
+                              "9B's widths, bf16 prefill" if hd == 256 else
+                              "no path at this width"),
+            "max_abs_err": err, "row_err": rerr, **times,
+            "library_call": "F.scaled_dot_product_attention(q, k, v, "
+                            "is_causal=True, enable_gqa=True)",
+            "bound_ms": bound, "bound_by": by})
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    # the SSD scan at mamba2-780m's prefill (b 4, s 2048, h 48, p 64, n
+    # 128, bf16, with the state) at chunk 256, and chunk 128 beside
+    b, s_len, h, p, n, chunk = LM_BATCH, LM_PROMPT, 48, 64, 128, 256
+    args = _ssd_inputs(g, dev, bf, b, s_len, h, p, n)
+    y, state = ssd_scan_bhsp(*args, chunk=chunk, return_state=True)
+    py, pstate = ref_ssd(*_f32(*args))
+    ey, oky = _close(y.float(), py.to(bf).float(), SSD_TOL[bf])
+    es, oks = _close(state, pstate, SSD_TOL[torch.float32])
+    if not (oky and oks and _row_rel(y, py) <= SSD_BF16_ROW_TOL):
+        raise AssertionError("ssd_scan off the plain version at chunk 256")
+    del y, state, py, pstate
+    ms, eager = _time_ms(lambda: ssd_scan_bhsp(*args, chunk=chunk,
+                                               return_state=True))
+    at128 = _time_ms(lambda: ssd_scan_bhsp(*args, chunk=128,
+                                           return_state=True))[0]
+    plain, plain_eager = _time_ms(lambda: ref_ssd(*args), iters=1, reps=3)
+    tri = chunk * (chunk + 1) // 2
+    bound, by = _bound_ms(
+        2 * (2 * b * s_len * h * p + 2 * b * s_len * n)
+        + 4 * (b * s_len * h + 2 * h) + 4 * b * h * p * n,
+        b * h * (s_len // chunk) * 2 * (tri * n + tri * p + 2 * chunk * p
+                                        * n), bf_peaks)
+    put("ssd_scan", "13d", {
+        "name": "ssd_scan chunk 256", "shape": [b, s_len, h, p, n, chunk],
+        "dtype": "bfloat16",
+        "launches": users["mamba2-780m bfloat16"]["launches"].get(
+            "ssd_scan", 0),
+        "launches_from": "phase 4m's 2-layer mamba2-780m at chunk 256, "
+                         "bf16 prefill (batch 2, prompt 1024)",
+        "max_abs_err": max(ey, es), "ms": ms, "kernel_ms": ms,
+        "chunk_128_ms": at128, "plain_ms": plain, "library_ms": None,
+        "eager_ms": {"kernel": eager, "plain": plain_eager,
+                     "library": None},
+        "bound_ms": bound, "bound_by": by})
+    del args
+    torch.cuda.empty_cache()
+
+    # clip (with noise) and quant (every operand) at LIMIT_TIME_ROW_C
+    c, p = LIMIT_TIME_ROW_C, LIMIT_WIDE_P
+    gd = torch.Generator(device=dev).manual_seed(SEED + 62)
+    x = torch.randn((c, p), generator=gd, device=dev)
+    noise, resid = (0.01 * torch.randn((c, p), generator=gd, device=dev)
+                    for _ in range(2))
+    uni = torch.rand((c, p), generator=gd, device=dev)
+    w = torch.rand((c,), generator=gd, device=dev) + 0.1
+    w = w / w.sum()
+    clip = float(x.norm(dim=1).median())
+    level = (x.abs().max() + noise.abs().max()
+             + resid.abs().max()).item() / 127.0
+    for name, row, kfn, pfn, nbytes, flops in (
+            ("clip_reduce", "7c",
+             lambda: clip_reduce_flat(x, w, clip=clip, noise=noise),
+             lambda: ref_clip_reduce(x, w, clip=clip, noise=noise),
+             4 * (2 * c * p + p + c), 6 * c * p),
+            ("quant_clip_reduce", "8c",
+             lambda: quant_clip_reduce_flat(x, w, clip=clip, noise=noise,
+                                            uniform=uni, resid=resid),
+             lambda: ref_quant_clip_reduce(x, w, clip=clip, noise=noise,
+                                           uniform=uni, resid=resid),
+             4 * (5 * c * p + p + c), 14 * c * p)):
+        got, want = kfn(), pfn()
+        if isinstance(got, tuple):
+            err, _, ok = _quant_close(got, want, level)
+        else:
+            err, ok = _close(got, want, 1e-5)
+        del got, want
+        if not ok:
+            raise AssertionError(f"{name} off the plain version at C {c}")
+        bound, by = _bound_ms(nbytes, flops, peaks)
+        put(name, row, {
+            "name": f"{name} C {c}", "shape": [c, p],
+            "design": _COUNTED[name].design, "launches": 0,
+            "launches_from": f"no path at this C (phase 4m's DP release "
+                             f"ran C {LIMIT_ROW_C})",
+            "max_abs_err": err, **_timed(kfn, pfn, None),
+            "bound_ms": bound, "bound_by": by})
+    del x, noise, resid, uni
+    torch.cuda.empty_cache()
+
+    # trimmed (the median) and pairwise at LIMIT_TIME_WIDE_C
+    c = LIMIT_TIME_WIDE_C
+    x, w = _cover_inputs(c, p, dev, SEED + 63)
+    trim = (c - 1) // 2
+    err, ok = _close(trimmed_reduce_flat(x, w, trim=trim),
+                     ref_trimmed_flat(x, w, trim=trim), 1e-6)
+    if not ok:
+        raise AssertionError(f"trimmed_reduce off the plain version at C {c}")
+    kt = _time_ms(lambda: trimmed_reduce_flat(x, w, trim=trim))
+    pt = _time_ms(lambda: ref_trimmed_flat(x, w, trim=trim))
+    bound, by = _bound_ms(4 * (c * p + p + c), (32 * 2 + 1) * c * p, peaks)
+    put("trimmed_reduce", "10d", {
+        "name": f"trimmed_reduce C {c}", "shape": [c, p], "trim": trim,
+        "design": trimmed_design_for(c),
+        "launches": 0, "launches_from": f"no path at this C (phase 4m's "
+        f"median ran C {LIMIT_WIDE_CS[0]})", "max_abs_err": err,
+        "ms": kt[0], "plain_ms": pt[0], "library_ms": None,
+        "eager_ms": {"kernel": kt[1], "plain": pt[1]},
+        "bound_ms": bound, "bound_by": by})
+    got = pairwise_dists_flat(x)
+    pp = _once_ms(lambda: ref_pairwise_sq_dists(x))
+    err = (got - ref_pairwise_sq_dists(x)).abs().max().item()
+    atol = 1e-5 * (x * x).sum(dim=1).max().item()
+    if not err <= atol:
+        raise AssertionError(f"pairwise_dists off the plain version at C {c}")
+    del got
+    kp = _time_ms(lambda: pairwise_dists_flat(x))
+    lp = _time_ms(lambda: torch.cdist(
+        x, x, compute_mode="use_mm_for_euclid_dist").square())
+    bound, by = _bound_ms(4 * c * p, c * (c + 1) * p,
+                          (tf32_peak / GRAM_TILE_PRODUCTS, peaks[1]))
+    put("pairwise_dists", "11d", {
+        "name": f"pairwise_dists C {c}", "shape": [c, p],
+        "design": pairwise_design_for(c),
+        "split": list(pairwise_split(c, p)), "launches": 0,
+        "launches_from": f"no path at this C (phase 4m's krum ran C "
+                         f"{LIMIT_WIDE_CS[0]})", "max_abs_err": err,
+        "ms": kp[0], "plain_ms": pp[1], "library_ms": lp[0],
+        "library_call": "torch.cdist(x, x, compute_mode="
+                        "'use_mm_for_euclid_dist').square()",
+        "eager_ms": {"kernel": kp[1], "plain": pp[1], "library": lp[1]},
+        "bound_ms": bound, "bound_by": by})
+    del x
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
@@ -6673,9 +7320,19 @@ def main() -> int:
                   backend.BUILD_SECONDS.items(), key=lambda kv: kv[1])))
     build_rec = _build_report()
 
-    print("[1] kernels against their plain versions on the card")
-    worst = check_kernels(dev)
-    _lap()
+    # phase 4l's dry run on the CPU, in processes of its own (it reads no
+    # card), beside phase 1's checks, which time nothing; it is waited
+    # for before phase 4i, whose step and rounds are timed
+    with ThreadPoolExecutor(1) as pool:
+        cpu_dryrun = pool.submit(_cover_dryrun, "cpu")
+        print("[1] kernels against their plain versions on the card")
+        worst = check_kernels(dev)
+        _lap()
+        t0 = time.perf_counter()
+        cpu_dryrun = cpu_dryrun.result()
+    print(f"  phase 4l's CPU dry run, run beside phase 1: "
+          f"{cpu_dryrun['run_s']}s; waited {time.perf_counter() - t0:.1f}s "
+          "after phase 1")
     # LM training first, while the card's memory is whole: the
     # full-parameter round peaks at about 57 GiB
     print("[4i] LM training at full width: the train step, the backbone "
@@ -6749,9 +7406,17 @@ def main() -> int:
           "widths, the trimmed and pairwise kernels past 32 clients, and "
           "the users that need them")
     t0 = time.perf_counter()
-    cover_rec = {"build": build_rec, **kernel_coverage(dev)}
+    cover_rec = {"build": build_rec, **kernel_coverage(dev, cpu_dryrun)}
     _lap()
     print(f"  phase 4l: {time.perf_counter() - t0:.1f}s")
+    print("[4m] the kernels' last shape limits: flash at head widths to "
+          "256, the SSD scan past its tiles, clip and quant past 4096 "
+          "clients, trimmed and pairwise past 1024, the C <= 32 trimmed "
+          "kernel's NaN columns, and the users that need them")
+    t0 = time.perf_counter()
+    limit_rec = kernel_limits(dev)
+    _lap()
+    print(f"  phase 4m: {time.perf_counter() - t0:.1f}s")
     print("[5] timing at the main paths' shapes (CUDA events, median)")
     kernels = timing(dev, serve_rec, pred_rec, train_rec, strat_rec,
                      priv_rec, exp_rec, stage_rec, name, worst)
@@ -6764,6 +7429,9 @@ def main() -> int:
     t0 = time.perf_counter()
     _coverage_rows(dev, kernels, cover_rec, name)
     print(f"  phase 5's coverage rows: {time.perf_counter() - t0:.1f}s")
+    t0 = time.perf_counter()
+    _limit_rows(dev, kernels, limit_rec, name)
+    print(f"  phase 5's limit rows: {time.perf_counter() - t0:.1f}s")
     _lap()
     # phase 4g's launches, over its processes and configurations
     sharded = {}
@@ -6807,6 +7475,9 @@ def main() -> int:
     print(json.dumps({"serve_train": serve_train_rec}))
     print(json.dumps({"tooling": tool_rec}))
     print(json.dumps({"coverage": cover_rec}))
+    print(json.dumps({"limits": limit_rec}))
+    for row in kernels:  # the calls behind each time (_time_ms's count)
+        row["time_iters"] = _iters_of(row)
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

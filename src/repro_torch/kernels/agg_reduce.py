@@ -25,14 +25,16 @@ by bytes on the H100. Shapes and times at the quickstart's
   values in registers with ``_trim_kernel``'s own predicate (one
   instantiation per C, so the client loops unroll; 4·(C·P + P + C)
   bytes, about 7.0 µs; the C² compares (53 M) are far under the rate);
-  "select" up to ``MAX_CLIENTS``, a block staging the (C, 16) slab of 16
-  coordinates in shared memory as order keys, one warp a coordinate
-  selecting the pairs (key, client) at ranks trim and C−1−trim by a
-  radix select over the key's bits, then one thread a coordinate
-  summing the survivors in client order. Both give the reference's
-  survivors (ties by client index); a NaN anywhere in a column makes the
-  column NaN in the reference (keep·w·x with keep = 0), and in the
-  select design too (the register design skips dropped clients).
+  "select" above, a block staging the (C, cols) slab of ``cols``
+  coordinates in shared memory as order keys (16 while the slab fits,
+  then 8, 4, 2 or 1, the source's launch picks; past one column's slab
+  the keys are read from device memory), one warp a coordinate selecting the pairs
+  (key, client) at ranks trim and C−1−trim by a radix select over the
+  key's bits, then one thread a coordinate summing in client order.
+  Both give the reference's survivors (ties by client index) and add
+  keep·w·x and keep·w over every client as the reference does, so a NaN
+  anywhere in a column, or an infinity trimmed away, makes the column
+  NaN in both designs as in the reference.
 * ``pairwise_dists_flat`` (``csrc/pairwise_dists.cu``, replaces
   ``_pairwise_kernel``): the (C, C) squared distances
   G_ii + G_jj − 2·G_ij from the Gram matrix G = X·Xᵀ, clamped at 0. The
@@ -46,11 +48,13 @@ by bytes on the H100. Shapes and times at the quickstart's
   atomics, two calls bit-equal, the diagonal exactly 0, the output
   exactly symmetric. 4·C·P bytes, 21.4 MB, about 6.4 µs. That is the
   "one_tile" design, for C ≤ ``REGISTER_CLIENTS``; "tiled"
-  (``pairwise_design_for``) takes C up to ``MAX_CLIENTS``: 32-row tiles
-  of G, a block per column chunk and tile pair I ≤ J, the same exact
-  big·big and three small products, and a column chunk that depends on
-  (C, P) (``pairwise_split``) so that the f64 partials stay within
-  ``PAIRWISE_BUDGET`` bytes.
+  (``pairwise_design_for``) takes every C above: 32-row tiles of G, a
+  block per column chunk and tile pair I ≤ J, the same exact big·big
+  and three small products, and a column chunk that depends on (C, P)
+  (``pairwise_split``) so that the f64 partials stay within
+  ``PAIRWISE_BUDGET`` bytes while one partial fits it (C ≤ 5792); past
+  that one chunk of every column, the partial twice the (C, C)
+  output.
 
 * ``clip_reduce_flat`` (``csrc/clip_reduce.cu``, replaces
   ``_clip_reduce_kernel`` and ``_clip_reduce_noise_kernel``): the DP
@@ -92,11 +96,12 @@ by bytes on the H100. Shapes and times at the quickstart's
   weighted reduce and the optional residual, in one pass.
   4·(2·C·P + P + 2·C) bytes with the residual, 44.9 MB, about 13.4 µs.
 
-The trimmed and pairwise kernels hold at most ``MAX_CLIENTS`` clients
-(the select design's slab of 16 coordinates in shared memory, the
-pairwise partials' budget), the clip and quant kernels at most
-``MAX_ROWS`` (two floats a client in the shared memory of the
-three-pass kernels); the wrappers refuse more on both devices.
+No kernel here caps C: device memory is the only limit. The clip and
+quant designs that read x more than once keep the C scales in shared
+memory up to 4096 clients (``kSmemRows`` in ``csrc/client_rows.cuh``;
+every block finishes them from the partials); past that one warp a row
+finishes them once into the scratch, after the partials, and the
+reduce reads them there, the same scales bit for bit.
 Every wrapper holds the operand contract on both devices, runs the plain
 version on CPU tensors, launches on CUDA tensors or raises, and counts
 its launches (one call counts once, however many kernels it launches;
@@ -129,20 +134,16 @@ _NORM_FLOOR = 1e-12
 INT8_LEVELS = 127.0
 _SCALE_FLOOR = 1e-30
 
-# the trimmed and pairwise kernels' cap on C (kMaxSelect, kMaxTiled in
-# their sources), and the cap of their C <= 32 designs (kMaxClients):
-# FedConfig.num_clients is 10 in the quickstart and the sweeps, 32 in
-# benchmarks/bench_round.py's aggregation section, tens to hundreds in
-# cross-device rounds
-MAX_CLIENTS = 1024
+# the cap of the trimmed and pairwise kernels' C <= 32 designs
+# (kMaxClients in their sources): FedConfig.num_clients is 10 in the
+# quickstart and the sweeps, 32 in benchmarks/bench_round.py's
+# aggregation section, tens to thousands in cross-device rounds
 REGISTER_CLIENTS = 32
 # the tiled pairwise design: a column chunk is a multiple of its stage
 # (kTCols) and at least PAIRWISE_CHUNK, and large enough that the
 # (nb, C, C) f64 partials fit this many bytes
 PAIRWISE_STAGE = 128
 PAIRWISE_BUDGET = 256 << 20
-# the clip and quant kernels' cap on C (kMaxRows in csrc/client_rows.cuh)
-MAX_ROWS = 4096
 # columns per block of the pairwise kernel (kChunk in its source)
 PAIRWISE_CHUNK = 4096
 # columns of one client row per partial block of the norm and absmax
@@ -235,14 +236,14 @@ momentum_reduce_flat.launches = 0
 
 
 def _check_clients(what: str, c: int) -> None:
-    if not 1 <= c <= MAX_CLIENTS:
-        raise ValueError(f"{what}: C={c} clients; the CUDA kernel holds 1 "
-                         f"to {MAX_CLIENTS}")
+    if c < 1:
+        raise ValueError(f"{what}: C={c} clients; the CUDA kernel needs "
+                         "at least 1")
 
 
 def trimmed_design_for(c: int) -> str:
     """The trimmed reduce's design at C clients: "registers" up to
-    ``REGISTER_CLIENTS``, else "select" (shared memory)."""
+    ``REGISTER_CLIENTS``, else "select"."""
     return "registers" if c <= REGISTER_CLIENTS else "select"
 
 
@@ -340,16 +341,16 @@ def _ptr(t) -> int | None:
 def _check_rows(what: str, stacked: torch.Tensor, weights: torch.Tensor,
                 **mats) -> None:
     """(C, P) stacked, (C,) weights, every other operand (C, P) or None,
-    and 1 <= C <= MAX_ROWS."""
+    and C >= 1."""
     bad = {k: tuple(v.shape) for k, v in mats.items()
            if v is not None and v.shape != stacked.shape}
     if stacked.dim() != 2 or weights.shape != stacked.shape[:1] or bad:
         raise ValueError(f"{what} shapes: stacked {tuple(stacked.shape)}, "
                          f"weights {tuple(weights.shape)}, other operands "
                          f"{bad}")
-    if not 1 <= stacked.shape[0] <= MAX_ROWS:
+    if stacked.shape[0] < 1:
         raise ValueError(f"{what}: C={stacked.shape[0]} clients; the CUDA "
-                         f"kernel holds 1 to {MAX_ROWS}")
+                         "kernel needs at least 1")
 
 
 def clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
@@ -380,7 +381,8 @@ def clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
                              props.shared_memory_per_block_optin)
     width, nb = quant_split(p) if design == "on_chip" else (
         0, -(-p // ROW_CHUNK))
-    part = torch.empty((nb * c,), dtype=torch.float32, device=dev)
+    # the partial norms, then (two launches past kSmemRows) the C scales
+    part = torch.empty(((nb + 1) * c,), dtype=torch.float32, device=dev)
     err = fn(stacked.data_ptr(), _ptr(noise), weights.data_ptr(),
              part.data_ptr(), out.data_ptr(), float(clip), c, p, nb, width,
              backend.stream_ptr(dev))
@@ -493,8 +495,10 @@ def quant_clip_reduce_flat(stacked: torch.Tensor, weights: torch.Tensor, *,
                               props.shared_memory_per_block_optin)
     width, nb = quant_split(p) if design == "on_chip" else (
         0, -(-p // ROW_CHUNK))
-    # norm and absmax partials
-    scratch = torch.empty((2 * nb * c,), dtype=torch.float32, device=dev)
+    # norm and absmax partials, then (three passes past kSmemRows) the
+    # clip and quantization scales
+    scratch = torch.empty(((2 * nb + 2) * c,), dtype=torch.float32,
+                          device=dev)
     err = fn(stacked.data_ptr(), _ptr(noise), _ptr(resid), _ptr(uniform),
              weights.data_ptr(), scratch.data_ptr(),
              scratch[nb * c:].data_ptr(), out.data_ptr(), _ptr(new_resid),

@@ -32,10 +32,16 @@ constexpr long long kChunk = 8192;
 // columns per thread of the column-parallel kernels (strided by the
 // block, so each warp's loads stay coalesced): 1024 columns a block
 constexpr int kCols = 4;
-// rows (clients) a call may hold: the consumers keep two floats a row in
-// shared memory (32 KB at the cap, under the 48 KB a block gets without
-// opting in)
-constexpr int kMaxRows = 4096;
+// rows (clients) whose scales the consumers finish into shared memory,
+// every block all of them (two floats a row: 32 KB at 4096, under the
+// 48 KB a block gets without opting in). Past it one warp a row finishes
+// each row's scales once into a device buffer beside the partials, in the
+// same order, and the consumers read them there: the same bits, and
+// device memory is the only limit on C.
+constexpr int kSmemRows = 4096;
+// rows a column of the (nb, C) partial grids takes at once (grid.y's
+// limit); past it a block walks rows blockIdx.y, + kGridRows, ...
+constexpr int kGridRows = 65535;
 constexpr long long kBlockCols = static_cast<long long>(kThreads) * kCols;
 
 // the TPU kernels' floors (repro/kernels/agg_reduce.py): zero deltas
@@ -111,24 +117,34 @@ __device__ __forceinline__ float block_max(float s, float* red) {
   return t;
 }
 
+// The (nb, C) grid of a partial kernel: C rows along grid.y up to
+// kGridRows.
+inline dim3 row_grid(int nb, int C) {
+  return dim3(static_cast<unsigned>(nb),
+              static_cast<unsigned>(C < kGridRows ? C : kGridRows));
+}
+
 // Partial squared norms: block (b, c) writes sum over its chunk of row c
 // of x^2 to part[b C + c].
 __global__ void __launch_bounds__(kThreads)
 row_sumsq_kernel(const float* __restrict__ x, float* __restrict__ part,
                  int C, long long P) {
   __shared__ float red[kWarps];
-  const int b = blockIdx.x, c = blockIdx.y;
-  const float* row = x + static_cast<long long>(c) * P;
+  const int b = blockIdx.x;
   const long long lo = static_cast<long long>(b) * kChunk;
   const long long hi = lo + kChunk < P ? lo + kChunk : P;
-  float s = 0.0f;
+  for (int c = blockIdx.y; c < C; c += gridDim.y) {
+    const float* row = x + static_cast<long long>(c) * P;
+    float s = 0.0f;
 #pragma unroll 8
-  for (long long p = lo + threadIdx.x; p < hi; p += kThreads) {
-    const float v = __ldg(row + p);
-    s = fmaf(v, v, s);
+    for (long long p = lo + threadIdx.x; p < hi; p += kThreads) {
+      const float v = __ldg(row + p);
+      s = fmaf(v, v, s);
+    }
+    s = block_sum(s, red);
+    if (threadIdx.x == 0) part[static_cast<long long>(b) * C + c] = s;
+    __syncthreads();  // red is reused by the next row
   }
-  s = block_sum(s, red);
-  if (threadIdx.x == 0) part[static_cast<long long>(b) * C + c] = s;
 }
 
 }  // namespace client_rows

@@ -42,6 +42,9 @@
 //      C norms from the partials in a fixed order and turns them into
 //      the clip scales (shared memory), then each thread takes 4 columns
 //      (strided by the block) and walks the clients 0..C-1 in order.
+//      Past kSmemRows clients clip_scales_kernel finishes each scale once
+//      into the scratch, after the partials, and the reduce reads it
+//      there (the same scales, bit for bit).
 // It reads x twice, so it moves 1.5x (with noise) to 1.9x (without) the
 // bound's bytes.
 //
@@ -53,8 +56,9 @@
 // Without noise no noise operand is read (no zero matrix).
 //
 // Inputs x (C, P), noise (C, P) or null, w (C,), all f32 contiguous;
-// scratch part, nb * C floats, and output out (P,) f32, allocated by the
-// wrapper.
+// scratch part, (nb + 1) * C floats (the partials, then the scales past
+// kSmemRows clients), and output out (P,) f32, allocated by the wrapper.
+// Device memory is the only limit on C.
 #include <cuda_runtime.h>
 
 #include "on_chip_rows.cuh"
@@ -139,20 +143,36 @@ int launch_on_chip(const float* x, const float* noise, const float* w,
 
 // ---- two launches ----
 
-template <bool kNoise>
+// past kSmemRows clients: one warp a row, each clip scale once, into
+// scales[C]
+__global__ void __launch_bounds__(kThreads)
+clip_scales_kernel(const float* __restrict__ part, int nb, float clip,
+                   float* __restrict__ scales, int C) {
+  const int c = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (c >= C) return;  // the whole warp leaves together
+  const float sq = finish_sum(part, nb, C, c);
+  if (threadIdx.x % 32 == 0) scales[c] = clip_scale(sq, clip);
+}
+
+// kShared: the block finishes the C scales into shared memory; else it
+// reads them from `scales` (clip_scales_kernel's)
+template <bool kNoise, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 clip_reduce_kernel(const float* __restrict__ x,
                    const float* __restrict__ noise,
                    const float* __restrict__ w,
                    const float* __restrict__ part, int nb, float clip,
+                   const float* __restrict__ scales,
                    float* __restrict__ out, int C, long long P) {
-  extern __shared__ float scale[];  // [C]
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c = warp; c < C; c += kWarps) {
-    const float sq = finish_sum(part, nb, C, c);
-    if (lane == 0) scale[c] = clip_scale(sq, clip);
+  extern __shared__ float sm[];  // [C] with kShared
+  if constexpr (kShared) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int c = warp; c < C; c += kWarps) {
+      const float sq = finish_sum(part, nb, C, c);
+      if (lane == 0) sm[c] = clip_scale(sq, clip);
+    }
+    __syncthreads();
   }
-  __syncthreads();
 
   const long long base = static_cast<long long>(blockIdx.x) * kBlockCols +
                          threadIdx.x;
@@ -160,7 +180,8 @@ clip_reduce_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int k = 0; k < kCols; ++k) acc[k] = 0.0f;
   for (int c = 0; c < C; ++c) {
-    const float wc = __ldg(w + c), sc = scale[c];
+    const float wc = __ldg(w + c),
+                sc = kShared ? sm[c] : __ldg(scales + c);
     const long long row = static_cast<long long>(c) * P;
 #pragma unroll
     for (int k = 0; k < kCols; ++k) {
@@ -179,23 +200,36 @@ clip_reduce_kernel(const float* __restrict__ x,
   }
 }
 
+template <bool kNoise, bool kShared>
+void launch_reduce(const float* x, const float* noise, const float* w,
+                   const float* part, const float* scales, float* out,
+                   float clip, int C, long long P, int nb, cudaStream_t st) {
+  const unsigned blocks =
+      static_cast<unsigned>((P + kBlockCols - 1) / kBlockCols);
+  const size_t smem = kShared ? static_cast<size_t>(C) * sizeof(float) : 0;
+  clip_reduce_kernel<kNoise, kShared><<<blocks, kThreads, smem, st>>>(
+      x, noise, w, part, nb, clip, scales, out, C, P);
+}
+
 int launch_two(const float* x, const float* noise, const float* w,
                float* part, float* out, float clip, int C, long long P,
                int nb, cudaStream_t st) {
-  row_sumsq_kernel<<<dim3(static_cast<unsigned>(nb),
-                          static_cast<unsigned>(C)),
-                     kThreads, 0, st>>>(x, part, C, P);
-  const int err = static_cast<int>(cudaGetLastError());
+  row_sumsq_kernel<<<row_grid(nb, C), kThreads, 0, st>>>(x, part, C, P);
+  int err = static_cast<int>(cudaGetLastError());
   if (err != 0) return err;
-  const unsigned blocks =
-      static_cast<unsigned>((P + kBlockCols - 1) / kBlockCols);
-  const size_t smem = static_cast<size_t>(C) * sizeof(float);
-  if (noise != nullptr)
-    clip_reduce_kernel<true><<<blocks, kThreads, smem, st>>>(
-        x, noise, w, part, nb, clip, out, C, P);
-  else
-    clip_reduce_kernel<false><<<blocks, kThreads, smem, st>>>(
-        x, nullptr, w, part, nb, clip, out, C, P);
+  if (C <= kSmemRows) {
+    (noise != nullptr ? launch_reduce<true, true>
+                      : launch_reduce<false, true>)(
+        x, noise, w, part, nullptr, out, clip, C, P, nb, st);
+    return static_cast<int>(cudaGetLastError());
+  }
+  float* scales = part + static_cast<long long>(nb) * C;
+  clip_scales_kernel<<<static_cast<unsigned>((C + kWarps - 1) / kWarps),
+                       kThreads, 0, st>>>(part, nb, clip, scales, C);
+  err = static_cast<int>(cudaGetLastError());
+  if (err != 0) return err;
+  (noise != nullptr ? launch_reduce<true, false> : launch_reduce<false, false>)(
+      x, noise, w, part, scales, out, clip, C, P, nb, st);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -203,7 +237,7 @@ int launch_two(const float* x, const float* noise, const float* w,
 
 // C entry, bound with ctypes, on `stream` (PyTorch's current stream).
 // noise may be null (the clip-only kernels). width selects the design: 0
-// the two launches (part holds nb * C floats, nb = ceil(P / 8192)), else
+// the two launches (part holds (nb + 1) * C floats, nb = ceil(P / 8192)), else
 // the on-chip launch, width the columns a block owns, which must be
 // 4 ceil(ceil(P / 128) / 4), and nb = ceil(P / width) blocks, part nb * C
 // floats; the wrapper computes both from the same rules and passes them
@@ -218,7 +252,7 @@ extern "C" int clip_reduce_launch(const float* x, const float* noise,
                                   long long nb, long long width,
                                   void* stream) {
   const bool on_chip = width != 0;
-  if (C < 1 || C > kMaxRows || P < 1 || !(clip > 0.0f) ||
+  if (C < 1 || P < 1 || !(clip > 0.0f) ||
       (on_chip ? width != oc_width(P) || nb != (P + width - 1) / width
                : nb != num_chunks(P)))
     return static_cast<int>(cudaErrorInvalidValue);

@@ -1,7 +1,7 @@
 // Tensor-core building blocks for the bf16 kernels (sm_90a): cp.async
 // copies, ldmatrix fragment loads, mma.sync m16n8k16 bf16 -> f32, the
 // MUFU exp2 and bf16 packing. Shared by the flash-attention forward
-// (flash_attention_fwd.cu) and the SSD chunked scan (ssd_scan.cu); each
+// (flash_attention_fwd.cuh) and the SSD chunked scan (ssd_scan.cu); each
 // source builds into its own library, so the helpers are file-local.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16 .bf16): lane = 4 g + tq holds
@@ -96,6 +96,17 @@ __device__ __forceinline__ void split_bf16(float v0, float v1, uint32_t& hi,
   const float2 hf = __bfloat1622float2(h);
   hi = *reinterpret_cast<const uint32_t*>(&h);
   lo = pack_bf16(v0 - hf.x, v1 - hf.y);
+}
+
+// bf16 hi + mid + lo of two f32 values, each part the bf16 of what the
+// parts before it leave: the three keep about 24 bits of each v, f32's
+// own precision, so an f32 operand becomes three exact bf16 mma operands
+__device__ __forceinline__ void split3_bf16(float v0, float v1, uint32_t& hi,
+                                            uint32_t& mid, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(v0, v1);
+  const float2 hf = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  split_bf16(v0 - hf.x, v1 - hf.y, mid, lo);
 }
 
 }  // namespace

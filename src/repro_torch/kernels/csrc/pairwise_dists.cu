@@ -62,7 +62,7 @@
 // Inputs x (C, P) f32 contiguous; scratch part (nb, C, C) f64 and output
 // (C, C) f32, allocated by the wrapper. C <= kMaxClients.
 //
-// Past 32 clients (33 <= C <= kMaxTiled) the rows no longer fit one
+// Past 32 clients the rows no longer fit one
 // block's Gram: gram_tile_kernel tiles G into 32-row tiles and gives
 // each block one chunk of columns and one pair of tiles I <= J, whose
 // 64 rows (32 on the diagonal) stream through a ring of kTStages stages
@@ -75,7 +75,11 @@
 // j of G_b in f64, and the finish launch above forms d. The column split
 // depends on (C, P): chunk columns a block, a multiple of kTCols of at
 // least kChunk, chosen by the wrapper so that the (nb, C, C) f64
-// partials stay within a fixed budget (256 MiB: nb <= 32 at C = 1024).
+// partials stay within a fixed budget (256 MiB: nb <= 32 at C = 1024)
+// while one partial fits it (C <= 5792); past that, nb = 1, one chunk of
+// every column, and the partial is twice the (C, C) f32 output: device
+// memory is the only limit on C. The tile pairs run along grid.y and
+// grid.z (65535 of them a row of the grid).
 // Bound on the H100 at C = 1024, P = 534016: 2.2 GB read once, 0.65 us
 // at 3.35 TB/s; the C (C + 1) / 2 dot products, 5.6e14 FMA-equivalent
 // f32 operations, set the bound (chip_smoke.py phase 5). Each block reads
@@ -113,7 +117,7 @@ constexpr int kTSteps = 2;
 constexpr int kTCols = 8 * kTSteps * kTWarps;
 constexpr int kTStride = kTCols + 4;  // = 4 mod 32, as stage_stride
 constexpr int kTStages = 3;
-constexpr int kMaxTiled = 1024;
+constexpr unsigned kGridRow = 65535;  // tile pairs a row of grid.y
 
 // the 16x8 output tiles (m, n) of an R x R matrix, t = 4 m + n: all of
 // them for L (2 at R = 16, 8 at R = 32), those on or above the diagonal
@@ -169,8 +173,9 @@ __device__ __forceinline__ void grid_split(const float (&v)[N][2],
 // round, all loads in flight), then a butterfly; every lane gets the
 // values.
 template <int N>
-__device__ __forceinline__ void gram_entries(const double* part, int cc,
-                                             int nb, const int (&es)[N],
+__device__ __forceinline__ void gram_entries(const double* part,
+                                             long long cc, int nb,
+                                             const long long (&es)[N],
                                              double (&g)[N]) {
   constexpr int kBatch = 8;
   const int lane = threadIdx.x % 32;
@@ -333,10 +338,13 @@ gram_tile_kernel(const float* __restrict__ x, double* __restrict__ part,
   extern __shared__ __align__(16) float smem[];
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, tq = lane % 4;
-  int I = 0, u = blockIdx.y;  // pair u = (I, J) in row-major order
+  // pair u = (I, J) in row-major order
+  long long u = static_cast<long long>(blockIdx.z) * kGridRow + blockIdx.y;
   const int T = (C + 31) / 32;
+  if (u >= static_cast<long long>(T) * (T + 1) / 2) return;
+  int I = 0;
   for (; u >= T - I; ++I) u -= T - I;
-  const int J = I + u;
+  const int J = I + static_cast<int>(u);
   const bool diag = I == J;
   const int slots = diag ? 32 : 64;
   const int b_row = diag ? 0 : 32;  // J's first row in a stage
@@ -474,18 +482,27 @@ gram_tile_kernel(const float* __restrict__ x, double* __restrict__ part,
 __global__ void __launch_bounds__(256)
 gram_finish_kernel(const double* __restrict__ part, float* __restrict__ out,
                    int C, int nb) {
-  int u = blockIdx.x * 8 + threadIdx.x / 32;
-  if (u >= C * (C + 1) / 2) return;  // the whole warp leaves together
-  int i = 0;  // pair u = (i, j), i <= j, in row-major upper-triangle order
-  for (; u >= C - i; ++i) u -= C - i;
-  const int j = i + u;
+  long long u = static_cast<long long>(blockIdx.x) * 8 + threadIdx.x / 32;
+  const long long n = C;
+  if (u >= n * (n + 1) / 2) return;  // the whole warp leaves together
+  // pair u = (i, j), i <= j, in row-major upper-triangle order: the row
+  // from the closed form (its guess corrected by a step at most), then
+  // the column; the same pair the walk over the rows gives
+  long long i = static_cast<long long>(
+      (2.0 * n + 1.0 - sqrt((2.0 * n + 1.0) * (2.0 * n + 1.0) - 8.0 * u)) /
+      2.0);
+  auto first = [&](long long r) { return r * n - r * (r - 1) / 2; };
+  if (i < 0) i = 0;
+  while (i > 0 && first(i) > u) --i;
+  while (i + 1 < n && first(i + 1) <= u) ++i;
+  const long long j = i + (u - first(i));
   double g[3];  // G_ii, G_jj, G_ij
-  gram_entries(part, C * C, nb, {i * C + i, j * C + j, i * C + j}, g);
+  gram_entries(part, n * n, nb, {i * n + i, j * n + j, i * n + j}, g);
   const double d = __dsub_rn(__dadd_rn(g[0], g[1]), __dmul_rn(2.0, g[2]));
   if (threadIdx.x % 32 == 0) {
     const float v = static_cast<float>(d > 0.0 ? d : 0.0);
-    out[i * C + j] = v;
-    out[j * C + i] = v;
+    out[i * n + j] = v;
+    out[j * n + i] = v;
   }
 }
 
@@ -514,8 +531,12 @@ int launch_tiles(const float* x, double* part, int C, long long P, int nb,
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem)));
   if (err != 0) return err;
-  const int tiles = (C + 31) / 32;
-  const dim3 grid(static_cast<unsigned>(nb), tiles * (tiles + 1) / 2);
+  const long long tiles = (C + 31) / 32;
+  const long long pairs = tiles * (tiles + 1) / 2;
+  const unsigned rows =
+      static_cast<unsigned>((pairs + kGridRow - 1) / kGridRow);
+  const dim3 grid(static_cast<unsigned>(nb),
+                  rows > 1 ? kGridRow : static_cast<unsigned>(pairs), rows);
   kern<<<grid, kTThreads, smem, st>>>(x, part, C, P, chunk);
   return static_cast<int>(cudaGetLastError());
 }
@@ -549,7 +570,7 @@ extern "C" int pairwise_dists_launch(const float* x, double* part, float* out,
   return static_cast<int>(cudaGetLastError());
 }
 
-// C entry of the tiled design, 33 <= C <= kMaxTiled: both launches on
+// C entry of the tiled design, C >= 33: both launches on
 // `stream`. part holds nb * C * C doubles, nb = ceil(P / chunk), chunk a
 // multiple of kTCols of at least kChunk (the wrapper's pairwise_split).
 // Allocates nothing, does not synchronise; returns cudaGetLastError(), or
@@ -559,7 +580,7 @@ extern "C" int pairwise_tiles_launch(const float* x, double* part,
                                      float* out, int C, long long P,
                                      long long nb, long long chunk,
                                      void* stream) {
-  if (C <= kMaxClients || C > kMaxTiled || P < 1 || chunk < kChunk ||
+  if (C <= kMaxClients || P < 1 || chunk < kChunk ||
       chunk % kTCols != 0 || nb != (P + chunk - 1) / chunk)
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t st = static_cast<cudaStream_t>(stream);

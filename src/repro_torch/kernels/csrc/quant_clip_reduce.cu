@@ -58,6 +58,9 @@
 //   3. quant_reduce_kernel, a grid over P: each block finishes all C clip
 //      scales and quantization scales into shared memory, then each
 //      thread takes 4 columns and walks the clients 0..C-1 in order.
+//      Past kSmemRows clients quant_scales_kernel finishes each row's
+//      two scales once into the scratch, after the absmax partials, and
+//      the reduce reads them there (the same scales, bit for bit).
 // u is rebuilt in passes 2 and 3 from the operands, so it reads x three
 // times and the noise and residual twice: 9 C P floats, 1.8x the bound.
 //
@@ -68,8 +71,10 @@
 // another order by each design, so the two may differ by an ulp there.
 //
 // Inputs x (C, P), noise, resid and uniform (C, P) or null, w (C,), all
-// f32 contiguous; scratch norm_part and amax_part, nb * C floats each
-// (norm_part unused without the clip), outputs out
+// f32 contiguous; scratch norm_part, nb * C floats (unused without the
+// clip), and amax_part, (nb + 2) * C floats (the partials, then the clip
+// and quantization scales past kSmemRows clients); device memory is the
+// only limit on C; outputs out
 // (P,) and resid_out (C, P) (with a residual only), allocated by the
 // wrapper.
 #include <cuda_runtime.h>
@@ -265,23 +270,56 @@ row_absmax_kernel(const float* __restrict__ x,
                   const float* __restrict__ norm_part, int nb, float clip,
                   float* __restrict__ amax_part, int C, long long P) {
   __shared__ float red[kWarps];
-  const int b = blockIdx.x, c = blockIdx.y;
-  // every warp finishes the row's norm itself: same code, same bits
-  const float sc = kClip ? clip_scale(finish_sum(norm_part, nb, C, c), clip)
-                         : 1.0f;
-  const long long row = static_cast<long long>(c) * P;
+  const int b = blockIdx.x;
   const long long lo = static_cast<long long>(b) * kChunk;
   const long long hi = lo + kChunk < P ? lo + kChunk : P;
-  float m = 0.0f;
+  for (int c = blockIdx.y; c < C; c += gridDim.y) {
+    // every warp finishes the row's norm itself: same code, same bits
+    const float sc =
+        kClip ? clip_scale(finish_sum(norm_part, nb, C, c), clip) : 1.0f;
+    const long long row = static_cast<long long>(c) * P;
+    float m = 0.0f;
 #pragma unroll 8
-  for (long long p = lo + threadIdx.x; p < hi; p += kThreads)
-    m = fmaxf(m, fabsf(released<kClip, kNoise, kResid>(x, noise, resid,
-                                                        row + p, sc)));
-  m = block_max(m, red);
-  if (threadIdx.x == 0) amax_part[static_cast<long long>(b) * C + c] = m;
+    for (long long p = lo + threadIdx.x; p < hi; p += kThreads)
+      m = fmaxf(m, fabsf(released<kClip, kNoise, kResid>(x, noise, resid,
+                                                          row + p, sc)));
+    m = block_max(m, red);
+    if (threadIdx.x == 0) amax_part[static_cast<long long>(b) * C + c] = m;
+    __syncthreads();  // red is reused by the next row
+  }
 }
 
-template <bool kClip, bool kNoise, bool kResid, bool kUniform>
+// row c's clip scale and quantization scale from the partials, in the
+// order quant_reduce_kernel finishes them; called by a whole warp
+template <bool kClip>
+__device__ __forceinline__ float2 row_scales(const float* norm_part,
+                                             const float* amax_part, int nb,
+                                             float clip, int C, int c) {
+  const float sc =
+      kClip ? clip_scale(finish_sum(norm_part, nb, C, c), clip) : 1.0f;
+  const float amax = finish_max(amax_part, nb, C, c);
+  return make_float2(sc, fmaxf(__fdiv_rn(amax, kInt8Levels), kScaleFloor));
+}
+
+// past kSmemRows clients: one warp a row, both scales once, into
+// scales[0..C) (clip) and scales[C..2C) (quantization)
+template <bool kClip>
+__global__ void __launch_bounds__(kThreads)
+quant_scales_kernel(const float* __restrict__ norm_part,
+                    const float* __restrict__ amax_part, int nb, float clip,
+                    float* __restrict__ scales, int C) {
+  const int c = blockIdx.x * kWarps + threadIdx.x / 32;
+  if (c >= C) return;  // the whole warp leaves together
+  const float2 s = row_scales<kClip>(norm_part, amax_part, nb, clip, C, c);
+  if (threadIdx.x % 32 == 0) {
+    scales[c] = s.x;
+    scales[C + c] = s.y;
+  }
+}
+
+// kShared: the block finishes the scales into shared memory; else it
+// reads them from `scales` (quant_scales_kernel's)
+template <bool kClip, bool kNoise, bool kResid, bool kUniform, bool kShared>
 __global__ void __launch_bounds__(kThreads)
 quant_reduce_kernel(const float* __restrict__ x,
                     const float* __restrict__ noise,
@@ -290,22 +328,22 @@ quant_reduce_kernel(const float* __restrict__ x,
                     const float* __restrict__ w,
                     const float* __restrict__ norm_part,
                     const float* __restrict__ amax_part, int nb, float clip,
+                    const float* __restrict__ scales,
                     float* __restrict__ out, float* __restrict__ resid_out,
                     int C, long long P) {
-  extern __shared__ float sm[];
-  float* scale = sm;      // [C] clip scales
-  float* qscale = sm + C;  // [C] quantization scales
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  for (int c = warp; c < C; c += kWarps) {
-    const float sc =
-        kClip ? clip_scale(finish_sum(norm_part, nb, C, c), clip) : 1.0f;
-    const float amax = finish_max(amax_part, nb, C, c);
-    if (lane == 0) {
-      scale[c] = sc;
-      qscale[c] = fmaxf(__fdiv_rn(amax, kInt8Levels), kScaleFloor);
+  extern __shared__ float sm[];  // [2 C] with kShared
+  if constexpr (kShared) {
+    const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+    for (int c = warp; c < C; c += kWarps) {
+      const float2 s =
+          row_scales<kClip>(norm_part, amax_part, nb, clip, C, c);
+      if (lane == 0) {
+        sm[c] = s.x;
+        sm[C + c] = s.y;
+      }
     }
+    __syncthreads();
   }
-  __syncthreads();
 
   const long long base = static_cast<long long>(blockIdx.x) * kBlockCols +
                          threadIdx.x;
@@ -313,7 +351,9 @@ quant_reduce_kernel(const float* __restrict__ x,
 #pragma unroll
   for (int k = 0; k < kCols; ++k) acc[k] = 0.0f;
   for (int c = 0; c < C; ++c) {
-    const float wc = __ldg(w + c), sc = scale[c], s = qscale[c];
+    const float wc = __ldg(w + c);
+    const float sc = kShared ? sm[c] : __ldg(scales + c);
+    const float s = kShared ? sm[C + c] : __ldg(scales + C + c);
     const long long row = static_cast<long long>(c) * P;
 #pragma unroll
     for (int k = 0; k < kCols; ++k) {
@@ -340,8 +380,7 @@ quant_reduce_kernel(const float* __restrict__ x,
 
 template <bool kClip, bool kNoise, bool kResid, bool kUniform>
 int launch(const Args& a) {
-  const unsigned nb = static_cast<unsigned>(a.nb);
-  const dim3 rows(nb, static_cast<unsigned>(a.C));
+  const dim3 rows = row_grid(a.nb, a.C);
   if (kClip) {
     row_sumsq_kernel<<<rows, kThreads, 0, a.stream>>>(a.x, a.norm_part, a.C,
                                                       a.P);
@@ -355,11 +394,24 @@ int launch(const Args& a) {
   if (err != 0) return err;
   const unsigned blocks =
       static_cast<unsigned>((a.P + kBlockCols - 1) / kBlockCols);
-  const size_t smem = 2 * static_cast<size_t>(a.C) * sizeof(float);
-  quant_reduce_kernel<kClip, kNoise, kResid, kUniform>
-      <<<blocks, kThreads, smem, a.stream>>>(
+  if (a.C <= kSmemRows) {
+    const size_t smem = 2 * static_cast<size_t>(a.C) * sizeof(float);
+    quant_reduce_kernel<kClip, kNoise, kResid, kUniform, true>
+        <<<blocks, kThreads, smem, a.stream>>>(
+            a.x, a.noise, a.resid, a.uniform, a.w, a.norm_part, a.amax_part,
+            a.nb, a.clip, nullptr, a.out, a.resid_out, a.C, a.P);
+    return static_cast<int>(cudaGetLastError());
+  }
+  float* scales = a.amax_part + static_cast<long long>(a.nb) * a.C;
+  quant_scales_kernel<kClip>
+      <<<static_cast<unsigned>((a.C + kWarps - 1) / kWarps), kThreads, 0,
+         a.stream>>>(a.norm_part, a.amax_part, a.nb, a.clip, scales, a.C);
+  const int err2 = static_cast<int>(cudaGetLastError());
+  if (err2 != 0) return err2;
+  quant_reduce_kernel<kClip, kNoise, kResid, kUniform, false>
+      <<<blocks, kThreads, 0, a.stream>>>(
           a.x, a.noise, a.resid, a.uniform, a.w, a.norm_part, a.amax_part,
-          a.nb, a.clip, a.out, a.resid_out, a.C, a.P);
+          a.nb, a.clip, scales, a.out, a.resid_out, a.C, a.P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -392,8 +444,8 @@ constexpr Designs kLaunch[16] = {
 // C entry, bound with ctypes, on `stream` (PyTorch's current stream).
 // clip > 0 turns the DP release on; noise, resid and uniform may each be
 // null (noise only with clip > 0); resid_out is written when resid is
-// given. width selects the design: 0 the three passes (norm_part and
-// amax_part hold nb * C floats each, nb = ceil(P / 8192)), else the
+// given. width selects the design: 0 the three passes (norm_part holds
+// nb * C floats and amax_part (nb + 2) * C, nb = ceil(P / 8192)), else the
 // on-chip launch, width the columns a block owns, which must be
 // 4 ceil(ceil(P / 128) / 4), and nb = ceil(P / width) blocks, the
 // partials C * nb floats each; the wrapper
@@ -409,7 +461,7 @@ extern "C" int quant_clip_reduce_launch(
     long long nb, long long width, void* stream) {
   const bool has_clip = clip > 0.0f;
   const bool on_chip = width != 0;
-  if (C < 1 || C > kMaxRows || P < 1 ||
+  if (C < 1 || P < 1 ||
       (on_chip ? width != oc_width(P) || nb != (P + width - 1) / width
                : nb != num_chunks(P)) ||
       (noise != nullptr && !has_clip) ||

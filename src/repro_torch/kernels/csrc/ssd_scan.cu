@@ -122,21 +122,49 @@ constexpr int kSmemFloats = kMaxChunk * kNS + kMaxChunk * kPS + kMaxP * kNS +
                             kRowBlock * kNS + kRowBlock * kLS + 2 * kMaxChunk;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
 template <typename T>
 __device__ __forceinline__ T from_f32(float v);
 template <>
 __device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
 
-// The tiles are sized for the largest shape (L 128, p 64, n 128) and the
-// parts past the call's L, p and n are zero, so the register tiles below
-// need no bounds on their loads.
+// Tile k of the scan: a chunk of L rows runs as ceil(L / tile) tiles of
+// at most `tile` rows, in order, the state carried from one to the next
+// (an exact rewrite of the chunk's own sums, which differ only in their
+// rounding); at L <= tile a tile is the chunk.
+struct ScanTile {
+  int start;  // its first row in the sequence
+  int rows;   // its rows
+};
+__device__ __forceinline__ ScanTile scan_tile(int k, int L, int tile) {
+  const int per = (L + tile - 1) / tile;
+  const int in = (k % per) * tile;
+  return {(k / per) * L + in, min(tile, L - in)};
+}
+__host__ __device__ __forceinline__ int scan_tiles(int S, int L, int tile) {
+  return S / L * ((L + tile - 1) / tile);
+}
+
+// The tiles are sized for the largest tile (128 rows, p 64, n 128) and
+// the parts past the tile's rows, p and n are zero, so the register tiles
+// below need no bounds on their loads. Block (b * H + h, p slice, n
+// slice): columns [64 y, 64 y + 64) of p, [128 z, 128 z + 128) of n.
+// With ypart (n > 128) the block writes its slice's share of y without
+// D x in f32 to ypart[z], and ssd_finish_kernel adds them up.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
                 const float* __restrict__ A_log, const T* __restrict__ Bm,
                 const T* __restrict__ Cm, const float* __restrict__ Dv,
-                T* __restrict__ y, float* __restrict__ state_out, int S,
-                int H, int P, int N, int L) {
+                T* __restrict__ y, float* __restrict__ state_out,
+                float* __restrict__ ypart, int S, int H, int P, int N,
+                int L) {
   extern __shared__ __align__(16) float smem[];
   float* bs = smem;                      // (L, n)  B of the chunk
   float* xs = bs + kMaxChunk * kNS;      // (L, p)  x, then x dt exp(cs_L - cs)
@@ -150,6 +178,8 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
   const int bh = blockIdx.x;
   const int b = bh / H;
   const int h = bh % H;
+  const int p0 = blockIdx.y * kMaxP, n0 = blockIdx.z * kMaxN;
+  const int Pw = min(kMaxP, P - p0), Nw = min(kMaxN, N - n0);
   const int tid = threadIdx.x;
   const int lane = tid & 31, warp = tid >> 5;
   const float a = -expf(A_log[h]);
@@ -157,21 +187,24 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   for (int i = tid; i < kMaxP * kNS; i += kThreads) st[i] = 0.0f;
 
-  for (int c0 = 0; c0 < S; c0 += L) {
+  const int ntiles = scan_tiles(S, L, kMaxChunk);
+  for (int tk = 0; tk < ntiles; ++tk) {
+    const ScanTile tile = scan_tile(tk, L, kMaxChunk);
+    const int c0 = tile.start, L = tile.rows;  // this tile's rows
     // ---- stage the chunk: x, B, dt (zero past L, p, n) ----
     for (int i = tid; i < kMaxChunk * kMaxP; i += kThreads) {
       const int j = i / kMaxP, pp = i % kMaxP;
       xs[j * kPS + pp] =
-          j < L && pp < P
+          j < L && pp < Pw
               ? to_f32(x[((static_cast<size_t>(b) * S + c0 + j) * H + h) * P +
-                         pp])
+                         p0 + pp])
               : 0.0f;
     }
     for (int i = tid; i < kMaxChunk * kMaxN; i += kThreads) {
       const int j = i / kMaxN, nn = i % kMaxN;
       bs[j * kNS + nn] =
-          j < L && nn < N
-              ? to_f32(Bm[(static_cast<size_t>(b) * S + c0 + j) * N + nn])
+          j < L && nn < Nw
+              ? to_f32(Bm[(static_cast<size_t>(b) * S + c0 + j) * N + n0 + nn])
               : 0.0f;
     }
     // ---- cs = inclusive cumsum of dt * a: a warp scan, then the warps'
@@ -201,9 +234,9 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       for (int i = tid; i < kRowBlock * kMaxN; i += kThreads) {
         const int r = i / kMaxN, nn = i % kMaxN;
         cblk[r * kNS + nn] =
-            i0 + r < L && nn < N
-                ? to_f32(
-                      Cm[(static_cast<size_t>(b) * S + c0 + i0 + r) * N + nn])
+            i0 + r < L && nn < Nw
+                ? to_f32(Cm[(static_cast<size_t>(b) * S + c0 + i0 + r) * N +
+                            n0 + nn])
                 : 0.0f;
       }
       __syncthreads();
@@ -213,7 +246,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
       const int kmax = min(i0, L - 1) / 32;
       {
         float acc[4][4] = {};
-        for (int nn = 0; nn < N; ++nn) {
+        for (int nn = 0; nn < Nw; ++nn) {
           float cv[4];
 #pragma unroll
           for (int q = 0; q < 4; ++q) cv[q] = cblk[(warp * 4 + q) * kNS + nn];
@@ -253,7 +286,7 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
           }
         }
         float inter[4][2] = {};
-        for (int nn = 0; nn < N; ++nn) {
+        for (int nn = 0; nn < Nw; ++nn) {
           const float s0 = st[lane * kNS + nn], s1 = st[(lane + 32) * kNS + nn];
 #pragma unroll
           for (int q = 0; q < 4; ++q) {
@@ -269,11 +302,17 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
           for (int c = 0; c < 2; ++c) {
             const int pp = lane + 32 * c;
-            if (pp >= P) continue;
+            if (pp >= Pw) continue;
+            const size_t at =
+                ((static_cast<size_t>(b) * S + c0 + i) * H + h) * P + p0 + pp;
+            if (ypart != nullptr) {
+              ypart[static_cast<size_t>(blockIdx.z) * gridDim.x * S * P +
+                    at] = intra[q][c] + expf(cs[i]) * inter[q][c];
+              continue;
+            }
             const float out = intra[q][c] + expf(cs[i]) * inter[q][c] +
                               d * xs[i * kPS + pp];
-            y[((static_cast<size_t>(b) * S + c0 + i) * H + h) * P + pp] =
-                from_f32<T>(out);
+            y[at] = from_f32<T>(out);
           }
         }
       }
@@ -316,9 +355,24 @@ ssd_scan_kernel(const T* __restrict__ x, const float* __restrict__ dt,
 
   if (state_out != nullptr) {
     float* so = state_out + static_cast<size_t>(bh) * P * N;
-    for (int i = tid; i < P * N; i += kThreads)
-      so[i] = st[(i / N) * kNS + i % N];
+    for (int i = tid; i < Pw * Nw; i += kThreads)
+      so[static_cast<size_t>(p0 + i / Nw) * N + n0 + i % Nw] =
+          st[(i / Nw) * kNS + i % Nw];
   }
+}
+
+// n > 128: y = D x + the n slices' shares, added in slice order, rounded
+// to y's type once
+template <typename T>
+__global__ void __launch_bounds__(256)
+ssd_finish_kernel(const float* __restrict__ ypart, const T* __restrict__ x,
+                  const float* __restrict__ Dv, T* __restrict__ y,
+                  int slices, long long total, int H, int P) {
+  const long long i = static_cast<long long>(blockIdx.x) * 256 + threadIdx.x;
+  if (i >= total) return;
+  float v = ypart[i];
+  for (int z = 1; z < slices; ++z) v += ypart[z * total + i];
+  y[i] = from_f32<T>(v + Dv[(i / P) % H] * to_f32(x[i]));
 }
 
 
@@ -352,9 +406,13 @@ __device__ __forceinline__ float2 bf16x2_to_f32(uint32_t v) {
 }
 
 // x (b, s, h, p), B/C (b, s, n) bf16 -> y bf16, state_out f32 or null.
-// Block (b * H + h, slice): columns [slice * PW, slice * PW + PW) of p.
-// Every tile is the full 128 x 128 (zero past the chunk, n and p), so
-// every loop bound is a constant but the causal band's.
+// Block (b * H + h, slice, n slice): columns [slice * PW, slice * PW +
+// PW) of p and [128 z, 128 z + 128) of n; with ypart (n > 128) the
+// block writes its n slice's share of y without D x in f32 to ypart[z],
+// and ssd_finish_kernel adds them up. A chunk past 128 rows runs as
+// 128-row tiles in order (scan_tile). Every tile is the full 128 x 128
+// (zero past the tile's rows, n and p), so every loop bound is a
+// constant but the causal band's.
 template <int PW>
 __global__ void __launch_bounds__(kTcThreads, 1)
 ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
@@ -364,7 +422,8 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                      const __nv_bfloat16* __restrict__ Cm,
                      const float* __restrict__ Dv,
                      __nv_bfloat16* __restrict__ y,
-                     float* __restrict__ state_out, int S, int H, int P,
+                     float* __restrict__ state_out,
+                     float* __restrict__ ypart, int S, int H, int P,
                      int N, int L, int vec) {
   using Smem = TcSmem<PW>;
   constexpr int kXS = kXStride<PW>;
@@ -403,6 +462,8 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   const int b = bh / H;
   const int h = bh % H;
   const int p0 = blockIdx.y * PW;
+  const int n0 = blockIdx.z * kTcN;
+  const int Nw = min(kTcN, N - n0);
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2;  // fragment row (and row + 8)
@@ -414,14 +475,15 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
                                         2 * Smem::kSt + warp * Smem::kWarp);
   float* wv = cs2 + kTcL;
 
-  // chunk c -> stage s: rows past L, columns past n and p, zero. Run by
-  // threads 0..kLoadThreads-1; offsets are 32-bit from the chunk's first
-  // row
+  // tile c -> stage s: rows past the tile's, columns past n and p, zero.
+  // Run by threads 0..kLoadThreads-1; offsets are 32-bit from the tile's
+  // first row
   auto load_chunk = [&](int c, int s) {
-    const size_t row0 =
-        static_cast<size_t>(b) * S + static_cast<size_t>(c) * L;
-    const __nv_bfloat16* bsrc = Bm + row0 * N;
-    const __nv_bfloat16* csrc = Cm + row0 * N;
+    const ScanTile tile = scan_tile(c, L, kTcL);
+    const int L = tile.rows;  // this tile's rows
+    const size_t row0 = static_cast<size_t>(b) * S + tile.start;
+    const __nv_bfloat16* bsrc = Bm + row0 * N + n0;
+    const __nv_bfloat16* csrc = Cm + row0 * N + n0;
     const __nv_bfloat16* xsrc = x + (row0 * H + h) * P + p0;
     __nv_bfloat16* bt = btile_of(s);
     __nv_bfloat16* ct = ctile_of(s);
@@ -434,7 +496,7 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         const int i = threadIdx.x + it * kLoadThreads;
         const int j = i / (kTcN / 8);
         const int k = 8 * (i % (kTcN / 8));
-        const bool in = j < L && k < N;
+        const bool in = j < L && k < Nw;
         const int src = in ? j * N + k : 0;
         cp_async16(smem_addr(bt + j * kBCStride + k), bsrc + src, in);
         cp_async16(smem_addr(ct + j * kBCStride + k), csrc + src, in);
@@ -454,7 +516,7 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
       for (int i = threadIdx.x; i < kTcL * kTcN; i += kLoadThreads) {
         const int j = i / kTcN;
         const int k = i % kTcN;
-        const bool in = j < L && k < N;
+        const bool in = j < L && k < Nw;
         bt[j * kBCStride + k] = in ? bsrc[j * N + k] : zero;
         ct[j * kBCStride + k] = in ? csrc[j * N + k] : zero;
       }
@@ -492,10 +554,12 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
   const int r0 = i0 + g;
   const int r1 = r0 + 8;
 
-  const int nc = S / L;
+  const int nc = scan_tiles(S, L, kTcL);
   if (threadIdx.x < kLoadThreads) load_chunk(0, 0);
   cp_async_commit();
   for (int c = 0; c < nc; ++c) {
+    const ScanTile tile = scan_tile(c, L, kTcL);
+    const int L = tile.rows;  // this tile's rows
     const int s = c & 1;
     cp_async_wait<0>();
     // chunk c has landed for every thread; every warp is done with chunk
@@ -639,7 +703,7 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         }
       }
       // + D x_i, rounded to bf16 once
-      const size_t t0 = static_cast<size_t>(b) * S + static_cast<size_t>(c) * L;
+      const size_t t0 = static_cast<size_t>(b) * S + tile.start;
 #pragma unroll
       for (int q = 0; q < PW / 8; ++q) {
         const int col = 8 * q + 2 * tq;
@@ -648,6 +712,14 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         for (int half = 0; half < 2; ++half) {
           const int r = half ? r1 : r0;
           if (r >= L || pc >= P) continue;
+          if (ypart != nullptr) {
+            float* dp = ypart +
+                        static_cast<size_t>(blockIdx.z) * gridDim.x * S * P +
+                        ((t0 + r) * H + h) * P + pc;
+            dp[0] = ya[q][2 * half];
+            if (pc + 1 < P) dp[1] = ya[q][2 * half + 1];
+            continue;
+          }
           const float2 xv = bf16x2_to_f32(ld_u32(xt + r * kXS + col));
           const float o0 = ya[q][2 * half] + d * xv.x;
           const float o1 = ya[q][2 * half + 1] + d * xv.y;
@@ -762,7 +834,7 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
         for (int e = 0; e < 4; ++e) {
           const int p = p0 + pb + 16 * mt + g + 8 * (e >> 1);
           const int n = nb + 8 * nt + 2 * tq + (e & 1);
-          if (p < P && n < N) so[static_cast<size_t>(p) * N + n] =
+          if (p < P && n < Nw) so[static_cast<size_t>(p) * N + n0 + n] =
               acc[mt][nt][e];
         }
       }
@@ -773,8 +845,8 @@ ssd_scan_bf16_kernel(const __nv_bfloat16* __restrict__ x,
 template <int PW>
 int launch_bf16(const void* x, const float* dt, const float* A_log,
                 const void* Bm, const void* Cm, const float* Dv, void* y,
-                float* state_out, int batch, int S, int H, int P, int N,
-                int L, cudaStream_t st) {
+                float* state_out, float* ypart, int batch, int S, int H,
+                int P, int N, int L, cudaStream_t st) {
   constexpr int kSmem = TcSmem<PW>::kBytes;
   auto* kernel = ssd_scan_bf16_kernel<PW>;
   // above 48 KB only once the attribute is set; set on every launch
@@ -787,12 +859,25 @@ int launch_bf16(const void* x, const float* dt, const float* A_log,
   };
   const int vec = P % 8 == 0 && N % 8 == 0 && aligned(x, 16) &&
                   aligned(Bm, 16) && aligned(Cm, 16) && aligned(y, 4);
-  const dim3 grid(batch * H, (P + PW - 1) / PW);
+  const dim3 grid(batch * H, (P + PW - 1) / PW, (N + kTcN - 1) / kTcN);
   kernel<<<grid, kTcThreads, kSmem, st>>>(
       static_cast<const __nv_bfloat16*>(x), dt, A_log,
       static_cast<const __nv_bfloat16*>(Bm),
       static_cast<const __nv_bfloat16*>(Cm), Dv,
-      static_cast<__nv_bfloat16*>(y), state_out, S, H, P, N, L, vec);
+      static_cast<__nv_bfloat16*>(y), state_out, ypart, S, H, P, N, L, vec);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// n > 128: the slices' shares of y and D x into y
+template <typename T>
+int launch_finish(const float* ypart, const void* x, const float* Dv,
+                  void* y, int batch, int S, int H, int P, int N,
+                  cudaStream_t st) {
+  const long long total = static_cast<long long>(batch) * S * H * P;
+  ssd_finish_kernel<T><<<static_cast<unsigned>((total + 255) / 256), 256, 0,
+                         st>>>(ypart, static_cast<const T*>(x), Dv,
+                               static_cast<T*>(y), (N + kMaxN - 1) / kMaxN,
+                               total, H, P);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -800,38 +885,44 @@ int launch_bf16(const void* x, const float* dt, const float* A_log,
 
 // C entry, bound with ctypes. dtype 0 is float (CUDA cores), 1 is bf16
 // (tensor cores; pw, the columns of p a block takes, is 32 or 64);
-// state_out may be null. Launches on `stream` (PyTorch's current
-// stream), allocates nothing, does not synchronise; returns
-// cudaGetLastError(), or cudaErrorInvalidValue for a chunk outside
-// 1..128, s not a multiple of the chunk, p outside 1..64, n outside
-// 1..128, or another dtype or pw.
+// state_out may be null; ypart holds ceil(n / 128) * b * s * h * p
+// floats when n > 128 (the n slices' shares of y), else it is unused.
+// Launches on `stream` (PyTorch's current stream), allocates nothing,
+// does not synchronise; returns cudaGetLastError(), or
+// cudaErrorInvalidValue for s not a multiple of the chunk, an empty
+// shape, a missing ypart, or another dtype or pw. The chunk, p and n are
+// bounded by device memory alone.
 extern "C" int ssd_scan_launch(const void* x, const float* dt,
                                const float* A_log, const void* Bm,
                                const void* Cm, const float* Dv, void* y,
-                               float* state_out, int batch, int S, int H,
-                               int P, int N, int L, int dtype, int pw,
-                               void* stream) {
-  if (L < 1 || L > kMaxChunk || S % L != 0 || P < 1 || P > kMaxP ||
-      N < 1 || N > kMaxN)
+                               float* state_out, float* ypart, int batch,
+                               int S, int H, int P, int N, int L, int dtype,
+                               int pw, void* stream) {
+  if (L < 1 || S % L != 0 || P < 1 || N < 1 ||
+      (N > kMaxN && ypart == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
+  float* const part = N > kMaxN ? ypart : nullptr;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int err;
   if (dtype == 0) {
     const int smem = kSmemFloats * static_cast<int>(sizeof(float));
     cudaFuncSetAttribute(ssd_scan_kernel<float>,
                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                          smem);
-    ssd_scan_kernel<float><<<dim3(batch * H), kThreads, smem, st>>>(
+    const dim3 grid(batch * H, (P + kMaxP - 1) / kMaxP,
+                    (N + kMaxN - 1) / kMaxN);
+    ssd_scan_kernel<float><<<grid, kThreads, smem, st>>>(
         static_cast<const float*>(x), dt, A_log,
         static_cast<const float*>(Bm), static_cast<const float*>(Cm), Dv,
-        static_cast<float*>(y), state_out, S, H, P, N, L);
-    return static_cast<int>(cudaGetLastError());
+        static_cast<float*>(y), state_out, part, S, H, P, N, L);
+    err = static_cast<int>(cudaGetLastError());
+    if (err != 0 || part == nullptr) return err;
+    return launch_finish<float>(part, x, Dv, y, batch, S, H, P, N, st);
   }
-  if (dtype != 1) return static_cast<int>(cudaErrorInvalidValue);
-  if (pw == 64)
-    return launch_bf16<64>(x, dt, A_log, Bm, Cm, Dv, y, state_out, batch, S,
-                           H, P, N, L, st);
-  if (pw == 32)
-    return launch_bf16<32>(x, dt, A_log, Bm, Cm, Dv, y, state_out, batch, S,
-                           H, P, N, L, st);
-  return static_cast<int>(cudaErrorInvalidValue);
+  if (dtype != 1 || (pw != 64 && pw != 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  err = (pw == 64 ? launch_bf16<64> : launch_bf16<32>)(
+      x, dt, A_log, Bm, Cm, Dv, y, state_out, part, batch, S, H, P, N, L, st);
+  if (err != 0 || part == nullptr) return err;
+  return launch_finish<__nv_bfloat16>(part, x, Dv, y, batch, S, H, P, N, st);
 }

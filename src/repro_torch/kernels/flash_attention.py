@@ -1,5 +1,8 @@
-"""Flash-attention forward for the LM backbones, with its CUDA kernel
-``csrc/flash_attention_fwd.cu``.
+"""Flash-attention forward for the LM backbones, with its CUDA kernels
+``csrc/flash_attention_fwd.cuh``, instantiated at the head widths
+``HEAD_WIDTHS`` by three sources (``SOURCE_WIDTHS``:
+``csrc/flash_attention_fwd.cu``, ``_more.cu`` and ``_wide.cu``, so that
+the build's nvcc runs share the work).
 
 Replaces ``repro/kernels/flash_attention.py::_flash_kernel`` (the
 ``pallas_call`` in ``flash_attention_bhsd``): online-softmax attention
@@ -22,8 +25,24 @@ Kernels, one launch a call, routed on the dtype:
   rounded to bf16 in registers (the reference's ``p.astype(v.dtype)``)
   and fed back as the A operand of P·V.
 * f32, on the CUDA cores (the first design): one block per
-  (batch·head, 64 query rows), two threads per row, 32-key f32 tiles in
-  shared memory. TF32 products would not hold the f32 tolerances.
+  (batch·head, 64 query rows), two threads per row (four past 128),
+  32-key f32 tiles in shared memory. TF32 products would not hold the
+  f32 tolerances.
+
+Head widths: the kernels are built at ``HEAD_WIDTHS``, the multiples of
+16 (the bf16 ``mma`` k-step) that models use up to 256; a head of any
+other width from 1 to 256 is padded with zero columns to the next built
+width (``head_width_for``), which leaves q·k unchanged, runs with the
+scale 1/√hd of its own width, and has the padded columns of o sliced
+off. Past 128 the bf16 kernel reads Q's fragments from shared memory at
+each key tile (its o accumulator fills the registers) and at 256 keeps
+two K/V tiles in flight, not three. At the narrowest built width, 16
+(heads of 1 to 16 columns), the bf16 kernel feeds P·V with P in three
+bf16 parts (about f32's 24 bits) rather than rounded once: a row of so
+few numbers has too small a norm for that rounding (it read row errors
+of 1.1e-2 at hd 8 and 6.9 at hd 1 on an H100, against phase 1's limit
+of 6.9e-3 in ``chip_smoke.py``). Widths above 256 are refused on both
+devices: no configuration in the repo uses one.
 
 Both skip tiles outside the causal or window band by the TPU kernel's
 relevance rule (the bf16 kernel masks per key only in tiles that cross
@@ -52,11 +71,25 @@ import torch
 from repro_torch.kernels import backend
 from repro_torch.kernels.ref import ref_attention
 
-HEAD_DIMS = (64, 128)  # head widths the CUDA source instantiates
+# the head widths each CUDA source instantiates (FLASH_WIDTHS there)
+SOURCE_WIDTHS = {"flash_attention_fwd": (16, 32, 48, 64, 128),
+                 "flash_attention_fwd_more": (80, 96, 160),
+                 "flash_attention_fwd_wide": (192, 256)}
+HEAD_WIDTHS = tuple(sorted(w for ws in SOURCE_WIDTHS.values() for w in ws))
 DTYPES = (torch.float32, torch.bfloat16)
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+
+
+def head_width_for(hd: int) -> int:
+    """The built width a head of width ``hd`` runs at: the smallest of
+    ``HEAD_WIDTHS`` at least ``hd``. Raises above the widest."""
+    for w in HEAD_WIDTHS:
+        if w >= hd:
+            return w
+    raise ValueError(f"flash_attention: head_dim {hd} above the widest "
+                     f"built width {HEAD_WIDTHS[-1]}")
 
 
 def _check(q, k, v, kv_len, softcap):
@@ -69,9 +102,9 @@ def _check(q, k, v, kv_len, softcap):
             or h % kv:
         raise ValueError(f"flash_attention: k/v {tuple(k.shape)} do not "
                          f"fit q {tuple(q.shape)} (H a multiple of KV)")
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"flash_attention kernel is built for head_dim in "
-                         f"{HEAD_DIMS}, got {hd}")
+    if hd < 1:
+        raise ValueError(f"flash_attention: head_dim {hd} must be >= 1")
+    head_width_for(hd)
     if q.dtype not in DTYPES:
         raise ValueError(f"flash_attention: expected one of {DTYPES}, got "
                          f"{q.dtype}")
@@ -98,18 +131,22 @@ def flash_attention_bhsd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return ref_attention(q, k, v, causal=causal, window=window,
                              softcap=softcap, kv_len=kv_len)
     b, h, s, hd = q.shape
-    fn = backend.kernel("flash_attention_fwd", "flash_attention_fwd_launch",
-                        _ARGTYPES)
+    width = head_width_for(hd)
+    source = next(n for n, ws in SOURCE_WIDTHS.items() if width in ws)
+    fn = backend.kernel(source, f"{source}_launch", _ARGTYPES)
+    if width != hd:  # zero columns: q·k unchanged, o's sliced off below
+        q, k, v = (torch.nn.functional.pad(t, (0, width - hd))
+                   for t in (q, k, v))
     o = torch.empty_like(q)
     if o.numel() == 0:
-        return o
+        return o[..., :hd]
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b, h,
-             k.shape[1], s, kv_len, hd, int(causal), int(window),
+             k.shape[1], s, kv_len, width, hd, int(causal), int(window),
              float(softcap or 0.0), DTYPES.index(q.dtype),
              backend.stream_ptr(q.device))
     backend.check(err, "flash_attention_fwd")
     flash_attention_bhsd.launches += 1
-    return o
+    return o if width == hd else o[..., :hd].contiguous()
 
 
 flash_attention_bhsd.launches = 0

@@ -34,6 +34,23 @@ the causal band in 16-row tiles). A block takes a (batch, head) and
 card), recomputing C·Bᵀ per slice, so that batch 1 fills the card too.
 The width changes no result.
 
+Neither kernel caps the chunk, p or n (device memory is the only
+limit); their tiles are 128 rows, 64 (f32) or 32/64 (bf16) columns of p
+and 128 of n:
+
+* a chunk of L > 128 rows runs as ⌈L/128⌉ tiles of at most 128 rows in
+  order, the state carried from one to the next: the same function as
+  the reference's one L-row piece, exact up to rounding (the chunked
+  scan is an exact rewrite of the recurrence at any chunk);
+* p runs in slices across blocks (the bf16 kernel's ``p_width_for``,
+  the f32 kernel's 64), the rows of p independent in y and the state;
+* n > 128 runs in 128-wide slices across blocks: C·Bᵀ and C·stateᵀ are
+  sums over n and the state's columns are independent, so each slice
+  writes its share of y (without D·x) in f32 to a scratch of
+  ⌈n/128⌉·b·s·h·p floats, and one more launch adds them in slice order
+  with D·x and rounds y once. At n ≤ 128 there is no scratch and no
+  second launch.
+
 f32 operands reach the original CUDA-core kernel, unchanged: one block
 per (batch, head), the (p, n) state resident in shared memory, each
 product a register tile per thread (about 340 µs of f32 work at the
@@ -54,15 +71,15 @@ from repro_torch.kernels import backend
 from repro_torch.kernels.ref import ref_ssd
 
 DTYPES = (torch.float32, torch.bfloat16)
-# the kernel's tiles: chunk L (its cumsum warps and score columns), head
-# width p and state size n (mamba2-780m's 128, 64, 128)
-MAX_CHUNK, MAX_P, MAX_N = 128, 64, 128
+# the columns of n a block takes (kMaxN in the source, mamba2-780m's
+# n); a wider n runs in slices of it
+TILE_N = 128
 
 # the columns of p a block of the bf16 kernel may take
 P_WIDTHS = (64, 32)
 
 _F32 = torch.float32
-_ARGTYPES = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
 
 
 def p_width_for(b: int, h: int, p: int, sms: int) -> int:
@@ -72,7 +89,7 @@ def p_width_for(b: int, h: int, p: int, sms: int) -> int:
     that covers p in one slice. A block's time is mostly its C·Bᵀ and
     its chunk chain, whatever its width, so splitting p pays only while
     it fills idle SMs (PERF.md §6, the SSD rows)."""
-    widest = min(w for w in P_WIDTHS if w >= p)
+    widest = min((w for w in P_WIDTHS if w >= p), default=max(P_WIDTHS))
     for w in sorted(P_WIDTHS):
         if w <= widest and b * h * -(-p // w) <= sms:
             return w
@@ -94,12 +111,11 @@ def _check(x, dt, A_log, B, C, D, chunk):
     if x.dtype not in DTYPES:
         raise ValueError(f"ssd_scan: expected one of {DTYPES}, got "
                          f"{x.dtype}")
-    if not 1 <= chunk <= MAX_CHUNK or s % chunk:
-        raise ValueError(f"ssd_scan: chunk={chunk} must lie in [1, "
-                         f"{MAX_CHUNK}] and divide s={s}")
-    if not (1 <= p <= MAX_P and 1 <= n <= MAX_N):
-        raise ValueError(f"ssd_scan: p={p} and n={n} must lie in [1, "
-                         f"{MAX_P}] and [1, {MAX_N}] (the kernel's tiles)")
+    if chunk < 1 or s % chunk:
+        raise ValueError(f"ssd_scan: chunk={chunk} must be >= 1 and "
+                         f"divide s={s}")
+    if p < 1 or n < 1:
+        raise ValueError(f"ssd_scan: p={p} and n={n} must be >= 1")
 
 
 def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
@@ -129,9 +145,14 @@ def ssd_scan_bhsp(x: torch.Tensor, dt: torch.Tensor, A_log: torch.Tensor,
         return y, state
     p_width = p_width_for(b, h, p, torch.cuda.get_device_properties(
         x.device).multi_processor_count)
+    # n > TILE_N: each n slice's share of y, added up by a second launch
+    slices = -(-n // TILE_N)
+    part = (torch.empty((slices * b * s * h * p,), dtype=_F32,
+                        device=x.device) if slices > 1 else None)
     err = fn(x.data_ptr(), dt.data_ptr(), A_log.data_ptr(), B.data_ptr(),
              C.data_ptr(), D.data_ptr(), y.data_ptr(),
-             0 if state is None else state.data_ptr(), b, s, h, p, n, chunk,
+             0 if state is None else state.data_ptr(),
+             0 if part is None else part.data_ptr(), b, s, h, p, n, chunk,
              DTYPES.index(x.dtype), p_width, backend.stream_ptr(x.device))
     backend.check(err, "ssd_scan")
     ssd_scan_bhsp.launches += 1

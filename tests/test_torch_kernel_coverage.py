@@ -272,11 +272,15 @@ def test_select_model_keeps_the_reference_survivors(c):
 
 
 def test_client_caps_and_splits_match_the_sources():
-    """MAX_CLIENTS is both sources' cap, REGISTER_CLIENTS their C <= 32
+    """Neither source caps C (no kMaxSelect, kMaxTiled, nor a
+    MAX_CLIENTS in the wrapper), REGISTER_CLIENTS is their C <= 32
     designs' cap; the pairwise split is the sources' stage and chunk,
-    and it keeps the f64 partials within PAIRWISE_BUDGET."""
-    assert ar.MAX_CLIENTS == _source_int("trimmed_reduce.cu", "kMaxSelect") \
-        == _source_int("pairwise_dists.cu", "kMaxTiled") == 1024
+    and it keeps the f64 partials within PAIRWISE_BUDGET while one
+    partial fits it, one column chunk past that."""
+    assert not hasattr(ar, "MAX_CLIENTS")
+    for src in ("trimmed_reduce.cu", "pairwise_dists.cu"):
+        text = (CSRC / src).read_text()
+        assert "kMaxSelect" not in text and "kMaxTiled" not in text
     assert ar.REGISTER_CLIENTS == 32 == _source_int(
         "trimmed_reduce.cu", "kMaxClients") == _source_int(
         "pairwise_dists.cu", "kMaxClients")
@@ -284,7 +288,7 @@ def test_client_caps_and_splits_match_the_sources():
     t_steps, t_warps = (_source_int("pairwise_dists.cu", k)
                         for k in ("kTSteps", "kTThreads"))
     assert ar.PAIRWISE_STAGE == 8 * t_steps * (t_warps // 32)
-    for c in (1, 10, 32, 33, 64, 200, 1024):
+    for c in (1, 10, 32, 33, 64, 200, 1024, 4096, 8192):
         assert ar.trimmed_design_for(c) == (
             "registers" if c <= 32 else "select")
         assert ar.pairwise_design_for(c) == (
@@ -298,6 +302,8 @@ def test_client_caps_and_splits_match_the_sources():
                 assert chunk % ar.PAIRWISE_STAGE == 0
                 assert nb * c * c * 8 <= max(ar.PAIRWISE_BUDGET,
                                              c * c * 8)
+                if c * c * 8 > ar.PAIRWISE_BUDGET:
+                    assert nb == 1
     assert ar.pairwise_split(1024, 534016) == (16768, 32)
 
 

@@ -22,6 +22,7 @@ import repro.configs as jax_configs
 import repro_torch
 from repro_torch.configs import GPOConfig, ServeConfig
 from repro_torch.kernels import backend
+from repro_torch.kernels.ref import ref_attention
 
 ROOT = Path(__file__).resolve().parents[1]
 qm = importlib.import_module("repro_torch.kernels.quant_matmul")
@@ -303,8 +304,11 @@ def test_kernel_wrappers_raise_on_cuda_tensors_without_a_library():
         with pytest.raises(RuntimeError, match="needs a CUDA device"):
             ar.trimmed_reduce_flat(wide, torch.empty((33,), device="cuda"),
                                    trim=16)
-        with pytest.raises(ValueError, match="holds 1 to 1024"):
+        # no cap on C: 1025 clients reach the launch, 0 are refused
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
             ar.pairwise_dists_flat(torch.empty((1025, 8), device="cuda"))
+        with pytest.raises(ValueError, match="needs at least 1"):
+            ar.pairwise_dists_flat(torch.empty((0, 8), device="cuda"))
         with pytest.raises(ValueError, match="different devices"):
             ar.momentum_reduce_flat(x, w, torch.empty((8,)), beta=0.9)
         with pytest.raises(ValueError, match="different devices"):
@@ -336,8 +340,15 @@ def test_backbone_wrappers_launch_or_raise_on_cuda_tensors():
                                  return_state=True)
         q = torch.empty((2, 4, 48, 64), device="cuda")
         k = torch.empty((2, 2, 48, 64), device="cuda")
-        with pytest.raises(ValueError, match="head_dim"):
-            fa.flash_attention_bhsd(*(torch.empty((1, 2, 8, 32),
+        # every width to 256 reaches the launch (32 built, 40 padded),
+        # 257 is refused
+        for hd in (32, 40):
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
+                fa.flash_attention_bhsd(*(torch.empty((1, 2, 8, hd),
+                                                      device="cuda")
+                                          for _ in range(3)))
+        with pytest.raises(ValueError, match="head_dim 257"):
+            fa.flash_attention_bhsd(*(torch.empty((1, 2, 8, 257),
                                                   device="cuda")
                                       for _ in range(3)))
         with pytest.raises(ValueError, match="different devices"):
@@ -356,9 +367,15 @@ def test_backbone_wrappers_launch_or_raise_on_cuda_tensors():
         h = torch.empty((3,), device="cuda")
         with pytest.raises(ValueError, match="chunk=24"):
             sd.ssd_scan_bhsp(x, dtt, h, bc, bc, h, chunk=24)
-        with pytest.raises(ValueError, match="chunk=256"):
-            sd.ssd_scan_bhsp(x, dtt, h, bc, bc, h, chunk=256)
-        with pytest.raises(ValueError, match="the kernel's tiles"):
+        # past the kernels' 128-row, 64-column and 128-state tiles: chunk
+        # 256, p 96 and n 512 reach the launch
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
+            sd.ssd_scan_bhsp(torch.empty((2, 256, 3, 96), device="cuda"),
+                             torch.empty((2, 256, 3), device="cuda"), h,
+                             torch.empty((2, 256, 128), device="cuda"),
+                             torch.empty((2, 256, 128), device="cuda"), h,
+                             chunk=256)
+        with pytest.raises(RuntimeError, match="needs a CUDA device"):
             sd.ssd_scan_bhsp(x, dtt, h, torch.empty((2, 64, 512),
                                                     device="cuda"),
                              torch.empty((2, 64, 512), device="cuda"), h,
@@ -370,23 +387,24 @@ def test_backbone_wrappers_launch_or_raise_on_cuda_tensors():
 
 
 def test_backbone_wrappers_refuse_autograd_and_take_both_hds_on_fake_cuda():
-    """On fake CUDA tensors, as on the CPU: head_dim 64 and 128 reach the
-    launch (which raises without a card), 96 is refused by the contract,
-    and an operand that requires grad under grad mode is refused before
-    any launch (the kernels have no backward); under ``no_grad`` the same
+    """On fake CUDA tensors, as on the CPU: every built head width
+    (``HEAD_WIDTHS``) and a width between them reach the launch (which
+    raises without a card), 257 is refused by the contract, and an
+    operand that requires grad under grad mode is refused before any
+    launch (the kernels have no backward); under ``no_grad`` the same
     operand reaches the launch."""
     _no_card()
     before = _counts()
     with FakeTensorMode():
         for dt in (torch.float32, torch.bfloat16):
-            for hd in fa.HEAD_DIMS:
+            for hd in fa.HEAD_WIDTHS + (100,):
                 q = torch.empty((1, 4, 32, hd), dtype=dt, device="cuda")
                 k = torch.empty((1, 2, 32, hd), dtype=dt, device="cuda")
                 with pytest.raises(RuntimeError, match="needs a CUDA device"):
                     fa.flash_attention_bhsd(q, k, k)
             with pytest.raises(ValueError, match="head_dim"):
                 fa.flash_attention_bhsd(*(torch.empty(
-                    (1, 2, 32, 96), dtype=dt, device="cuda")
+                    (1, 2, 32, 257), dtype=dt, device="cuda")
                     for _ in range(3)))
         q = torch.empty((1, 4, 32, 128), device="cuda", requires_grad=True)
         k = torch.empty((1, 2, 32, 128), device="cuda")
@@ -410,10 +428,17 @@ def test_backbone_wrappers_refuse_autograd_and_take_both_hds_on_fake_cuda():
 
 
 def test_flash_head_dim_96_is_refused_on_the_cpu():
-    q = torch.zeros((1, 2, 8, 96))
-    with pytest.raises(ValueError, match="head_dim"):
-        fa.flash_attention_bhsd(q, q, q)
-    assert fa.HEAD_DIMS == (64, 128)
+    """head_dim 96 (Phi-3-mini's) is taken, on the CPU as on the card,
+    and gives the plain version; 257, past the widest built width, is
+    refused."""
+    q = torch.randn((1, 2, 8, 96), generator=torch.Generator().manual_seed(0))
+    assert torch.equal(fa.flash_attention_bhsd(q, q, q),
+                       ref_attention(q, q, q))
+    with pytest.raises(ValueError, match="head_dim 257"):
+        fa.flash_attention_bhsd(*(torch.zeros((1, 2, 8, 257))
+                                  for _ in range(3)))
+    assert fa.HEAD_WIDTHS == (16, 32, 48, 64, 80, 96, 128, 160, 192, 256)
+    assert fa.head_width_for(96) == 96 and fa.head_width_for(97) == 128
 
 
 def test_backbone_wrappers_hold_the_contract_on_the_cpu():
@@ -424,8 +449,14 @@ def test_backbone_wrappers_hold_the_contract_on_the_cpu():
     with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_bhsd(q, k.transpose(2, 3).contiguous()
                                 .transpose(2, 3), k)
-    with pytest.raises(ValueError, match="head_dim"):
+    # head_dim 32 is a built width: the slices reach the layout check;
+    # 257 is past the widest
+    with pytest.raises(ValueError, match="contiguous"):
         fa.flash_attention_bhsd(q[..., :32], k[..., :32], k[..., :32])
+    with pytest.raises(ValueError, match="head_dim 257"):
+        fa.flash_attention_bhsd(torch.zeros((1, 4, 20, 257)),
+                                *(torch.zeros((1, 2, 20, 257))
+                                  for _ in range(2)))
     with pytest.raises(ValueError, match="kv_len"):
         fa.flash_attention_bhsd(q, k, k, kv_len=21)
     with pytest.raises(ValueError, match="softcap"):
@@ -499,11 +530,17 @@ def test_transport_wrappers_launch_or_raise_on_cuda_tensors(name):
             # no release without a clip bound: noise needs clip > 0
             with pytest.raises(ValueError, match="clip"):
                 _transport_call(name, "cuda", clip=0.0)
-            with pytest.raises(ValueError, match="holds 1 to 4096"):
+            # no cap on C: 4097 clients reach the launch, 0 are refused
+            with pytest.raises(RuntimeError, match="needs a CUDA device"):
                 _transport_call(name, "cuda",
                                 x=torch.empty((4097, 8), device="cuda"),
                                 w=torch.empty((4097,), device="cuda"),
                                 m=torch.empty((4097, 8), device="cuda"))
+            with pytest.raises(ValueError, match="needs at least 1"):
+                _transport_call(name, "cuda",
+                                x=torch.empty((0, 8), device="cuda"),
+                                w=torch.empty((0,), device="cuda"),
+                                m=torch.empty((0, 8), device="cuda"))
     assert _counts() == before
 
 
